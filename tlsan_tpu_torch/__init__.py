@@ -1,0 +1,21 @@
+"""tlsan_tpu_torch: the PyTorch and CUDA port of ``tlsan_tpu``.
+
+It keeps the JAX package's module layout and names, so each counterpart is
+easy to find, and runs on an NVIDIA GPU (Hopper, ``sm_90a``) by default.
+Plain tensor code is PyTorch; each TPU kernel of the JAX package becomes a
+CUDA kernel written by hand, under ``csrc/``, with its plain PyTorch version
+beside it.  The package imports ``torch``, ``numpy`` and the standard
+library only.
+
+Layering (bottom-up):
+  core/      configs and JSON sidecars
+  data/      numpy feature code shared by the offline builders and serving
+  nn/        embedding lookups, masks, initializers
+  ops/       feature-wise attention: plain version + CUDA kernel (ops/cuda/)
+  models/    TLSAN as an nn.Module whose parameters keep the JAX names
+  tools/     the numpy weights bridge to and from the JAX parameter tree
+  train/     checkpoints
+  serve/     featurization, the top-k Recommender and the HTTP endpoint
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,131 @@
+"""Serving: top-k recommendation over the full catalog, on one device.
+
+Ported from tlsan_tpu/serve/recommender.py.  A `Recommender` holds the
+model on its device and serves fixed-size request batches: the user tower
+(two feature-wise attention kernels on CUDA), a [B, D] × [D, V] scoring
+product in full f32, the catalog-padding and history masks, and
+``torch.topk``.  It runs on CUDA unless the caller asks for the CPU; with
+no GPU and no explicit ``device="cpu"`` it raises.
+
+By default recommendations may include items from the user's own history —
+the reference's eval semantics (SURVEY.md §8 quirk list); pass
+`exclude_history=True` to mask them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tlsan_tpu_torch.core.config import load_config_json, model_config_from_json
+from tlsan_tpu_torch.models import get_model
+from tlsan_tpu_torch.train import checkpoint
+
+# (ids_key, length_key) pairs that can hold a user's history in a batch
+_HISTORY_KEYS = (("hist_i", "sl"), ("hist_i_new", "sl_new"))
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or CUDA when it is None; raises if CUDA is asked for and
+    missing (there is no quiet fall back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class Recommender:
+    """Top-k item recommendation from a trained model.
+
+    recommend(batch) → (item_ids [B, k] int32, scores [B, k] float32) as
+    numpy; `batch` is the numpy dict layout the trainer and featurizer emit
+    (u, hist_i, sl, ... — no candidate item or label fields).
+    """
+
+    def __init__(self, model, cate_list, k: int = 50,
+                 exclude_history: bool = False, batch_size: int = 128,
+                 device=None):
+        self.device = resolve_device(device)
+        # float32 matrix products in full f32 (TF32 off), as the JAX package
+        # pins precision='highest': TF32 keeps ~10 mantissa bits, which
+        # perturbs the top-k ranking and the parity with the reference
+        torch.set_float32_matmul_precision("highest")
+        self.model = model.to(self.device).eval()
+        self.cfg = model.cfg
+        self.k = k
+        self.batch_size = batch_size
+        self.cate_list = torch.as_tensor(np.asarray(cate_list, np.int32),
+                                         device=self.device)
+        self._exclude = exclude_history
+
+    # ------------------------------------------------------------- compute
+
+    def _recommend(self, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        logits = self.model.eval_logits(batch, self.cate_list)
+        B, V = logits.shape
+        if self.cfg.catalog_items and self.cfg.catalog_items < V:
+            logits[:, self.cfg.catalog_items:] = -torch.inf  # padding rows never rank
+        if self._exclude:
+            for ids_key, len_key in _HISTORY_KEYS:
+                if ids_key in batch and len_key in batch:
+                    ids = batch[ids_key]  # [B, L]
+                    L = ids.shape[1]
+                    cols = torch.arange(L, device=ids.device)[None, :]
+                    valid = cols < batch[len_key][:, None]
+                    rows = torch.arange(B, device=ids.device)[:, None].expand(B, L)
+                    # an add, as in the JAX package: duplicate ids still
+                    # give −inf, never NaN
+                    logits.index_put_(
+                        (rows, ids),
+                        torch.where(valid, -torch.inf, 0.0).to(logits.dtype),
+                        accumulate=True)
+        vals, idx = torch.topk(logits, min(self.k, V), dim=1)
+        return idx.to(torch.int32), vals
+
+    # -------------------------------------------------------------- public
+
+    @torch.inference_mode()
+    def recommend(self, batch: Dict[str, np.ndarray]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """Pad the request to a multiple of the batch size, score each
+        batch, unpad."""
+        n = len(next(iter(batch.values())))
+        B = self.batch_size
+        dev = {}
+        for key, v in batch.items():
+            v = np.asarray(v)
+            if n % B:
+                pad = ((0, B - n % B),) + ((0, 0),) * (v.ndim - 1)
+                v = np.pad(v, pad)
+            dev[key] = torch.from_numpy(v).to(self.device)
+        ids_out, vals_out = [], []
+        for start in range(0, len(dev[next(iter(dev))]), B):
+            chunk = {key: v[start:start + B] for key, v in dev.items()}
+            idx, vals = self._recommend(chunk)
+            ids_out.append(idx)
+            vals_out.append(vals)
+        ids = torch.cat(ids_out)[:n].cpu().numpy()
+        vals = torch.cat(vals_out)[:n].cpu().numpy()
+        return ids, vals
+
+    # ---------------------------------------------------------- checkpoint
+
+    @classmethod
+    def from_model_dir(cls, model_dir: str, cate_list,
+                       model_name: Optional[str] = None, device=None,
+                       **kwargs) -> "Recommender":
+        """Load the best gated-save checkpoint (falling back to latest) and
+        its JSON config sidecar, straight onto `device`."""
+        path = checkpoint.best_checkpoint(model_dir)
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint under {model_dir}")
+        sidecar = path[:-len(".ckpt")] + ".json"
+        cfg = model_config_from_json(load_config_json(sidecar)["ModelConfig"])
+        dev = resolve_device(device)
+        model = get_model(model_name or cfg.model)(cfg, dev)
+        checkpoint.restore(path, model)
+        return cls(model, cate_list, device=dev, **kwargs)
