@@ -41,5 +41,8 @@ def test_port_imports_no_jax_pandas_or_reference_package():
     assert not bad, bad
     # every module of the slice was imported
     for name in ("serve.http", "serve.recommender", "ops.cuda.fwa",
-                 "tools.params", "train.checkpoint", "data.remap"):
+                 "tools.params", "train.checkpoint", "data.remap",
+                 "train.loop", "train.state", "train.evaluate",
+                 "train.metrics", "train.tensorboard", "nn.layers",
+                 "data.batcher"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

@@ -1,15 +1,19 @@
-"""Static-shape padding shared by the packers and online featurization.
+"""Static-shape packing of ragged example tuples into dense arrays.
 
 A numpy-only copy of the pieces of tlsan_tpu/data/batcher.py that serving
-needs.  Padding semantics match the reference exactly: the long-term window
-keeps the *last* k items when the history is longer and left-aligns
-(TLSAN/input.py:40-49); the short-term session left-aligns with zeros
-(TLSAN/input.py:50-51); pad id is 0.
+and training need: the whole dataset is packed once into dense,
+statically-shaped arrays, moved to the device, and batches are gathered
+there by an index; shuffling is an index permutation.  Padding semantics
+match the reference exactly: the long-term window keeps the *last* k items
+when the history is longer and left-aligns (TLSAN/input.py:40-49); the
+short-term session left-aligns with zeros (TLSAN/input.py:50-51); pad id
+is 0.  Only the `tlsan` variant of the session packers is ported.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -49,3 +53,100 @@ def round8(n: int) -> int:
     """Pad a ragged max dim to a multiple of 8 — the shape rule the JAX
     package's packers and CLI share, so config sidecars agree."""
     return max(8, ((n + 7) // 8) * 8)
+
+
+@dataclass
+class Batches:
+    """A packed dataset: dict of dense arrays, all with leading dim n."""
+
+    arrays: Dict[str, np.ndarray]
+    n: int
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        return self.arrays[key]
+
+
+def _not_ported(variant: str):
+    return NotImplementedError(
+        f"packing variant {variant!r} is not ported yet; it comes with its "
+        "model family (ROADMAP.md queue 1, items 10-17)")
+
+
+def pack_session_train(train_set: list, Ls: int, Ts: int,
+                       variant: str = "tlsan") -> Batches:
+    """Pack TLSAN train tuples (uid, pre, new, time_emb, item, label,
+    now_cate) → u, i, y, c, hist_i[N,Ls], hist_t[N,Ls], hist_i_new[N,Ts],
+    sl, sl_new (feed semantics of TLSAN/input.py:17-54)."""
+    if variant != "tlsan":
+        raise _not_ported(variant)
+    n = len(train_set)
+    u = np.fromiter((t[0] for t in train_set), np.int32, n)
+    i = np.fromiter((t[4] for t in train_set), np.int32, n)
+    y = np.fromiter((t[5] for t in train_set), np.float32, n)
+    c = np.fromiter((t[6] for t in train_set), np.int32, n)
+    sl = np.fromiter((min(len(t[1]), Ls) for t in train_set), np.int32, n)
+    sl_new = np.fromiter((len(t[2]) for t in train_set), np.int32, n)
+    hist_i = _scatter_pad([t[1] for t in train_set], Ls, np.int32)
+    hist_t = _scatter_pad([t[3] for t in train_set], Ls, np.float32)
+    hist_i_new = _scatter_pad([t[2] for t in train_set], Ts, np.int32, window="first")
+    return Batches(
+        dict(u=u, i=i, y=y, c=c, hist_i=hist_i, hist_t=hist_t,
+             hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+
+
+def pack_session_test(test_set: list, Ls: int, Ts: int,
+                      variant: str = "tlsan") -> Batches:
+    """Pack TLSAN test tuples; the target is the (pos, neg) pair
+    (TLSAN/input.py:78-84)."""
+    if variant != "tlsan":
+        raise _not_ported(variant)
+    n = len(test_set)
+    u = np.fromiter((t[0] for t in test_set), np.int32, n)
+    pos = np.fromiter((t[4][0] for t in test_set), np.int32, n)
+    neg = np.fromiter((t[4][1] for t in test_set), np.int32, n)
+    c = np.fromiter((t[5] for t in test_set), np.int32, n)
+    sl = np.fromiter((min(len(t[1]), Ls) for t in test_set), np.int32, n)
+    sl_new = np.fromiter((len(t[2]) for t in test_set), np.int32, n)
+    hist_i = _scatter_pad([t[1] for t in test_set], Ls, np.int32)
+    hist_t = _scatter_pad([t[3] for t in test_set], Ls, np.float32)
+    hist_i_new = _scatter_pad([t[2] for t in test_set], Ts, np.int32, window="first")
+    return Batches(
+        dict(u=u, i=pos, j=neg, c=c, hist_i=hist_i, hist_t=hist_t,
+             hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+
+
+def epoch_permutation(n: int, epoch: int, seed: int = 1234) -> np.ndarray:
+    """Deterministic per-epoch shuffle (replaces random.shuffle at
+    TLSAN/train.py:191)."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+    return rng.permutation(n).astype(np.int32)
+
+
+def epoch_index(n: int, batch_size: int, steps_per_call: int, epoch: int,
+                seed: int = 1234) -> np.ndarray:
+    """Shuffled [n_chunks, K, B] batch-index tensor for one epoch; the tail
+    wraps to the permutation head so every chunk keeps the static shape (the
+    reference instead runs a ragged final batch — TLSAN/input.py:10-11).
+    Byte-identical to the JAX package's, so both see the same batches."""
+    B, K = batch_size, steps_per_call
+    perm = epoch_permutation(n, epoch, seed)
+    steps = max(1, (n + B - 1) // B)
+    n_chunks = max(1, (steps + K - 1) // K)
+    total = n_chunks * K * B
+    reps = int(np.ceil(total / n))
+    return np.tile(perm, reps)[:total].reshape(n_chunks, K, B)
+
+
+def pad_to_multiple(b: Batches, multiple: int) -> Batches:
+    """Pad the leading dim so it divides evenly into batches; adds a `valid`
+    mask so padded rows can be excluded from metrics."""
+    n = b.n
+    target = ((n + multiple - 1) // multiple) * multiple
+    valid = np.zeros(target, dtype=bool)
+    valid[:n] = True
+    arrays = {}
+    for k, v in b.arrays.items():
+        pad_width = [(0, target - n)] + [(0, 0)] * (v.ndim - 1)
+        arrays[k] = np.pad(v, pad_width)
+    arrays["valid"] = valid
+    return Batches(arrays, target)

@@ -19,12 +19,14 @@ parameter tree in and out (tools/params.py).
 
 Batch layout (static shapes, tensors on the model's device):
   u[B], c[B] (dominant cate), hist_i[B,Ls], hist_t[B,Ls], hist_i_new[B,Ts],
-  sl[B], sl_new[B] (int32), plus i[B], j[B] for the AUC pair.
+  sl[B], sl_new[B] (int32), plus i[B] and y[B] (float) for the loss, an
+  optional valid[B] (bool) masking padded rows, and i[B], j[B] for the AUC
+  pair.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -51,6 +53,8 @@ def _param(*shape, device) -> nn.Parameter:
 
 class TLSAN(nn.Module):
     name = "tlsan"
+    # tables the reference regularizes as full variables (TLSAN/model.py:164-169)
+    l2_full_tables = ("user_emb", "item_emb", "cate_emb", "usert_emb")
 
     def __init__(self, cfg: ModelConfig, device):
         """Allocates the parameters (zeros) on `device`; `init_params`
@@ -116,8 +120,15 @@ class TLSAN(nn.Module):
         ut = lookup(self.usert_emb, batch["u"]) * batch["hist_t"]  # [B, Ls]
         return lookup(items, batch["hist_i"]) * (self.gamma * ut)[..., None]
 
-    def _user_repr(self, batch: Batch, items) -> torch.Tensor:
+    def _user_repr(self, batch: Batch, items,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the train-time dropout masks of both towers,
+        one draw after the other (the JAX package splits its key per tower,
+        tlsan_tpu/models/tlsan.py:112-117); dropout is off without it or
+        at rate 0."""
         cfg = self.cfg
+        if cfg.dropout <= 0.0:
+            generator = None
         u_emb = torch.cat([lookup(self.user_emb, batch["u"]),
                            lookup(self.cate_emb, batch["c"])], dim=-1)
         h_new = lookup(items, batch["hist_i_new"])
@@ -127,7 +138,7 @@ class TLSAN(nn.Module):
         for blk in self.long:
             enc = feature_wise_attention(enc, batch["sl"], cfg.num_heads,
                                          blk["w1"], blk["b1"], blk["w2"],
-                                         blk["b2"])
+                                         blk["b2"], cfg.dropout, generator)
             enc = enc @ blk["proj_w"] + blk["proj_b"]
             enc = enc[:, None, :]  # 1-step pseudo-item
 
@@ -138,7 +149,8 @@ class TLSAN(nn.Module):
         for blk in self.short:
             out = feature_wise_attention(enc, batch["sl_new"] + 1,
                                          cfg.num_heads, blk["w1"], blk["b1"],
-                                         blk["w2"], blk["b2"])
+                                         blk["w2"], blk["b2"], cfg.dropout,
+                                         generator)
         return out + u_emb  # (TLSAN/model.py:135)
 
     def user_repr(self, batch: Batch, cate_list) -> torch.Tensor:
@@ -187,3 +199,18 @@ class TLSAN(nn.Module):
         items, item_b = self.all_item_repr(cate_list)
         return base.full_catalog_logits(self._user_repr(batch, items), items,
                                         item_b)
+
+    # ----------------------------------------------------------------- loss
+
+    def loss(self, batch: Batch, cate_list,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sigmoid cross-entropy of the (i, y) examples plus the L2 of the
+        four full tables (TLSAN/model.py:160-171); `generator` draws the
+        train-time dropout masks."""
+        items, item_b = self.all_item_repr(cate_list)
+        u_t = self._user_repr(batch, items, generator)
+        logits = base.pointwise_logits(u_t, lookup(items, batch["i"]),
+                                       lookup(item_b, batch["i"]))
+        l2 = base.l2_tables(*(getattr(self, n) for n in self.l2_full_tables))
+        return (base.sigmoid_ce_loss(logits, batch["y"], batch.get("valid"))
+                + self.cfg.regulation_rate * l2)

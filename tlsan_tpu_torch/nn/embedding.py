@@ -1,11 +1,16 @@
-"""Embedding lookups (forward only).
+"""Embedding lookups.
 
 The JAX package's gather strategies (the one-hot matmul backward, the
 vocab-sharded mesh gather, the vocab threshold between a fused and a
-per-table item⊕cate gather) are TPU and training mechanisms.  Serving needs
-the forward values alone, and a row gather is exact on every device, so
-the port has one path: the fused item⊕cate table, built once per forward
-and shared by every gather of it and by the catalog product.
+per-table item⊕cate gather) are TPU mechanisms; the port owes their values,
+not their mechanism.  A row gather is exact on every device, and its
+gradient, a scatter-add into the table, comes from plain autograd.  So the
+port has one path, the one the JAX package takes at the reference catalogs
+(items ≤ 24,576, `tlsan_tpu/nn/embedding.py:180-185`): the fused item⊕cate
+table, built once per forward and shared by every gather of it and by the
+catalog product.  Its gradient reaches ``item_emb`` through the concat and
+``cate_emb`` through the ``cate_list`` gather; it differs from the JAX
+per-table branch only by f32 summation order.
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 The JAX tree (as numpy arrays) is ``{"gamma", "item_emb", "item_b",
 "user_emb", "usert_emb", "cate_emb", "long": [{w1, b1, w2, b2, proj_w,
 proj_b}, ...], "short": [{w1, b1, w2, b2}, ...]}``; the port's parameters
-keep those names and layouts, so the copy is exact both ways.
+keep those names and layouts, so the copy is exact both ways, and gradients
+come out in the same layout.
 """
 
 from __future__ import annotations
@@ -49,11 +50,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     return model
 
 
-def params_to_numpy(model: TLSAN) -> Dict[str, Any]:
-    """The JAX-shaped tree of numpy arrays holding `model`'s values."""
-    state = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
-    for name, arr in state.items():
+    for name, arr in flat.items():
         parts = name.split(".")
         if len(parts) == 1:
             tree[name] = arr
@@ -64,3 +63,18 @@ def params_to_numpy(model: TLSAN) -> Dict[str, Any]:
             blocks.append({})
         blocks[i][leaf] = arr
     return tree
+
+
+def params_to_numpy(model: TLSAN) -> Dict[str, Any]:
+    """The JAX-shaped tree of numpy arrays holding `model`'s values."""
+    return _unflatten({k: v.detach().cpu().numpy()
+                       for k, v in model.state_dict().items()})
+
+
+def grads_to_numpy(model: TLSAN) -> Dict[str, Any]:
+    """The JAX-shaped tree of numpy arrays holding `model`'s gradients
+    (`.grad`; zeros where a parameter has none), so gradient leaves compare
+    by name with a JAX grad tree."""
+    return _unflatten({
+        name: (p.grad if p.grad is not None else torch.zeros_like(p))
+        .detach().cpu().numpy() for name, p in model.named_parameters()})

@@ -1,1 +1,2 @@
-"""Checkpoints (training itself comes with a later slice)."""
+"""Training: the Trainer loop, the optimizer, evaluation, metrics and
+checkpoints."""

@@ -5,9 +5,10 @@ TLSAN/model.py:302-313, TLSAN/train.py:59-84): step-named
 ``<name>-<step>.ckpt`` files under model_dir, a ``<name>-<step>.json``
 config sidecar per save, ``latest``/``best`` pointers, and the
 `from_scratch` wipe.  The file is a ``torch.save`` of ``{"step", "params":
-state_dict on the CPU, "opt_state"}``; the optimizer slot stays None until
-the training slice.  Reading the JAX package's msgpack checkpoints is the
-migration slice's work.
+state_dict on the CPU, "opt_state"}``.  For SGD the optimizer slot is
+``{"count": n}``, the schedule count (train/state.py), so a resumed run
+continues the lr schedule; a serving-only save writes None.  Reading the
+JAX package's msgpack checkpoints is the migration slice's work.
 """
 
 from __future__ import annotations

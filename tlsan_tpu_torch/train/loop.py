@@ -1,0 +1,253 @@
+"""The training loop: device-resident data, K-step chunks, eval cadence.
+
+Ported from tlsan_tpu/train/loop.py (the single-device dense path), which
+reproduces the reference trainer flow (TLSAN/train.py:121-239): initial
+eval, epoch loop with per-epoch shuffle, loss records every display_freq
+steps, AUC + P@k/R@k eval every eval_freq steps, best-metric tracking after
+best_after_step, AUC-gated checkpointing, and the lr step schedule.
+
+  - The packed train set lives on the device; each chunk gathers its
+    [K, B, ...] batches by an `epoch_index` chunk and runs K optimizer steps
+    as a plain Python loop (the JAX lax.scan).  Each step is a forward, a
+    backward through autograd — on CUDA the feature-wise attention runs K1
+    forward and K2 backward — and the clipped SGD update in place.
+  - Loss and histogram records are deferred: they stay device tensors until
+    an eval or epoch boundary, so the host does not wait on the card between
+    chunks.
+
+It runs on CUDA unless the caller passes ``device="cpu"``; with no GPU and
+no explicit CPU it raises.  Not ported (each raises, or is absent):
+the (dp, mp) mesh and multi-host runs (ROADMAP.md queue 1, item 21), sparse
+updates (item 18), bf16 (item 19), `profile_trace` (item 26).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict
+
+import numpy as np
+import torch
+
+from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
+from tlsan_tpu_torch.data.batcher import Batches, epoch_index
+from tlsan_tpu_torch.models import base
+from tlsan_tpu_torch.serve.recommender import resolve_device
+from tlsan_tpu_torch.train import checkpoint as ckpt
+from tlsan_tpu_torch.train import tensorboard as tb
+from tlsan_tpu_torch.train.evaluate import Evaluator
+from tlsan_tpu_torch.train.metrics import MetricWriter
+from tlsan_tpu_torch.train.state import OptState, make_optimizer
+
+# parameter → tag of the reference's TLSAN train summaries
+# (TLSAN/model.py:173-183), in the JAX package's order; the attention
+# output of the chunk's last batch follows them
+_SUMMARY_TAGS = {"item_emb": "embedding/1_item_emb",
+                 "user_emb": "embedding/2_user_emb",
+                 "cate_emb": "embedding/3_cate_emb",
+                 "usert_emb": "embedding/4_usert_emb",
+                 "item_b": "embedding/item_b", "gamma": "gamma"}
+
+
+def _check_supported(tc: TrainConfig) -> None:
+    if tc.dp * tc.mp > 1:
+        raise NotImplementedError(
+            "the (dp, mp) mesh is not ported yet (ROADMAP.md queue 1, item 21)")
+    if tc.sparse_updates:
+        raise NotImplementedError(
+            "sparse updates are not ported yet (ROADMAP.md queue 1, item 18); "
+            "the dense step computes the same update")
+    if tc.compute_dtype not in ("float32", "f32", "fp32"):
+        raise NotImplementedError(
+            f"compute_dtype {tc.compute_dtype!r}: bf16 is not ported yet "
+            "(ROADMAP.md queue 1, item 19)")
+
+
+class Trainer:
+    def __init__(self, model, cfg: ModelConfig, tc: TrainConfig,
+                 cate_list: np.ndarray, train_batches: Batches,
+                 test_batches: Batches, device=None):
+        """`model` is the model class (``TLSAN``).  Restores the newest
+        checkpoint under ``tc.model_dir`` if there is one (after the
+        `from_scratch` wipe), else draws the initial weights from
+        ``torch.Generator().manual_seed(tc.seed)`` — on the CPU, so every
+        device starts from the same weights."""
+        _check_supported(tc)
+        self.device = resolve_device(device)
+        # float32 matrix products in full f32 (TF32 off), as the JAX package
+        # pins precision='highest'
+        torch.set_float32_matmul_precision("highest")
+        self.tc = tc
+        self.cfg = cfg
+        self.opt = make_optimizer(tc)
+        self.cate_list = torch.from_numpy(
+            np.asarray(cate_list, np.int32)).to(self.device)
+        self.train_data = {k: torch.from_numpy(v).to(self.device)
+                           for k, v in train_batches.arrays.items()}
+        self.n_train = train_batches.n
+
+        # restore-or-init (reference: TLSAN/train.py:59-84)
+        ckpt.maybe_wipe(tc.model_dir, tc.from_scratch)
+        self._cfg_true = dataclasses.replace(cfg, catalog_items=0)
+        self.model = model(cfg, self.device).init_params(
+            torch.Generator().manual_seed(tc.seed))
+        self.params = list(self.model.parameters())
+        self.opt_state = self.opt.init()
+        self.step = 0
+        latest = ckpt.latest_checkpoint(tc.model_dir)
+        if latest is not None:
+            self.step, _, opt_state = ckpt.restore(latest, self.model)
+            # a serving-only save has no optimizer state: SGD's count is the step
+            self.opt_state = OptState(
+                self.step if opt_state is None else int(opt_state["count"]))
+            print(f"restored from {latest} at step {self.step}", flush=True)
+
+        self._dropout_gen = None
+        if cfg.dropout > 0.0:
+            self._dropout_gen = torch.Generator(
+                device=self.device).manual_seed(tc.seed + 1)
+        self.evaluator = Evaluator(cfg, self.cate_list, test_batches,
+                                   tc.test_batch_size, self.device)
+        self.writer = MetricWriter(tc.model_dir)
+        self._summary_tags = [*_SUMMARY_TAGS.values(), "attention_output"]
+        self._limits = None
+        if tc.tb_histograms:
+            self._limits = torch.tensor(tb.tf_bucket_limits(),
+                                        dtype=torch.float32, device=self.device)
+
+    # ------------------------------------------------------------------
+
+    def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        for p in self.params:
+            p.grad = None
+        loss = self.model.loss(batch, self.cate_list, self._dropout_gen)
+        loss.backward()
+        self.opt_state = self.opt.step(self.params, self.opt_state)
+        return loss.detach()
+
+    def _train_chunk(self, idx: torch.Tensor) -> torch.Tensor:
+        """K optimizer steps on the [K, B] index chunk `idx` (a device
+        tensor); returns the K losses, on the device."""
+        # one gather per array for the whole chunk; each step slices it
+        xs = {k: v[idx] for k, v in self.train_data.items()}
+        return torch.stack([self._train_step({k: v[s] for k, v in xs.items()})
+                            for s in range(idx.shape[0])])
+
+    def _epoch_index(self, epoch: int) -> np.ndarray:
+        """Shuffled [n_chunks, K, B] batch-index tensor (data/batcher.py
+        epoch_index, byte-identical to the JAX package's)."""
+        return epoch_index(self.n_train, self.tc.train_batch_size,
+                           self.tc.steps_per_call, epoch, self.tc.seed)
+
+    def _digest(self, x: torch.Tensor) -> torch.Tensor:
+        """One packed histogram row (min, max, num, sum, sumsq, counts over
+        the TF bucket grid), computed on the device."""
+        x = x.detach().float().reshape(-1)
+        s = torch.sort(x).values
+        cum = torch.searchsorted(s, self._limits, right=True)
+        counts = torch.cat([cum[:1], cum[1:] - cum[:-1]]).float()
+        num = torch.full((), float(x.numel()), device=x.device)
+        head = torch.stack([s[0], s[-1], num, torch.sum(x), torch.sum(x * x)])
+        return torch.cat([head, counts])
+
+    @torch.no_grad()
+    def _summaries(self, batch_idx: torch.Tensor):
+        """Histogram digests of the reference's train-summary set
+        (TLSAN/model.py:173-183): the vocab tables, gamma, the attention
+        output of `batch_idx`'s batch, and the L2_norm_user_item scalar.
+        Returns device tensors ([n_tags, 5 + buckets], l2)."""
+        model = self.model
+        rows = [self._digest(getattr(model, n)) for n in _SUMMARY_TAGS]
+        batch = {k: v[batch_idx] for k, v in self.train_data.items()}
+        rows.append(self._digest(model.user_repr(batch, self.cate_list)))
+        l2 = base.l2_tables(*(getattr(model, n) for n in model.l2_full_tables))
+        return torch.stack(rows), l2
+
+    # ------------------------------------------------------------------
+
+    def evaluate(self) -> Dict[str, float]:
+        metrics = {"auc": self.evaluator.auc(self.model)}
+        metrics.update(self.evaluator.topk(self.model))
+        return metrics
+
+    def _save(self, best: bool = False) -> None:
+        ckpt.save(self.tc.model_dir, self.model.name, self.step, self.model,
+                  {"count": self.opt_state.count}, self._cfg_true, self.tc,
+                  best=best)
+
+    def train(self) -> Dict[str, float]:
+        tc = self.tc
+        best = {"auc": 0.0, "step": 0}
+        self.writer.write("eval", self.step, self.evaluate())
+
+        examples_seen = 0
+        t_start = time.time()
+        steps_since_eval = steps_since_display = steps_since_summary = 0
+        pending = []  # (step, loss tensor, (histos, l2) tensors or None)
+
+        def flush_display():
+            for s, l, h in pending:
+                self.writer.write("train", s, {"loss": float(l)})
+                if h is not None:
+                    packed, l2 = h[0].cpu().numpy(), float(h[1])
+                    histos = {
+                        tag: (row[0], row[1], row[2], row[3], row[4], row[5:])
+                        for tag, row in zip(self._summary_tags, packed)}
+                    scalars = {"Training Loss": float(l)}
+                    if l2 > 0.0:
+                        scalars["L2_norm_user_item"] = l2
+                    self.writer.write_histograms(s, histos, scalars)
+            pending.clear()
+
+        for epoch in range(tc.max_epochs):
+            t_epoch = time.time()
+            examples_at_epoch_start = examples_seen
+            # one host-to-device copy an epoch (each waits for the stream)
+            epoch_idx = torch.from_numpy(self._epoch_index(epoch)).to(self.device)
+            for chunk_idx in epoch_idx:
+                loss = self._train_chunk(chunk_idx).mean()
+                K = chunk_idx.shape[0]
+                self.step += K
+                steps_since_eval += K
+                steps_since_display += K
+                steps_since_summary += K
+                examples_seen += chunk_idx.numel()
+                if steps_since_display >= tc.display_freq:
+                    steps_since_display = 0
+                    h = None
+                    if (self._limits is not None
+                            and steps_since_summary >= tc.summary_freq):
+                        steps_since_summary = 0
+                        h = self._summaries(chunk_idx[-1])
+                    pending.append((self.step, loss, h))
+
+                if steps_since_eval >= tc.eval_freq:
+                    steps_since_eval = 0
+                    flush_display()
+                    metrics = self.evaluate()
+                    self.writer.write("eval", self.step, metrics)
+                    # best tracking + gated save (reference: TLSAN/train.py:222-230)
+                    if self.step > tc.best_after_step and metrics["auc"] > best["auc"]:
+                        best = {**metrics, "step": self.step}
+                        if metrics["auc"] > tc.save_auc_gate:
+                            self._save(best=True)
+            flush_display()
+            dt = time.time() - t_epoch
+            epoch_examples = examples_seen - examples_at_epoch_start
+            self.writer.write("epoch", self.step, {
+                "epoch": epoch, "epoch_s": dt,
+                "examples_per_s": epoch_examples / max(dt, 1e-9),
+                "cum_examples_per_s":
+                    examples_seen / max(time.time() - t_start, 1e-9),
+            })
+
+        final = self.evaluate()
+        self.writer.write("final", self.step, final)
+        if final["auc"] > best["auc"]:
+            best = {**final, "step": self.step}
+        self._save()
+        return best
+
+    def close(self) -> None:
+        self.writer.close()
