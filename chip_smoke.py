@@ -9,36 +9,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build   every CUDA kernel from the sources in tlsan_tpu_torch/csrc/,
              one nvcc per source, all started together;
   3. kernel  each kernel against its plain PyTorch version on the card
-             (TF32 off), with lengths 0, 1 and S: K1 (fwa_fwd) at the
-             serving shapes B=128, S=10 and S=25, and B=37, S=17; K2
-             (fwa_bwd) at the training shapes B=32, S=10 and S=25, and
-             B=37, S=17, also against autograd of the plain forward, twice
-             for bitwise repeatability, and through FWAFunction (K1 forward,
-             K2 backward); times of each, and the card's bound;
-  4. path    TLSAN at the reference widths (D=64, H=8, 32-wide embeddings,
-             Ls=10, Ts=24, one block) and the Electronics catalog (39,991
-             users, 22,048 items, 673 categories; SURVEY.md dataset table),
-             seeded random weights: checkpoint.save, Recommender.from_model_dir
-             on cuda, the HTTP service on 127.0.0.1 (healthz, a single and an
-             8-request POST, 1,000 timed single-user POSTs), then bulk
-             recommends of 4,000 featurized users over a window of at
-             least 5 s.
-             The kernel launch counts must rise by exactly 2 per request
-             batch (the long and the short tower), and the answers must match
-             the same checkpoint served on the CPU through the plain versions;
-  5. train   the same model and catalog trained by `Trainer.train()` on the
-             card: 9,600 seeded rows with the planted structure of
-             tests/test_train.py (a tenth with an empty long history),
-             4,096 test users, TrainConfig defaults (sgd, lr 1.0, clip 5.0,
-             batch 32, test batch 128) but 100 steps a chunk, eval and
-             histogram summaries every 100 steps, a save gate of 0 and one
-             epoch.  K1 must launch 2 times a train step, 4 times an eval
-             batch (AUC and top-k) and 2 times a summary, K2 2 times a train
-             step; the loss must fall and the AUC end above 0.5; a second
-             Trainer must restore the step and schedule count and evaluate
-             bit for bit as the last save did; 20 steps from the same start
-             must agree with the CPU plain path.  Then train examples/s over
-             a window of at least 5 s, eval users/s, and one profiled chunk;
+             (TF32 off), with lengths 0, 1 and the full length: K1
+             (fwa_fwd) at the serving shapes B=128, S=10 and S=25, and
+             B=37, S=17; K2 (fwa_bwd) at the training shapes B=32, S=10 and
+             S=25, and B=37, S=17, also against autograd of the plain
+             forward, twice for bitwise repeatability, and through
+             FWAFunction (K1 forward, K2 backward); K3 (mha_fwd) at the
+             ATRank shapes B=128 and B=32 with (Tq, Tk) = (96, 96) and
+             (1, 96), and B=37 (17, 17), self-attention (queries is keys)
+             and cross-attention, twice for bitwise repeatability, and
+             MHAFunction's gradients against autograd of the plain version;
+             times of each, and the card's bound;
+  4. path    per family (TLSAN, then ATRank) at the reference widths (D=64,
+             H=8, 32-wide embeddings, one block; TLSAN Ls=10, Ts=24; ATRank
+             T=96) and the Electronics catalog (39,991 users, 22,048 items,
+             673 categories; SURVEY.md dataset table), seeded random
+             weights: checkpoint.save, Recommender.from_model_dir on cuda and
+             on cpu, the HTTP service on 127.0.0.1 (healthz, a single and an
+             8-request POST, 1,000 (TLSAN) or 500 (ATRank) timed single-user
+             POSTs), then bulk recommends of 4,000 featurized users over a
+             window of at least 5 s.  The kernel launch counts must rise by
+             exactly the family's launches per request batch (TLSAN: K1 2,
+             the long and the short tower; ATRank: K3 2 a block, the
+             self-attention and the readout) and no other kernel may
+             launch; the answers must match the same checkpoint served on
+             the CPU through the plain versions;
+  5. train   per family, the same model and catalog trained by
+             `Trainer.train()` on the card: 9,600 seeded rows with a planted
+             structure (a tenth with an empty history), 4,096 test users,
+             TrainConfig defaults (sgd, lr 1.0, clip 5.0, batch 32, test
+             batch 128) but 100 steps a chunk, eval and histogram summaries
+             every 100 steps, a save gate of 0 and one epoch.  Launches a
+             train step, an eval batch (AUC and top-k) and a summary are
+             counted exactly (TLSAN: K1 2 / 4 / 2 and K2 2 a step; ATRank:
+             K3 2 / 5 / 2 a block, its backward recomputing the plain
+             version); the loss must fall and the AUC end above 0.5 and the
+             initial one; a second Trainer must restore the step and
+             schedule count and evaluate bit for bit as the last save did;
+             20 steps from the same start must agree with the CPU plain
+             path.  Then train examples/s over a window of at least 5 s,
+             eval users/s, and one profiled chunk;
   6. summary one JSON line of per-kernel numbers, then the device line last.
 
 It needs the repository's tlsan_tpu_torch package beside it and CUDA; it
@@ -56,20 +66,24 @@ import tempfile
 import threading
 import time
 import urllib.request
+from typing import Callable
 
 import numpy as np
 import torch
 
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
-from tlsan_tpu_torch.data.batcher import Batches
+from tlsan_tpu_torch.data.batcher import Batches, round8
+from tlsan_tpu_torch.models.atrank import ATRank
 from tlsan_tpu_torch.models.tlsan import TLSAN
 from tlsan_tpu_torch.ops.cuda import build
 from tlsan_tpu_torch.ops.cuda import fwa as cuda_fwa
+from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
 from tlsan_tpu_torch.ops.feature_attention import (
     feature_wise_attention_reference,
     fwa_backward_error_scale,
     fwa_backward_reference,
 )
+from tlsan_tpu_torch.ops.multihead_attention import multihead_attention_reference
 from tlsan_tpu_torch.serve.featurize import featurize_many
 from tlsan_tpu_torch.serve.http import RecommendService, serve
 from tlsan_tpu_torch.serve.recommender import Recommender
@@ -77,11 +91,12 @@ from tlsan_tpu_torch.train import checkpoint
 from tlsan_tpu_torch.train.loop import Trainer
 
 SEED = 1234
-KERNEL_TOL = 1e-5    # f32 parity, the bar of tests/test_pallas_fwa.py
+KERNEL_TOL = 1e-5    # f32 parity, the bar of tests/test_pallas_{fwa,mha}.py
 # K2 against its plain version and autograd: the bars of the JAX backward
 # test (tests/test_pallas_fwa.py:58-61), rtol taken of the magnitude of the
 # terms each entry sums, since the sums run in another order (_max_err)
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
+MHA_GRAD_TOL = 1e-5  # MHAFunction vs autograd: tests/test_pallas_mha.py:46-47
 SCORE_TOL = 1e-4     # kernel path vs CPU plain path, after a 64-wide product
 HTTP_SCORE_TOL = 1.5e-4  # HTTP scores travel rounded to 4 decimals
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
@@ -93,11 +108,13 @@ F32_FLOPS_PER_S = 67e12
 USERS, ITEMS, CATES = 39_991, 22_048, 673
 LS, TS, BATCH, K = 10, 24, 128, 50
 D, H = 64, 8
+# ATRank's history cap: the reference's 90 events (tlsan_tpu/data/builders.py), padded
+# to a multiple of 8 as the JAX package's packers do
+T_ATRANK = round8(90)
 # main-path FWA shapes per request batch: long tower S=Ls, short tower S=Ts+1
 MAIN_SHAPES = [(BATCH, LS), (BATCH, TS + 1)]
 KERNEL_SHAPES = MAIN_SHAPES + [(37, 17)]
 BULK_USERS = 4_000   # not a multiple of 128: the last batch has 0-length rows
-LATENCY_REQUESTS = 1_000  # p99 is the 10th slowest, not the maximum
 BULK_WINDOW_S = 5.0  # bulk users/s: every user served over one window
 
 # training (TrainConfig defaults: batch 32, test batch 128)
@@ -105,12 +122,18 @@ TRAIN_B, TEST_B = 32, 128
 # main-path FWA shapes per train step: long tower S=Ls, short tower S=Ts+1
 TRAIN_SHAPES = [(TRAIN_B, LS), (TRAIN_B, TS + 1)]
 BWD_SHAPES = TRAIN_SHAPES + [(37, 17)]
+# main-path K3 shapes (B, Tq, Tk) per request batch and per train step:
+# the self-attention block and the 1-query readout
+MHA_MAIN = [(BATCH, T_ATRANK, T_ATRANK), (BATCH, 1, T_ATRANK)]
+MHA_TRAIN = [(TRAIN_B, T_ATRANK, T_ATRANK), (TRAIN_B, 1, T_ATRANK)]
+MHA_SHAPES = MHA_MAIN + MHA_TRAIN + [(37, 17, 17)]
 TRAIN_ROWS, TEST_USERS, STEPS_PER_CALL = 9_600, 4_096, 100
 EMPTY_HISTORY_SHARE = 0.1  # rows with sl = 0
 PLANTED_CATES = 128  # categories the seeded rows use, of the catalog's 673
 PARITY_STEPS = 20
-# GPU (K1/K2, atomics in the gathers' backward) against the CPU plain path
-# after 20 steps of lr 1.0: f32 sums in other orders, amplified by training
+# GPU (kernels, atomics in the gathers' backward) against the CPU plain
+# path after 20 steps of lr 1.0: f32 sums in other orders, amplified by
+# training
 PARITY_TOL = 1e-4
 TRAIN_WINDOW_S = 5.0
 EVAL_WINDOW_S = 2.0
@@ -120,7 +143,10 @@ KERNELS = [{"name": "fwa_fwd", "route": "cuda",
             "replaces": "tlsan_tpu/ops/pallas/fwa.py:40"},
            {"name": "fwa_bwd", "route": "cuda",
             "source": "tlsan_tpu_torch/csrc/fwa_bwd.cu",
-            "replaces": "tlsan_tpu/ops/pallas/fwa.py:125"}]
+            "replaces": "tlsan_tpu/ops/pallas/fwa.py:125"},
+           {"name": "mha_fwd", "route": "cuda",
+            "source": "tlsan_tpu_torch/csrc/mha_fwd.cu",
+            "replaces": "tlsan_tpu/ops/pallas/mha.py:47"}]
 
 
 def log(msg: str) -> None:
@@ -139,13 +165,47 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE])
+    reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE])
     log(f"build: {sorted(reports) or 'all cached'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+
+# ------------------------------------------------------------ launch counts
+
+
+def reset_launches() -> None:
+    cuda_fwa.launches = cuda_fwa.bwd_launches = cuda_mha.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"fwa_fwd": cuda_fwa.launches, "fwa_bwd": cuda_fwa.bwd_launches,
+            "mha_fwd": cuda_mha.launches}
+
+
+def expect_launches(before: dict, want: dict, what: str) -> dict:
+    """The counts now must exceed `before` by exactly `want` (kernel →
+    launches; a kernel not named must not have launched)."""
+    now = launch_counts()
+    got = {k: now[k] - before[k] for k in now}
+    full = {k: want.get(k, 0) for k in now}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, expected {full}")
+    return now
+
+
+def _times(per_unit: dict, n: int) -> dict:
+    return {k: v * n for k, v in per_unit.items()}
+
+
+def _plus(*counts: dict) -> dict:
+    return {k: sum(c.get(k, 0) for c in counts) for k in launch_counts()}
+
+
+# ------------------------------------------------------------------ kernels
 
 
 def _fwa_inputs(B: int, S: int, seed: int):
@@ -193,15 +253,39 @@ def _profile(fn):
     return wall_ms, kernels
 
 
+def _device_ms(fn, kernel: str, also: str = None) -> str:
+    """Device ms per launch of `kernel` over 50 calls of fn, from the
+    profiler (with `also`, the time of every kernel whose name holds it)."""
+    _, prof = _profile(lambda: [fn() for _ in range(50)])
+    n = [cnt for key, (cnt, _) in prof.items() if kernel in key]
+    us = sum(us for key, (_, us) in prof.items() if (also or kernel) in key)
+    return f"{1e-3 * us / n[0]:.6f}" if n else "not measured (no device events)"
+
+
+def _bound(nbytes: float, flops: float):
+    """(bytes time, operations time) in ms, the least the H100 could take."""
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+
+
 def _fwa_bound(B: int, S: int):
-    """(bytes time, operations time) in ms, the least the H100 could take:
-    each input read once and the output written once over HBM, and
+    """Each input read once and the output written once over HBM, and
     4·dh+9 f32 operations per (b, t, d) (two dh-wide maps, mask, max, exp,
     sum, divide, weighted sum) at the f32 peak."""
     dh = D // H
     nbytes = 4 * (B * S * D + B + 2 * dh * dh + 2 * dh + B * D)
-    flops = B * S * D * (4 * dh + 9)
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    return _bound(nbytes, B * S * D * (4 * dh + 9))
+
+
+def _summed(main: dict, worst: float) -> dict:
+    bytes_ms, ops_ms = main.pop("bytes_ms"), main.pop("ops_ms")
+    return dict(main, max_abs_err=worst, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def _add(main: dict, kernel_ms, plain_ms, bytes_ms, ops_ms) -> None:
+    for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
+                   ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+        main[key] = main.get(key, 0.0) + v
 
 
 def phase_kernel() -> dict:
@@ -209,8 +293,7 @@ def phase_kernel() -> dict:
     per request batch: the sum over the two main-path launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = 0.0
-    main = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    worst, main = 0.0, {}
     for i, (B, S) in enumerate(KERNEL_SHAPES):
         x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + i)
         got = cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2)
@@ -226,27 +309,19 @@ def phase_kernel() -> dict:
         plain_ms = _cuda_ms(lambda: feature_wise_attention_reference(
             x, lengths, H, w1, b1, w2, b2))
         bytes_ms, ops_ms = _fwa_bound(B, S)
-        _, prof = _profile(lambda: [cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2)
-                                    for _ in range(50)])
-        dev = [(n, us) for key, (n, us) in prof.items() if "fwa_fwd_kernel" in key]
-        device_ms = (f"{1e-3 * dev[0][1] / dev[0][0]:.6f}" if dev
-                     else "not measured (no device events)")
+        device_ms = _device_ms(
+            lambda: cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2), "fwa_fwd_kernel")
         log(f"kernel fwa_fwd B={B} S={S}: max_abs_err={err:.3e} "
             f"kernel_ms={kernel_ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
             f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
             f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us)")
         if (B, S) in MAIN_SHAPES:
-            for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                main[key] += v
-    bytes_ms, ops_ms = main.pop("bytes_ms"), main.pop("ops_ms")
-    return dict(main, max_abs_err=worst, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    return _summed(main, worst)
 
 
 def _fwa_bwd_bound(B: int, S: int):
-    """(bytes time, operations time) in ms, the least the H100 could take
-    for K2: x, g, lengths and the weights read once, dx and the weight
+    """K2: x, g, lengths and the weights read once, dx and the weight
     gradients written once, over HBM; and 12·dh+18 f32 operations per
     (b, t, d), counted from csrc/fwa_bwd.cu (the recomputed forward's
     4·dh+9, then dm1 and dx at 2·dh each, dW1 and dW2 at 2·dh each, and
@@ -254,8 +329,7 @@ def _fwa_bwd_bound(B: int, S: int):
     dh = D // H
     weights = 2 * dh * dh + 2 * dh
     nbytes = 4 * (2 * B * S * D + B * D + B + 2 * weights)
-    flops = B * S * D * (12 * dh + 18)
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
+    return _bound(nbytes, B * S * D * (12 * dh + 18))
 
 
 def _max_err(got, want, scale, what: str) -> float:
@@ -282,8 +356,7 @@ def phase_kernel_bwd() -> dict:
     train step: the sum over the two main-path launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = 0.0
-    main = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+    worst, main = 0.0, {}
     for i, (B, S) in enumerate(BWD_SHAPES):
         x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + 10 + i)
         g = torch.from_numpy(np.random.default_rng(SEED + 20 + i).normal(
@@ -318,26 +391,130 @@ def phase_kernel_bwd() -> dict:
         kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_backward(*args))
         plain_ms = _cuda_ms(lambda: fwa_backward_reference(*args))
         bytes_ms, ops_ms = _fwa_bwd_bound(B, S)
-        _, prof = _profile(lambda: [cuda_fwa.fwa_backward(*args) for _ in range(50)])
-        main_k = [n for key, (n, _) in prof.items() if "fwa_bwd_kernel" in key]
-        dev_us = sum(us for key, (_, us) in prof.items() if "fwa_bwd" in key)
-        device_ms = (f"{1e-3 * dev_us / main_k[0]:.6f}" if main_k
-                     else "not measured (no device events)")
+        device_ms = _device_ms(lambda: cuda_fwa.fwa_backward(*args),
+                               "fwa_bwd_kernel", also="fwa_bwd")
         log(f"kernel fwa_bwd B={B} S={S}: max_abs_err={worst:.3e} "
             f"kernel_ms={kernel_ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
             f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
             f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
             f"bitwise repeatable")
         if (B, S) in TRAIN_SHAPES:
-            for key, v in (("ms", kernel_ms), ("plain_ms", plain_ms),
-                           ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                main[key] += v
-    bytes_ms, ops_ms = main.pop("bytes_ms"), main.pop("ops_ms")
-    return dict(main, max_abs_err=worst, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    return _summed(main, worst)
 
 
-def _requests(rng: np.random.Generator, n: int):
+def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int):
+    """(queries, keys, q_len, k_len, weights) on the card; lengths 0, 1 and
+    the full length in the first rows; with self_attention, keys is queries
+    and k_len is q_len, as ATRank's self blocks call it."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    def lens(T, first):
+        n = rng.integers(0, T + 1, B).astype(np.int32)
+        n[:3] = first
+        return torch.from_numpy(n).cuda()
+
+    queries = f32(rng.normal(size=(B, Tq, D)))
+    q_len = lens(Tq, [0, 1, Tq])
+    if self_attention:
+        keys, k_len = queries, q_len
+    else:
+        keys, k_len = f32(rng.normal(size=(B, Tk, D))), lens(Tk, [Tk, 0, 1])
+    weights = {}
+    for name in cuda_mha.WEIGHTS:
+        if name.startswith("w"):
+            weights[name] = f32(rng.normal(size=(D, D)) * 0.2)
+        elif name == "ln_gamma":
+            weights[name] = f32(1.0 + 0.1 * rng.normal(size=D))
+        else:
+            weights[name] = f32(0.1 * rng.normal(size=D))
+    return queries, keys, q_len, k_len, weights
+
+
+def _mha_bound(B: int, Tq: int, Tk: int, self_attention: bool):
+    """K3: queries (and keys, when they differ), the lengths and the
+    weights read once and the output written once over HBM; and the
+    multiply-adds of the three projections, (Tq + 2·Tk)·D² a row, and of
+    the scores and the weighted sum, 2·Tq·Tk·D a row, at two operations
+    each, at the f32 peak (TF32 is off)."""
+    inputs = B * Tq * D + (0 if self_attention else B * Tk * D)
+    nbytes = 4 * (inputs + 2 * B + 3 * D * D + 5 * D + B * Tq * D)
+    flops = 2 * B * ((Tq + 2 * Tk) * D * D + 2 * Tq * Tk * D)
+    return _bound(nbytes, flops)
+
+
+def phase_kernel_mha() -> dict:
+    """K3 against its plain version, itself, and MHAFunction's gradients
+    against autograd, at every shape, self- and cross-attention.  The
+    returned times are per request batch: the sum over the two main-path
+    launches (self-attention and readout, B=128); the training shapes are
+    logged."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst, main = 0.0, {}
+    for i, (B, Tq, Tk) in enumerate(MHA_SHAPES):
+        for self_attention in ([True, False] if Tq == Tk else [False]):
+            q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, SEED + 30 + i)
+            args = (q, k, ql, kl, H, *(w[n] for n in cuda_mha.WEIGHTS))
+            what = (f"mha_fwd B={B} Tq={Tq} Tk={Tk} "
+                    f"{'self' if self_attention else 'cross'}")
+            got = cuda_mha.mha_forward(*args)
+            again = cuda_mha.mha_forward(*args)
+            want, _ = multihead_attention_reference(q, ql, k, kl, H, w)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls differ")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            if not err <= KERNEL_TOL:
+                raise AssertionError(f"{what}: max abs err {err:.3e}")
+
+            # MHAFunction's gradients (K3 forward, plain recompute backward)
+            g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
+                size=(B, Tq, D)).astype(np.float32)).cuda()
+            grads = []
+            for fn in (cuda_mha.MHAFunction.apply, None):
+                x = q.clone().requires_grad_(True)
+                y = x if self_attention else k.clone().requires_grad_(True)
+                ws = [w[n].clone().requires_grad_(True) for n in cuda_mha.WEIGHTS]
+                if fn is None:
+                    out, _ = multihead_attention_reference(
+                        x, ql, y, kl, H, dict(zip(cuda_mha.WEIGHTS, ws)))
+                else:
+                    out = fn(x, y, ql, kl, H, *ws)
+                leaves = [x, *ws] if self_attention else [x, y, *ws]
+                grads.append(torch.autograd.grad(out, leaves, g))
+            for a, b in zip(*grads):
+                if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
+                    raise AssertionError(
+                        f"{what}: MHAFunction gradient differs from autograd by "
+                        f"{float((a - b).abs().max()):.3e}")
+
+            kernel_ms = _cuda_ms(lambda: cuda_mha.mha_forward(*args))
+            plain_ms = _cuda_ms(lambda: multihead_attention_reference(
+                q, ql, k, kl, H, w))
+            bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention)
+            device_ms = _device_ms(lambda: cuda_mha.mha_forward(*args), "mha_fwd_kernel")
+            log(f"kernel {what}: max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} "
+                f"device_ms={device_ms} plain_ms={plain_ms:.6f} "
+                f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
+                f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
+                f"bitwise repeatable; MHAFunction gradients match autograd")
+            # the main path: self-attention at Tq = Tk, the readout at Tq = 1
+            if (B, Tq, Tk) in MHA_MAIN and self_attention == (Tq == Tk):
+                _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    return _summed(main, worst)
+
+
+# ------------------------------------------------------------------ families
+
+
+def _tlsan_requests(rng: np.random.Generator, n: int):
     """Raw (item, day) event streams over several days; some users have a
     single day, some a last session longer than Ts."""
     reqs = []
@@ -351,6 +528,147 @@ def _requests(rng: np.random.Generator, n: int):
                   for i in rng.integers(0, ITEMS, m)]
         reqs.append({"user": int(u), "events": events})
     return reqs
+
+
+def _atrank_requests(rng: np.random.Generator, n: int):
+    """Raw (item, day) event streams of 1–40 events, a tenth of them longer
+    than T (100–150 events), over spans of up to 6,000 days, so that
+    events older than 4,096 days (bucket 12) occur; some users have a
+    single day."""
+    reqs = []
+    for u in rng.integers(0, USERS, n):
+        n_events = int(rng.integers(100, 151) if rng.random() < 0.1
+                       else rng.integers(1, 41))
+        span = int(rng.integers(1, 6_000)) if rng.random() < 0.9 else 1
+        days = np.sort(rng.integers(16_500 - span, 16_501, n_events))
+        reqs.append({"user": int(u), "events": [
+            [int(i), int(d)] for i, d in zip(rng.integers(0, ITEMS, n_events), days)]})
+    return reqs
+
+
+def _planted_cates(rng: np.random.Generator, items: int) -> np.ndarray:
+    return (2 * rng.integers(0, PLANTED_CATES // 2, items)
+            + np.arange(items) % 2).astype(np.int32)
+
+
+def _of_parity(rng, items, parity, shape):
+    return (2 * rng.integers(0, items // 2, shape)
+            + parity.reshape(parity.shape + (1,) * (len(shape) - 1))).astype(np.int32)
+
+
+def tlsan_train_data(rng: np.random.Generator, users: int, items: int,
+                     n_train: int, n_test: int):
+    """Seeded TLSAN train and test sets with the planted structure of
+    tests/test_train.py:18-39: whether a row's label is 1 decides whether
+    its item has the parity the user likes.  Histories, the user's dominant
+    category and each item's category carry that parity too (category
+    parity = item parity), so the user tower can learn it.  The rows belong
+    to `n_test` users, the test set's, as in a leave-last-out split; a
+    share of the rows has an empty long-term history (sl = 0).  Items and
+    users fall in the first `PLANTED_CATES` categories of the catalog's, so
+    each category is seen often enough in 300 steps to learn the parity."""
+    cate_list = _planted_cates(rng, items)
+
+    def rows(u):
+        n = len(u)
+        liked = (1 - u % 2).astype(np.int32)  # tests/test_train.py's rule
+        sl = rng.integers(1, LS + 1, n).astype(np.int32)
+        sl[rng.random(n) < EMPTY_HISTORY_SHARE] = 0
+        return dict(u=u.astype(np.int32),
+                    c=(2 * rng.integers(0, PLANTED_CATES // 2, n) + liked).astype(np.int32),
+                    hist_i=_of_parity(rng, items, liked, (n, LS)),
+                    hist_t=rng.uniform(0.1, 1.0, (n, LS)).astype(np.float32),
+                    hist_i_new=_of_parity(rng, items, liked, (n, TS)),
+                    sl=sl, sl_new=rng.integers(1, TS + 1, n).astype(np.int32)), liked
+
+    test_users = rng.choice(users, n_test, replace=False)
+    train, liked = rows(test_users[rng.integers(0, n_test, n_train)])
+    y = rng.integers(0, 2, n_train)
+    train["y"] = y.astype(np.float32)
+    train["i"] = _of_parity(rng, items, np.where(y == 1, liked, 1 - liked), (n_train,))
+    test, liked = rows(test_users)
+    test["i"] = _of_parity(rng, items, liked, (n_test,))
+    test["j"] = _of_parity(rng, items, 1 - liked, (n_test,))
+    return Batches(train, n_train), Batches(test, n_test), cate_list
+
+
+def atrank_train_data(rng: np.random.Generator, users: int, items: int,
+                      n_train: int, n_test: int):
+    """Seeded ATRank train and test sets in the prefix layout (u, hist_i,
+    sl, hist_t int32 buckets 0..12, i, y / j) with a planted rule: a user's
+    history items have the parity the user likes, and a row's label is 1
+    exactly when its query item has that parity, so the readout can learn
+    it from the history alone (ATRank has no user embedding).  Categories
+    carry the item parity.  A share of the rows has an empty history
+    (sl = 0), where the label is a coin flip."""
+    cate_list = _planted_cates(rng, items)
+    T = T_ATRANK
+
+    def rows(u):
+        n = len(u)
+        liked = (1 - u % 2).astype(np.int32)
+        sl = rng.integers(1, T + 1, n).astype(np.int32)
+        sl[rng.random(n) < EMPTY_HISTORY_SHARE] = 0
+        hist_i = _of_parity(rng, items, liked, (n, T))
+        hist_i[np.arange(T)[None, :] >= sl[:, None]] = 0  # zero padding
+        hist_t = rng.integers(0, 13, (n, T)).astype(np.int32)
+        hist_t[np.arange(T)[None, :] >= sl[:, None]] = 0
+        return dict(u=u.astype(np.int32), hist_i=hist_i, sl=sl, hist_t=hist_t), liked
+
+    test_users = rng.choice(users, n_test, replace=False)
+    train, liked = rows(test_users[rng.integers(0, n_test, n_train)])
+    y = rng.integers(0, 2, n_train)
+    train["y"] = y.astype(np.float32)
+    train["i"] = _of_parity(rng, items, np.where(y == 1, liked, 1 - liked), (n_train,))
+    test, liked = rows(test_users)
+    test["i"] = _of_parity(rng, items, liked, (n_test,))
+    test["j"] = _of_parity(rng, items, 1 - liked, (n_test,))
+    return Batches(train, n_train), Batches(test, n_test), cate_list
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One model family's main paths: its configuration, its request and
+    training data, its HTTP latency sample, and the kernel launches of a
+    request batch, a train step, an eval batch (AUC and top-k passes) and
+    a histogram summary."""
+    name: str
+    model: type
+    cfg: ModelConfig
+    requests: Callable  # (rng, n) → raw request dicts
+    train_data: Callable  # (rng, users, items, n_train, n_test) → (train, test, cate_list)
+    latency_requests: int
+    per_batch: dict
+    per_step: dict
+    per_eval_batch: dict
+    per_summary: dict
+
+
+TLSAN_FAMILY = Family(
+    "tlsan", TLSAN,
+    ModelConfig(model="tlsan", user_count=USERS, item_count=ITEMS,
+                cate_count=CATES, Ls=LS, Ts=TS, hidden_units=D, num_heads=H,
+                num_blocks=1),
+    _tlsan_requests, tlsan_train_data, 1_000,  # p99 is the 10th slowest
+    per_batch={"fwa_fwd": 2}, per_step={"fwa_fwd": 2, "fwa_bwd": 2},
+    per_eval_batch={"fwa_fwd": 4}, per_summary={"fwa_fwd": 2})
+
+ATRANK_BLOCKS = 1
+ATRANK_FAMILY = Family(
+    "atrank", ATRank,
+    ModelConfig(model="atrank", user_count=USERS, item_count=ITEMS,
+                cate_count=CATES, max_length=T_ATRANK, hidden_units=D,
+                num_heads=H, num_blocks=ATRANK_BLOCKS),
+    _atrank_requests, atrank_train_data, 500,  # p99 is the 5th slowest
+    # self-attention + readout a forward; the AUC pass encodes once and
+    # reads out twice, the top-k pass once; the backward launches no K3
+    per_batch={"mha_fwd": 2 * ATRANK_BLOCKS},
+    per_step={"mha_fwd": 2 * ATRANK_BLOCKS},
+    per_eval_batch={"mha_fwd": 5 * ATRANK_BLOCKS},
+    per_summary={"mha_fwd": 2 * ATRANK_BLOCKS})
+
+
+# --------------------------------------------------------------------- paths
 
 
 def assert_topk_match(ids_a, sc_a, ids_b, sc_b, atol):
@@ -374,69 +692,73 @@ def _http(url: str, payload=None):
         return json.loads(r.read())
 
 
-def _expect_launches(before: int, batches: int, what: str) -> int:
-    now = cuda_fwa.launches
-    if now - before != 2 * batches:
-        raise AssertionError(f"{what}: fwa_fwd launched {now - before} times "
-                             f"for {batches} request batches, expected {2 * batches}")
-    return now
+def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> None:
+    busy_ms = 1e-3 * sum(us for _, us in prof.values())
+    log(f"{tag}: profiled {what}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for key, (cnt, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {1e-3 * us:9.3f} ms {cnt:5d}x  {key[:110]}")
 
 
-def phase_path(tmp: str) -> dict:
-    cfg = ModelConfig(model="tlsan", user_count=USERS, item_count=ITEMS,
-                      cate_count=CATES, Ls=LS, Ts=TS, hidden_units=D,
-                      num_heads=H, num_blocks=1)
-    model = TLSAN(cfg, "cpu").init_params(torch.Generator().manual_seed(SEED))
+def phase_path(tmp: str, fam: Family) -> dict:
+    cfg, tag = fam.cfg, f"path {fam.name}"
+    model = fam.model(cfg, "cpu").init_params(torch.Generator().manual_seed(SEED))
     rng = np.random.default_rng(SEED)
     cate_list = rng.integers(0, CATES, ITEMS).astype(np.int32)
-    checkpoint.save(tmp, "tlsan", 0, model, None, cfg, best=True)
+    checkpoint.save(tmp, fam.name, 0, model, None, cfg, best=True)
     rec = Recommender.from_model_dir(tmp, cate_list, device="cuda",
                                      batch_size=BATCH, k=K)
     cpu_rec = Recommender.from_model_dir(tmp, cate_list, device="cpu",
                                          batch_size=BATCH, k=K)
-    single = _requests(rng, 1)[0]
-    several = _requests(rng, 8)
-    timed = _requests(rng, LATENCY_REQUESTS)
-    bulk = featurize_many("tlsan", cfg, _requests(rng, BULK_USERS),
+    single = fam.requests(rng, 1)[0]
+    several = fam.requests(rng, 8)
+    timed = fam.requests(rng, fam.latency_requests)
+    bulk = featurize_many(fam.name, cfg, fam.requests(rng, BULK_USERS),
                           cate_list=cate_list)
+    if fam.name == "atrank" and not ((bulk["hist_t"] == 12).any()
+                                     and (bulk["sl"] == T_ATRANK).any()):
+        raise AssertionError("the ATRank requests lack bucket 12 or a full history")
 
-    service = RecommendService(rec, "tlsan", rec.cfg, cate_list)
+    service = RecommendService(rec, fam.name, rec.cfg, cate_list)
     stop = threading.Event()
     worker = service.start_worker_thread(stop)
     httpd = serve(service, port=0, host="127.0.0.1")
     server = threading.Thread(target=httpd.serve_forever, daemon=True)
     server.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    n_batches = -(-BULK_USERS // BATCH)
+
+    def batches(n):
+        return _times(fam.per_batch, n)
+
     try:
-        cuda_fwa.launches = cuda_fwa.bwd_launches = 0  # the serving path starts here
+        reset_launches()  # the serving path starts here
+        n = launch_counts()
         health = _http(url + "/healthz")
         if health.get("status") != "ok" or health.get("catalog_items") != ITEMS:
             raise AssertionError(f"healthz: {health}")
-        n = _expect_launches(0, 0, "healthz")
+        n = expect_launches(n, {}, "healthz")
         answers = [(_http(url + "/v1/recommend", single), [single])]
-        n = _expect_launches(n, 1, "single request")
+        n = expect_launches(n, batches(1), "single request")
         answers.append((_http(url + "/v1/recommend", {"requests": several}), several))
-        n = _expect_launches(n, 1, "8 requests")
+        n = expect_launches(n, batches(1), "8 requests")
         latency_ms = []
         for req in timed:
             t0 = time.perf_counter()
             _http(url + "/v1/recommend", req)
             latency_ms.append(1e3 * (time.perf_counter() - t0))
-        n = _expect_launches(n, LATENCY_REQUESTS, "timed single requests")
-        n_batches = -(-BULK_USERS // BATCH)
+        n = expect_launches(n, batches(len(timed)), "timed single requests")
         ids, scores = rec.recommend(bulk)  # warm-up, checked below
-        n = _expect_launches(n, n_batches, "bulk recommend")
+        n = expect_launches(n, batches(n_batches), "bulk recommend")
         calls, t0 = 0, time.perf_counter()
         while time.perf_counter() - t0 < BULK_WINDOW_S:
             rec.recommend(bulk)
             calls += 1
         window_s = time.perf_counter() - t0
-        n = _expect_launches(n, calls * n_batches, "bulk recommend window")
+        n = expect_launches(n, batches(calls * n_batches), "bulk recommend window")
         wall_ms, prof = _profile(lambda: rec.recommend(bulk))
-        n = _expect_launches(n, n_batches, "profiled bulk recommend")
-        launches = cuda_fwa.launches  # the serving path ends here
-        if cuda_fwa.bwd_launches:
-            raise AssertionError(f"serving launched fwa_bwd {cuda_fwa.bwd_launches} times")
+        expect_launches(n, batches(n_batches), "profiled bulk recommend")
+        launches = launch_counts()  # the serving path ends here
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -445,16 +767,11 @@ def phase_path(tmp: str) -> dict:
         server.join(timeout=30)
     users_per_s = calls * BULK_USERS / window_s
     p50, p99 = np.percentile(latency_ms, [50, 99])
-    log(f"path: HTTP latency of {LATENCY_REQUESTS} sequential single-user "
+    log(f"{tag}: HTTP latency of {len(timed)} sequential single-user "
         f"requests: p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {max(latency_ms):.3f} ms")
-    log(f"path: bulk recommend of {BULK_USERS} users in {n_batches} batches of "
+    log(f"{tag}: bulk recommend of {BULK_USERS} users in {n_batches} batches of "
         f"{BATCH}, {calls} calls in {window_s:.3f} s: {users_per_s:.1f} users/s")
-
-    busy_ms = 1e-3 * sum(us for _, us in prof.values())
-    log(f"path: profiled bulk recommend: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for key, (cnt, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {1e-3 * us:9.3f} ms {cnt:5d}x  {key[:110]}")
+    _log_profile(tag, "bulk recommend", wall_ms, prof)
 
     # the same checkpoint on the CPU, through the plain versions
     if ids.shape != (BULK_USERS, K) or not np.isfinite(scores).all():
@@ -463,58 +780,16 @@ def phase_path(tmp: str) -> dict:
     assert_topk_match(want_ids, want_scores, ids, scores, SCORE_TOL)
     for body, reqs in answers:
         want_ids, want_scores = cpu_rec.recommend(
-            featurize_many("tlsan", cfg, reqs, cate_list=cate_list))
+            featurize_many(fam.name, cfg, reqs, cate_list=cate_list))
         got = body["results"]
         if len(got) != len(reqs):
             raise AssertionError(f"HTTP gave {len(got)} results for {len(reqs)}")
         assert_topk_match(want_ids, want_scores,
                           np.array([r["items"] for r in got]),
                           np.array([r["scores"] for r in got]), HTTP_SCORE_TOL)
-    log(f"path: {launches} fwa_fwd launches; GPU answers match the CPU plain "
+    log(f"{tag}: launches {launches}; GPU answers match the CPU plain "
         f"path (scores to {SCORE_TOL}, ids up to ties)")
     return {"launches": launches, "users_per_s": users_per_s}
-
-
-def train_data(rng: np.random.Generator, users: int, items: int,
-               n_train: int, n_test: int):
-    """Seeded TLSAN train and test sets with the planted structure of
-    tests/test_train.py:18-39: whether a row's label is 1 decides whether
-    its item has the parity the user likes.  Histories, the user's dominant
-    category and each item's category carry that parity too (category
-    parity = item parity), so the user tower can learn it.  The rows belong
-    to `n_test` users, the test set's, as in a leave-last-out split; a
-    share of the rows has an empty long-term history (sl = 0).  Items and
-    users fall in the first `PLANTED_CATES` categories of the catalog's, so
-    each category is seen often enough in 300 steps to learn the parity."""
-    cate_list = (2 * rng.integers(0, PLANTED_CATES // 2, items)
-                 + np.arange(items) % 2).astype(np.int32)
-
-    def of_parity(parity, shape):
-        return (2 * rng.integers(0, items // 2, shape)
-                + parity.reshape(parity.shape + (1,) * (len(shape) - 1))
-                ).astype(np.int32)
-
-    def rows(u):
-        n = len(u)
-        liked = (1 - u % 2).astype(np.int32)  # tests/test_train.py's rule
-        sl = rng.integers(1, LS + 1, n).astype(np.int32)
-        sl[rng.random(n) < EMPTY_HISTORY_SHARE] = 0
-        return dict(u=u.astype(np.int32),
-                    c=(2 * rng.integers(0, PLANTED_CATES // 2, n) + liked).astype(np.int32),
-                    hist_i=of_parity(liked, (n, LS)),
-                    hist_t=rng.uniform(0.1, 1.0, (n, LS)).astype(np.float32),
-                    hist_i_new=of_parity(liked, (n, TS)),
-                    sl=sl, sl_new=rng.integers(1, TS + 1, n).astype(np.int32)), liked
-
-    test_users = rng.choice(users, n_test, replace=False)
-    train, liked = rows(test_users[rng.integers(0, n_test, n_train)])
-    y = rng.integers(0, 2, n_train)
-    train["y"] = y.astype(np.float32)
-    train["i"] = of_parity(np.where(y == 1, liked, 1 - liked), (n_train,))
-    test, liked = rows(test_users)
-    test["i"] = of_parity(liked, (n_test,))
-    test["j"] = of_parity(1 - liked, (n_test,))
-    return Batches(train, n_train), Batches(test, n_test), cate_list
 
 
 def _records(model_dir: str):
@@ -522,37 +797,25 @@ def _records(model_dir: str):
         return [json.loads(line) for line in f]
 
 
-def _expect_train_launches(fwd0: int, bwd0: int, steps: int, eval_batches: int,
-                           summaries: int, what: str):
-    """K1: 2 a train step, 2 a batch of each of the AUC and top-k passes of
-    an evaluation, 2 a histogram summary; K2: 2 a train step."""
-    fwd = cuda_fwa.launches - fwd0
-    bwd = cuda_fwa.bwd_launches - bwd0
-    want_fwd = 2 * steps + 4 * eval_batches + 2 * summaries
-    if fwd != want_fwd or bwd != 2 * steps:
-        raise AssertionError(
-            f"{what}: fwa_fwd {fwd} (expected {want_fwd}), fwa_bwd {bwd} "
-            f"(expected {2 * steps}) for {steps} train steps, {eval_batches} "
-            f"eval batches and {summaries} summaries")
-    return cuda_fwa.launches, cuda_fwa.bwd_launches
-
-
-def phase_train(tmp: str) -> dict:
-    cfg = ModelConfig(model="tlsan", user_count=USERS, item_count=ITEMS,
-                      cate_count=CATES, Ls=LS, Ts=TS, hidden_units=D,
-                      num_heads=H, num_blocks=1)
+def phase_train(tmp: str, fam: Family) -> dict:
+    cfg, tag = fam.cfg, f"train {fam.name}"
     tc = TrainConfig(model_dir=os.path.join(tmp, "train"), max_epochs=1,
                      steps_per_call=STEPS_PER_CALL, eval_freq=STEPS_PER_CALL,
                      summary_freq=STEPS_PER_CALL, best_after_step=0,
                      save_auc_gate=0.0, seed=SEED)
     assert (tc.train_batch_size, tc.test_batch_size) == (TRAIN_B, TEST_B)
-    train, test, cate_list = train_data(np.random.default_rng(SEED + 1), USERS,
-                                        ITEMS, TRAIN_ROWS, TEST_USERS)
+    train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                            ITEMS, TRAIN_ROWS, TEST_USERS)
     eval_batches = -(-TEST_USERS // TEST_B)
 
-    cuda_fwa.launches = cuda_fwa.bwd_launches = 0  # the train path starts here
+    def work(steps=0, evals=0, summaries=0):
+        return _plus(_times(fam.per_step, steps),
+                     _times(fam.per_eval_batch, evals * eval_batches),
+                     _times(fam.per_summary, summaries))
+
+    reset_launches()  # the train path starts here
     t0 = time.perf_counter()
-    trainer = Trainer(TLSAN, cfg, tc, cate_list, train, test, device="cuda")
+    trainer = Trainer(fam.model, cfg, tc, cate_list, train, test, device="cuda")
     trainer.train()
     train_s = time.perf_counter() - t0
     recs = _records(tc.model_dir)
@@ -560,8 +823,7 @@ def phase_train(tmp: str) -> dict:
     losses = [r["loss"] for r in recs if r["kind"] == "train"]
     steps = trainer.step
     summaries = len(losses)  # display and summaries share the 100-step cadence
-    n = _expect_train_launches(0, 0, steps, eval_batches * len(evals),
-                               summaries, "Trainer.train")
+    n = expect_launches(_plus(), work(steps, len(evals), summaries), "Trainer.train")
     if steps != TRAIN_ROWS // TRAIN_B or trainer.opt_state.count != steps:
         raise AssertionError(f"step {steps}, schedule count {trainer.opt_state.count}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -572,7 +834,7 @@ def phase_train(tmp: str) -> dict:
                              f"0.5 and the initial {evals[0]['auc']}")
     if not os.path.exists(os.path.join(tc.model_dir, checkpoint.BEST)):
         raise AssertionError("no best save happened")
-    log(f"train: Trainer.train() of {steps} steps and {len(evals)} evaluations "
+    log(f"{tag}: Trainer.train() of {steps} steps and {len(evals)} evaluations "
         f"in {train_s:.3f} s; chunk losses {losses}; AUC "
         f"{[round(r['auc'], 6) for r in evals]}; final {json.dumps(final)}")
 
@@ -582,7 +844,7 @@ def phase_train(tmp: str) -> dict:
         trainer.evaluate()
         evals_done += 1
     eval_s = time.perf_counter() - t0
-    n = _expect_train_launches(*n, 0, evals_done * eval_batches, 0, "evaluate")
+    n = expect_launches(n, work(evals=evals_done), "evaluate")
 
     # train examples/s over a window of whole chunks, after a warm-up chunk
     chunks = torch.from_numpy(trainer._epoch_index(1)).cuda()
@@ -594,12 +856,12 @@ def phase_train(tmp: str) -> dict:
         done += 1
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
-    n = _expect_train_launches(*n, (done + 1) * STEPS_PER_CALL, 0, 0, "train window")
+    n = expect_launches(n, work(steps=(done + 1) * STEPS_PER_CALL), "train window")
     wall_ms, prof = _profile(lambda: trainer._train_chunk(chunks[0]))
-    n = _expect_train_launches(*n, STEPS_PER_CALL, 0, 0, "profiled chunk")
+    n = expect_launches(n, work(steps=STEPS_PER_CALL), "profiled chunk")
 
     # resume: a second Trainer on the same model_dir
-    resumed = Trainer(TLSAN, cfg, dataclasses.replace(tc, from_scratch=False),
+    resumed = Trainer(fam.model, cfg, dataclasses.replace(tc, from_scratch=False),
                       cate_list, train, test, device="cuda")
     if resumed.step != steps or resumed.opt_state.count != steps:
         raise AssertionError(f"resumed at step {resumed.step}, count "
@@ -607,32 +869,27 @@ def phase_train(tmp: str) -> dict:
     again = resumed.evaluate()
     if again != {k: v for k, v in final.items() if k not in ("kind", "step", "wall_s")}:
         raise AssertionError(f"resumed evaluation {again} differs from the saved {final}")
-    n = _expect_train_launches(*n, 0, eval_batches, 0, "resumed evaluate")
-    launches = {"fwa_fwd": cuda_fwa.launches, "fwa_bwd": cuda_fwa.bwd_launches}
+    expect_launches(n, work(evals=1), "resumed evaluate")
+    launches = launch_counts()
     trainer.close()
     resumed.close()  # the train path ends here
 
     examples_per_s = done * STEPS_PER_CALL * TRAIN_B / window_s
-    log(f"train: {done} chunks of {STEPS_PER_CALL} steps of {TRAIN_B} in "
+    log(f"{tag}: {done} chunks of {STEPS_PER_CALL} steps of {TRAIN_B} in "
         f"{window_s:.3f} s: {examples_per_s:.1f} train examples/s")
     eval_users_per_s = evals_done * TEST_USERS / eval_s
-    log(f"train: {evals_done} evaluate() of {TEST_USERS} users (AUC and top-50 "
+    log(f"{tag}: {evals_done} evaluate() of {TEST_USERS} users (AUC and top-50 "
         f"over {ITEMS} items) in {eval_s:.3f} s: {eval_users_per_s:.1f} eval users/s")
-    busy_ms = 1e-3 * sum(us for _, us in prof.values())
-    log(f"train: profiled chunk of {STEPS_PER_CALL} steps: wall {wall_ms:.3f} ms, "
-        f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    for key, (cnt, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {1e-3 * us:9.3f} ms {cnt:5d}x  {key[:110]}")
-    log(f"train: resumed at step {steps} (count {steps}); its evaluation equals "
-        f"the last save's bit for bit; {launches['fwa_fwd']} fwa_fwd and "
-        f"{launches['fwa_bwd']} fwa_bwd launches")
+    _log_profile(tag, f"chunk of {STEPS_PER_CALL} steps", wall_ms, prof)
+    log(f"{tag}: resumed at step {steps} (count {steps}); its evaluation equals "
+        f"the last save's bit for bit; launches {launches}")
 
     # the same start trained on the CPU through the plain versions
     parity = dataclasses.replace(tc, tb_histograms=False)
     idx = trainer._epoch_index(0)[0][:PARITY_STEPS]
     out = {}
     for device in ("cuda", "cpu"):
-        tr = Trainer(TLSAN, cfg, dataclasses.replace(
+        tr = Trainer(fam.model, cfg, dataclasses.replace(
             parity, model_dir=os.path.join(tmp, f"parity_{device}")),
             cate_list, train, test, device=device)
         losses_d = tr._train_chunk(torch.from_numpy(idx).to(device))
@@ -648,9 +905,9 @@ def phase_train(tmp: str) -> dict:
         worst = max(worst, diff)
         if not torch.allclose(pg[name], pc[name], rtol=PARITY_TOL, atol=PARITY_TOL):
             raise AssertionError(f"parity: {name} differs by {diff:.3e}")
-    log(f"train: {PARITY_STEPS} steps on the card (K1/K2) and on the CPU (plain) "
-        f"agree: max abs diff {worst:.3e} over losses and every parameter "
-        f"(rtol = atol = {PARITY_TOL})")
+    log(f"{tag}: {PARITY_STEPS} steps on the card (kernels) and on the CPU "
+        f"(plain) agree: max abs diff {worst:.3e} over losses and every "
+        f"parameter (rtol = atol = {PARITY_TOL})")
     return {"launches": launches, "examples_per_s": examples_per_s,
             "eval_users_per_s": eval_users_per_s}
 
@@ -662,23 +919,25 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_card()
     phase_build()
-    k1 = phase_kernel()
-    k2 = phase_kernel_bwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = phase_path(tmp)
-    with tempfile.TemporaryDirectory() as tmp:
-        trained = phase_train(tmp)
-    # K1 runs on both paths; its times are at the serving shapes (B=128),
-    # K2's at the training shapes (B=32), each per batch (both towers)
-    launches = {"fwa_fwd": path["launches"] + trained["launches"]["fwa_fwd"],
-                "fwa_bwd": trained["launches"]["fwa_bwd"]}
-    kernels = [dict(meta, launches=launches[meta["name"]],
-                    max_abs_err=k["max_abs_err"], ms=k["ms"],
-                    plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-                    bound_by=k["bound_by"], library_ms=None)
-               for meta, k in zip(KERNELS, (k1, k2))]
+    kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd(),
+               "mha_fwd": phase_kernel_mha()}
+    runs = []
+    for fam in (TLSAN_FAMILY, ATRANK_FAMILY):
+        for phase in (phase_path, phase_train):
+            with tempfile.TemporaryDirectory() as tmp:
+                runs.append(phase(tmp, fam)["launches"])
+    # launches summed over the four paths; K1's times are at the serving
+    # shapes (B=128), K2's at the training shapes (B=32), K3's at the
+    # serving shapes (B=128), each per batch (both towers, or the
+    # self-attention and the readout)
+    launches = _plus(*runs)
+    line = [dict(meta, launches=launches[meta["name"]],
+                 max_abs_err=k["max_abs_err"], ms=k["ms"],
+                 plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+                 bound_by=k["bound_by"], library_ms=None)
+            for meta in KERNELS for k in [kernels[meta["name"]]]]
     log(f"done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

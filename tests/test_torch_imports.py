@@ -44,5 +44,6 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "tools.params", "train.checkpoint", "data.remap",
                  "train.loop", "train.state", "train.evaluate",
                  "train.metrics", "train.tensorboard", "nn.layers",
-                 "data.batcher"):
+                 "data.batcher", "ops.multihead_attention", "ops.cuda.mha",
+                 "models.atrank"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

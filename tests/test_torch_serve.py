@@ -84,7 +84,7 @@ def test_featurize_many_bitwise_equal_to_jax(setup):
 def test_featurize_unported_family_raises(setup):
     _, _, cfg, _, cate_list = setup
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        featurize_many("atrank", cfg, _requests(1, 2), cate_list=cate_list)
+        featurize_many("shan", cfg, _requests(1, 2), cate_list=cate_list)
 
 
 @pytest.mark.parametrize("exclude", [False, True])

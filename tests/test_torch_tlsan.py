@@ -196,6 +196,6 @@ def test_init_params_distribution():
 
 def test_unported_family_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("atrank")
+        get_model("shan")
     with pytest.raises(KeyError):
         get_model("nope")

@@ -10,11 +10,13 @@ library only.
 Layering (bottom-up):
   core/      configs and JSON sidecars
   data/      numpy feature code shared by the offline builders and serving
-  nn/        embedding lookups, masks, initializers
-  ops/       feature-wise attention: plain version + CUDA kernel (ops/cuda/)
-  models/    TLSAN as an nn.Module whose parameters keep the JAX names
+  nn/        embedding lookups, masks, initializers, layer norm, dense
+  ops/       feature-wise and multi-head attention: plain versions + CUDA
+             kernels (ops/cuda/)
+  models/    TLSAN and ATRank as nn.Modules whose parameters keep the JAX
+             names
   tools/     the numpy weights bridge to and from the JAX parameter tree
-  train/     checkpoints
+  train/     checkpoints, the optimizer, the evaluator and the Trainer
   serve/     featurization, the top-k Recommender and the HTTP endpoint
 """
 

@@ -7,7 +7,8 @@ there by an index; shuffling is an index permutation.  Padding semantics
 match the reference exactly: the long-term window keeps the *last* k items
 when the history is longer and left-aligns (TLSAN/input.py:40-49); the
 short-term session left-aligns with zeros (TLSAN/input.py:50-51); pad id
-is 0.  Only the `tlsan` variant of the session packers is ported.
+is 0.  Ported so far: the `tlsan` variant of the session packers and the
+ATRank variant of the prefix packers (left-aligned, int32 time buckets).
 """
 
 from __future__ import annotations
@@ -113,6 +114,35 @@ def pack_session_test(test_set: list, Ls: int, Ts: int,
     return Batches(
         dict(u=u, i=pos, j=neg, c=c, hist_i=hist_i, hist_t=hist_t,
              hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+
+
+def pack_prefix_train(train_set: list, max_len: int) -> Batches:
+    """Pack ATRank prefix train tuples (uid, hist, hist_t, item, label) →
+    u, hist_i[N,T], sl, hist_t[N,T] (int32 buckets), i, y, left-aligned
+    (feed semantics of ATRank/input.py:3-42).  The JAX package's other
+    variants (no time, float time, LSPM's right-aligned pairs) come with
+    their families (ROADMAP.md queue 1, items 13-17)."""
+    n = len(train_set)
+    return Batches(dict(
+        u=np.fromiter((t[0] for t in train_set), np.int32, n),
+        hist_i=_scatter_pad([t[1] for t in train_set], max_len, np.int32),
+        sl=np.fromiter((min(len(t[1]), max_len) for t in train_set), np.int32, n),
+        hist_t=_scatter_pad([t[2] for t in train_set], max_len, np.int32),
+        i=np.fromiter((t[3] for t in train_set), np.int32, n),
+        y=np.fromiter((t[4] for t in train_set), np.float32, n)), n)
+
+
+def pack_prefix_test(test_set: list, max_len: int) -> Batches:
+    """Pack ATRank prefix test tuples (uid, hist, hist_t, (pos, neg)) → u,
+    hist_i, sl, hist_t, i, j; the target is the (pos, neg) pair."""
+    n = len(test_set)
+    return Batches(dict(
+        u=np.fromiter((t[0] for t in test_set), np.int32, n),
+        hist_i=_scatter_pad([t[1] for t in test_set], max_len, np.int32),
+        sl=np.fromiter((min(len(t[1]), max_len) for t in test_set), np.int32, n),
+        hist_t=_scatter_pad([t[2] for t in test_set], max_len, np.int32),
+        i=np.fromiter((t[3][0] for t in test_set), np.int32, n),
+        j=np.fromiter((t[3][1] for t in test_set), np.int32, n)), n)
 
 
 def epoch_permutation(n: int, epoch: int, seed: int = 1234) -> np.ndarray:

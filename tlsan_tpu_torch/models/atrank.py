@@ -1,0 +1,230 @@
+"""ATRank — attention-based user behavior modeling baseline.
+
+Ported from tlsan_tpu/models/atrank.py (reference graph: ATRank/model.py:46-104,
+attention_net :288-331):
+
+  - item⊕cate embedding + one-hot(12) time bucket concat + dense to
+    hidden_units (:59-73, the default concat_time_emb=True path); the
+    concat_time_emb=False path adds a tanh-dense of the bucket as a float
+    (the JAX package's fix of a reference dtype bug);
+  - num_blocks × (multi-head self-attention + FFN) over the history
+    (:291-308);
+  - readout: the TARGET ITEM is the query of a 1-step vanilla attention over
+    the encoded history + FFN (:310-328), so the user representation is
+    conditioned on the candidate item, also at full-catalog eval (the
+    reference scores every item with the positive-item-conditioned
+    representation, :100-104).
+
+Each attention is `ops/multihead_attention.py::multihead_attention`: the
+plain version on the CPU, the CUDA kernel K3 on a CUDA f32 tensor, so a
+forward launches K3 twice a block (self-attention and readout).  The
+parameters keep the JAX names and layouts (``self_blocks.0.attn.wq`` is
+[in, out]), so tools/params.py moves a JAX tree in and out.
+
+Batch layout (static shapes): u[B], hist_i[B,T], hist_t[B,T] (int buckets
+0..12), sl[B], i[B] (the query item), plus y[B] for the loss, an optional
+valid[B], and j[B] for the AUC pair.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from tlsan_tpu_torch.core.config import ModelConfig
+from tlsan_tpu_torch.models import base
+from tlsan_tpu_torch.nn.embedding import (
+    item_cate_lookup,
+    item_cate_table,
+    lookup,
+)
+from tlsan_tpu_torch.nn.init import glorot_uniform
+from tlsan_tpu_torch.nn.layers import dense
+from tlsan_tpu_torch.ops.multihead_attention import (
+    feedforward,
+    multihead_attention,
+)
+
+Batch = Dict[str, torch.Tensor]
+
+N_TIME_BUCKETS = 12  # one-hot width (ATRank/model.py:71)
+
+
+def _param(*shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
+
+
+def _block(D: int, device) -> nn.ModuleDict:
+    """One {attn, ffn} block with the JAX package's parameter names."""
+    attn = {name: _param(D, D, device=device) for name in ("wq", "wk", "wv")}
+    attn.update({name: _param(D, device=device)
+                 for name in ("bq", "bk", "bv", "ln_gamma", "ln_beta")})
+    ffn = {"w1": _param(D, D // 4, device=device),
+           "b1": _param(D // 4, device=device),
+           "w2": _param(D // 4, D, device=device),
+           "b2": _param(D, device=device),
+           "ln_gamma": _param(D, device=device),
+           "ln_beta": _param(D, device=device)}
+    return nn.ModuleDict({"attn": nn.ParameterDict(attn),
+                          "ffn": nn.ParameterDict(ffn)})
+
+
+def _one_hot(buckets: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """jax.nn.one_hot: a comparison with arange(n), so bucket n (and
+    anything outside 0..n-1) gives a zero row (torch's one_hot raises)."""
+    classes = torch.arange(n, dtype=buckets.dtype, device=buckets.device)
+    return (buckets[..., None] == classes).to(dtype)
+
+
+class ATRank(nn.Module):
+    name = "atrank"
+    # tables the reference regularizes as full variables: none, only the
+    # batch-level L2 of the user output and item embedding (ATRank/model.py:130-133)
+    l2_full_tables = ()
+
+    def __init__(self, cfg: ModelConfig, device):
+        """Allocates the parameters (zeros) on `device`; `init_params`
+        draws their initial values."""
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.hidden_units
+        self.item_emb = _param(cfg.item_count, cfg.itemid_embedding_size,
+                               device=device)
+        self.item_b = _param(cfg.item_count, device=device)
+        self.cate_emb = _param(cfg.cate_count, cfg.cateid_embedding_size,
+                               device=device)
+        time_in = (cfg.itemid_embedding_size + cfg.cateid_embedding_size
+                   + N_TIME_BUCKETS) if cfg.concat_time_emb else 1
+        self.time_w = _param(time_in, D, device=device)
+        self.time_b = _param(D, device=device)
+        self.self_blocks = nn.ModuleList(
+            _block(D, device) for _ in range(cfg.num_blocks))
+        self.vanilla_blocks = nn.ModuleList(
+            _block(D, device) for _ in range(cfg.num_blocks))
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> "ATRank":
+        """The JAX package's initial values in distribution: glorot-uniform
+        tables and kernels, zero biases, LayerNorm gain 1
+        (tlsan_tpu/models/atrank.py:35-89).  Returns self."""
+        def glorot(p: nn.Parameter):
+            p.copy_(glorot_uniform(tuple(p.shape), generator))
+
+        glorot(self.item_emb)
+        self.item_b.zero_()
+        glorot(self.cate_emb)
+        glorot(self.time_w)
+        self.time_b.zero_()
+        for blk in (*self.self_blocks, *self.vanilla_blocks):
+            for part in blk.values():
+                for name, p in part.items():
+                    if p.dim() == 2:
+                        glorot(p)
+                    elif name == "ln_gamma":
+                        p.fill_(1.0)
+                    else:
+                        p.zero_()
+        return self
+
+    # ------------------------------------------------------------------ fwd
+    # Every item embedding of a forward is a row of one item⊕cate table
+    # (`all_item_repr`), built once and shared by the history, query and
+    # catalog gathers.
+
+    def _encode_history(self, batch: Batch, items,
+                        generator: Optional[torch.Generator]) -> torch.Tensor:
+        """Query-independent self-attention encoding of the history; the
+        readout conditions on a candidate item, so pair eval encodes once."""
+        cfg = self.cfg
+        h = lookup(items, batch["hist_i"])
+        if cfg.concat_time_emb:
+            onehot = _one_hot(batch["hist_t"], N_TIME_BUCKETS, h.dtype)
+            h = dense(torch.cat([h, onehot], dim=-1), self.time_w, self.time_b)
+        else:
+            t = batch["hist_t"].to(h.dtype)[..., None]
+            h = h + dense(t, self.time_w, self.time_b, torch.tanh)
+        sl = batch["sl"]
+        enc = h
+        for blk in self.self_blocks:
+            enc = multihead_attention(enc, sl, enc, sl, cfg.num_heads,
+                                      blk["attn"], cfg.dropout, generator)
+            enc = feedforward(enc, blk["ffn"])
+        return enc
+
+    def _readout(self, enc, query_items, batch: Batch, items,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+        """1-query vanilla attention of the candidate item over the encoded
+        history (ATRank/model.py:310-328)."""
+        cfg = self.cfg
+        sl = batch["sl"]
+        dec = lookup(items, query_items)[:, None, :]
+        ones = torch.ones_like(sl)
+        for blk in self.vanilla_blocks:
+            dec = multihead_attention(dec, ones, enc, sl, cfg.num_heads,
+                                      blk["attn"], cfg.dropout, generator)
+            dec = feedforward(dec, blk["ffn"])
+        return dec[:, 0, :]
+
+    def _user_repr(self, batch: Batch, items,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the train-time dropout masks of every
+        attention, one after the other; dropout is off without it or at
+        rate 0."""
+        if self.cfg.dropout <= 0.0:
+            generator = None
+        enc = self._encode_history(batch, items, generator)
+        return self._readout(enc, batch["i"], batch, items, generator)
+
+    def user_repr(self, batch: Batch, cate_list) -> torch.Tensor:
+        return self._user_repr(batch, self.all_item_repr(cate_list)[0])
+
+    def item_repr(self, ids, cate_list):
+        return (item_cate_lookup(self.item_emb, self.cate_emb, ids, cate_list),
+                lookup(self.item_b, ids))
+
+    def all_item_repr(self, cate_list):
+        """(item⊕cate table [I, Di+Dc], item biases [I])."""
+        return item_cate_table(self.item_emb, self.cate_emb, cate_list), self.item_b
+
+    def pair_logits(self, batch: Batch, cate_list):
+        """(pos, neg) logits for the AUC pair: the history encoded once,
+        then one readout per query item (the reference recomputes the
+        encoder in two sess.runs, ATRank/model.py:253-282)."""
+        items, item_b = self.all_item_repr(cate_list)
+        enc = self._encode_history(batch, items, None)
+        return tuple(
+            base.pointwise_logits(self._readout(enc, batch[key], batch, items, None),
+                                  lookup(items, batch[key]),
+                                  lookup(item_b, batch[key]))
+            for key in ("i", "j"))
+
+    def eval_logits(self, batch: Batch, cate_list) -> torch.Tensor:
+        """Full-catalog scores [B, I] with the representation conditioned on
+        batch["i"] (ATRank/model.py:100-104)."""
+        items, item_b = self.all_item_repr(cate_list)
+        return base.full_catalog_logits(self._user_repr(batch, items), items,
+                                        item_b)
+
+    # ----------------------------------------------------------------- loss
+
+    def loss(self, batch: Batch, cate_list,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Sigmoid cross-entropy of the (i, y) examples plus the batch-level
+        L2 of the user output and the item embedding (ATRank/model.py:130-133),
+        over valid rows when the batch has a `valid` mask; `generator`
+        draws the train-time dropout masks."""
+        items, item_b = self.all_item_repr(cate_list)
+        u = self._user_repr(batch, items, generator)
+        i_emb = lookup(items, batch["i"])
+        logits = base.pointwise_logits(u, i_emb, lookup(item_b, batch["i"]))
+        valid = batch.get("valid")
+        if valid is None:
+            l2 = base.l2_tables(u, i_emb)
+        else:
+            v = valid.to(torch.float32)[:, None]
+            l2 = 0.5 * (torch.sum(torch.square(u) * v)
+                        + torch.sum(torch.square(i_emb) * v))
+        return (base.sigmoid_ce_loss(logits, batch["y"], valid)
+                + self.cfg.regulation_rate * l2)

@@ -51,10 +51,12 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def _check(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device):
+def check_tensor(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
+                 shape, device):
+    """Raise unless `t` is on `device` with `dtype`, `shape` and a
+    contiguous layout; `fn` and `name` go into the message."""
     if t.device != device:
-        raise ValueError(f"{fn}: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -76,12 +78,12 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2):
             f"{fn}: needs S >= 1, D <= 1024 and D % num_heads == 0; "
             f"got S={S}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    _check(fn, "x", x, torch.float32, (B, S, D), x.device)
-    _check(fn, "lengths", lengths, torch.int32, (B,), x.device)
+    check_tensor(fn, "x", x, torch.float32, (B, S, D), x.device)
+    check_tensor(fn, "lengths", lengths, torch.int32, (B,), x.device)
     for name, w in (("w1", w1), ("w2", w2)):
-        _check(fn, name, w, torch.float32, (dh, dh), x.device)
+        check_tensor(fn, name, w, torch.float32, (dh, dh), x.device)
     for name, b in (("b1", b1), ("b2", b2)):
-        _check(fn, name, b, torch.float32, (dh,), x.device)
+        check_tensor(fn, name, b, torch.float32, (dh,), x.device)
     return B, S, D, dh
 
 
@@ -120,7 +122,7 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     global bwd_launches
     B, S, D, dh = _check_inputs("fwa_backward", x, lengths, num_heads,
                                 w1, b1, w2, b2)
-    _check("fwa_backward", "g", g, torch.float32, (B, D), x.device)
+    check_tensor("fwa_backward", "g", g, torch.float32, (B, D), x.device)
     dev = x.device
     # the kernels write every entry; an empty batch gives zero gradients
     new = torch.empty if B else torch.zeros

@@ -1,0 +1,99 @@
+"""Multi-head scaled-dot attention — ATRank's substrate.
+
+Ported from tlsan_tpu/ops/multihead_attention.py (reference:
+ATRank/model.py:334-424 `multihead_attention`):
+  - relu Q/K/V projections (:369-371);
+  - heads split on features (a reshape);
+  - scaled dot-product, key-padding mask at −2³²+1 (:382-393), a finite
+    constant: a row with k_len = 0 gets a softmax uniform over all keys;
+  - softmax over keys, then query-mask zeroing (:398-404);
+  - weighted sum, heads re-concatenated, residual += queries, LayerNorm
+    (:413-422).
+
+Shapes: queries [B, Tq, D], keys [B, Tk, D] → [B, Tq, D].
+
+`multihead_attention` runs the plain version for a CPU tensor and, for a
+CUDA f32 tensor, `ops/cuda/mha.py::MHAFunction`: the CUDA kernel K3
+forward, the plain version recomputed under autograd backward.  Anything
+else raises.  Train-time dropout (rate > 0 with a generator) runs in the
+plain version only; on CUDA it raises until the kernel draws its own masks
+(ROADMAP.md queue 1, item 25).
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+
+from tlsan_tpu_torch.nn.layers import dense, dropout, layer_norm
+from tlsan_tpu_torch.nn.masks import sequence_mask
+from tlsan_tpu_torch.ops.cuda import mha
+
+KEY_MASK_VALUE = -(2.0 ** 32) + 1
+
+
+def multihead_attention_reference(queries, q_len, keys, k_len, num_heads: int,
+                                  p: Mapping[str, torch.Tensor],
+                                  dropout_rate: float = 0.0,
+                                  generator: Optional[torch.Generator] = None):
+    """Plain PyTorch version (the correctness oracle of K3) → (out, soft).
+    p holds wq, bq, wk, bk, wv, bv ([D, D] / [D]) and ln_gamma, ln_beta [D].
+    Train-time dropout lands on the attention probabilities
+    (ATRank/model.py:410), drawn from `generator`.  On CUDA the caller
+    keeps TF32 off, as the f32 contract needs."""
+    B, Tq, D = queries.shape
+    Tk = keys.shape[1]
+    dh = D // num_heads
+
+    Q = dense(queries, p["wq"], p["bq"], torch.relu)
+    K = dense(keys, p["wk"], p["bk"], torch.relu)
+    V = dense(keys, p["wv"], p["bv"], torch.relu)
+
+    Qh = Q.reshape(B, Tq, num_heads, dh)
+    Kh = K.reshape(B, Tk, num_heads, dh)
+    Vh = V.reshape(B, Tk, num_heads, dh)
+
+    scores = torch.einsum("bqhd,bkhd->bhqk", Qh, Kh) / (dh ** 0.5)
+    key_mask = sequence_mask(k_len, Tk)[:, None, None, :]  # [B, 1, 1, Tk]
+    scores = torch.where(key_mask, scores, KEY_MASK_VALUE)
+    soft = torch.softmax(scores, dim=-1)
+    # query-mask zeroing (ATRank/model.py:401-404)
+    q_mask = sequence_mask(q_len, Tq).to(soft.dtype)[:, None, :, None]
+    soft = soft * q_mask
+    soft = dropout(soft, dropout_rate, generator)
+
+    out = torch.einsum("bhqk,bkhd->bqhd", soft, Vh).reshape(B, Tq, D)
+    out = out + queries  # residual (:419)
+    return layer_norm(out, p["ln_gamma"], p["ln_beta"]), soft
+
+
+def multihead_attention(queries, q_len, keys, k_len, num_heads: int,
+                        p: Mapping[str, torch.Tensor],
+                        dropout_rate: float = 0.0,
+                        generator: Optional[torch.Generator] = None):
+    """The attention output [B, Tq, D]: the plain version on the CPU, K3
+    (`MHAFunction`) on a CUDA f32 tensor.  Dropout engages when
+    `dropout_rate` > 0 and a generator is given (training)."""
+    if queries.device.type == "cpu":
+        return multihead_attention_reference(
+            queries, q_len, keys, k_len, num_heads, p,
+            dropout_rate=dropout_rate, generator=generator)[0]
+    if queries.device.type == "cuda" and queries.dtype == torch.float32:
+        if dropout_rate > 0.0 and generator is not None:
+            raise NotImplementedError(
+                "multihead_attention: dropout in the CUDA kernel K3 is not "
+                "ported yet (ROADMAP.md queue 1, item 25); every reference "
+                "flag table has dropout 0")
+        return mha.MHAFunction.apply(queries, keys, q_len, k_len, num_heads,
+                                     *(p[name] for name in mha.WEIGHTS))
+    raise NotImplementedError(
+        f"multihead_attention: no kernel for {queries.dtype} on {queries.device}")
+
+
+def feedforward(x: torch.Tensor, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Conv1d(kernel 1) FFN + residual + LayerNorm (reference:
+    ATRank/model.py:426-459): relu dense to D/4, then linear back."""
+    out = dense(x, p["w1"], p["b1"], torch.relu)
+    out = dense(out, p["w2"], p["b2"])
+    return layer_norm(out + x, p["ln_gamma"], p["ln_beta"])

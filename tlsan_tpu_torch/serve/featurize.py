@@ -1,9 +1,11 @@
 """Online request featurization — raw user events → model batch.
 
-A copy of the ``tlsan`` branch of tlsan_tpu/serve/featurize.py that reads
-the port's own ``data`` and ``core``; it emits the same numpy batch, bit
-for bit (tests/test_torch_serve.py).  Each other family's branch comes with
-the slice that ports its model (ROADMAP.md queue 1).
+A copy of the ``tlsan`` and ``atrank`` branches of
+tlsan_tpu/serve/featurize.py that reads the port's own ``data`` and
+``core``; it emits the same numpy batch, bit for bit
+(tests/test_torch_serve.py, tests/test_torch_atrank.py).  Each other
+family's branch comes with the slice that ports its model (ROADMAP.md
+queue 1).
 
 The reference has no online inference path at all: its only featurization
 lives inside the offline ``build_dataset.py`` scripts.  This module closes
@@ -20,9 +22,12 @@ Conventions:
   * ``now`` defaults to the last event's day (the user asks "what next?"
     right after their latest activity); pass the query time explicitly to
     re-featurize time deltas against a different moment.
-  * The items on the last day are the CURRENT session (short-term context)
-    and everything before is the long-term history, mirroring the offline
-    session grouping (TLSAN/build_dataset.py:23-73).
+  * TLSAN treats the items on the last day as the CURRENT session
+    (short-term context) and everything before as the long-term history,
+    mirroring the offline session grouping (TLSAN/build_dataset.py:23-73).
+  * ATRank (a prefix family) takes the last ``max_length`` events, their
+    time buckets against ``now``, and the most recent item as the query
+    item its user tower is conditioned on (SURVEY.md §2.4).
 """
 
 from __future__ import annotations
@@ -33,7 +38,11 @@ import numpy as np
 
 from tlsan_tpu_torch.core.config import ModelConfig
 from tlsan_tpu_torch.data.batcher import _scatter_pad
-from tlsan_tpu_torch.data.builders import _dominant_cate, reciprocal_time
+from tlsan_tpu_torch.data.builders import (
+    _dominant_cate,
+    bucket_time,
+    reciprocal_time,
+)
 
 Event = Tuple[int, int]  # (item_id, day)
 
@@ -54,19 +63,32 @@ def _split_sessions(events: Sequence[Event]):
 def featurize(model_name: str, cfg: ModelConfig, events: Sequence[Event],
               user_id: Optional[int] = None, now: Optional[int] = None,
               cate_list: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
-    """One request → a 1-row batch dict in TLSAN's eval layout
+    """One request → a 1-row batch dict in the family's eval layout
     (history/length/time keys; no label fields).  See module docstring."""
-    if model_name != "tlsan":
+    if model_name not in ("tlsan", "atrank"):
         raise NotImplementedError(
             f"featurizing for {model_name!r} is not ported to PyTorch yet "
             "(ROADMAP.md queue 1)")
     if not events:
         raise ValueError("empty event history")
-    if cate_list is None:
-        raise ValueError("tlsan needs cate_list")
     events = sorted(events, key=lambda e: e[1])
     if now is None:
         now = events[-1][1]
+
+    if model_name == "atrank":
+        T = cfg.max_length
+        items = [i for i, _ in events][-T:]
+        days = [d for _, d in events][-T:]
+        return {
+            "u": np.asarray([user_id], np.int32),
+            "hist_i": _scatter_pad([items], T, np.int32),
+            "sl": np.asarray([len(items)], np.int32),
+            "hist_t": _scatter_pad([bucket_time(days, now)], T, np.int32),
+            "i": np.asarray([items[-1]], np.int32),
+        }
+
+    if cate_list is None:
+        raise ValueError("tlsan needs cate_list")
 
     pre_i, pre_t, new_i, _ = _split_sessions(events)
     Ls, Ts = cfg.Ls, cfg.Ts

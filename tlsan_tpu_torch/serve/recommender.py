@@ -2,7 +2,8 @@
 
 Ported from tlsan_tpu/serve/recommender.py.  A `Recommender` holds the
 model on its device and serves fixed-size request batches: the user tower
-(two feature-wise attention kernels on CUDA), a [B, D] × [D, V] scoring
+(on CUDA, TLSAN's two feature-wise attention kernels or ATRank's two
+multi-head attention kernels a block), a [B, D] × [D, V] scoring
 product in full f32, the catalog-padding and history masks, and
 ``torch.topk``.  It runs on CUDA unless the caller asks for the CPU; with
 no GPU and no explicit ``device="cpu"`` it raises.

@@ -1,9 +1,11 @@
-"""The weights bridge between the JAX parameter tree and the port's TLSAN.
+"""The weights bridge between a JAX parameter tree and the port's models.
 
-The JAX tree (as numpy arrays) is ``{"gamma", "item_emb", "item_b",
-"user_emb", "usert_emb", "cate_emb", "long": [{w1, b1, w2, b2, proj_w,
-proj_b}, ...], "short": [{w1, b1, w2, b2}, ...]}``; the port's parameters
-keep those names and layouts, so the copy is exact both ways, and gradients
+A JAX tree (as numpy arrays) nests dicts and lists: TLSAN's is ``{"gamma",
+"item_emb", ..., "long": [{w1, b1, w2, b2, proj_w, proj_b}, ...], "short":
+[...]}``, ATRank's ``{"item_emb", ..., "self_blocks": [{"attn": {wq, ...},
+"ffn": {w1, ...}}, ...], "vanilla_blocks": [...]}``.  The port's parameters
+keep those names and layouts, the path joined by dots (``long.0.w1``,
+``self_blocks.0.attn.wq``), so the copy is exact both ways, and gradients
 come out in the same layout.
 """
 
@@ -13,27 +15,30 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
 from tlsan_tpu_torch.core.config import ModelConfig
-from tlsan_tpu_torch.models.tlsan import TLSAN
+from tlsan_tpu_torch.models import get_model
 
 
-def _flatten(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: np.asarray(tree)}
     flat = {}
-    for key, value in tree.items():
-        if isinstance(value, (list, tuple)):
-            for i, blk in enumerate(value):
-                for name, arr in blk.items():
-                    flat[f"{key}.{i}.{name}"] = np.asarray(arr)
-        else:
-            flat[key] = np.asarray(value)
+    for key, value in items:
+        flat.update(_flatten(value, f"{prefix}{key}."))
     return flat
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      device) -> TLSAN:
-    """A TLSAN on `device` holding the values of the JAX tree `tree`."""
-    model = TLSAN(cfg, device)
+                      device) -> nn.Module:
+    """A `get_model(cfg.model)` model on `device` holding the values of the
+    JAX tree `tree`."""
+    model = get_model(cfg.model)(cfg, device)
     flat = _flatten(tree)
     state = model.state_dict()
     if set(flat) != set(state):
@@ -51,27 +56,33 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """Dotted names back to nested dicts; a dict whose keys are all
+    integers becomes a list."""
     tree: Dict[str, Any] = {}
     for name, arr in flat.items():
-        parts = name.split(".")
-        if len(parts) == 1:
-            tree[name] = arr
-            continue
-        group, i, leaf = parts[0], int(parts[1]), parts[2]
-        blocks = tree.setdefault(group, [])
-        while len(blocks) <= i:
-            blocks.append({})
-        blocks[i][leaf] = arr
-    return tree
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [listify(node[str(i)]) for i in range(len(node))]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(tree)
 
 
-def params_to_numpy(model: TLSAN) -> Dict[str, Any]:
+def params_to_numpy(model: nn.Module) -> Dict[str, Any]:
     """The JAX-shaped tree of numpy arrays holding `model`'s values."""
     return _unflatten({k: v.detach().cpu().numpy()
                        for k, v in model.state_dict().items()})
 
 
-def grads_to_numpy(model: TLSAN) -> Dict[str, Any]:
+def grads_to_numpy(model: nn.Module) -> Dict[str, Any]:
     """The JAX-shaped tree of numpy arrays holding `model`'s gradients
     (`.grad`; zeros where a parameter has none), so gradient leaves compare
     by name with a JAX grad tree."""

@@ -9,8 +9,9 @@ best_after_step, AUC-gated checkpointing, and the lr step schedule.
   - The packed train set lives on the device; each chunk gathers its
     [K, B, ...] batches by an `epoch_index` chunk and runs K optimizer steps
     as a plain Python loop (the JAX lax.scan).  Each step is a forward, a
-    backward through autograd — on CUDA the feature-wise attention runs K1
-    forward and K2 backward — and the clipped SGD update in place.
+    backward through autograd — on CUDA TLSAN's feature-wise attention runs
+    K1 forward and K2 backward, ATRank's multi-head attention K3 forward —
+    and the clipped SGD update in place.
   - Loss and histogram records are deferred: they stay device tensors until
     an eval or epoch boundary, so the host does not wait on the card between
     chunks.
@@ -40,14 +41,28 @@ from tlsan_tpu_torch.train.evaluate import Evaluator
 from tlsan_tpu_torch.train.metrics import MetricWriter
 from tlsan_tpu_torch.train.state import OptState, make_optimizer
 
-# parameter → tag of the reference's TLSAN train summaries
-# (TLSAN/model.py:173-183), in the JAX package's order; the attention
-# output of the chunk's last batch follows them
-_SUMMARY_TAGS = {"item_emb": "embedding/1_item_emb",
-                 "user_emb": "embedding/2_user_emb",
-                 "cate_emb": "embedding/3_cate_emb",
-                 "usert_emb": "embedding/4_usert_emb",
-                 "item_b": "embedding/item_b", "gamma": "gamma"}
+# the tables a train summary digests, when the model has them, in the JAX
+# package's order (tlsan_tpu/train/loop.py:439-461); TLSAN's carry the
+# reference's tags (TLSAN/model.py:173-183), the others embedding/<name>
+_SUMMARY_TABLES = ("item_emb", "user_emb", "cate_emb", "usert_emb", "item_b",
+                   "short_w", "long_w", "position_w")
+_TLSAN_TAGS = {"item_emb": "embedding/1_item_emb",
+               "user_emb": "embedding/2_user_emb",
+               "cate_emb": "embedding/3_cate_emb",
+               "usert_emb": "embedding/4_usert_emb"}
+
+
+def _summary_params(model):
+    """(tag, parameter) pairs of a train summary, as the JAX Trainer picks
+    them: the tables present, then gamma where it exists; the attention
+    output of the chunk's last batch (tag ``attention_output``) follows."""
+    params = dict(model.named_parameters())
+    tags = [(_TLSAN_TAGS.get(n, f"embedding/{n}") if model.name == "tlsan"
+             else f"embedding/{n}", params[n])
+            for n in _SUMMARY_TABLES if n in params]
+    if "gamma" in params:
+        tags.append(("gamma", params["gamma"]))
+    return tags
 
 
 def _check_supported(tc: TrainConfig) -> None:
@@ -68,8 +83,8 @@ class Trainer:
     def __init__(self, model, cfg: ModelConfig, tc: TrainConfig,
                  cate_list: np.ndarray, train_batches: Batches,
                  test_batches: Batches, device=None):
-        """`model` is the model class (``TLSAN``).  Restores the newest
-        checkpoint under ``tc.model_dir`` if there is one (after the
+        """`model` is the model class (``TLSAN`` or ``ATRank``).  Restores
+        the newest checkpoint under ``tc.model_dir`` if there is one (after the
         `from_scratch` wipe), else draws the initial weights from
         ``torch.Generator().manual_seed(tc.seed)`` — on the CPU, so every
         device starts from the same weights."""
@@ -110,7 +125,8 @@ class Trainer:
         self.evaluator = Evaluator(cfg, self.cate_list, test_batches,
                                    tc.test_batch_size, self.device)
         self.writer = MetricWriter(tc.model_dir)
-        self._summary_tags = [*_SUMMARY_TAGS.values(), "attention_output"]
+        self._summary_tags = [tag for tag, _ in _summary_params(self.model)]
+        self._summary_tags.append("attention_output")
         self._limits = None
         if tc.tb_histograms:
             self._limits = torch.tensor(tb.tf_bucket_limits(),
@@ -155,13 +171,16 @@ class Trainer:
     def _summaries(self, batch_idx: torch.Tensor):
         """Histogram digests of the reference's train-summary set
         (TLSAN/model.py:173-183): the vocab tables, gamma, the attention
-        output of `batch_idx`'s batch, and the L2_norm_user_item scalar.
-        Returns device tensors ([n_tags, 5 + buckets], l2)."""
+        output of `batch_idx`'s batch, and the L2_norm_user_item scalar of
+        the full tables (0 for a model that has none).  Returns device
+        tensors ([n_tags, 5 + buckets], l2)."""
         model = self.model
-        rows = [self._digest(getattr(model, n)) for n in _SUMMARY_TAGS]
+        rows = [self._digest(p) for _, p in _summary_params(model)]
         batch = {k: v[batch_idx] for k, v in self.train_data.items()}
         rows.append(self._digest(model.user_repr(batch, self.cate_list)))
-        l2 = base.l2_tables(*(getattr(model, n) for n in model.l2_full_tables))
+        l2 = torch.zeros((), device=self.device)
+        for n in model.l2_full_tables:
+            l2 = l2 + base.l2_tables(getattr(model, n))
         return torch.stack(rows), l2
 
     # ------------------------------------------------------------------
