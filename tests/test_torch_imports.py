@@ -45,5 +45,7 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "train.loop", "train.state", "train.evaluate",
                  "train.metrics", "train.tensorboard", "nn.layers",
                  "data.batcher", "ops.multihead_attention", "ops.cuda.mha",
-                 "models.atrank"):
+                 "models.atrank", "parallel.mesh", "parallel.multihost",
+                 "parallel.api", "parallel.sharded_embedding",
+                 "parallel.topk", "parallel.programs"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

@@ -405,12 +405,16 @@ def test_checkpoint_round_trip_keeps_opt_state(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     train, test, cate_list = synthetic(n=64)
-    for over in (dict(dp=2), dict(sparse_updates=True),
-                 dict(compute_dtype="bfloat16")):
+    for over in (dict(sparse_updates=True), dict(compute_dtype="bfloat16")):
         tc, _ = _tiny_configs(str(tmp_path / "x"), **over)
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Trainer(TLSAN, ModelConfig(**CFG), tc, cate_list, train, test,
                     device="cpu")
+    # the mesh is ported (tests/test_torch_mesh.py), and needs its world
+    tc, _ = _tiny_configs(str(tmp_path / "x"), dp=2)
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        Trainer(TLSAN, ModelConfig(**CFG), tc, cate_list, train, test,
+                device="cpu")
     if not torch.cuda.is_available():  # the default device is cuda
         tc, _ = _tiny_configs(str(tmp_path / "y"))
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -36,8 +36,9 @@ from torch import nn
 from tlsan_tpu_torch.core.config import ModelConfig
 from tlsan_tpu_torch.models import base
 from tlsan_tpu_torch.nn.embedding import (
+    ItemCate,
     item_cate_lookup,
-    item_cate_table,
+    item_cate_rows,
     lookup,
 )
 from tlsan_tpu_torch.nn.init import glorot_uniform
@@ -129,16 +130,20 @@ class ATRank(nn.Module):
         return self
 
     # ------------------------------------------------------------------ fwd
-    # Every item embedding of a forward is a row of one item⊕cate table
-    # (`all_item_repr`), built once and shared by the history, query and
-    # catalog gathers.
+    # Every item embedding of a forward comes from one `ItemCate`: on one
+    # device rows of one item⊕cate table, built once and shared by the
+    # history, query and catalog gathers; under a vocab-sharded mesh the
+    # per-site sharded lookups.
 
-    def _encode_history(self, batch: Batch, items,
+    def _items(self, cate_list) -> ItemCate:
+        return ItemCate(self.item_emb, self.cate_emb, cate_list)
+
+    def _encode_history(self, batch: Batch, items: ItemCate,
                         generator: Optional[torch.Generator]) -> torch.Tensor:
         """Query-independent self-attention encoding of the history; the
         readout conditions on a candidate item, so pair eval encodes once."""
         cfg = self.cfg
-        h = lookup(items, batch["hist_i"])
+        h = items(batch["hist_i"])
         if cfg.concat_time_emb:
             onehot = _one_hot(batch["hist_t"], N_TIME_BUCKETS, h.dtype)
             h = dense(torch.cat([h, onehot], dim=-1), self.time_w, self.time_b)
@@ -153,13 +158,13 @@ class ATRank(nn.Module):
             enc = feedforward(enc, blk["ffn"])
         return enc
 
-    def _readout(self, enc, query_items, batch: Batch, items,
+    def _readout(self, enc, query_items, batch: Batch, items: ItemCate,
                  generator: Optional[torch.Generator]) -> torch.Tensor:
         """1-query vanilla attention of the candidate item over the encoded
         history (ATRank/model.py:310-328)."""
         cfg = self.cfg
         sl = batch["sl"]
-        dec = lookup(items, query_items)[:, None, :]
+        dec = items(query_items)[:, None, :]
         ones = torch.ones_like(sl)
         for blk in self.vanilla_blocks:
             dec = multihead_attention(dec, ones, enc, sl, cfg.num_heads,
@@ -167,7 +172,7 @@ class ATRank(nn.Module):
             dec = feedforward(dec, blk["ffn"])
         return dec[:, 0, :]
 
-    def _user_repr(self, batch: Batch, items,
+    def _user_repr(self, batch: Batch, items: ItemCate,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`generator` draws the train-time dropout masks of every
         attention, one after the other; dropout is off without it or at
@@ -178,34 +183,36 @@ class ATRank(nn.Module):
         return self._readout(enc, batch["i"], batch, items, generator)
 
     def user_repr(self, batch: Batch, cate_list) -> torch.Tensor:
-        return self._user_repr(batch, self.all_item_repr(cate_list)[0])
+        return self._user_repr(batch, self._items(cate_list))
 
     def item_repr(self, ids, cate_list):
         return (item_cate_lookup(self.item_emb, self.cate_emb, ids, cate_list),
                 lookup(self.item_b, ids))
 
     def all_item_repr(self, cate_list):
-        """(item⊕cate table [I, Di+Dc], item biases [I])."""
-        return item_cate_table(self.item_emb, self.cate_emb, cate_list), self.item_b
+        """(item⊕cate table [I, Di+Dc], item biases [I]); under a
+        vocab-sharded mesh this rank's rows of both."""
+        return item_cate_rows(self.item_emb, self.cate_emb, cate_list), self.item_b
 
     def pair_logits(self, batch: Batch, cate_list):
         """(pos, neg) logits for the AUC pair: the history encoded once,
         then one readout per query item (the reference recomputes the
         encoder in two sess.runs, ATRank/model.py:253-282)."""
-        items, item_b = self.all_item_repr(cate_list)
+        items = self._items(cate_list)
         enc = self._encode_history(batch, items, None)
         return tuple(
             base.pointwise_logits(self._readout(enc, batch[key], batch, items, None),
-                                  lookup(items, batch[key]),
-                                  lookup(item_b, batch[key]))
+                                  items(batch[key]),
+                                  lookup(self.item_b, batch[key]))
             for key in ("i", "j"))
 
     def eval_logits(self, batch: Batch, cate_list) -> torch.Tensor:
         """Full-catalog scores [B, I] with the representation conditioned on
-        batch["i"] (ATRank/model.py:100-104)."""
-        items, item_b = self.all_item_repr(cate_list)
-        return base.full_catalog_logits(self._user_repr(batch, items), items,
-                                        item_b)
+        batch["i"] (ATRank/model.py:100-104), on one device or a dp-only
+        mesh; a vocab-sharded mesh scores through parallel/topk.py."""
+        items = self._items(cate_list)
+        return base.full_catalog_logits(self._user_repr(batch, items),
+                                        items.table, self.item_b)
 
     # ----------------------------------------------------------------- loss
 
@@ -214,11 +221,12 @@ class ATRank(nn.Module):
         """Sigmoid cross-entropy of the (i, y) examples plus the batch-level
         L2 of the user output and the item embedding (ATRank/model.py:130-133),
         over valid rows when the batch has a `valid` mask; `generator`
-        draws the train-time dropout masks."""
-        items, item_b = self.all_item_repr(cate_list)
+        draws the train-time dropout masks.  Under a mesh, the global
+        batch's loss: the L2 of batch rows sums over dp (models/base.py)."""
+        items = self._items(cate_list)
         u = self._user_repr(batch, items, generator)
-        i_emb = lookup(items, batch["i"])
-        logits = base.pointwise_logits(u, i_emb, lookup(item_b, batch["i"]))
+        i_emb = items(batch["i"])
+        logits = base.pointwise_logits(u, i_emb, lookup(self.item_b, batch["i"]))
         valid = batch.get("valid")
         if valid is None:
             l2 = base.l2_tables(u, i_emb)
@@ -227,4 +235,4 @@ class ATRank(nn.Module):
             l2 = 0.5 * (torch.sum(torch.square(u) * v)
                         + torch.sum(torch.square(i_emb) * v))
         return (base.sigmoid_ce_loss(logits, batch["y"], valid)
-                + self.cfg.regulation_rate * l2)
+                + self.cfg.regulation_rate * base.sum_over_batch(l2))

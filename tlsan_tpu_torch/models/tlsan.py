@@ -34,8 +34,9 @@ from torch import nn
 from tlsan_tpu_torch.core.config import ModelConfig
 from tlsan_tpu_torch.models import base
 from tlsan_tpu_torch.nn.embedding import (
+    ItemCate,
     item_cate_lookup,
-    item_cate_table,
+    item_cate_rows,
     lookup,
 )
 from tlsan_tpu_torch.nn.init import glorot_uniform
@@ -110,17 +111,21 @@ class TLSAN(nn.Module):
         return self
 
     # ------------------------------------------------------------------ fwd
-    # Every item embedding of a forward is a row of one item⊕cate table
-    # (`all_item_repr`), built once and shared by the history gathers and
-    # the catalog product.
+    # Every item embedding of a forward comes from one `ItemCate`: on one
+    # device rows of one item⊕cate table, built once and shared by the
+    # history gathers and the catalog product; under a vocab-sharded mesh
+    # the per-site sharded lookups.
 
-    def _long_input(self, batch: Batch, items):
+    def _items(self, cate_list) -> ItemCate:
+        return ItemCate(self.item_emb, self.cate_emb, cate_list)
+
+    def _long_input(self, batch: Batch, items: ItemCate):
         """History embeddings scaled by the personalized time weights
         gamma·usert_emb[u]·hist_t (TLSAN/model.py:98-109)."""
         ut = lookup(self.usert_emb, batch["u"]) * batch["hist_t"]  # [B, Ls]
-        return lookup(items, batch["hist_i"]) * (self.gamma * ut)[..., None]
+        return items(batch["hist_i"]) * (self.gamma * ut)[..., None]
 
-    def _user_repr(self, batch: Batch, items,
+    def _user_repr(self, batch: Batch, items: ItemCate,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`generator` draws the train-time dropout masks of both towers,
         one draw after the other (the JAX package splits its key per tower,
@@ -131,7 +136,7 @@ class TLSAN(nn.Module):
             generator = None
         u_emb = torch.cat([lookup(self.user_emb, batch["u"]),
                            lookup(self.cate_emb, batch["c"])], dim=-1)
-        h_new = lookup(items, batch["hist_i_new"])
+        h_new = items(batch["hist_i_new"])
 
         # long-term tower (TLSAN/model.py:330-347)
         enc = self._long_input(batch, items)
@@ -154,7 +159,7 @@ class TLSAN(nn.Module):
         return out + u_emb  # (TLSAN/model.py:135)
 
     def user_repr(self, batch: Batch, cate_list) -> torch.Tensor:
-        return self._user_repr(batch, self.all_item_repr(cate_list)[0])
+        return self._user_repr(batch, self._items(cate_list))
 
     def attention_maps(self, batch: Batch, cate_list
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,7 +167,7 @@ class TLSAN(nn.Module):
         plain version as in the JAX package (TLSAN/model.py:122,366).
         Shapes: att0 [B, Ls, H, dh], att1 [B, Ts+1, H, dh]."""
         cfg = self.cfg
-        items = self.all_item_repr(cate_list)[0]
+        items = self._items(cate_list)
         att0 = att1 = None
         enc = self._long_input(batch, items)
         for blk in self.long:
@@ -170,7 +175,7 @@ class TLSAN(nn.Module):
                 enc, batch["sl"], cfg.num_heads,
                 blk["w1"], blk["b1"], blk["w2"], blk["b2"], return_soft=True)
             enc = (enc @ blk["proj_w"] + blk["proj_b"])[:, None, :]
-        enc = torch.cat([enc, lookup(items, batch["hist_i_new"])], dim=1)
+        enc = torch.cat([enc, items(batch["hist_i_new"])], dim=1)
         for blk in self.short:
             _, att1 = feature_wise_attention_reference(
                 enc, batch["sl_new"] + 1, cfg.num_heads,
@@ -182,23 +187,26 @@ class TLSAN(nn.Module):
                 lookup(self.item_b, ids))
 
     def all_item_repr(self, cate_list):
-        """(item⊕cate table [I, Di+Dc], item biases [I])."""
-        return item_cate_table(self.item_emb, self.cate_emb, cate_list), self.item_b
+        """(item⊕cate table [I, Di+Dc], item biases [I]); under a
+        vocab-sharded mesh this rank's rows of both."""
+        return item_cate_rows(self.item_emb, self.cate_emb, cate_list), self.item_b
 
     def pair_logits(self, batch: Batch, cate_list):
         """(pos, neg) logits for the AUC pair from one user forward
         (TLSAN/model.py:239-261)."""
-        items, item_b = self.all_item_repr(cate_list)
+        items = self._items(cate_list)
         u_t = self._user_repr(batch, items)
-        return tuple(base.pointwise_logits(u_t, lookup(items, batch[key]),
-                                           lookup(item_b, batch[key]))
+        return tuple(base.pointwise_logits(u_t, items(batch[key]),
+                                           lookup(self.item_b, batch[key]))
                      for key in ("i", "j"))
 
     def eval_logits(self, batch: Batch, cate_list) -> torch.Tensor:
-        """Full-catalog scores [B, I] (TLSAN/model.py:140)."""
-        items, item_b = self.all_item_repr(cate_list)
-        return base.full_catalog_logits(self._user_repr(batch, items), items,
-                                        item_b)
+        """Full-catalog scores [B, I] (TLSAN/model.py:140), on one device
+        or a dp-only mesh; a vocab-sharded mesh scores through
+        parallel/topk.py."""
+        items = self._items(cate_list)
+        return base.full_catalog_logits(self._user_repr(batch, items),
+                                        items.table, self.item_b)
 
     # ----------------------------------------------------------------- loss
 
@@ -206,11 +214,12 @@ class TLSAN(nn.Module):
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Sigmoid cross-entropy of the (i, y) examples plus the L2 of the
         four full tables (TLSAN/model.py:160-171); `generator` draws the
-        train-time dropout masks."""
-        items, item_b = self.all_item_repr(cate_list)
+        train-time dropout masks.  Under a mesh, the global batch's loss
+        (models/base.py)."""
+        items = self._items(cate_list)
         u_t = self._user_repr(batch, items, generator)
-        logits = base.pointwise_logits(u_t, lookup(items, batch["i"]),
-                                       lookup(item_b, batch["i"]))
-        l2 = base.l2_tables(*(getattr(self, n) for n in self.l2_full_tables))
+        logits = base.pointwise_logits(u_t, items(batch["i"]),
+                                       lookup(self.item_b, batch["i"]))
+        l2 = base.l2_full_tables(*(getattr(self, n) for n in self.l2_full_tables))
         return (base.sigmoid_ce_loss(logits, batch["y"], batch.get("valid"))
                 + self.cfg.regulation_rate * l2)

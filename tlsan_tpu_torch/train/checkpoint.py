@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,14 +26,19 @@ LATEST = "latest"
 BEST = "best"
 
 
-def save(model_dir: str, name: str, step: int, params: nn.Module,
+def save(model_dir: str, name: str, step: int,
+         params: Union[nn.Module, Mapping[str, torch.Tensor]],
          opt_state: Any, *configs: Any, best: bool = False) -> str:
     """Write `<name>-<step>.ckpt` + `<name>-<step>.json` sidecar and update
-    the latest-pointer.  `best=True` additionally updates the best-pointer,
-    which the unconditional final-epoch save never touches."""
+    the latest-pointer.  `params` is a model or its state dict (a mesh
+    saves the gathered, unpadded one).  `best=True` additionally updates
+    the best-pointer, which the unconditional final-epoch save never
+    touches."""
     os.makedirs(model_dir, exist_ok=True)
     stem = os.path.join(model_dir, f"{name}-{step}")
-    state = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    state = {k: v.detach().cpu() for k, v in params.items()}
     payload = {"step": step, "params": state, "opt_state": opt_state}
     torch.save(payload, stem + ".ckpt")
     if configs:

@@ -17,9 +17,21 @@ best_after_step, AUC-gated checkpointing, and the lr step schedule.
     chunks.
 
 It runs on CUDA unless the caller passes ``device="cpu"``; with no GPU and
-no explicit CPU it raises.  Not ported (each raises, or is absent):
-the (dp, mp) mesh and multi-host runs (ROADMAP.md queue 1, item 21), sparse
-updates (item 18), bf16 (item 19), `profile_trace` (item 26).
+no explicit CPU it raises.
+
+With ``tc.dp · tc.mp > 1`` it is one rank of a (dp, mp) mesh (ported from
+tlsan_tpu/train/loop.py:69-144, :195-276, :439-474, :517-533): every rank
+of an initialized process group of dp·mp ranks builds its Trainer, in the
+same order, on its own `device`.  The weights are drawn (or restored) at
+the true vocab sizes on the CPU, zero-padded to a multiple of mp and cut
+to the rank's rows (parallel/api.py); each step runs on the rank's dp
+share of the global batch, and its loss is the global batch's; summaries
+and metrics are those of the whole model and test set; rank 0 alone writes
+metrics and checkpoints, in the unpadded form, so a save restores under
+any (dp, mp).
+
+Not ported (each raises, or is absent): sparse updates (ROADMAP.md queue
+1, item 18), bf16 (item 19), `profile_trace` (item 26).
 """
 
 from __future__ import annotations
@@ -30,10 +42,19 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index
 from tlsan_tpu_torch.models import base
+from tlsan_tpu_torch.nn.embedding import mesh_context
+from tlsan_tpu_torch.parallel import api
+from tlsan_tpu_torch.parallel.mesh import (
+    all_reduce,
+    barrier,
+    is_vocab_sharded,
+    make_mesh,
+)
 from tlsan_tpu_torch.serve.recommender import resolve_device
 from tlsan_tpu_torch.train import checkpoint as ckpt
 from tlsan_tpu_torch.train import tensorboard as tb
@@ -53,22 +74,32 @@ _TLSAN_TAGS = {"item_emb": "embedding/1_item_emb",
 
 
 def _summary_params(model):
-    """(tag, parameter) pairs of a train summary, as the JAX Trainer picks
+    """(name, tag, parameter) of a train summary, as the JAX Trainer picks
     them: the tables present, then gamma where it exists; the attention
     output of the chunk's last batch (tag ``attention_output``) follows."""
     params = dict(model.named_parameters())
-    tags = [(_TLSAN_TAGS.get(n, f"embedding/{n}") if model.name == "tlsan"
+    tags = [(n, _TLSAN_TAGS.get(n, f"embedding/{n}") if model.name == "tlsan"
              else f"embedding/{n}", params[n])
             for n in _SUMMARY_TABLES if n in params]
     if "gamma" in params:
-        tags.append(("gamma", params["gamma"]))
+        tags.append(("gamma", "gamma", params["gamma"]))
     return tags
 
 
+class _NullWriter:
+    """Ranks other than 0: metrics and checkpoints are rank 0's to write."""
+
+    def write(self, *a, **k):
+        pass
+
+    def write_histograms(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 def _check_supported(tc: TrainConfig) -> None:
-    if tc.dp * tc.mp > 1:
-        raise NotImplementedError(
-            "the (dp, mp) mesh is not ported yet (ROADMAP.md queue 1, item 21)")
     if tc.sparse_updates:
         raise NotImplementedError(
             "sparse updates are not ported yet (ROADMAP.md queue 1, item 18); "
@@ -87,13 +118,25 @@ class Trainer:
         the newest checkpoint under ``tc.model_dir`` if there is one (after the
         `from_scratch` wipe), else draws the initial weights from
         ``torch.Generator().manual_seed(tc.seed)`` — on the CPU, so every
-        device starts from the same weights."""
+        device, and every mesh, starts from the same weights."""
         _check_supported(tc)
         self.device = resolve_device(device)
         # float32 matrix products in full f32 (TF32 off), as the JAX package
         # pins precision='highest'
         torch.set_float32_matmul_precision("highest")
         self.tc = tc
+        self._cfg_true = dataclasses.replace(cfg, catalog_items=0)
+        self._counts_true = api.counts(cfg)
+        self.mesh = None
+        if tc.dp * tc.mp > 1:
+            self.mesh = make_mesh(tc.dp, tc.mp, self.device)
+            for name in ("train_batch_size", "test_batch_size"):
+                if getattr(tc, name) % tc.dp:
+                    raise ValueError(f"{name} {getattr(tc, name)} must divide "
+                                     f"evenly over dp={tc.dp}")
+            cfg = api.pad_config_for_mp(cfg, tc.mp)
+            cate_list = api.pad_cate_list(cate_list, cfg)
+        self.is_chief = self.mesh is None or self.mesh.rank == 0
         self.cfg = cfg
         self.opt = make_optimizer(tc)
         self.cate_list = torch.from_numpy(
@@ -102,12 +145,16 @@ class Trainer:
                            for k, v in train_batches.arrays.items()}
         self.n_train = train_batches.n
 
-        # restore-or-init (reference: TLSAN/train.py:59-84)
-        ckpt.maybe_wipe(tc.model_dir, tc.from_scratch)
-        self._cfg_true = dataclasses.replace(cfg, catalog_items=0)
-        self.model = model(cfg, self.device).init_params(
+        # restore-or-init (reference: TLSAN/train.py:59-84), at the true
+        # vocab sizes; a mesh then pads and shards
+        if self.is_chief:
+            ckpt.maybe_wipe(tc.model_dir, tc.from_scratch)
+        if self.mesh is not None:  # no rank restores before rank 0 wipes
+            barrier(self.mesh)
+        # a mesh draws at the true sizes on the CPU, then pads and shards
+        self.model = (model(cfg, self.device) if self.mesh is None
+                      else model(self._cfg_true, "cpu")).init_params(
             torch.Generator().manual_seed(tc.seed))
-        self.params = list(self.model.parameters())
         self.opt_state = self.opt.init()
         self.step = 0
         latest = ckpt.latest_checkpoint(tc.model_dir)
@@ -116,16 +163,23 @@ class Trainer:
             # a serving-only save has no optimizer state: SGD's count is the step
             self.opt_state = OptState(
                 self.step if opt_state is None else int(opt_state["count"]))
-            print(f"restored from {latest} at step {self.step}", flush=True)
+            if self.is_chief:
+                print(f"restored from {latest} at step {self.step}", flush=True)
+        self._sharded = []
+        if self.mesh is not None:
+            self.model = api.shard_model(self.model, self.mesh, self.device)
+            self._sharded = [tc.mp > 1 and is_vocab_sharded(n)
+                             for n, _ in self.model.named_parameters()]
+        self.params = list(self.model.parameters())
 
         self._dropout_gen = None
         if cfg.dropout > 0.0:
             self._dropout_gen = torch.Generator(
                 device=self.device).manual_seed(tc.seed + 1)
         self.evaluator = Evaluator(cfg, self.cate_list, test_batches,
-                                   tc.test_batch_size, self.device)
-        self.writer = MetricWriter(tc.model_dir)
-        self._summary_tags = [tag for tag, _ in _summary_params(self.model)]
+                                   tc.test_batch_size, self.device, self.mesh)
+        self.writer = MetricWriter(tc.model_dir) if self.is_chief else _NullWriter()
+        self._summary_tags = [tag for _, tag, _ in _summary_params(self.model)]
         self._summary_tags.append("attention_output")
         self._limits = None
         if tc.tb_histograms:
@@ -139,16 +193,26 @@ class Trainer:
             p.grad = None
         loss = self.model.loss(batch, self.cate_list, self._dropout_gen)
         loss.backward()
-        self.opt_state = self.opt.step(self.params, self.opt_state)
+        self.opt_state = self.opt.step(self.params, self.opt_state,
+                                       self.mesh, self._sharded)
         return loss.detach()
 
+    def _local(self, idx: torch.Tensor) -> torch.Tensor:
+        """This rank's columns of a [..., B] global batch-index tensor."""
+        if self.mesh is None:
+            return idx
+        return api.shard_batch({"idx": idx}, self.mesh, axis=idx.dim() - 1)["idx"]
+
     def _train_chunk(self, idx: torch.Tensor) -> torch.Tensor:
-        """K optimizer steps on the [K, B] index chunk `idx` (a device
-        tensor); returns the K losses, on the device."""
+        """K optimizer steps on the [K, B] global index chunk `idx` (a
+        device tensor), on this rank's rows of each batch; returns the K
+        losses of the global batches, on the device."""
         # one gather per array for the whole chunk; each step slices it
-        xs = {k: v[idx] for k, v in self.train_data.items()}
-        return torch.stack([self._train_step({k: v[s] for k, v in xs.items()})
-                            for s in range(idx.shape[0])])
+        xs = {k: v[self._local(idx)] for k, v in self.train_data.items()}
+        with mesh_context(self.mesh):
+            return torch.stack([
+                self._train_step({k: v[s] for k, v in xs.items()})
+                for s in range(idx.shape[0])])
 
     def _epoch_index(self, epoch: int) -> np.ndarray:
         """Shuffled [n_chunks, K, B] batch-index tensor (data/batcher.py
@@ -156,31 +220,58 @@ class Trainer:
         return epoch_index(self.n_train, self.tc.train_batch_size,
                            self.tc.steps_per_call, epoch, self.tc.seed)
 
-    def _digest(self, x: torch.Tensor) -> torch.Tensor:
+    def _digest(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """One packed histogram row (min, max, num, sum, sumsq, counts over
-        the TF bucket grid), computed on the device."""
+        the TF bucket grid), computed on the device; with a `group`, of the
+        union of its ranks' `x` (min and max reduced, the rest summed)."""
         x = x.detach().float().reshape(-1)
         s = torch.sort(x).values
         cum = torch.searchsorted(s, self._limits, right=True)
         counts = torch.cat([cum[:1], cum[1:] - cum[:-1]]).float()
         num = torch.full((), float(x.numel()), device=x.device)
-        head = torch.stack([s[0], s[-1], num, torch.sum(x), torch.sum(x * x)])
+        lo, hi = (s[0], s[-1]) if len(s) else (x.new_tensor(torch.inf),
+                                               x.new_tensor(-torch.inf))
+        if group is not None:
+            lo = all_reduce(lo, group, dist.ReduceOp.MIN)
+            hi = all_reduce(hi, group, dist.ReduceOp.MAX)
+            num, total, sq, counts = all_reduce(
+                torch.cat([torch.stack([num, torch.sum(x), torch.sum(x * x)]),
+                           counts]), group).split([1, 1, 1, len(counts)])
+            return torch.cat([torch.stack([lo, hi]), num, total, sq, counts])
+        head = torch.stack([lo, hi, num, torch.sum(x), torch.sum(x * x)])
         return torch.cat([head, counts])
+
+    def _true_rows(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """This rank's shard `p` of table `name` without the mp padding
+        rows it holds."""
+        true_n = api.vocab_rows(self._counts_true)[name]
+        return p[:max(0, min(p.shape[0], true_n - self.mesh.m * p.shape[0]))]
 
     @torch.no_grad()
     def _summaries(self, batch_idx: torch.Tensor):
         """Histogram digests of the reference's train-summary set
         (TLSAN/model.py:173-183): the vocab tables, gamma, the attention
         output of `batch_idx`'s batch, and the L2_norm_user_item scalar of
-        the full tables (0 for a model that has none).  Returns device
-        tensors ([n_tags, 5 + buckets], l2)."""
-        model = self.model
-        rows = [self._digest(p) for _, p in _summary_params(model)]
-        batch = {k: v[batch_idx] for k, v in self.train_data.items()}
-        rows.append(self._digest(model.user_repr(batch, self.cate_list)))
+        the full tables (0 for a model that has none).  Under a mesh, those
+        of the whole tables (without their padding rows) and of the whole
+        batch.  Returns device tensors ([n_tags, 5 + buckets], l2)."""
+        model, mesh = self.model, self.mesh
+        sharded = mesh is not None and self.tc.mp > 1
+        rows = []
+        for name, _, p in _summary_params(model):
+            if sharded and is_vocab_sharded(name):
+                rows.append(self._digest(self._true_rows(name, p), mesh.mp_group))
+            else:
+                rows.append(self._digest(p))
+        batch = {k: v[self._local(batch_idx)] for k, v in self.train_data.items()}
+        with mesh_context(mesh):
+            u = model.user_repr(batch, self.cate_list)
+        rows.append(self._digest(u, None if mesh is None else mesh.dp_group))
         l2 = torch.zeros((), device=self.device)
         for n in model.l2_full_tables:
             l2 = l2 + base.l2_tables(getattr(model, n))
+        if sharded:
+            l2 = all_reduce(l2, mesh.mp_group)
         return torch.stack(rows), l2
 
     # ------------------------------------------------------------------
@@ -191,9 +282,17 @@ class Trainer:
         return metrics
 
     def _save(self, best: bool = False) -> None:
-        ckpt.save(self.tc.model_dir, self.model.name, self.step, self.model,
-                  {"count": self.opt_state.count}, self._cfg_true, self.tc,
-                  best=best)
+        """Under a mesh every rank joins the gather of the whole, unpadded
+        state, rank 0 writes it, and every rank waits for the write."""
+        state = self.model
+        if self.mesh is not None:
+            state = api.gather_state(self.model, self.mesh, self._counts_true)
+        if self.is_chief:
+            ckpt.save(self.tc.model_dir, self.model.name, self.step, state,
+                      {"count": self.opt_state.count}, self._cfg_true, self.tc,
+                      best=best)
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def train(self) -> Dict[str, float]:
         tc = self.tc

@@ -12,6 +12,12 @@ scheduler counts epochs or steps its own way.  So here:
     when g_norm < max, else g / g_norm · max;
   - the update is p ← p + (−lr)·g, a product and then a sum, as optax does.
 
+Under a (dp, mp) mesh each rank's gradients are its dp share of the
+global ones (models/base.py), so `step` first sums them over the dp group,
+as one flattened buffer a step; the global norm then counts a replicated
+gradient once and sums a vocab table's row shards over mp; the clip and
+the update follow as on one device.
+
 Only SGD, the TLSAN default, is ported; adam, adadelta and rmsprop raise
 (ROADMAP.md queue 1, item 24).
 """
@@ -19,12 +25,14 @@ Only SGD, the TLSAN default, is ported; adam, adadelta and rmsprop raise
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tlsan_tpu_torch.core.config import TrainConfig
+from tlsan_tpu_torch.parallel.mesh import Mesh, all_reduce
 
 
 def lr_schedule(tc: TrainConfig) -> Callable[[int], float]:
@@ -44,11 +52,38 @@ def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(g * g) for g in grads))
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
-    """optax.clip_by_global_norm: g when the global norm is below
-    `max_norm`, else g / norm · max_norm.  Decided on the device (no sync)."""
-    g_norm = global_norm(grads)
+def mesh_global_norm(grads: Sequence[torch.Tensor], sharded: Sequence[bool],
+                     mesh: Mesh) -> torch.Tensor:
+    """The global norm of a mesh's gradients (already summed over dp): a
+    replicated gradient counted once, a row-sharded one's squares summed
+    over mp."""
+    repl = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if not s)
+    part = sum(torch.sum(g * g) for g, s in zip(grads, sharded) if s)
+    if isinstance(part, torch.Tensor):
+        repl = repl + all_reduce(part, mesh.mp_group)
+    return torch.sqrt(repl)
+
+
+def dp_sum_gradients(grads: Sequence[torch.Tensor],
+                     mesh: Mesh) -> List[torch.Tensor]:
+    """Every gradient summed over the dp group, in one all_reduce of one
+    flattened buffer."""
+    if mesh.dp == 1:
+        return list(grads)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=mesh.dp_group)
+    return [f.view_as(g) for f, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
+def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
+                        g_norm: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
+    """optax.clip_by_global_norm: g when the global norm (`g_norm`, by
+    default `global_norm(grads)`) is below `max_norm`, else
+    g / norm · max_norm.  Decided on the device (no sync)."""
+    if g_norm is None:
+        g_norm = global_norm(grads)
     trigger = g_norm < max_norm
     return [torch.where(trigger, g, g / g_norm * max_norm) for g in grads]
 
@@ -73,12 +108,19 @@ class SGD:
         return OptState()
 
     @torch.no_grad()
-    def step(self, params: Sequence[torch.nn.Parameter],
-             state: OptState) -> OptState:
+    def step(self, params: Sequence[torch.nn.Parameter], state: OptState,
+             mesh: Optional[Mesh] = None,
+             sharded: Sequence[bool] = ()) -> OptState:
+        """With a `mesh`, `sharded` says which parameters are row shards of
+        vocab tables."""
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        g_norm = None
+        if mesh is not None:
+            grads = dp_sum_gradients(grads, mesh)
+            g_norm = mesh_global_norm(grads, sharded, mesh)
         neg_lr = -self.schedule(state.count)
-        for p, g in zip(params, clip_by_global_norm(grads, self.max_norm)):
+        for p, g in zip(params, clip_by_global_norm(grads, self.max_norm, g_norm)):
             p.add_(g * neg_lr)
         return OptState(state.count + 1)
 
