@@ -13,13 +13,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              (fwa_fwd) at the serving shapes B=128, S=10 and S=25, and
              B=37, S=17; K2 (fwa_bwd) at the training shapes B=32, S=10 and
              S=25, and B=37, S=17, also against autograd of the plain
-             forward, twice for bitwise repeatability, and through
-             FWAFunction (K1 forward, K2 backward); K3 (mha_fwd) at the
+             forward, through FWAFunction (K1 forward, K2 backward); both
+             twice for bitwise repeatability, with a length above S too, and
+             at the edges of their one-warp-per-(row, head) mapping (S = 1,
+             32, 33 and 64 at B=37, the largest S of the first designs at
+             B=4, heads of 16 and 32 features); then an empty kernel's
+             device time, the launch floor, and K1 and K2 at B=8192, S=25
+             beside their bound (a scale check); K3 (mha_fwd) at the
              ATRank shapes B=128 and B=32 with (Tq, Tk) = (96, 96) and
              (1, 96), and B=37 (17, 17), self-attention (queries is keys)
              and cross-attention, twice for bitwise repeatability, and
              MHAFunction's gradients against autograd of the plain version;
-             times of each, and the card's bound;
+             times of each (device time from the profiler, per-call time
+             from CUDA events), and the card's bound;
   4. path    per family (TLSAN, then ATRank) at the reference widths (D=64,
              H=8, 32-wide embeddings, one block; TLSAN Ls=10, Ts=24; ATRank
              T=96) and the Electronics catalog (39,991 users, 22,048 items,
@@ -133,7 +139,13 @@ D, H = 64, 8
 T_ATRANK = round8(90)
 # main-path FWA shapes per request batch: long tower S=Ls, short tower S=Ts+1
 MAIN_SHAPES = [(BATCH, LS), (BATCH, TS + 1)]
-KERNEL_SHAPES = MAIN_SHAPES + [(37, 17)]
+# the edges of K1/K2's one-warp-per-(row, head) mapping: one step, a full
+# warp of steps, one past it and two warps' worth (B=37), the largest S the
+# first designs took (K1 301, K2 181) at B=4, and heads of 16 and 32
+# features; shapes are (B, S) at D, H or (B, S, D, H)
+FWA_EDGES = [(37, 1), (37, 32), (37, 33), (37, 64), (37, 17, 64, 4), (37, 17, 128, 4),
+             (4, 40, 128, 4)]
+KERNEL_SHAPES = MAIN_SHAPES + [(37, 17)] + FWA_EDGES + [(4, 301)]
 BULK_USERS = 4_000   # not a multiple of 128: the last batch has 0-length rows
 BULK_WINDOW_S = 5.0  # bulk users/s: every user served over one window
 
@@ -141,7 +153,9 @@ BULK_WINDOW_S = 5.0  # bulk users/s: every user served over one window
 TRAIN_B, TEST_B = 32, 128
 # main-path FWA shapes per train step: long tower S=Ls, short tower S=Ts+1
 TRAIN_SHAPES = [(TRAIN_B, LS), (TRAIN_B, TS + 1)]
-BWD_SHAPES = TRAIN_SHAPES + [(37, 17)]
+BWD_SHAPES = TRAIN_SHAPES + [(37, 17)] + FWA_EDGES + [(4, 181)]
+# a scale check, not a main-path shape: 52 MB of x, where bytes dominate
+FWA_SCALE = (8192, TS + 1)
 # main-path K3 shapes (B, Tq, Tk) per request batch and per train step:
 # the self-attention block and the 1-query readout
 MHA_MAIN = [(BATCH, T_ATRANK, T_ATRANK), (BATCH, 1, T_ATRANK)]
@@ -250,30 +264,43 @@ def _plus(*counts: dict) -> dict:
 # ------------------------------------------------------------------ kernels
 
 
-def _fwa_inputs(B: int, S: int, seed: int):
+def _fwa_shape(shape):
+    """(B, S, D, H) of a K1/K2 shape given as (B, S) or (B, S, D, H)."""
+    return (*shape, D, H)[:4]
+
+
+def _fwa_inputs(B: int, S: int, seed: int, d: int = D, h: int = H):
+    """x, lengths and the weights on the card; lengths 0, 1, S and, where B
+    allows, S + 3 (more than the steps: nothing masked) in the first rows."""
     rng = np.random.default_rng(seed)
-    dh = D // H
+    dh = d // h
     lengths = rng.integers(0, S + 1, B).astype(np.int32)
-    lengths[:3] = [0, 1, S]
-    arrays = [rng.normal(size=(B, S, D)), lengths,
+    lengths[:4] = [0, 1, S, S + 3][:min(B, 4)]
+    arrays = [rng.normal(size=(B, S, d)), lengths,
               rng.normal(size=(dh, dh)) * 0.3, rng.normal(size=(dh,)) * 0.1,
               rng.normal(size=(dh, dh)) * 0.3, rng.normal(size=(dh,)) * 0.1]
     return [torch.from_numpy(a.astype(np.int32 if i == 1 else np.float32)).cuda()
             for i, a in enumerate(arrays)]
 
 
-def _cuda_ms(fn, iters: int = 200, warmup: int = 20) -> float:
+def _cuda_ms(fn, iters: int = 100, warmup: int = 20, repeats: int = 5) -> float:
+    """ms a call of fn: CUDA events around `iters` back-to-back calls, the
+    median of `repeats` such runs (a host that is shared spreads single
+    runs widely)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs))
 
 
 def _profile(fn):
@@ -295,12 +322,12 @@ def _profile(fn):
     return wall_ms, kernels
 
 
-def _device_ms(fn, kernel: str, also: str = None) -> str:
+def _device_ms(fn, kernel: str) -> str:
     """Device ms per launch of `kernel` over 50 calls of fn, from the
-    profiler (with `also`, the time of every kernel whose name holds it)."""
+    profiler."""
     _, prof = _profile(lambda: [fn() for _ in range(50)])
     n = [cnt for key, (cnt, _) in prof.items() if kernel in key]
-    us = sum(us for key, (_, us) in prof.items() if (also or kernel) in key)
+    us = sum(us for key, (_, us) in prof.items() if kernel in key)
     return f"{1e-3 * us / n[0]:.6f}" if n else "not measured (no device events)"
 
 
@@ -309,13 +336,13 @@ def _bound(nbytes: float, flops: float):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
 
 
-def _fwa_bound(B: int, S: int):
+def _fwa_bound(B: int, S: int, d: int = D, h: int = H):
     """Each input read once and the output written once over HBM, and
     4·dh+9 f32 operations per (b, t, d) (two dh-wide maps, mask, max, exp,
     sum, divide, weighted sum) at the f32 peak."""
-    dh = D // H
-    nbytes = 4 * (B * S * D + B + 2 * dh * dh + 2 * dh + B * D)
-    return _bound(nbytes, B * S * D * (4 * dh + 9))
+    dh = d // h
+    nbytes = 4 * (B * S * d + B + 2 * dh * dh + 2 * dh + B * d)
+    return _bound(nbytes, B * S * d * (4 * dh + 9))
 
 
 def _summed(main: dict, worst: float) -> dict:
@@ -330,48 +357,63 @@ def _add(main: dict, kernel_ms, plain_ms, bytes_ms, ops_ms) -> None:
         main[key] = main.get(key, 0.0) + v
 
 
+def _fwa_tag(kernel: str, B: int, S: int, d: int, h: int) -> str:
+    return f"{kernel} B={B} S={S}" + ("" if (d, h) == (D, H) else f" D={d} H={h}")
+
+
 def phase_kernel(shapes=KERNEL_SHAPES, main_shapes=MAIN_SHAPES) -> dict:
     """K1 against its plain version at every shape.  The returned times are
     per request batch: the sum over the two main-path launches."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
-    for i, (B, S) in enumerate(shapes):
-        x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + i)
-        got = cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2)
-        want = feature_wise_attention_reference(x, lengths, H, w1, b1, w2, b2)
+    for i, shape in enumerate(shapes):
+        B, S, d, h = _fwa_shape(shape)
+        what = _fwa_tag("fwa_fwd", B, S, d, h)
+        x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + i, d, h)
+        got = cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2)
+        again = cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2)
+        want = feature_wise_attention_reference(x, lengths, h, w1, b1, w2, b2)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"fwa_fwd B={B} S={S}: non-finite output")
+            raise AssertionError(f"{what}: non-finite output")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{what}: two calls differ")
         err = float((got - want).abs().max())
         worst = max(worst, err)
         if not err <= KERNEL_TOL:
-            raise AssertionError(f"fwa_fwd B={B} S={S}: max abs err {err:.3e}")
-        kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2))
+            raise AssertionError(f"{what}: max abs err {err:.3e}")
+        # a length-0 row is a uniform softmax over all S: the mean of x
+        mean_err = float((got[0] - x[0].mean(0)).abs().max())
+        if not mean_err <= KERNEL_TOL:
+            raise AssertionError(f"{what}: the length-0 row is {mean_err:.3e} "
+                                 "from the mean of x")
+        kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2))
         plain_ms = _cuda_ms(lambda: feature_wise_attention_reference(
-            x, lengths, H, w1, b1, w2, b2))
-        bytes_ms, ops_ms = _fwa_bound(B, S)
+            x, lengths, h, w1, b1, w2, b2))
+        bytes_ms, ops_ms = _fwa_bound(B, S, d, h)
         device_ms = _device_ms(
-            lambda: cuda_fwa.fwa_forward(x, lengths, H, w1, b1, w2, b2), "fwa_fwd_kernel")
-        log(f"kernel fwa_fwd B={B} S={S}: max_abs_err={err:.3e} "
+            lambda: cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2), "fwa_fwd_kernel")
+        log(f"kernel {what}: max_abs_err={err:.3e} "
             f"kernel_ms={kernel_ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
             f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
-            f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us)")
-        if (B, S) in main_shapes:
+            f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
+            f"bitwise repeatable")
+        if (B, S, d, h) in map(_fwa_shape, main_shapes):
             _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
     return _summed(main, worst)
 
 
-def _fwa_bwd_bound(B: int, S: int):
+def _fwa_bwd_bound(B: int, S: int, d: int = D, h: int = H):
     """K2: x, g, lengths and the weights read once, dx and the weight
     gradients written once, over HBM; and 12·dh+18 f32 operations per
     (b, t, d), counted from csrc/fwa_bwd.cu (the recomputed forward's
     4·dh+9, then dm1 and dx at 2·dh each, dW1 and dW2 at 2·dh each, and
     the softmax backward, mask and bias sums), at the f32 peak."""
-    dh = D // H
+    dh = d // h
     weights = 2 * dh * dh + 2 * dh
-    nbytes = 4 * (2 * B * S * D + B * D + B + 2 * weights)
-    return _bound(nbytes, B * S * D * (12 * dh + 18))
+    nbytes = 4 * (2 * B * S * d + B * d + B + 2 * weights)
+    return _bound(nbytes, B * S * d * (12 * dh + 18))
 
 
 def _max_err(got, want, scale, what: str) -> float:
@@ -399,23 +441,24 @@ def phase_kernel_bwd(shapes=BWD_SHAPES, main_shapes=TRAIN_SHAPES) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
-    for i, (B, S) in enumerate(shapes):
-        x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + 10 + i)
+    for i, shape in enumerate(shapes):
+        B, S, d, h = _fwa_shape(shape)
+        x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + 10 + i, d, h)
         g = torch.from_numpy(np.random.default_rng(SEED + 20 + i).normal(
-            size=(B, D)).astype(np.float32)).cuda()
-        args = (x, lengths, H, w1, b1, w2, b2, g)
+            size=(B, d)).astype(np.float32)).cuda()
+        args = (x, lengths, h, w1, b1, w2, b2, g)
+        what = _fwa_tag("fwa_bwd", B, S, d, h)
         got = cuda_fwa.fwa_backward(*args)
         again = cuda_fwa.fwa_backward(*args)
         torch.cuda.synchronize()
         for a, b in zip(got, again):
             if not torch.equal(a, b):
-                raise AssertionError(f"fwa_bwd B={B} S={S}: two calls differ")
-        what = f"fwa_bwd B={B} S={S}"
+                raise AssertionError(f"{what}: two calls differ")
         scale = fwa_backward_error_scale(*args)
         worst = max(worst, _max_err(got, fwa_backward_reference(*args), scale,
                                     what + " vs fwa_backward_reference"))
         leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
-        out = feature_wise_attention_reference(leaves[0], lengths, H, *leaves[1:])
+        out = feature_wise_attention_reference(leaves[0], lengths, h, *leaves[1:])
         auto = torch.autograd.grad(out, leaves, g)
         worst = max(worst, _max_err(got, auto, scale, what + " vs autograd"))
         # a length-0 row (row 0) still gets a gradient through the mask's add
@@ -423,7 +466,7 @@ def phase_kernel_bwd(shapes=BWD_SHAPES, main_shapes=TRAIN_SHAPES) -> dict:
             raise AssertionError(f"{what}: the length-0 row got no gradient")
         # FWAFunction (K1 forward, K2 backward) on a non-contiguous g
         leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
-        out_fn = cuda_fwa.FWAFunction.apply(leaves[0], lengths, H, *leaves[1:])
+        out_fn = cuda_fwa.FWAFunction.apply(leaves[0], lengths, h, *leaves[1:])
         if not float((out_fn - out).detach().abs().max()) <= KERNEL_TOL:
             raise AssertionError(f"{what}: FWAFunction forward differs")
         g_nc = g.t().contiguous().t()
@@ -432,17 +475,55 @@ def phase_kernel_bwd(shapes=BWD_SHAPES, main_shapes=TRAIN_SHAPES) -> dict:
 
         kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_backward(*args))
         plain_ms = _cuda_ms(lambda: fwa_backward_reference(*args))
-        bytes_ms, ops_ms = _fwa_bwd_bound(B, S)
-        device_ms = _device_ms(lambda: cuda_fwa.fwa_backward(*args),
-                               "fwa_bwd_kernel", also="fwa_bwd")
-        log(f"kernel fwa_bwd B={B} S={S}: max_abs_err={worst:.3e} "
+        bytes_ms, ops_ms = _fwa_bwd_bound(B, S, d, h)
+        device_ms = _device_ms(lambda: cuda_fwa.fwa_backward(*args), "fwa_bwd_kernel")
+        log(f"kernel {what}: max_abs_err={worst:.3e} "
             f"kernel_ms={kernel_ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
             f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
             f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
             f"bitwise repeatable")
-        if (B, S) in main_shapes:
+        if (B, S, d, h) in map(_fwa_shape, main_shapes):
             _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
     return _summed(main, worst)
+
+
+def phase_fwa_scale() -> None:
+    """The launch floor (an empty kernel's device time) and K1 and K2 at one
+    large shape, FWA_SCALE, where bytes dominate the bound: right, and
+    their device time beside the bound.  A scale check; not a main path."""
+    lib = cuda_fwa._library()
+
+    def empty():
+        err = lib.fwa_empty_launch(torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty launch failed: {lib.fwa_error_string(err).decode()}")
+
+    log(f"kernel fwa_empty_kernel: device_ms={_device_ms(empty, 'fwa_empty_kernel')} "
+        f"(the floor of a launch's device time)")
+    B, S = FWA_SCALE
+    x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + 50)
+    g = torch.from_numpy(np.random.default_rng(SEED + 51).normal(
+        size=(B, D)).astype(np.float32)).cuda()
+    args = (x, lengths, H, w1, b1, w2, b2)
+    err = float((cuda_fwa.fwa_forward(*args)
+                 - feature_wise_attention_reference(*args)).abs().max())
+    if not err <= KERNEL_TOL:
+        raise AssertionError(f"fwa_fwd B={B} S={S}: max abs err {err:.3e}")
+    bwd_err = _max_err(cuda_fwa.fwa_backward(*args, g), fwa_backward_reference(*args, g),
+                       fwa_backward_error_scale(*args, g), f"fwa_bwd B={B} S={S}")
+    for name, kernel, fn, (bytes_ms, ops_ms), e in (
+            ("fwa_fwd", "fwa_fwd_kernel", lambda: cuda_fwa.fwa_forward(*args),
+             _fwa_bound(B, S), err),
+            ("fwa_bwd", "fwa_bwd_kernel", lambda: cuda_fwa.fwa_backward(*args, g),
+             _fwa_bwd_bound(B, S), bwd_err)):
+        device_ms = _device_ms(fn, kernel)
+        bound_ms = max(bytes_ms, ops_ms)
+        share = (f"{bound_ms / float(device_ms):.3f}"
+                 if device_ms[0].isdigit() else "not measured")
+        log(f"kernel {name} B={B} S={S} (scale check): max_abs_err={e:.3e} "
+            f"device_ms={device_ms} bound_ms={bound_ms:.6f} "
+            f"(bytes {bytes_ms:.6f} ms, operations {ops_ms:.6f} ms); "
+            f"share of the bound {share}")
 
 
 def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int):
@@ -1120,6 +1201,7 @@ def main() -> int:
     phase_build()
     kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd(),
                "mha_fwd": phase_kernel_mha()}
+    phase_fwa_scale()
     local = phase_kernel_local()
     runs, meshed = [], []
     for fam in (TLSAN_FAMILY, ATRANK_FAMILY):

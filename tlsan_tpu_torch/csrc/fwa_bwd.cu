@@ -1,9 +1,9 @@
-// Feature-wise attention (FWA) backward for Hopper (sm_90a), f32.
+// Feature-wise attention (FWA) backward, K2, for Hopper (sm_90a), f32.
 //
 // Replaces: tlsan_tpu/ops/pallas/fwa.py::_fwa_bwd_kernel (launched by
 // _fwa_backward) and the _block_diag_extract fold after it.  Given the
 // forward's inputs and the incoming gradient g = dL/dout [B, D], it
-// recomputes the forward (as csrc/fwa_fwd.cu does) and returns
+// recomputes the forward (as fwa_fwd.cu does) and returns
 //
 //   ds  = g ⊙ x                              (out = Σ_t soft ⊙ x)
 //   dm2 = soft ⊙ (ds − Σ_t soft ⊙ ds)        (softmax over time, per feature)
@@ -19,253 +19,373 @@
 // S = 25, D = 64) it reads x and g and writes dx (0.16 MB and 0.41 MB, 0.05
 // and 0.12 µs at 3.35 TB/s) and does about 3× the forward's operations
 // (1.9 and 4.8 MFLOP, 0.03 and 0.07 µs at 67 TFLOP/s f32): bytes bound it,
-// and at these sizes launch latency, not the card, sets its time.
+// and at these sizes the latency of the launch, of one unit's dependent
+// chain and of the cross-block sum of the weight gradients sets its time.
 //
-// Design.  As in the forward, the TPU kernel's block-diagonal lift is not
-// carried over: 8×8 maps are below any tensor-core tile, so each head's maps
-// run on CUDA cores in f32.  One thread owns one feature d of one batch row;
-// a block holds `rows` rows (blockDim = (D, rows)).  Per row, shared memory
-// holds five [S, D] tiles — x, m1, soft, dm2, dz1 — since dm2 · W2ᵀ and
-// dz1 · W1ᵀ read the dh features of the thread's head.  Only dx leaves the
-// first kernel per row.
+// Design (fwa_common.cuh).  One warp per (batch row, head), lane t on step
+// t, as in K1, in one launch of blocks of eight warps.  Each lane
+// recomputes the forward; the softmax's max and sum and Σ_t soft ⊙ ds are
+// reductions across the lanes; then the lane forms dm2, dm1 = dm2 · W2ᵀ,
+// dz1 (masked by m1 > 0, which holds exactly where z1 > 0) and dx, and
+// writes dx as float4s.  x and m1 go to the warp's shared memory as soon as
+// they are computed, since the weight-gradient sums read them there: fewer
+// values stay live across the IEEE divisions, whose slow path is a call,
+// and the dh = 8 variant spills nothing.  For S > 32, lanes take steps
+// t, t + 32, ...: the statistics are passes that re-read x, and the
+// backward runs a chunk of 32 steps at a time.
 //
-// Determinism: no float atomics.  Each block writes its partial sums of
-// the [2·dh² + 2·dh] weight gradients to its own slot of a scratch buffer,
-// each entry summed by one thread in a fixed order (rows, then t, then
-// heads); a second kernel sums the slots in block order.  Two calls on the
-// same inputs give bitwise-equal outputs.
+// The weight gradients (2·dh² + 2·dh sums over every (b, t, h)) are summed
+// in a fixed order, without float atomics, so that two calls agree bit for
+// bit:
+//   - over the steps of a warp: each lane stages its step's x, m1, dz1, dm2
+//     and a constant 1 (the bias column) in its warp's slice of shared
+//     memory, a row of 4·dh + 1 floats (the odd stride spreads the rows over
+//     the banks), and lane i then sums entries i, i + 32, ... over the steps
+//     in step order;
+//   - over the warps of a block, in warp order;
+//   - over the blocks, in block order, by a tree of groups of kGroup blocks:
+//     each block writes its sums to its slot in device memory and takes a
+//     ticket (an atomic integer increment, __threadfence before it); the
+//     last block of a group copies the group's slots into shared memory
+//     with coalesced loads, several in flight a thread, sums them in slot
+//     order into one slot of the next level and resets the group's ticket,
+//     and so on until one group is left, whose last block writes dW1, db1,
+//     dW2 and db2.  The tickets start at 0 and are 0 again when the launch
+//     ends.  At the training shapes (B = 32, 32 blocks) the tree is one
+//     level; at B = 8192 two.
 //
-// Exactness: expf (not __expf), no fast-math, and the mask is the additive
-// −1e30 of the reference.  A row of length 0 has every step masked; its
-// softmax is uniform and its gradients are not zero (dm2 flows through the
-// mask's addition), as in the JAX package, so nothing is skipped.  Rows past
-// B are never read and never enter a partial sum.
+// Exactness: expf (not __expf), IEEE division, no fast-math, and the mask is
+// the additive −1e30 of the reference.  A row of length 0 has every step
+// masked; its softmax is uniform and its gradients are not zero (dm2 flows
+// through the mask's addition), as in the JAX package, so nothing is
+// skipped.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "fwa_common.cuh"
+
 namespace {
 
-constexpr float kVeryNegative = -1e30f;
-// per-block shared-memory budget that needs no opt-in
-constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kMaxRows = 8;
-// [S, D] tiles a row keeps in shared memory, in this order
-enum Tile { kX, kM1, kSoft, kDm2, kDz1, kTiles };
-constexpr int kReduceThreads = 256;
+using namespace fwa;
 
-__global__ void fwa_bwd_kernel(const float* __restrict__ x,
-                               const int* __restrict__ lengths,
-                               const float* __restrict__ w1,
-                               const float* __restrict__ b1,
-                               const float* __restrict__ w2,
-                               const float* __restrict__ b2,
-                               const float* __restrict__ g,
-                               float* __restrict__ dx,
-                               float* __restrict__ partial,
-                               int B, int S, int D, int dh) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.y;
-  const int d = threadIdx.x;
-  const int r = threadIdx.y;
-  const int tid = r * D + d;
-  const int nthreads = rows * D;
-  const int b = blockIdx.x * rows + r;
-  const bool active = b < B;
-  const int SD = S * D;
+// slots summed together at each level of the cross-block tree;
+// ops/cuda/fwa.py::launch_plan sizes the scratch with the same number
+constexpr int kGroup = 128;
 
-  float* w1s = smem;
-  float* w2s = w1s + dh * dh;
-  float* b1s = w2s + dh * dh;
-  float* b2s = b1s + dh;
-  float* tiles = b2s + dh;  // rows × kTiles × [S, D]
-  float* row = tiles + r * kTiles * SD;
-  float* xs = row + kX * SD;
-  float* m1s = row + kM1 * SD;
-  float* ss = row + kSoft * SD;  // m2, then soft (each thread its own column)
-  float* dm2s = row + kDm2 * SD;
-  float* dz1s = row + kDz1 * SD;
+// Stages a valid step's x and m1 into its row of the warp's shared memory,
+// where the backward and the weight-gradient sums read them, so that they do
+// not stay in registers through the reductions.
+template <int DH>
+__device__ inline void stage_forward(const float (&xv)[DH], const float (&m1)[DH], int dh,
+                                     float* row) {
+  const int n = features<DH>(dh);
+#pragma unroll
+  for (int j = 0; j < n; ++j) row[j] = xv[j], row[n + j] = m1[j];
+  row[4 * n] = 1.0f;
+}
 
-  for (int i = tid; i < dh * dh; i += nthreads) {
-    w1s[i] = w1[i];
-    w2s[i] = w2[i];
+// The backward of one valid step, from its staged x and m1, its softmax
+// weights and the unit's statistics: writes dx and stages dz1 and dm2
+// beside x and m1, so that `row` holds (x, m1, dz1, dm2, 1).
+template <int DH>
+__device__ inline void backward_step(float* row, const float (&soft)[DH],
+                                     const float (&gv)[DH], const float (&sds)[DH],
+                                     const float* sw, int dh, float* __restrict__ dxp) {
+  const int n = features<DH>(dh);
+  const float* w1 = sw;
+  const float* w2 = sw + n * n;
+  float dm2[DH], dz1[DH], dxv[DH];
+  // ds = g ⊙ x rounded as the reference rounds it (__fmul_rn is never
+  // contracted into an fma), so that ds − Σ_t soft ⊙ ds is exactly 0 where
+  // the reference's is, as at S = 1
+#pragma unroll
+  for (int j = 0; j < n; ++j) dm2[j] = soft[j] * (__fmul_rn(gv[j], row[j]) - sds[j]);
+#pragma unroll
+  for (int d = 0; d < n; ++d) {
+    float dm1 = 0.0f;  // (dm2 · W2ᵀ)[d]
+#pragma unroll
+    for (int e = 0; e < n; ++e) dm1 = fmaf(dm2[e], w2[d * n + e], dm1);
+    dz1[d] = row[n + d] > 0.0f ? dm1 : 0.0f;  // m1 > 0 where z1 > 0
   }
-  for (int i = tid; i < dh; i += nthreads) {
-    b1s[i] = b1[i];
-    b2s[i] = b2[i];
+#pragma unroll
+  for (int d = 0; d < n; ++d) {
+    float acc = 0.0f;  // (dz1 · W1ᵀ)[d]
+#pragma unroll
+    for (int e = 0; e < n; ++e) acc = fmaf(dz1[e], w1[d * n + e], acc);
+    dxv[d] = fmaf(soft[d], gv[d], acc);
   }
-  if (active) {
-    const float* xb = x + static_cast<long long>(b) * SD;
-    for (int t = 0; t < S; ++t) xs[t * D + d] = xb[t * D + d];
-  }
-  __syncthreads();
+  store_row<DH>(dxp, n, dxv);
+#pragma unroll
+  for (int j = 0; j < n; ++j) row[2 * n + j] = dz1[j], row[3 * n + j] = dm2[j];
+}
 
-  const int h0 = (d / dh) * dh;  // first feature of this thread's head
-  const int e = d - h0;          // this thread's column of the head map
-  if (active) {
-    for (int t = 0; t < S; ++t) {
-      float z = b1s[e];
-      for (int k = 0; k < dh; ++k) z = fmaf(xs[t * D + h0 + k], w1s[k * dh + e], z);
-      m1s[t * D + d] = fmaxf(z, 0.0f);  // m1 > 0 exactly where z1 > 0
-    }
-  }
-  __syncthreads();
-
-  float gd = 0.0f;
-  if (active) {
-    const int len = lengths[b];
-    gd = g[static_cast<long long>(b) * D + d];
-    float mx = kVeryNegative;
-    for (int t = 0; t < S; ++t) {
-      float z = b2s[e];
-      for (int k = 0; k < dh; ++k) z = fmaf(m1s[t * D + h0 + k], w2s[k * dh + e], z);
-      z = z + (t < len ? 0.0f : kVeryNegative);
-      ss[t * D + d] = z;
-      mx = t == 0 ? z : fmaxf(mx, z);
-    }
-    float sum = 0.0f;
-    for (int t = 0; t < S; ++t) {
-      const float ev = expf(ss[t * D + d] - mx);
-      ss[t * D + d] = ev;
-      sum += ev;
-    }
-    float sds = 0.0f;  // Σ_t soft ⊙ ds
-    for (int t = 0; t < S; ++t) {
-      const float s = ss[t * D + d] / sum;
-      ss[t * D + d] = s;
-      sds = fmaf(s, gd * xs[t * D + d], sds);
-    }
-    for (int t = 0; t < S; ++t) {
-      dm2s[t * D + d] = ss[t * D + d] * (gd * xs[t * D + d] - sds);
-    }
-  }
-  __syncthreads();
-
-  if (active) {
-    for (int t = 0; t < S; ++t) {
-      float dm1 = 0.0f;  // (dm2 · W2ᵀ)[e]
-      for (int j = 0; j < dh; ++j) dm1 = fmaf(dm2s[t * D + h0 + j], w2s[e * dh + j], dm1);
-      dz1s[t * D + d] = m1s[t * D + d] > 0.0f ? dm1 : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  if (active) {
-    float* dxb = dx + static_cast<long long>(b) * SD;
-    for (int t = 0; t < S; ++t) {
-      float acc = 0.0f;  // (dz1 · W1ᵀ)[e]
-      for (int j = 0; j < dh; ++j) acc = fmaf(dz1s[t * D + h0 + j], w1s[e * dh + j], acc);
-      dxb[t * D + d] = fmaf(ss[t * D + d], gd, acc);
-    }
-  }
-
-  // This block's partial sums over its valid rows, each entry by one
-  // thread in a fixed order.  Layout: dW1 [dh·dh] | db1 [dh] | dW2 [dh·dh] |
-  // db2 [dh].
-  const int nrows = min(rows, B - static_cast<int>(blockIdx.x) * rows);
-  const int heads = D / dh;
+// Adds to wpart[i], for the entries i = lane, lane + 32, ... of dW1 | db1 |
+// dW2 | db2, the sum over the first `steps` staged steps (rows of `stride`).
+__device__ inline void sum_staged(const float* stage, int stride, int steps, int dh,
+                                  int lane, float* wpart) {
   const int P = 2 * dh * dh + 2 * dh;
-  float* out = partial + static_cast<long long>(blockIdx.x) * P;
-  for (int i = tid; i < P; i += nthreads) {
-    // entry i is Σ left[k] · right[col] over (row, t, head), or Σ right[col]
-    // where there is no left factor
-    int left = -1, right, k = 0, col, j = i;
+  for (int i = lane; i < P; i += kWarp) {
+    // entry i is Σ_t stage[t][left] · stage[t][right]; the bias entries take
+    // the constant column 4·dh as their left factor
+    int j = i, left, right;
     if (j < dh * dh) {
-      left = kX, right = kDz1, k = j / dh, col = j % dh;
+      left = j / dh, right = 2 * dh + j % dh;          // dW1: x, dz1
     } else if ((j -= dh * dh) < dh) {
-      right = kDz1, col = j;
+      left = 4 * dh, right = 2 * dh + j;               // db1: dz1
     } else if ((j -= dh) < dh * dh) {
-      left = kM1, right = kDm2, k = j / dh, col = j % dh;
+      left = dh + j / dh, right = 3 * dh + j % dh;     // dW2: m1, dm2
     } else {
-      right = kDm2, col = j - dh * dh;
+      left = 4 * dh, right = 3 * dh + j - dh * dh;     // db2: dm2
     }
-    float acc = 0.0f;
-    for (int rr = 0; rr < nrows; ++rr) {
-      for (int t = 0; t < S; ++t) {
-        for (int h = 0; h < heads; ++h) {
-          const float* at = tiles + rr * kTiles * SD + t * D + h * dh;
-          const float cv = at[right * SD + col];
-          acc = left < 0 ? acc + cv : fmaf(at[left * SD + k], cv, acc);
-        }
+    float acc = wpart[i];
+#pragma unroll 4
+    for (int t = 0; t < steps; ++t) {
+      acc = fmaf(stage[t * stride + left], stage[t * stride + right], acc);
+    }
+    wpart[i] = acc;
+  }
+}
+
+// tot[i] = Σ_k src[k·P + i] over k < count, in k order, for every i < P:
+// the block copies `cap` rows at a time into `buf` with coalesced float4
+// loads from L2 (P is a multiple of 4), each thread keeping kInFlight of
+// them in flight, then each thread sums its entries.
+constexpr int kInFlight = 8;
+__device__ inline void sum_slots(const float* src, int count, int P, float* buf, int cap,
+                                 float* tot) {
+  for (int k0 = 0; k0 < count; k0 += cap) {
+    const int rows = min(cap, count - k0);
+    const int total = rows * P / 4;
+    const float4* from = reinterpret_cast<const float4*>(src + static_cast<long long>(k0) * P);
+    float4* to = reinterpret_cast<float4*>(buf);
+    for (int v0 = threadIdx.x; v0 < total; v0 += kInFlight * blockDim.x) {
+      float4 r[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int v = v0 + k * blockDim.x;
+        if (v < total) r[k] = __ldcg(from + v);
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int v = v0 + k * blockDim.x;
+        if (v < total) to[v] = r[k];
       }
     }
-    out[i] = acc;
+    __syncthreads();
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      float acc = k0 == 0 ? 0.0f : tot[i];
+#pragma unroll 4
+      for (int k = 0; k < rows; ++k) acc += buf[k * P + i];
+      tot[i] = acc;
+    }
+    __syncthreads();
   }
 }
 
-// out[i] = Σ over blocks, in block order, of partial[blk, i]; then split
-// into the four gradients.
-__global__ void fwa_bwd_reduce_kernel(const float* __restrict__ partial,
-                                      int nblocks, int dh,
-                                      float* __restrict__ dw1,
-                                      float* __restrict__ db1,
-                                      float* __restrict__ dw2,
-                                      float* __restrict__ db2) {
-  const int P = 2 * dh * dh + 2 * dh;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P) return;
-  float acc = 0.0f;
-  for (int blk = 0; blk < nblocks; ++blk) acc += partial[static_cast<long long>(blk) * P + i];
-  if (i < dh * dh) {
-    dw1[i] = acc;
-  } else if ((i -= dh * dh) < dh) {
-    db1[i] = acc;
-  } else if ((i -= dh) < dh * dh) {
-    dw2[i] = acc;
-  } else {
-    db2[i - dh * dh] = acc;
+template <int DH, bool ONE>
+__global__ void __launch_bounds__(kMaxThreads)
+fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+               const float* __restrict__ w1, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               const float* __restrict__ g, float* __restrict__ dx,
+               float* __restrict__ slots, unsigned* __restrict__ tickets,
+               float* __restrict__ dw1, float* __restrict__ db1,
+               float* __restrict__ dw2, float* __restrict__ db2,
+               int units, int S, int D, int H, int dh) {
+  extern __shared__ float smem[];
+  __shared__ bool last;
+  const int n = features<DH>(dh);
+  const int P = 2 * n * n + 2 * n;
+  const int stride = 4 * n + 1;
+  const int per_warp = kWarp * stride + P;
+  const int warps = blockDim.x / kWarp;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x & (kWarp - 1);
+  float* sw = smem;                                // W1 | W2 | b1 | b2
+  float* stage = smem + P + warp * per_warp;       // this warp's 32 steps
+  float* wpart = stage + kWarp * stride;           // this warp's P sums
+
+  const int unit = blockIdx.x * warps + warp;
+  const bool active = unit < units;
+  const int b = unit / H;
+  const int h = unit - b * H;
+  const long long base = static_cast<long long>(b) * S * D + h * n;
+  const float* xb = x + base;
+  float* dxb = dx + base;
+  // the unit's loads go out before the weights' barrier
+  int len = 0;
+  float gv[DH], xv[DH];
+  const bool in = active && lane < S;
+  if (active) {
+    len = lengths[b];
+    load_row<DH>(g + static_cast<long long>(b) * D + h * n, n, gv);
+  }
+  if (ONE && in) load_row<DH>(xb + static_cast<long long>(lane) * D, n, xv);
+  load_weights(sw, w1, b1, w2, b2, n);
+  for (int i = lane; i < P; i += kWarp) wpart[i] = 0.0f;
+  __syncthreads();
+
+  if (active) {
+    float mx[DH], sm[DH], sds[DH], m1[DH], m2[DH];
+    if constexpr (ONE) {
+      // S <= 32: lane t's step is computed once
+      float* row = stage + lane * stride;
+      if (in) {
+        forward_step<DH>(xv, sw, n, lane < len, m1, m2);
+        stage_forward<DH>(xv, m1, n, row);
+      } else {
+#pragma unroll
+        for (int j = 0; j < n; ++j) m2[j] = -INFINITY;
+      }
+#pragma unroll
+      for (int j = 0; j < n; ++j) mx[j] = m2[j];
+      warp_allreduce<DH>(mx, n, lane, Max());
+#pragma unroll
+      for (int j = 0; j < n; ++j) sm[j] = m2[j] = in ? expf(m2[j] - mx[j]) : 0.0f;
+      warp_allreduce<DH>(sm, n, lane, Sum());
+#pragma unroll
+      for (int j = 0; j < n; ++j) {
+        m2[j] = m2[j] / sm[j];  // soft
+        sds[j] = in ? m2[j] * __fmul_rn(gv[j], row[j]) : 0.0f;
+      }
+      warp_allreduce<DH>(sds, n, lane, Sum());
+      if (in) backward_step<DH>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(lane) * D);
+      __syncwarp();
+      sum_staged(stage, stride, min(S, kWarp), n, lane, wpart);
+    } else {
+      softmax_stats<DH>(xb, sw, n, S, D, len, lane, mx, sm);
+#pragma unroll
+      for (int j = 0; j < n; ++j) sds[j] = 0.0f;
+      for (int t = lane; t < S; t += kWarp) {
+        load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
+        forward_step<DH>(xv, sw, n, t < len, m1, m2);
+#pragma unroll
+        for (int j = 0; j < n; ++j) {
+          sds[j] = fmaf(expf(m2[j] - mx[j]) / sm[j], __fmul_rn(gv[j], xv[j]), sds[j]);
+        }
+      }
+      warp_allreduce<DH>(sds, n, lane, Sum());
+      for (int t0 = 0; t0 < S; t0 += kWarp) {
+        const int t = t0 + lane;
+        if (t < S) {
+          float* row = stage + lane * stride;
+          load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
+          forward_step<DH>(xv, sw, n, t < len, m1, m2);
+          stage_forward<DH>(xv, m1, n, row);
+#pragma unroll
+          for (int j = 0; j < n; ++j) m2[j] = expf(m2[j] - mx[j]) / sm[j];  // soft
+          backward_step<DH>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(t) * D);
+        }
+        __syncwarp();
+        sum_staged(stage, stride, min(S - t0, kWarp), n, lane, wpart);
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  // this block's sums, over its warps in warp order, into slot blockIdx.x
+  const int busy = min(warps, units - static_cast<int>(blockIdx.x) * warps);
+  int count = gridDim.x, idx = blockIdx.x;
+  float* level = slots;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    float acc = 0.0f;
+    for (int w = 0; w < busy; ++w) acc += smem[P + w * per_warp + kWarp * stride + i];
+    level[static_cast<long long>(idx) * P + i] = acc;
+  }
+  // up the tree: the last block of each group of kGroup slots sums them, in
+  // slot order, into one slot of the next level; the staging memory is free
+  float* tot = smem + P;
+  float* buf = tot + P;
+  const int cap = (warps * per_warp - P) / P;
+  while (count > 1) {
+    const int group = idx / kGroup;
+    const int first = group * kGroup;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const unsigned members = min(kGroup, count - first);
+      last = atomicAdd(tickets + group, 1u) == members - 1;
+      if (last) tickets[group] = 0;  // every block of the group has counted
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    sum_slots(level + static_cast<long long>(first) * P, min(kGroup, count - first), P, buf,
+              cap, tot);
+    float* next = level + static_cast<long long>(count) * P;
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      next[static_cast<long long>(group) * P + i] = tot[i];
+    }
+    tickets += (count + kGroup - 1) / kGroup;
+    count = (count + kGroup - 1) / kGroup;
+    idx = group;
+    level = next;
+  }
+  // one block is left, with the total in slot 0 of `level`
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const float v = __ldcg(level + i);
+    int j = i;
+    if (j < n * n) {
+      dw1[j] = v;
+    } else if ((j -= n * n) < n) {
+      db1[j] = v;
+    } else if ((j -= n) < n * n) {
+      dw2[j] = v;
+    } else {
+      db2[j - n * n] = v;
+    }
   }
 }
 
-// Shared memory one block needs for `rows` batch rows.
-int fwa_bwd_smem_bytes(int S, int D, int dh, int rows) {
-  return static_cast<int>(sizeof(float)) *
-         (2 * dh * dh + 2 * dh + rows * kTiles * S * D);
+template <int DH, bool ONE>
+int launch(const float* x, const int* lengths, const float* w1, const float* b1,
+           const float* w2, const float* b2, const float* g, float* dx, float* slots,
+           unsigned* tickets, float* dw1, float* db1, float* dw2, float* db2, int units,
+           int S, int D, int H, int dh, int grid, int threads, int smem,
+           cudaStream_t stream) {
+  static int opted = 48 * 1024;  // dynamic shared memory allowed so far
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fwa_bwd_kernel<DH, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
+  }
+  fwa_bwd_kernel<DH, ONE><<<grid, threads, smem, stream>>>(
+      x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S,
+      D, H, dh);
+  return static_cast<int>(cudaGetLastError());
 }
 
-int fwa_bwd_rows(int S, int D, int dh) {
-  int rows = kMaxRows;
-  while (rows > 1 && (rows * D > 1024 || fwa_bwd_smem_bytes(S, D, dh, rows) > kDefaultSmem)) {
-    --rows;
-  }
-  return rows;
-}
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the caller allocates for `fwa_bwd_launch`'s partials.
-long long fwa_bwd_scratch_floats(int B, int S, int D, int dh) {
-  const int rows = fwa_bwd_rows(S, D, dh);
-  const long long nblocks = (B + rows - 1) / rows;
-  return nblocks * (2 * dh * dh + 2 * dh);
-}
-
-// Launches both kernels on `stream`; returns cudaGetLastError() (0 = both
-// launched).  The caller has checked shapes, types, devices and contiguity,
-// and allocated `partial` with fwa_bwd_scratch_floats(B, S, D, dh) floats.
+// Launches K2 on `stream` with the geometry of ops/cuda/fwa.py::launch_plan
+// (grid blocks of `threads` = 32 · warps threads, one warp a unit of the
+// B·H units, `smem` bytes of dynamic shared memory); `slots` holds the
+// plan's scratch floats and `tickets` its scratch integers, all 0.  Returns
+// cudaGetLastError() (0 = launched).  The caller has checked shapes, types,
+// devices, contiguity and dh <= 32.
 int fwa_bwd_launch(const float* x, const int* lengths, const float* w1,
                    const float* b1, const float* w2, const float* b2,
-                   const float* g, float* dx, float* partial, float* dw1,
-                   float* db1, float* dw2, float* db2, int B, int S, int D,
-                   int dh, void* stream) {
-  const int rows = fwa_bwd_rows(S, D, dh);
-  const int smem = fwa_bwd_smem_bytes(S, D, dh, rows);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fwa_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+                   const float* g, float* dx, float* slots, unsigned* tickets,
+                   float* dw1, float* db1, float* dw2, float* db2, int units, int S,
+                   int D, int H, int dh, int grid, int threads, int smem,
+                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nblocks = (B + rows - 1) / rows;
-  fwa_bwd_kernel<<<nblocks, dim3(D, rows), smem, s>>>(
-      x, lengths, w1, b1, w2, b2, g, dx, partial, B, S, D, dh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int P = 2 * dh * dh + 2 * dh;
-  fwa_bwd_reduce_kernel<<<(P + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
-      partial, nblocks, dh, dw1, db1, dw2, db2);
-  return static_cast<int>(cudaGetLastError());
+  const bool exact = dh == 8 && aligned16(x) && aligned16(g) && aligned16(dx);
+  const bool one = S <= kWarp;
+#define FWA_BWD_ARGS                                                                     \
+  x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, H, \
+      dh, grid, threads, smem, s
+  if (exact) return one ? launch<8, true>(FWA_BWD_ARGS) : launch<8, false>(FWA_BWD_ARGS);
+  return one ? launch<kMaxDh, true>(FWA_BWD_ARGS) : launch<kMaxDh, false>(FWA_BWD_ARGS);
+#undef FWA_BWD_ARGS
 }
 
 const char* fwa_bwd_error_string(int err) {

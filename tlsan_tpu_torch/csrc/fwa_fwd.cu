@@ -1,4 +1,4 @@
-// Feature-wise attention (FWA) forward for Hopper (sm_90a), f32.
+// Feature-wise attention (FWA) forward, K1, for Hopper (sm_90a), f32.
 //
 // Replaces: tlsan_tpu/ops/pallas/fwa.py::_fwa_kernel (launched by
 // _fwa_forward).  Semantics are those of
@@ -10,134 +10,144 @@
 //   out[b, d] = Σ_t soft[b, t, d] · x[b, t, d].
 //
 // What bounds it on the H100: at the serving shapes (B = 128, S = 10 and
-// S = 25, D = 64) the kernel reads x once (0.33 MB and 0.82 MB, which is
-// 0.10 and 0.25 µs at 3.35 TB/s) and does about 3 and 9 MFLOP (0.05 and
-// 0.13 µs at 67 TFLOP/s f32): bytes bound it, and at these sizes launch
-// latency, not the card, sets its time.
+// S = 25, D = 64) it reads x once (0.33 MB and 0.82 MB, 0.10 and 0.25 µs at
+// 3.35 TB/s) and does about 3 and 9 MFLOP (0.05 and 0.13 µs at 67 TFLOP/s
+// f32): bytes bound it, and at these sizes the latency of one launch and of
+// one unit's dependent chain, not the card's rates, sets its time.  So the
+// design fills the card with independent warps and keeps each warp's chain
+// short.
 //
-// Design.  The TPU kernel lifted the 8×8 per-head maps to a block-diagonal
-// [D, D] matrix to feed its 128×128 matrix unit; that lift is not carried
-// over: 8×8 maps are below any tensor-core tile, so each head's maps run on
-// CUDA cores in f32.  One thread owns one feature d of one batch row; a
-// block holds `rows` rows (blockDim = (D, rows)).  The row's [S, D] x tile
-// and the block's weights live in shared memory, m1 goes through shared
-// memory (map2 needs the dh features of the head), and m2 stays in the
-// thread's own shared-memory column for the two-pass max/sum softmax.
-// x is read from device memory once, and only out is written.
+// Design (fwa_common.cuh).  One warp per (batch row, head): 1,024 warps at
+// B = 128, H = 8, four to a block, spread over all 132 SMs.  Lane t loads its
+// step's dh features as float4s and computes m1 and m2 in registers, with
+// the weights broadcast from shared memory; the x and lengths loads go out
+// before the block's one barrier (after the weights), so the two trips to
+// device memory overlap.  The max and the sum over time, and
+// out[b, h·dh + j] = Σ_t soft·x, are reductions across the lanes by halving
+// exchanges (9 shuffles for the 8 features of a head, not 40): no [S, D]
+// tile goes through shared memory.  For S > 32 each lane takes steps t,
+// t + 32, ...: three passes (max, sum, weighted sum) re-read x and
+// recompute the maps.  dh = 8 is specialised; any other dh <= 32 runs a
+// generic variant with plain loops.  The TPU kernel's block-diagonal [D, D]
+// lift of the head maps is not carried over: 8×8 maps are below any
+// tensor-core tile, and TF32 is off by contract.
 //
-// Exactness: expf (not __expf), no fast-math, and the mask is the additive
-// −1e30 of the reference, so a row of length 0 gets a uniform softmax over
-// all S and returns the mean of x, as in the JAX package (−inf, or skipping
-// masked steps, would give NaN or another answer).
+// Exactness: expf (not __expf), IEEE division, no fast-math, and the mask is
+// the additive −1e30 of the reference, so a row of length 0 gets a uniform
+// softmax over all S and returns the mean of x, as in the JAX package.  The
+// reductions run in a fixed order: two calls agree bit for bit.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "fwa_common.cuh"
+
 namespace {
 
-constexpr float kVeryNegative = -1e30f;
-// per-block shared-memory budget that needs no opt-in
-constexpr int kDefaultSmem = 48 * 1024;
-constexpr int kMaxRows = 8;
+using namespace fwa;
 
-__global__ void fwa_fwd_kernel(const float* __restrict__ x,
-                               const int* __restrict__ lengths,
-                               const float* __restrict__ w1,
-                               const float* __restrict__ b1,
-                               const float* __restrict__ w2,
-                               const float* __restrict__ b2,
-                               float* __restrict__ out,
-                               int B, int S, int D, int dh) {
-  extern __shared__ float smem[];
-  const int rows = blockDim.y;
-  const int d = threadIdx.x;
-  const int r = threadIdx.y;
-  const int tid = r * D + d;
-  const int nthreads = rows * D;
-  const int b = blockIdx.x * rows + r;
-  const bool active = b < B;
-
-  float* w1s = smem;
-  float* w2s = w1s + dh * dh;
-  float* b1s = w2s + dh * dh;
-  float* b2s = b1s + dh;
-  float* xs = b2s + dh + r * 3 * S * D;  // this row's [S, D] tiles
-  float* m1s = xs + S * D;
-  float* m2s = m1s + S * D;
-
-  for (int i = tid; i < dh * dh; i += nthreads) {
-    w1s[i] = w1[i];
-    w2s[i] = w2[i];
-  }
-  for (int i = tid; i < dh; i += nthreads) {
-    b1s[i] = b1[i];
-    b2s[i] = b2[i];
-  }
-  if (active) {
-    const float* xb = x + static_cast<long long>(b) * S * D;
-    for (int t = 0; t < S; ++t) xs[t * D + d] = xb[t * D + d];
-  }
-  __syncthreads();
-
-  const int h0 = (d / dh) * dh;  // first feature of this thread's head
-  const int e = d - h0;          // this thread's column of the head map
-  if (active) {
-    for (int t = 0; t < S; ++t) {
-      float z = b1s[e];
-      for (int k = 0; k < dh; ++k) z = fmaf(xs[t * D + h0 + k], w1s[k * dh + e], z);
-      m1s[t * D + d] = fmaxf(z, 0.0f);
-    }
-  }
+template <int DH, bool ONE>
+__global__ void __launch_bounds__(kMaxThreads)
+fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+               const float* __restrict__ w1, const float* __restrict__ b1,
+               const float* __restrict__ w2, const float* __restrict__ b2,
+               float* __restrict__ out, int units, int S, int D, int H, int dh) {
+  extern __shared__ float sw[];
+  const int n = features<DH>(dh);
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int unit = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  const bool active = unit < units;
+  const int b = unit / H;
+  const int h = unit - b * H;
+  const float* xb = x + static_cast<long long>(b) * S * D + h * n;
+  // the unit's loads go out before the weights' barrier, so that the two
+  // trips to device memory overlap
+  int len = 0;
+  float xv[DH];
+  const bool in = active && lane < S;
+  if (active) len = lengths[b];
+  if (ONE && in) load_row<DH>(xb + static_cast<long long>(lane) * D, n, xv);
+  load_weights(sw, w1, b1, w2, b2, n);
   __syncthreads();
   if (!active) return;
 
-  const int len = lengths[b];
-  float mx = kVeryNegative;
-  for (int t = 0; t < S; ++t) {
-    float z = b2s[e];
-    for (int k = 0; k < dh; ++k) z = fmaf(m1s[t * D + h0 + k], w2s[k * dh + e], z);
-    z = z + (t < len ? 0.0f : kVeryNegative);
-    m2s[t * D + d] = z;
-    mx = t == 0 ? z : fmaxf(mx, z);
+  float acc[DH], m1[DH], m2[DH], mx[DH], sm[DH];
+  if constexpr (ONE) {
+    // S <= 32: lane t's step stays in registers through all three phases
+    if (in) {
+      forward_step<DH>(xv, sw, n, lane < len, m1, m2);
+    } else {
+#pragma unroll
+      for (int j = 0; j < n; ++j) xv[j] = 0.0f, m2[j] = -INFINITY;
+    }
+#pragma unroll
+    for (int j = 0; j < n; ++j) mx[j] = m2[j];
+    warp_allreduce<DH>(mx, n, lane, Max());
+#pragma unroll
+    for (int j = 0; j < n; ++j) sm[j] = m2[j] = in ? expf(m2[j] - mx[j]) : 0.0f;
+    warp_allreduce<DH>(sm, n, lane, Sum());
+#pragma unroll
+    for (int j = 0; j < n; ++j) acc[j] = m2[j] / sm[j] * xv[j];
+  } else {
+    softmax_stats<DH>(xb, sw, n, S, D, len, lane, mx, sm);
+#pragma unroll
+    for (int j = 0; j < n; ++j) acc[j] = 0.0f;
+    for (int t = lane; t < S; t += kWarp) {
+      load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
+      forward_step<DH>(xv, sw, n, t < len, m1, m2);
+#pragma unroll
+      for (int j = 0; j < n; ++j) acc[j] = fmaf(expf(m2[j] - mx[j]) / sm[j], xv[j], acc[j]);
+    }
   }
-  float sum = 0.0f;
-  for (int t = 0; t < S; ++t) {
-    const float ev = expf(m2s[t * D + d] - mx);
-    m2s[t * D + d] = ev;
-    sum += ev;
+  float* ob = out + static_cast<long long>(b) * D + h * n;
+  if constexpr (DH == 8) {
+    // lanes 0, 4, ..., 28 hold the eight totals
+    const float r = reduce8(acc, lane, Sum());
+    if ((lane & 3) == 0) ob[feature8(lane)] = r;
+  } else {
+    warp_allreduce<DH>(acc, n, lane, Sum());
+    if (lane < n) ob[lane] = acc[lane];
   }
-  float acc = 0.0f;
-  for (int t = 0; t < S; ++t) acc = fmaf(m2s[t * D + d] / sum, xs[t * D + d], acc);
-  out[static_cast<long long>(b) * D + d] = acc;
 }
 
-// Shared memory one block needs for `rows` batch rows.
-int fwa_fwd_smem_bytes(int S, int D, int dh, int rows) {
-  return static_cast<int>(sizeof(float)) * (2 * dh * dh + 2 * dh + rows * 3 * S * D);
+__global__ void fwa_empty_kernel() {}
+
+template <int DH, bool ONE>
+int launch(const float* x, const int* lengths, const float* w1, const float* b1,
+           const float* w2, const float* b2, float* out, int units, int S, int D,
+           int H, int dh, int grid, int threads, int smem, cudaStream_t stream) {
+  fwa_fwd_kernel<DH, ONE><<<grid, threads, smem, stream>>>(
+      x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
-// The caller has checked shapes, types, devices and contiguity.
+// Launches K1 on `stream` with the geometry of ops/cuda/fwa.py::launch_plan
+// (grid blocks of `threads` = 32 · warps threads, one warp a unit of the
+// B·H units, `smem` bytes of weights); returns cudaGetLastError() (0 =
+// launched).  The caller has checked shapes, types, devices, contiguity
+// and dh <= 32.
 int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
-                   const float* b1, const float* w2, const float* b2,
-                   float* out, int B, int S, int D, int dh, void* stream) {
-  int rows = kMaxRows;
-  while (rows > 1 && (rows * D > 1024 || fwa_fwd_smem_bytes(S, D, dh, rows) > kDefaultSmem)) {
-    --rows;
-  }
-  const int smem = fwa_fwd_smem_bytes(S, D, dh, rows);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fwa_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 block(D, rows);
-  const dim3 grid((B + rows - 1) / rows);
-  fwa_fwd_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, lengths, w1, b1, w2, b2, out, B, S, D, dh);
+                   const float* b1, const float* w2, const float* b2, float* out,
+                   int units, int S, int D, int H, int dh, int grid, int threads,
+                   int smem, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool exact = dh == 8 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  const bool one = S <= kWarp;
+#define FWA_FWD_ARGS \
+  x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, threads, smem, s
+  if (exact) return one ? launch<8, true>(FWA_FWD_ARGS) : launch<8, false>(FWA_FWD_ARGS);
+  return one ? launch<kMaxDh, true>(FWA_FWD_ARGS) : launch<kMaxDh, false>(FWA_FWD_ARGS);
+#undef FWA_FWD_ARGS
+}
+
+// One launch of an empty kernel: the floor of any launch's device time.
+int fwa_empty_launch(void* stream) {
+  fwa_empty_kernel<<<1, kWarp, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

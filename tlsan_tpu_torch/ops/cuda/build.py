@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` into plain C-ABI shared libraries.
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-``_build/<name>-<hash>.so``, where the hash covers the source and the
-flags, and is loaded with ``ctypes``.  A library is built at its first use;
-`build` starts one ``nvcc`` per source, all at once.  The build reads only
+``_build/<name>-<hash>.so``, where the hash covers the source, the
+headers under ``csrc/`` and the flags, and is loaded with ``ctypes``.  A
+library is built at its first use; `build` starts one ``nvcc`` per source,
+all at once.  The build reads only
 the package's own sources and needs the CUDA toolkit (``$CUDA_HOME`` or
 ``/usr/local/cuda``, else ``nvcc`` on ``PATH``).
 """
@@ -43,9 +44,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  The hash
+    covers every header under ``csrc/`` too, since a source may include
+    any of them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

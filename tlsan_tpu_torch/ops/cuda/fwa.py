@@ -10,11 +10,19 @@ Their plain versions are ``ops/feature_attention.py``'s
 raise on anything else; they never fall back to the plain versions.
 ``launches`` and ``bwd_launches`` count each kernel's launches in this
 process.
+
+Both kernels run one warp per (batch row, head) unit; `launch_plan` gives
+their geometry (pure Python, so the CPU tests hold it).  They take any
+S >= 1 and heads of up to `MAX_HEAD_WIDTH` features.  K2 sums its weight
+gradients across blocks through scratch memory that this module keeps per
+device and reuses, so K2 calls on one device run on one stream at a time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -23,16 +31,87 @@ from tlsan_tpu_torch.ops.cuda import build
 SOURCE = "fwa_fwd"
 BWD_SOURCE = "fwa_bwd"
 
+WARP = 32
+MAX_HEAD_WIDTH = 32        # kMaxDh in csrc/fwa_common.cuh
+SMEM_LIMIT = 232_448       # shared memory a block may use on the H100
+FWD_WARPS, BWD_WARPS = 4, 8  # warps (units) a block
+GROUP = 128                # kGroup in csrc/fwa_bwd.cu: slots summed together
+
 launches = 0
 bwd_launches = 0
+
+_F32 = torch.float32
+_I32 = torch.int32
+# K2's cross-block scratch per device index: (slots f32, tickets i32, all 0)
+_scratch: dict = {}
+# the current device's index and a device's current stream as plain ints,
+# through torch's own hooks (what its compiler launches with) where the
+# build has them: no Python Stream object a call
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
+               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch: `grid` blocks of `threads` threads (`warps` units a
+    block, `units` = B·H in all), `smem` bytes of dynamic shared memory;
+    for K2 also `slots` scratch floats and `tickets` scratch integers."""
+    dh: int
+    units: int
+    warps: int
+    grid: int
+    threads: int
+    smem: int
+    slots: int = 0
+    tickets: int = 0
+
+
+@functools.lru_cache(maxsize=512)
+def launch_plan(B: int, S: int, D: int, num_heads: int,
+                backward: bool = False) -> Plan:
+    """The geometry of K1 (or, with `backward`, K2) for x [B, S, D] in
+    `num_heads` heads; raises ValueError for what the kernels refuse."""
+    if B < 1 or S < 1 or num_heads < 1 or D % num_heads:
+        raise ValueError(
+            f"feature-wise attention needs B, S >= 1 and D % num_heads == 0; "
+            f"got B={B}, S={S}, D={D}, num_heads={num_heads}")
+    dh = D // num_heads
+    if dh > MAX_HEAD_WIDTH:
+        raise ValueError(
+            f"feature-wise attention kernels take heads of at most "
+            f"{MAX_HEAD_WIDTH} features; got D={D}, num_heads={num_heads} "
+            f"(dh={dh})")
+    units = B * num_heads
+    weights = 2 * dh * dh + 2 * dh
+    if not backward:
+        warps = FWD_WARPS
+        grid = -(-units // warps)
+        return Plan(dh, units, warps, grid, WARP * warps, 4 * weights)
+    # W1 | W2 | b1 | b2, then per warp 32 staged steps of 4·dh + 1 floats
+    # and its weight-gradient sums (64 bytes kept for the static flag)
+    per_warp = WARP * (4 * dh + 1) + weights
+    warps = BWD_WARPS
+    while warps > 1 and 4 * (weights + warps * per_warp) > SMEM_LIMIT - 64:
+        warps //= 2
+    grid = -(-units // warps)
+    slots, tickets, n = grid, 0, grid
+    while n > 1:  # the levels of the cross-block tree
+        n = -(-n // GROUP)
+        slots += n
+        tickets += n
+    return Plan(dh, units, warps, grid, WARP * warps,
+                4 * (weights + warps * per_warp), slots * weights, tickets)
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.fwa_fwd_launch.argtypes is None:
         lib.fwa_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.fwa_fwd_launch.restype = ctypes.c_int
+        lib.fwa_empty_launch.argtypes = [ctypes.c_void_p]
+        lib.fwa_empty_launch.restype = ctypes.c_int
         lib.fwa_error_string.argtypes = [ctypes.c_int]
         lib.fwa_error_string.restype = ctypes.c_char_p
     return lib
@@ -41,10 +120,8 @@ def _library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     if lib.fwa_bwd_launch.argtypes is None:
-        lib.fwa_bwd_scratch_floats.argtypes = [ctypes.c_int] * 4
-        lib.fwa_bwd_scratch_floats.restype = ctypes.c_longlong
         lib.fwa_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.fwa_bwd_launch.restype = ctypes.c_int
         lib.fwa_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fwa_bwd_error_string.restype = ctypes.c_char_p
@@ -66,50 +143,82 @@ def check_tensor(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{fn}: {name} must be contiguous")
 
 
-def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2):
-    """Checks shared by both kernels; returns (B, S, D, dh)."""
+def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
+    """Checks shared by both kernels, one pass over the tensors; returns
+    (B, S, D, dh)."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, x is on {x.device}")
     if x.dim() != 3:
         raise ValueError(f"{fn}: x must be [B, S, D], got {tuple(x.shape)}")
     B, S, D = x.shape
-    if S < 1 or D % num_heads or D > 1024:
+    if S < 1 or num_heads < 1 or D % num_heads:
         raise ValueError(
-            f"{fn}: needs S >= 1, D <= 1024 and D % num_heads == 0; "
+            f"{fn}: needs S >= 1 and D % num_heads == 0; "
             f"got S={S}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    check_tensor(fn, "x", x, torch.float32, (B, S, D), x.device)
-    check_tensor(fn, "lengths", lengths, torch.int32, (B,), x.device)
-    for name, w in (("w1", w1), ("w2", w2)):
-        check_tensor(fn, name, w, torch.float32, (dh, dh), x.device)
-    for name, b in (("b1", b1), ("b2", b2)):
-        check_tensor(fn, name, b, torch.float32, (dh,), x.device)
+    if dh > MAX_HEAD_WIDTH:
+        raise ValueError(
+            f"{fn}: the kernel takes heads of at most {MAX_HEAD_WIDTH} "
+            f"features; got D={D}, num_heads={num_heads} (dh={dh})")
+    index = x.get_device()
+    wshape, bshape = (dh, dh), (dh,)
+    todo = [("x", x, _F32, (B, S, D)), ("lengths", lengths, _I32, (B,)),
+            ("w1", w1, _F32, wshape), ("b1", b1, _F32, bshape),
+            ("w2", w2, _F32, wshape), ("b2", b2, _F32, bshape)]
+    if g is not None:
+        todo.append(("g", g, _F32, (B, D)))
+    for name, t, dtype, shape in todo:
+        if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(fn, name, t, dtype, shape, x.device)
     return B, S, D, dh
+
+
+def _launch(index: int, call) -> int:
+    """Run `call(stream)` on device `index`'s current stream, entering the
+    device's context only when another device is current."""
+    if index == _current_device():
+        return call(_raw_stream(index))
+    with torch.cuda.device(index):
+        return call(_raw_stream(index))
 
 
 def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                 b2: torch.Tensor) -> torch.Tensor:
     """K1.  x f32 [B, S, D], lengths i32 [B], w1/w2 f32 [dh, dh], b1/b2 f32
-    [dh] (dh = D / num_heads), all contiguous on one CUDA device → out f32
-    [B, D].  Records no gradient: `FWAFunction` does."""
+    [dh] (dh = D / num_heads <= 32), all contiguous on one CUDA device →
+    out f32 [B, D].  Records no gradient: `FWAFunction` does."""
     global launches
     B, S, D, dh = _check_inputs("fwa_forward", x, lengths, num_heads,
                                 w1, b1, w2, b2)
-    out = torch.empty((B, D), dtype=torch.float32, device=x.device)
+    out = x.new_empty((B, D))
     if B == 0:
         return out
+    plan = launch_plan(B, S, D, num_heads)
     lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fwa_fwd_launch(
-            x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, S, D, dh, stream)
+    err = _launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
+        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
+        num_heads, dh, plan.grid, plan.threads, plan.smem, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_fwd launch failed: {lib.fwa_error_string(err).decode()}")
     launches += 1
     return out
+
+
+def _bwd_scratch(x: torch.Tensor, plan: Plan):
+    """x's device's K2 scratch, grown to the plan's size: (slots, tickets).
+    The kernel leaves every ticket at 0 again."""
+    index = x.get_device()
+    slots, tickets = _scratch.get(index, (None, None))
+    if slots is None or slots.numel() < plan.slots:
+        slots = x.new_empty(max(plan.slots, 1))
+    if tickets is None or tickets.numel() < plan.tickets:
+        tickets = x.new_zeros(max(plan.tickets, 1), dtype=_I32)
+    _scratch[index] = (slots, tickets)
+    return slots, tickets
 
 
 def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
@@ -121,27 +230,22 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     same inputs agree bit for bit."""
     global bwd_launches
     B, S, D, dh = _check_inputs("fwa_backward", x, lengths, num_heads,
-                                w1, b1, w2, b2)
-    check_tensor("fwa_backward", "g", g, torch.float32, (B, D), x.device)
-    dev = x.device
-    # the kernels write every entry; an empty batch gives zero gradients
-    new = torch.empty if B else torch.zeros
-    dx = torch.empty((B, S, D), dtype=torch.float32, device=dev)
-    dw1, dw2 = (new((dh, dh), dtype=torch.float32, device=dev)
-                for _ in range(2))
-    db1, db2 = (new((dh,), dtype=torch.float32, device=dev) for _ in range(2))
+                                w1, b1, w2, b2, g)
+    # the kernel writes every entry; an empty batch gives zero gradients
+    new = x.new_empty if B else x.new_zeros
+    dx = x.new_empty((B, S, D))
+    dw1, db1, dw2, db2 = new((dh, dh)), new((dh,)), new((dh, dh)), new((dh,))
     if B == 0:
         return dx, dw1, db1, dw2, db2
+    plan = launch_plan(B, S, D, num_heads, True)
     lib = _bwd_library()
-    partial = torch.empty(lib.fwa_bwd_scratch_floats(B, S, D, dh),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fwa_bwd_launch(
-            x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            partial.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), B, S, D, dh, stream)
+    slots, tickets = _bwd_scratch(x, plan)
+    err = _launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
+        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+        dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh,
+        plan.grid, plan.threads, plan.smem, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_bwd launch failed: {lib.fwa_bwd_error_string(err).decode()}")

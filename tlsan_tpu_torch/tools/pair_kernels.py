@@ -1,0 +1,68 @@
+"""Time the feature-wise attention kernels K1 and K2 of two checkouts in
+turns on one card: other, this, this, other.
+
+    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT
+
+Each turn is a fresh process in one checkout: it builds that checkout's
+kernels and runs its ``chip_smoke.py`` kernel phases at the main-path shapes
+(K1 at B=128, 64 and 16 with S=10 and 25; K2 at B=32 and 16), with one
+per-call timing for both checkouts (the median of 5 runs of 100 calls
+between CUDA events).  Its ``kernel fwa_*`` lines are printed with the
+checkout's tag.  Two versions are compared only within one such call: the
+card, its power limit and its host then stay the same.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+TURN = """
+import numpy as np, torch
+import chip_smoke as c
+
+def per_call_ms(fn, iters=100, warmup=20, repeats=5):
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs))
+
+c._cuda_ms = per_call_ms
+c.phase_build()
+c.phase_kernel(c.MAIN_SHAPES + c.LOCAL_FWA + c.LOCAL_FWA_TRAIN, c.MAIN_SHAPES)
+c.phase_kernel_bwd(c.TRAIN_SHAPES + c.LOCAL_FWA_TRAIN, c.TRAIN_SHAPES)
+"""
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("other", help="root of the other checkout")
+    args = parser.parse_args(argv)
+    for tag, root in (("other", args.other), ("this", ROOT), ("this", ROOT),
+                      ("other", args.other)):
+        turn = subprocess.run([sys.executable, "-c", TURN], cwd=root,
+                              capture_output=True, text=True, timeout=900)
+        if turn.returncode != 0:
+            print(f"[{tag}] failed:\n{turn.stdout}\n{turn.stderr}", file=sys.stderr)
+            return 1
+        for line in turn.stdout.splitlines():
+            if line.startswith("kernel fwa"):
+                print(f"[{tag}] {line}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
