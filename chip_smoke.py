@@ -23,9 +23,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
              ATRank shapes B=128 and B=32 with (Tq, Tk) = (96, 96) and
              (1, 96), and B=37 (17, 17), self-attention (queries is keys)
              and cross-attention, twice for bitwise repeatability, and
-             MHAFunction's gradients against autograd of the plain version;
-             times of each (device time from the profiler, per-call time
-             from CUDA events), and the card's bound;
+             MHAFunction's gradients against autograd of the plain version,
+             also at the edges of its cluster-per-row mapping (B = 1 and
+             200, heads of 16 and 32 features, T = 129 and 256, readouts
+             over 256 keys); a cluster the card refuses must raise; times
+             of each (device time from the profiler, per-call time from
+             CUDA events), and the card's bound; the build's report must
+             show no spill in K3's dh = 8 variant;
   4. path    per family (TLSAN, then ATRank) at the reference widths (D=64,
              H=8, 32-wide embeddings, one block; TLSAN Ls=10, Ts=24; ATRank
              T=96) and the Electronics catalog (39,991 users, 22,048 items,
@@ -81,6 +85,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -160,7 +165,16 @@ FWA_SCALE = (8192, TS + 1)
 # the self-attention block and the 1-query readout
 MHA_MAIN = [(BATCH, T_ATRANK, T_ATRANK), (BATCH, 1, T_ATRANK)]
 MHA_TRAIN = [(TRAIN_B, T_ATRANK, T_ATRANK), (TRAIN_B, 1, T_ATRANK)]
-MHA_SHAPES = MHA_MAIN + MHA_TRAIN + [(37, 17, 17)]
+# the edges of K3's cluster-per-row mapping, (B, Tq, Tk) at D, H or
+# (B, Tq, Tk, D, H): one row (clusters of 8) and 200 rows (clusters of 1),
+# heads of 16 and 32 features, T past 128 (groups of 32 lanes), T = 256
+# (at B=200 the shared memory takes clusters of 4) and the readout over
+# 256 keys
+MHA_EDGES = [(1, T_ATRANK, T_ATRANK), (1, 1, T_ATRANK), (200, T_ATRANK, T_ATRANK),
+             (200, 1, T_ATRANK), (37, 17, 17, 64, 4), (37, 17, 17, 128, 4),
+             (37, 129, 129), (4, 256, 256), (200, 256, 256), (37, 1, 256),
+             (9, 7, 250, 64, 4)]
+MHA_SHAPES = MHA_MAIN + MHA_TRAIN + [(37, 17, 17)] + MHA_EDGES
 TRAIN_ROWS, TEST_USERS, STEPS_PER_CALL = 9_600, 4_096, 100
 EMPTY_HISTORY_SHARE = 0.1  # rows with sl = 0
 PLANTED_CATES = 128  # categories the seeded rows use, of the catalog's 673
@@ -220,6 +234,7 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """Build every kernel; K3's dh = 8 variant must not spill."""
     t0 = time.perf_counter()
     reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE])
     log(f"build: {sorted(reports) or 'all cached'} in "
@@ -228,6 +243,13 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if cuda_mha.SOURCE in reports:
+        lines = reports[cuda_mha.SOURCE].splitlines()
+        props = [lines[i + 1] for i, line in enumerate(lines[:-1])
+                 if "Function properties for" in line and "mha_fwd_kernelILi8E" in line]
+        if not props or any("0 bytes spill stores, 0 bytes spill loads" not in p
+                            for p in props):
+            raise AssertionError(f"mha_fwd's dh = 8 variant spills: {props}")
 
 
 # ------------------------------------------------------------ launch counts
@@ -322,13 +344,13 @@ def _profile(fn):
     return wall_ms, kernels
 
 
-def _device_ms(fn, kernel: str) -> str:
-    """Device ms per launch of `kernel` over 50 calls of fn, from the
+def _device_ms(fn, kernel: str, calls: int = 50) -> str:
+    """Device ms a call of fn (one launch) in the kernels whose names hold
+    `kernel` (every variant of a template), over `calls` calls, from the
     profiler."""
-    _, prof = _profile(lambda: [fn() for _ in range(50)])
-    n = [cnt for key, (cnt, _) in prof.items() if kernel in key]
-    us = sum(us for key, (_, us) in prof.items() if kernel in key)
-    return f"{1e-3 * us / n[0]:.6f}" if n else "not measured (no device events)"
+    _, prof = _profile(lambda: [fn() for _ in range(calls)])
+    us = [us for key, (_, us) in prof.items() if kernel in key]
+    return f"{1e-3 * sum(us) / calls:.6f}" if us else "not measured (no device events)"
 
 
 def _bound(nbytes: float, flops: float):
@@ -526,10 +548,19 @@ def phase_fwa_scale() -> None:
             f"share of the bound {share}")
 
 
-def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int):
-    """(queries, keys, q_len, k_len, weights) on the card; lengths 0, 1 and
-    the full length in the first rows; with self_attention, keys is queries
-    and k_len is q_len, as ATRank's self blocks call it."""
+def _mha_shape(shape):
+    """(B, Tq, Tk, D, H) of a K3 shape given as (B, Tq, Tk) or (B, Tq, Tk, D, H)."""
+    return (*shape, D, H)[:5]
+
+
+def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int,
+                d: int = D):
+    """(queries, keys, q_len, k_len, weights) on the card at width d (the
+    heads split it, so the inputs do not depend on their number); lengths
+    in the first rows: queries T, 0, 1 and, for cross-attention, keys 0,
+    Tk, 1, so that a single row is a full query and a length-0 row occurs
+    (self-attention: row 1); with self_attention, keys is queries and k_len
+    is q_len, as ATRank's self blocks call it."""
     rng = np.random.default_rng(seed)
 
     def f32(a):
@@ -537,56 +568,97 @@ def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int):
 
     def lens(T, first):
         n = rng.integers(0, T + 1, B).astype(np.int32)
-        n[:3] = first
+        n[:min(B, 3)] = first[:min(B, 3)]
         return torch.from_numpy(n).cuda()
 
-    queries = f32(rng.normal(size=(B, Tq, D)))
-    q_len = lens(Tq, [0, 1, Tq])
+    queries = f32(rng.normal(size=(B, Tq, d)))
+    q_len = lens(Tq, [Tq, 0, 1])
     if self_attention:
         keys, k_len = queries, q_len
     else:
-        keys, k_len = f32(rng.normal(size=(B, Tk, D))), lens(Tk, [Tk, 0, 1])
+        keys, k_len = f32(rng.normal(size=(B, Tk, d))), lens(Tk, [0, Tk, 1])
     weights = {}
     for name in cuda_mha.WEIGHTS:
         if name.startswith("w"):
-            weights[name] = f32(rng.normal(size=(D, D)) * 0.2)
+            weights[name] = f32(rng.normal(size=(d, d)) * 0.2)
         elif name == "ln_gamma":
-            weights[name] = f32(1.0 + 0.1 * rng.normal(size=D))
+            weights[name] = f32(1.0 + 0.1 * rng.normal(size=d))
         else:
-            weights[name] = f32(0.1 * rng.normal(size=D))
+            weights[name] = f32(0.1 * rng.normal(size=d))
     return queries, keys, q_len, k_len, weights
 
 
-def _mha_bound(B: int, Tq: int, Tk: int, self_attention: bool):
-    """K3: queries (and keys, when they differ), the lengths and the
-    weights read once and the output written once over HBM; and the
-    multiply-adds of the three projections, (Tq + 2·Tk)·D² a row, and of
-    the scores and the weighted sum, 2·Tq·Tk·D a row, at two operations
-    each, at the f32 peak (TF32 is off)."""
-    inputs = B * Tq * D + (0 if self_attention else B * Tk * D)
-    nbytes = 4 * (inputs + 2 * B + 3 * D * D + 5 * D + B * Tq * D)
-    flops = 2 * B * ((Tq + 2 * Tk) * D * D + 2 * Tq * Tk * D)
+def _mha_bound(B: int, Tq: int, Tk: int, self_attention: bool, d: int = D):
+    """K3 at width d: queries (and keys, when they differ), the lengths and
+    the weights read once and the output written once over HBM; and the
+    multiply-adds of the three projections, (Tq + 2·Tk)·d² a row, and of
+    the scores and the weighted sum, 2·Tq·Tk·d a row (for any number of
+    heads), at two operations each, at the f32 peak (TF32 is off)."""
+    inputs = B * Tq * d + (0 if self_attention else B * Tk * d)
+    nbytes = 4 * (inputs + 2 * B + 3 * d * d + 5 * d + B * Tq * d)
+    flops = 2 * B * ((Tq + 2 * Tk) * d * d + 2 * Tq * Tk * d)
     return _bound(nbytes, flops)
+
+
+def _refused_cluster_raises() -> None:
+    """A launch the card refuses (a cluster of 16 CTAs, above the portable
+    8) raises RuntimeError, counts no launch and falls back to nothing."""
+    q, k, ql, kl, w = _mha_inputs(2, 1, T_ATRANK, False, SEED + 29)
+    plan = cuda_mha.launch_plan(2, 1, T_ATRANK, D, H)
+    bad = dataclasses.replace(plan, cs=16, grid=2 * 16)
+    real, before = cuda_mha.launch_plan, cuda_mha.launches
+    cuda_mha.launch_plan = lambda *shape: bad
+    try:
+        cuda_mha.mha_forward(q, k, ql, kl, H, *(w[n] for n in cuda_mha.WEIGHTS))
+    except RuntimeError as e:
+        log(f"kernel mha_fwd: a cluster of 16 is refused and raises: {e}")
+    else:
+        raise AssertionError("mha_fwd: a cluster of 16 CTAs did not raise")
+    finally:
+        cuda_mha.launch_plan = real
+    if cuda_mha.launches != before:
+        raise AssertionError("mha_fwd: a refused launch was counted")
+
+
+def _active_clusters_match() -> None:
+    """launch_plan's table of the clusters the card runs at once
+    (cuda_mha.ACTIVE_CLUSTERS) against cudaOccupancyMaxActiveClusters on
+    this card, at one and at two CTAs an SM."""
+    lib, got = cuda_mha._library(), ctypes.c_int()
+    smem = {2: 60_000, 1: 150_000}  # bytes a CTA that leave 2 and 1 CTAs an SM
+    for (cs, per_sm), want in cuda_mha.ACTIVE_CLUSTERS.items():
+        assert cuda_mha.ctas_per_sm(smem[per_sm]) == per_sm
+        err = lib.mha_fwd_active_clusters(cs, smem[per_sm], ctypes.byref(got))
+        if err != 0 or got.value != want:
+            raise AssertionError(
+                f"mha_fwd: {got.value} clusters of {cs} at {per_sm} CTAs an SM run at "
+                f"once (error {err}); launch_plan assumes {want}")
+    log(f"kernel mha_fwd: active clusters as launch_plan assumes: {cuda_mha.ACTIVE_CLUSTERS}")
 
 
 def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
     """K3 against its plain version, itself, and MHAFunction's gradients
-    against autograd, at every shape, self- and cross-attention.  The
-    returned times are per request batch: the sum over the two main-path
-    launches (self-attention and readout, B=128); the training shapes are
-    logged."""
+    against autograd, at every shape, self- and cross-attention; a refused
+    cluster launch must raise.  The returned times are per request batch:
+    the sum over the two main-path launches (self-attention and readout);
+    the other shapes are logged."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
-    for i, (B, Tq, Tk) in enumerate(shapes):
+    mains = [_mha_shape(m) for m in main_shapes]
+    _active_clusters_match()
+    for i, shape in enumerate(shapes):
+        B, Tq, Tk, d, h = _mha_shape(shape)
         for self_attention in ([True, False] if Tq == Tk else [False]):
-            q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, SEED + 30 + i)
-            args = (q, k, ql, kl, H, *(w[n] for n in cuda_mha.WEIGHTS))
-            what = (f"mha_fwd B={B} Tq={Tq} Tk={Tk} "
-                    f"{'self' if self_attention else 'cross'}")
+            plan = cuda_mha.launch_plan(B, Tq, Tk, d, h, self_attention)
+            q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, SEED + 30 + i, d)
+            args = (q, k, ql, kl, h, *(w[n] for n in cuda_mha.WEIGHTS))
+            what = (f"mha_fwd B={B} Tq={Tq} Tk={Tk}"
+                    + ("" if (d, h) == (D, H) else f" D={d} H={h}")
+                    + f" {'self' if self_attention else 'cross'}")
             got = cuda_mha.mha_forward(*args)
             again = cuda_mha.mha_forward(*args)
-            want, _ = multihead_attention_reference(q, ql, k, kl, H, w)
+            want, _ = multihead_attention_reference(q, ql, k, kl, h, w)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{what}: non-finite output")
@@ -599,7 +671,7 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
 
             # MHAFunction's gradients (K3 forward, plain recompute backward)
             g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
-                size=(B, Tq, D)).astype(np.float32)).cuda()
+                size=(B, Tq, d)).astype(np.float32)).cuda()
             grads = []
             for fn in (cuda_mha.MHAFunction.apply, None):
                 x = q.clone().requires_grad_(True)
@@ -607,9 +679,9 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
                 ws = [w[n].clone().requires_grad_(True) for n in cuda_mha.WEIGHTS]
                 if fn is None:
                     out, _ = multihead_attention_reference(
-                        x, ql, y, kl, H, dict(zip(cuda_mha.WEIGHTS, ws)))
+                        x, ql, y, kl, h, dict(zip(cuda_mha.WEIGHTS, ws)))
                 else:
-                    out = fn(x, y, ql, kl, H, *ws)
+                    out = fn(x, y, ql, kl, h, *ws)
                 leaves = [x, *ws] if self_attention else [x, y, *ws]
                 grads.append(torch.autograd.grad(out, leaves, g))
             for a, b in zip(*grads):
@@ -620,17 +692,19 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
 
             kernel_ms = _cuda_ms(lambda: cuda_mha.mha_forward(*args))
             plain_ms = _cuda_ms(lambda: multihead_attention_reference(
-                q, ql, k, kl, H, w))
-            bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention)
+                q, ql, k, kl, h, w))
+            bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention, d)
             device_ms = _device_ms(lambda: cuda_mha.mha_forward(*args), "mha_fwd_kernel")
-            log(f"kernel {what}: max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} "
+            log(f"kernel {what}: cluster {plan.cs} group {plan.group} smem "
+                f"{plan.smem}: max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} "
                 f"device_ms={device_ms} plain_ms={plain_ms:.6f} "
                 f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
                 f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
                 f"bitwise repeatable; MHAFunction gradients match autograd")
             # the main path: self-attention at Tq = Tk, the readout at Tq = 1
-            if (B, Tq, Tk) in main_shapes and self_attention == (Tq == Tk):
+            if (B, Tq, Tk, d, h) in mains and self_attention == (Tq == Tk):
                 _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+    _refused_cluster_raises()
     return _summed(main, worst)
 
 
@@ -827,6 +901,12 @@ def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> None:
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for key, (cnt, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  {1e-3 * us:9.3f} ms {cnt:5d}x  {key[:110]}")
+    # the port's kernels, every template variant summed, in or out of the top
+    for kernel in ("fwa_fwd_kernel", "fwa_bwd_kernel", "mha_fwd_kernel"):
+        hits = [(cnt, us) for key, (cnt, us) in prof.items() if kernel in key]
+        if hits:
+            log(f"  {kernel}: {1e-3 * sum(us for _, us in hits):.3f} ms in "
+                f"{sum(cnt for cnt, _ in hits)} launches")
 
 
 def phase_path(tmp: str, fam: Family) -> dict:

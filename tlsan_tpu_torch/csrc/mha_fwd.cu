@@ -1,4 +1,4 @@
-// Multi-head attention (ATRank) forward for Hopper (sm_90a), f32.
+// Multi-head attention (ATRank) forward, K3, for Hopper (sm_90a), f32.
 //
 // Replaces: tlsan_tpu/ops/pallas/mha.py::_mha_kernel (launched by
 // _mha_forward).  Semantics are those of
@@ -8,308 +8,779 @@
 //   Q = relu(q·Wq + bq), K = relu(k·Wk + bk), V = relu(k·Wv + bv);
 //   per head h (columns h·dh .. h·dh+dh-1 of each projection):
 //     scores = Q_h·K_hᵀ / √dh, keys at t >= k_len[b] set to −2³²+1,
-//     softmax over the keys, query rows at t >= q_len[b] zeroed,
+//     softmax over all Tk keys, query rows at t >= q_len[b] zeroed,
 //     o_h = soft·V_h;
 //   out = LayerNorm(concat_h o_h + q) with γ, β and eps 1e-8 (biased
 //   variance).
 //
-// What bounds it on the H100: operations.  At the ATRank main-path shapes
-// (D = 64, H = 8, T = 96) one row does (Tq + 2·Tk)·D² multiply-adds in the
-// projections and 2·Tq·Tk·D in the attention: at B = 128 that is 0.60
-// GFLOP for the self-attention block (Tq = Tk = 96; 9.0 µs at the 67
-// TFLOP/s f32 peak outside the tensor cores) against 9.4 MB of inputs and
-// output (2.8 µs at 3.35 TB/s), and 0.21 GFLOP for the readout (Tq = 1).
-// TF32 is off by contract, so the tensor cores are not an option.
+// What bounds it on the H100: operations.  One row does (Tq + 2·Tk)·D²
+// multiply-adds in the projections and 2·Tq·Tk·D in the attention: at
+// B = 128, D = 64, Tq = Tk = 96 that is 0.60 GFLOP (9.0 µs at the 67 TFLOP/s
+// f32 peak outside the tensor cores) against 9.4 MB of inputs and output
+// (2.8 µs at 3.35 TB/s).  TF32 is off by contract, so the tensor cores are
+// not an option.  At the main-path sizes the batch, not the card, is small
+// (B = 32 rows of one block each would leave 100 of 132 SMs empty), and a
+// CTA's time is a chain of dependent steps, so the design spreads a row
+// over several SMs and keeps every step's loads in flight together.
 //
-// Design.  One block of 512 threads holds one batch row: its q and k
-// tiles, the three [D, D] weights, and Q, K and V, all in shared memory
-// (dynamic, opted in above 48 KB: 177,920 bytes at Tq = Tk = 96, and
-// 220,416 bytes at the largest shapes it takes, Tq = Tk = 128 at D = 64),
-// so only q, k, the weights and out touch device memory.  Q, K and V rows
-// are padded by 4 floats, so lanes reading different rows as float4 hit
-// different banks.  The projections are a register-tiled product: each
-// thread owns one output column and 6 rows, reading the row of x as float4
-// (a broadcast within a warp) and the column of W once per 6 multiply-adds.
-// Attention gives each query row to a group of lanes (one lane at Tq >= 32,
-// the whole warp at Tq = 1, where the group splits the keys and reduces by
-// shuffles) and deals the (head, 32 / group rows) units to the 16 warps in
-// turn; each group makes two passes over the keys (the max, then exp, sum
-// and the weighted V), so no [Tq, Tk] score tile is stored, and the key
-// loops are unrolled by 4 for independent work between the shared-memory
-// loads.  The output overwrites Q in place (each group reads and writes
-// only its own head's columns of its row), and LayerNorm takes one warp a
-// row with a butterfly reduction.  Every sum runs in a fixed order: two
-// calls on the same inputs agree bit for bit.  With one block a row and one
-// block an SM, a batch of B rows fills min(B, 132) SMs with 16 warps each;
-// splitting the query rows across blocks is the next step.
+// Design.  A thread-block cluster of cs CTAs (1, 2, 4 or 8, chosen by
+// ops/cuda/mha.py::launch_plan: the largest whose B clusters the card runs
+// in one wave) shares one batch row; CTA r takes the r-th slice of the key
+// rows and, for Tq > 1, the r-th slice of the query rows.
+//
+//   1. Each CTA issues all of its loads from device memory at once into
+//      shared memory: its slices of q and k, the biases, γ and β, and the
+//      three weights (for D > 64 in chunks of rows).  It then projects its slices: a thread computes a tile of 4
+//      rows × 4 columns (K and V together, sharing the x loads), reading x
+//      and W as float4s from shared memory.  Every key row is projected once
+//      per batch row, and Q is stored already scaled by 1/√dh.
+//   2. Tq > 1 (self-attention, or cross-attention with several queries):
+//      after a cluster barrier, each CTA gathers every CTA's K and V rows
+//      into its own full copy through distributed shared memory (8 loads in
+//      flight a thread; the copy overwrites the weights, no longer needed),
+//      so the attention reads only local shared memory.  A group
+//      of g lanes (a power of two, g·8 >= Tk) takes two query rows of one
+//      head; each lane computes the scores of its keys once, keeps them in
+//      registers, and takes the max, exp(s − m), the sum and the weighted V
+//      from them: one pass over the scores, each K and V row loaded once for
+//      both rows.  The group's reductions run level by level for both rows
+//      at once, and at dh = 8 its eight sums are folded by halving
+//      exchanges (8 shuffles, not 8·log2 g), each of eight lanes dividing
+//      and writing one feature.  The output overwrites Q in place, and each
+//      CTA takes the LayerNorm of its own query rows, two a warp.
+//   3. Tq = 1 (the readout): the cluster splits the keys.  Each CTA scores
+//      the query against its keys (kept in shared memory), the cluster
+//      takes the global max per head first (each CTA reads every CTA's
+//      local max in rank order), then each CTA computes exp(s − m), its
+//      partial sum and partial soft·V; CTA 0 adds the partials in rank
+//      order, divides and takes the LayerNorm.  With the true max first,
+//      every exp argument is the reference's; only the order of the sums
+//      differs.  No partial softmax is rescaled.
+//
+// dh = 8 (the reference's 64 / 8) is specialised with the head's q, scores
+// and sums in registers; any other dh <= 32 runs a generic variant with
+// plain loops.  D <= 256 and a multiple of 4, Tk <= 256 (a group of 32
+// lanes holds 8 scores each); Tq and Tk are otherwise bounded by the
+// shared memory of one CTA (232,448 bytes): at D = 64 both reach 256.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math;
 // the scores are q·k with q scaled once by 1/√dh, as the Pallas kernel
 // does (the reference divides each score by √dh: the two differ in the
-// last bit).
-// The key mask is the reference's finite −2³²+1 (−4294967296 in f32), not
-// −inf, and no masked key is skipped in the softmax: a row with k_len = 0
-// gets a softmax uniform over all Tk keys, padding included, as in the JAX
-// package.  Query rows at t >= q_len get o = 0, so out = LayerNorm(q).
+// last bit).  The key mask is the reference's finite −2³²+1 (−4294967296
+// in f32), not −inf, and no masked key is skipped in the softmax: a row
+// with k_len = 0 gets a softmax uniform over all Tk keys, padding included,
+// as in the JAX package.  Query rows at t >= q_len get o = 0, so out =
+// LayerNorm(q).  Every sum runs in a fixed order with no float atomics:
+// two calls on the same inputs and the same plan agree bit for bit.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kKeyMask = -4294967296.0f;  // -(2^32) + 1 rounded to f32
 constexpr float kLnEps = 1e-8f;
-constexpr int kThreads = 512;
-constexpr int kHeadWidth = 8;  // dh = D / H, the reference's 64 / 8 (the only one taken)
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowTile = 6;       // projection rows a thread owns per pass
+constexpr int kWarp = 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kMaxDh = 32;
+constexpr int kPerLane = 8;       // scores a lane holds: Tk <= 32 · 8
+constexpr int kUnitRows = 2;      // query rows of one head a group takes at once
 constexpr int kMaxLnPerLane = 8;  // D <= 256 = 32 lanes x 8
-constexpr int kMaxSmem = 232448;  // the H100's per-block opt-in limit
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kRows = 4;          // projection rows a thread's tile has
+constexpr int kWChunk = 12288;    // floats of weights staged at once
+constexpr int kMaxDevices = 64;
 // Q, K and V rows are D + kPad floats apart, so that lanes reading
 // different rows as float4 hit different banks
 constexpr int kPad = 4;
 
-// out[r·ld + c] = relu(x[r, :]·w[:, c] + b[c]) for r < R, all in shared
-// memory.
-__device__ void project_relu(const float* x, const float* w, const float* b,
-                             float* out, int R, int D, int ld) {
-  const int groups = kThreads / D;
-  const int c = threadIdx.x % D;
-  const int g = threadIdx.x / D;
-  for (int r0 = 0; r0 < R; r0 += groups * kRowTile) {
-    float acc[kRowTile];
-    const float* xr[kRowTile];
+struct Params {
+  const float* queries;
+  const float* keys;
+  const int* q_len;
+  const int* k_len;
+  const float* wq;
+  const float* bq;
+  const float* wk;
+  const float* bk;
+  const float* wv;
+  const float* bv;
+  const float* gamma;
+  const float* beta;
+  float* out;
+  int Tq, Tk, D, H, dh, cs, group;
+  float inv_scale;
+};
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// Rows of the weights staged at once: all D for D <= 64, else a multiple
+// of 4 such that the three chunks fill kWChunk floats
+__host__ __device__ constexpr int weight_chunk(int D) {
+  return D < kWChunk / (3 * D) / 4 * 4 ? D : kWChunk / (3 * D) / 4 * 4;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The cluster's barrier, split: arrive (release) after this CTA's last
+// write or read of shared memory that a peer needs, wait (acquire) before
+// the next step that needs the peers'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Rows kb .. kb+kc-1 of wq, wk and wv into Wc ([3][kc_max][D]), four
+// loads in flight a thread.
+__device__ __forceinline__ void load_weights(const Params& p, float* Wc, int kb,
+                                             int kc, int kc_max) {
+  const int D4 = p.D / 4, per = kc * D4;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < 3 * per; i += kThreads) {
+    const int m = i / per, j = i - m * per;
+    const float* w = m == 0 ? p.wq : m == 1 ? p.wk : p.wv;
+    st4(Wc + m * kc_max * p.D + j * 4, ldg4(w + kb * p.D + j * 4));
+  }
+}
+
+// One chunk of rows kb .. kb+kc-1 of the weights (w_m, chunk-local, rows D
+// apart) into o_m[r·ld + c .. c+3] for the kRows rows from r0 below R, NM
+// matrices sharing x: the first chunk starts from 0, the others from o_m;
+// the last applies relu(· + b_m) · scale.
+template <int NM>
+__device__ __forceinline__ void project_tile(
+    const float* x, int R, int D, int ld, int r0, int c, int kb, int kc,
+    bool first, bool last, float scale, const float* w0, const float* b0,
+    float* o0, const float* w1, const float* b1, float* o1) {
+  const float* w[2] = {w0, w1};
+  const float* bias[2] = {b0, b1};
+  float* o[2] = {o0, o1};
+  float acc[NM][kRows][4];
+  const float* xr[kRows];
 #pragma unroll
-    for (int i = 0; i < kRowTile; ++i) {
-      acc[i] = 0.0f;
-      xr[i] = x + min(r0 + g + groups * i, R - 1) * D;
+  for (int i = 0; i < kRows; ++i) {
+    xr[i] = x + min(r0 + i, R - 1) * D + kb;
+#pragma unroll
+    for (int m = 0; m < NM; ++m) {
+      const float4 a = first || r0 + i >= R ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                                            : ld4(o[m] + (r0 + i) * ld + c);
+      acc[m][i][0] = a.x, acc[m][i][1] = a.y, acc[m][i][2] = a.z, acc[m][i][3] = a.w;
     }
-    for (int k = 0; k < D; k += 4) {
-      const float w0 = w[(k + 0) * D + c];
-      const float w1 = w[(k + 1) * D + c];
-      const float w2 = w[(k + 2) * D + c];
-      const float w3 = w[(k + 3) * D + c];
+  }
+#pragma unroll 4
+  for (int k = 0; k < kc; k += 4) {
+    float4 xv[kRows];
 #pragma unroll
-      for (int i = 0; i < kRowTile; ++i) {
-        const float4 xv = *reinterpret_cast<const float4*>(xr[i] + k);
-        acc[i] = fmaf(xv.x, w0, acc[i]);
-        acc[i] = fmaf(xv.y, w1, acc[i]);
-        acc[i] = fmaf(xv.z, w2, acc[i]);
-        acc[i] = fmaf(xv.w, w3, acc[i]);
+    for (int i = 0; i < kRows; ++i) xv[i] = ld4(xr[i] + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 wv[NM];
+#pragma unroll
+      for (int m = 0; m < NM; ++m) wv[m] = ld4(w[m] + (k + kk) * D + c);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float x = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          acc[m][i][0] = fmaf(x, wv[m].x, acc[m][i][0]);
+          acc[m][i][1] = fmaf(x, wv[m].y, acc[m][i][1]);
+          acc[m][i][2] = fmaf(x, wv[m].z, acc[m][i][2]);
+          acc[m][i][3] = fmaf(x, wv[m].w, acc[m][i][3]);
+        }
       }
     }
+  }
 #pragma unroll
-    for (int i = 0; i < kRowTile; ++i) {
-      const int r = r0 + g + groups * i;
-      if (r < R) out[r * ld + c] = fmaxf(acc[i] + b[c], 0.0f);
+  for (int m = 0; m < NM; ++m) {
+    const float4 bv = ld4(bias[m] + c);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (r0 + i < R) {
+        float4 y = make_float4(acc[m][i][0], acc[m][i][1], acc[m][i][2], acc[m][i][3]);
+        if (last) {
+          y.x = fmaxf(y.x + bv.x, 0.0f) * scale;
+          y.y = fmaxf(y.y + bv.y, 0.0f) * scale;
+          y.z = fmaxf(y.z + bv.z, 0.0f) * scale;
+          y.w = fmaxf(y.w + bv.w, 0.0f) * scale;
+        }
+        st4(o[m] + (r0 + i) * ld + c, y);
+      }
     }
   }
 }
 
-// One head's score of query row q (already scaled by 1/√dh) against key
-// row kr, both dh wide.
-__device__ __forceinline__ float score(const float (&q)[kHeadWidth], const float* kr) {
+// A head's row of K or V: at dh = 8 in two float4 registers, loaded once
+// for every query row that uses it; otherwise where it lies.
+template <int DH>
+struct HeadRow {
+  const float* r;
+  __device__ __forceinline__ explicit HeadRow(const float* row) : r(row) {}
+};
+
+template <>
+struct HeadRow<8> {
+  float4 a, c;
+  __device__ __forceinline__ explicit HeadRow(const float* row)
+      : a(ld4(row)), c(ld4(row + 4)) {}
+};
+
+// A head's score of q (already scaled by 1/√dh) against key row k.
+template <int DH>
+__device__ __forceinline__ float dot(const float* q, const HeadRow<DH>& k, int n) {
   float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kHeadWidth; j += 4) {
-    const float4 kv = *reinterpret_cast<const float4*>(kr + j);
-    s = fmaf(q[j], kv.x, s);
-    s = fmaf(q[j + 1], kv.y, s);
-    s = fmaf(q[j + 2], kv.z, s);
-    s = fmaf(q[j + 3], kv.w, s);
+  if constexpr (DH == 8) {
+    s = fmaf(q[0], k.a.x, s);
+    s = fmaf(q[1], k.a.y, s);
+    s = fmaf(q[2], k.a.z, s);
+    s = fmaf(q[3], k.a.w, s);
+    s = fmaf(q[4], k.c.x, s);
+    s = fmaf(q[5], k.c.y, s);
+    s = fmaf(q[6], k.c.z, s);
+    s = fmaf(q[7], k.c.w, s);
+  } else {
+    for (int j = 0; j < n; ++j) s = fmaf(q[j], k.r[j], s);
   }
   return s;
 }
 
-// Attention of every (head, query row): reads Qs, Ks, Vs (rows ld apart)
-// and writes the head outputs over Qs.  `group` lanes (a power of two)
-// share a row; a warp takes 32 / group rows of one head at a time, and the
-// (head, rows) units are dealt to the warps in turn.
-__device__ void attend(float* Qs, const float* Ks, const float* Vs, int Tq,
-                       int Tk, int ld, int H, int q_len, int k_len, int group,
-                       float inv_scale) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int sub = lane % group;
-  const int rows_per_warp = 32 / group;
-  const int units = H * ((Tq + rows_per_warp - 1) / rows_per_warp);
-  for (int unit = warp; unit < units; unit += kWarps) {
-    const int h = unit % H;
-    const int t = (unit / H) * rows_per_warp + lane / group;
-    float* qrow = Qs + min(t, Tq - 1) * ld + h * kHeadWidth;
-    float q[kHeadWidth];
+// acc += e · (value row v)
+template <int DH>
+__device__ __forceinline__ void axpy(float e, const HeadRow<DH>& v, float* acc, int n) {
+  if constexpr (DH == 8) {
+    acc[0] = fmaf(e, v.a.x, acc[0]);
+    acc[1] = fmaf(e, v.a.y, acc[1]);
+    acc[2] = fmaf(e, v.a.z, acc[2]);
+    acc[3] = fmaf(e, v.a.w, acc[3]);
+    acc[4] = fmaf(e, v.c.x, acc[4]);
+    acc[5] = fmaf(e, v.c.y, acc[5]);
+    acc[6] = fmaf(e, v.c.z, acc[6]);
+    acc[7] = fmaf(e, v.c.w, acc[7]);
+  } else {
+    for (int j = 0; j < n; ++j) acc[j] = fmaf(e, v.r[j], acc[j]);
+  }
+}
+
+// The max over the g lanes of a group, for R rows at once: each level's R
+// exchanges are independent, so their latencies overlap.
+template <int R>
+__device__ __forceinline__ void group_max(float (&m)[R], int g) {
+  for (int off = g / 2; off > 0; off >>= 1)
 #pragma unroll
-    for (int j = 0; j < kHeadWidth; j += 4) {
-      const float4 qv = *reinterpret_cast<const float4*>(qrow + j);
-      q[j] = qv.x;
-      q[j + 1] = qv.y;
-      q[j + 2] = qv.z;
-      q[j + 3] = qv.w;
+    for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+}
+
+// One halving exchange at offset `off`: the lane with the bit set keeps
+// the upper half of a[0 .. 2h), its partner the lower, each adding the
+// other's copy of the half it keeps.
+template <int HALF>
+__device__ __forceinline__ void halve(const float* a, float* b, int lane, int off) {
+  const bool up = lane & off;
+#pragma unroll
+  for (int j = 0; j < HALF; ++j) {
+    const float send = up ? a[j] : a[j + HALF];
+    b[j] = (up ? a[j + HALF] : a[j]) + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// Sums over the g lanes of a group, for R rows at once, level by level:
+// sum[r] and acc[r][0 .. n).  Calls put(r, j, total_rj, total_sum_r) for
+// the features this lane writes: the first lane of the group, or at dh = 8
+// and g >= 8 one lane a feature.  Both partners of an exchange add the same
+// two values, so the result does not depend on the lane.
+template <int DH, int R, typename Acc, typename Put>
+__device__ __forceinline__ void group_finish(float (&sum)[R], Acc& acc, int n, int g,
+                                             int lane, Put put) {
+  for (int off = g / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+  if constexpr (DH == 8) {
+    if (g >= 8) {
+      float b[R][4], c[R][2], d[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) halve<4>(acc[r], b[r], lane, g / 2);
+#pragma unroll
+      for (int r = 0; r < R; ++r) halve<2>(b[r], c[r], lane, g / 4);
+#pragma unroll
+      for (int r = 0; r < R; ++r) halve<1>(c[r], &d[r], lane, g / 8);
+      for (int off = g / 16; off > 0; off >>= 1)
+#pragma unroll
+        for (int r = 0; r < R; ++r) d[r] += __shfl_xor_sync(0xffffffffu, d[r], off);
+      const int f = (lane & (g / 2) ? 4 : 0) + (lane & (g / 4) ? 2 : 0) + (lane & (g / 8) ? 1 : 0);
+      if ((lane & (g / 8 - 1)) == 0)
+#pragma unroll
+        for (int r = 0; r < R; ++r) put(r, f, d[r], sum[r]);
+      return;
+    }
+  }
+  for (int off = g / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      for (int j = 0; j < n; ++j) acc[r][j] += __shfl_xor_sync(0xffffffffu, acc[r][j], off);
+  if ((lane & (g - 1)) == 0)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      for (int j = 0; j < n; ++j) put(r, j, acc[r][j], sum[r]);
+}
+
+// The head's q in registers (dh = 8) or where it lies (generic).
+template <int DH>
+__device__ __forceinline__ const float* head_q(const float* qrow, float* q) {
+  if constexpr (DH == 8) {
+    const float4 a = ld4(qrow), c = ld4(qrow + 4);
+    q[0] = a.x, q[1] = a.y, q[2] = a.z, q[3] = a.w;
+    q[4] = c.x, q[5] = c.y, q[6] = c.z, q[7] = c.w;
+    return q;
+  } else {
+    return qrow;
+  }
+}
+
+// Tq > 1: every (own query row, head) against the CTA's full copy of K
+// and V (rows ld apart); the head outputs overwrite Qs.  Query row t of
+// this CTA is row q0 + t of the batch row.  A unit is kUnitRows query rows
+// of one head, so that each K and V row a lane loads serves them all, and
+// their reductions overlap; a lane holds kPerLane scores of each.
+template <int DH>
+__device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
+                            const float* Vs, int nq, int q0, int q_live,
+                            int k_live, int lane, int warp) {
+  const int H = p.H, n = DH ? DH : p.dh, g = p.group, Tk = p.Tk;
+  const int ld = p.D + kPad;
+  const int sub = lane & (g - 1);
+  const int per_warp = kWarp / g;
+  constexpr int R = kUnitRows, KPL = kPerLane;
+  const int units = (nq + R - 1) / R * H;
+  for (int base = warp * per_warp; base < units; base += kWarps * per_warp) {
+    const int mine = base + lane / g;
+    const int u = min(mine, units - 1);
+    const int t0 = u / H * R, h = u % H;
+    float qreg[R][DH ? DH : 1];
+    const float* q[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      q[r] = head_q<DH>(Qs + min(t0 + r, nq - 1) * ld + h * n, qreg[r]);
+    float s[R][KPL], m[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < KPL; ++i) {
+      const int k = sub + g * i;
+      if (k < Tk && k < k_live) {
+        const HeadRow<DH> kr(Ks + k * ld + h * n);
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][i] = dot<DH>(q[r], kr, n);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) s[r][i] = k < Tk ? kKeyMask : -INFINITY;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], s[r][i]);
+    }
+    group_max(m, g);
+    float sum[R], acc[R][DH ? DH : kMaxDh];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      sum[r] = 0.0f;
+      for (int j = 0; j < n; ++j) acc[r][j] = 0.0f;
     }
 #pragma unroll
-    for (int j = 0; j < kHeadWidth; ++j) q[j] *= inv_scale;
-
-    float m = -INFINITY;
-#pragma unroll 4
-    for (int k = sub; k < Tk; k += group) {
-      const float s = k < k_len ? score(q, Ks + k * ld + h * kHeadWidth) : kKeyMask;
-      m = fmaxf(m, s);
-    }
-    for (int off = group / 2; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-
-    float sum = 0.0f;
-    float acc[kHeadWidth];
+    for (int i = 0; i < KPL; ++i) {
+      const int k = sub + g * i;
+      if (k < Tk) {
+        const HeadRow<DH> vr(Vs + k * ld + h * n);
 #pragma unroll
-    for (int j = 0; j < kHeadWidth; ++j) acc[j] = 0.0f;
-#pragma unroll 4
-    for (int k = sub; k < Tk; k += group) {
-      const float s = k < k_len ? score(q, Ks + k * ld + h * kHeadWidth) : kKeyMask;
-      const float e = expf(s - m);
-      sum += e;
-      const float* vr = Vs + k * ld + h * kHeadWidth;
-#pragma unroll
-      for (int j = 0; j < kHeadWidth; j += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + j);
-        acc[j] = fmaf(e, vv.x, acc[j]);
-        acc[j + 1] = fmaf(e, vv.y, acc[j + 1]);
-        acc[j + 2] = fmaf(e, vv.z, acc[j + 2]);
-        acc[j + 3] = fmaf(e, vv.w, acc[j + 3]);
+        for (int r = 0; r < R; ++r) {
+          const float e = expf(s[r][i] - m[r]);
+          sum[r] += e;
+          axpy<DH>(e, vr, acc[r], n);
+        }
       }
     }
-    for (int off = group / 2; off > 0; off >>= 1) {
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    group_finish<DH>(sum, acc, n, g, lane, [&](int r, int j, float a, float total) {
+      const int t = t0 + r;
+      if (mine < units && t < nq)  // query-mask zeroing at t >= q_len
+        Qs[t * ld + h * n + j] = q0 + t < q_live ? a / total : 0.0f;
+    });
+  }
+}
+
+// Tq = 1: this CTA's nk keys (local rows of Ks, Vs; key k0 + i) against
+// the one query row Qs; `red` holds [H] local maxima, [H] partial sums and
+// [D] partial soft·V sums, `sc` [H, nk_max] the scores.  Leaves CTA 0's
+// head outputs in Qs.
+template <int DH>
+__device__ void attend_split(const Params& p, cg::cluster_group& cluster,
+                             float* Qs, const float* Ks, const float* Vs,
+                             float* red, float* sc, int nk, int nk_max, int k0,
+                             int q_live, int k_live, int rank, int lane, int warp) {
+  const int H = p.H, n = DH ? DH : p.dh, g = p.group, D = p.D;
+  const int ld = D + kPad;
+  const int sub = lane & (g - 1);
+  const int per_warp = kWarp / g;
+  for (int base = warp * per_warp; base < H; base += kWarps * per_warp) {
+    const int mine = base + lane / g;
+    const int h = min(mine, H - 1);
+    float qreg[DH ? DH : 1];
+    const float* q = head_q<DH>(Qs + h * n, qreg);
+    float m[1] = {-INFINITY};
 #pragma unroll
-      for (int j = 0; j < kHeadWidth; ++j)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
+    for (int i = 0; i < kPerLane; ++i) {
+      const int k = sub + g * i;
+      if (k < nk) {
+        const float s =
+            k0 + k < k_live ? dot<DH>(q, HeadRow<DH>(Ks + k * ld + h * n), n) : kKeyMask;
+        sc[h * nk_max + k] = s;
+        m[0] = fmaxf(m[0], s);
+      }
     }
-    if (sub == 0 && t < Tq) {
-      const bool live = t < q_len;  // query-mask zeroing
+    group_max(m, g);
+    if (sub == 0 && mine < H) red[h] = m[0];
+  }
+  cluster_sync();  // every CTA's local maxima
+
+  for (int base = warp * per_warp; base < H; base += kWarps * per_warp) {
+    const int mine = base + lane / g;
+    const int h = min(mine, H - 1);
+    float m = -INFINITY;
+    for (int r = 0; r < p.cs; ++r) m = fmaxf(m, cluster.map_shared_rank(red, r)[h]);
+    float sum[1] = {0.0f};
+    float acc[1][DH ? DH : kMaxDh];
+    for (int j = 0; j < n; ++j) acc[0][j] = 0.0f;
 #pragma unroll
-      for (int j = 0; j < kHeadWidth; ++j) qrow[j] = live ? acc[j] / sum : 0.0f;
+    for (int i = 0; i < kPerLane; ++i) {
+      const int k = sub + g * i;
+      if (k < nk) {
+        const float e = expf(sc[h * nk_max + k] - m);
+        sum[0] += e;
+        axpy<DH>(e, HeadRow<DH>(Vs + k * ld + h * n), acc[0], n);
+      }
+    }
+    group_finish<DH>(sum, acc, n, g, lane, [&](int, int j, float a, float total) {
+      if (mine >= H) return;
+      red[2 * H + h * n + j] = a;
+      if (j == 0) red[H + h] = total;
+    });
+  }
+  cluster_sync();  // every CTA's partial sums
+
+  if (rank == 0) {
+    for (int c = threadIdx.x; c < D; c += kThreads) {
+      const int h = c / n;
+      float sum = 0.0f, acc = 0.0f;
+      for (int r = 0; r < p.cs; ++r) {
+        const float* rr = cluster.map_shared_rank(red, r);
+        sum += rr[H + h];
+        acc += rr[2 * H + c];
+      }
+      Qs[c] = 0 < q_live ? acc / sum : 0.0f;
+    }
+  }
+  cluster_sync();  // CTA 0 has read the peers' partials; they may exit
+}
+
+// dst_r = LayerNorm(o_r + x_r) over D for the rows r < `rows` of o (ld
+// apart), x (D apart) and dst (D apart), at most kLnRows, one warp,
+// butterfly sums in a fixed order; the rows' chains interleave.  gamma and
+// beta lie in shared memory.
+constexpr int kLnRows = 2;
+
+__device__ void layer_norm_rows(const float* o, int ld, const float* x,
+                                const float* gamma, const float* beta,
+                                float* dst, int rows, int D, int lane) {
+  float y[kLnRows][kMaxLnPerLane], sum[kLnRows], sq[kLnRows], mean[kLnRows];
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    const int row = min(r, rows - 1);
+    sum[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxLnPerLane; ++i) {
+      const int c = lane + kWarp * i;
+      y[r][i] = c < D ? o[row * ld + c] + x[row * D + c] : 0.0f;
+      sum[r] += y[r][i];
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < kLnRows; ++r) sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], off);
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    mean[r] = sum[r] / D;
+    sq[r] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kMaxLnPerLane; ++i) {
+      y[r][i] = lane + kWarp * i < D ? y[r][i] - mean[r] : 0.0f;
+      sq[r] = fmaf(y[r][i], y[r][i], sq[r]);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int r = 0; r < kLnRows; ++r) sq[r] += __shfl_xor_sync(0xffffffffu, sq[r], off);
+#pragma unroll
+  for (int r = 0; r < kLnRows; ++r) {
+    const float denom = sqrtf(sq[r] / D + kLnEps);
+#pragma unroll
+    for (int i = 0; i < kMaxLnPerLane; ++i) {
+      const int c = lane + kWarp * i;
+      if (r < rows && c < D) dst[r * D + c] = gamma[c] * y[r][i] / denom + beta[c];
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mha_fwd_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
-               const int* __restrict__ q_len, const int* __restrict__ k_len,
-               const float* __restrict__ wq, const float* __restrict__ bq,
-               const float* __restrict__ wk, const float* __restrict__ bk,
-               const float* __restrict__ wv, const float* __restrict__ bv,
-               const float* __restrict__ gamma, const float* __restrict__ beta,
-               float* __restrict__ out, int Tq, int Tk, int D, int H,
-               int group, float inv_scale) {
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // wq, wk, wv [D, D] each
-  float* bs = ws + 3 * D * D;                   // bq, bk, bv, gamma, beta
-  float* qin = bs + 5 * D;                      // [Tq, D]
-  float* kin = qin + Tq * D;                    // [Tk, D]
-  const int ld = D + kPad;
-  float* Qs = kin + Tk * D;                     // [Tq, ld], then the head outputs
-  float* Ks = Qs + Tq * ld;                     // [Tk, ld]
-  float* Vs = Ks + Tk * ld;                     // [Tk, ld]
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = p.cs, D = p.D, H = p.H, ld = D + kPad, D4 = D / 4;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  // this CTA's rows: the r-th slice of the keys and, for Tq > 1, of the
+  // queries; for Tq = 1 every CTA projects the one query row
+  const bool split = p.Tq == 1;
+  const int nq_max = split ? 1 : (p.Tq + cs - 1) / cs;
+  const int nk_max = (p.Tk + cs - 1) / cs;
+  const int q0 = split ? 0 : rank * p.Tq / cs;
+  const int nq = split ? 1 : (rank + 1) * p.Tq / cs - q0;
+  const int k0 = rank * p.Tk / cs;
+  const int nk = (rank + 1) * p.Tk / cs - k0;
+  // self-attention (queries is keys): the query and key slices coincide
+  const bool alias = !split && p.queries == p.keys && p.Tq == p.Tk;
+  const int kc_max = weight_chunk(D);
 
-  // unrolled so that each thread keeps several device-memory loads in flight
-#pragma unroll 4
-  for (int i = tid; i < D * D; i += kThreads) {
-    ws[i] = wq[i];
-    ws[D * D + i] = wk[i];
-    ws[2 * D * D + i] = wv[i];
+  // shared memory (floats), as ops/cuda/mha.py::_smem counts it: bq, bk,
+  // bv, γ, β [5, D]; the q slice [nq_max, D] and the k slice [nk_max, D]
+  // (none when aliased); Q [nq_max, ld]; this CTA's K and V rows
+  // [nk_max, ld] each; then for Tq > 1 the full K and V [Tk, ld] each,
+  // whose space holds the staged weights [3, kc_max, D] until the copy,
+  // and for Tq = 1 the cluster's exchange (red), the scores (sc) and the
+  // weights
+  float* par = smem;
+  float* qin = par + 5 * D;
+  float* kin = alias ? qin : qin + nq_max * D;
+  float* Qs = kin + nk_max * D;
+  float* Ko = Qs + nq_max * ld;
+  float* Vo = Ko + nk_max * ld;
+  float* rest = Vo + nk_max * ld;
+  float* red = rest;
+  float* sc = red + 2 * H + D;
+  float* Wc = split ? rest + round4(2 * H + D + H * nk_max) : rest;
+  const float* end = split ? Wc + 3 * kc_max * D
+                           : rest + max(2 * p.Tk * ld, 3 * kc_max * D);
+  if (tid == 0) {
+    unsigned have;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(have));
+    if (4 * (end - smem) > have) __trap();  // the plan and this layout disagree
   }
-  for (int i = tid; i < D; i += kThreads) {
-    bs[i] = bq[i];
-    bs[D + i] = bk[i];
-    bs[2 * D + i] = bv[i];
-    bs[3 * D + i] = gamma[i];
-    bs[4 * D + i] = beta[i];
+
+  // every load from device memory at once: biases, γ, β, the q and k
+  // slices and the first chunk of the weights
+  for (int i = tid; i < 5 * D4; i += kThreads) {
+    const int m = i / D4, j = i - m * D4;
+    const float* src = m == 0 ? p.bq : m == 1 ? p.bk : m == 2 ? p.bv : m == 3 ? p.gamma : p.beta;
+    st4(par + i * 4, ldg4(src + j * 4));
   }
-  const float* qb = queries + static_cast<long long>(b) * Tq * D;
-  const float* kb = keys + static_cast<long long>(b) * Tk * D;
+  const float* qg = p.queries + (static_cast<long long>(b) * p.Tq + q0) * D;
 #pragma unroll 4
-  for (int i = tid; i < Tq * D; i += kThreads) qin[i] = qb[i];
+  for (int i = tid; i < nq * D4; i += kThreads) st4(qin + i * 4, ldg4(qg + i * 4));
+  if (!alias) {
+    const float* kg = p.keys + (static_cast<long long>(b) * p.Tk + k0) * D;
 #pragma unroll 4
-  for (int i = tid; i < Tk * D; i += kThreads) kin[i] = kb[i];
+    for (int i = tid; i < nk * D4; i += kThreads) st4(kin + i * 4, ldg4(kg + i * 4));
+  }
+  load_weights(p, Wc, 0, min(kc_max, D), kc_max);
+  const int q_live = p.q_len[b], k_live = p.k_len[b];
   __syncthreads();
 
-  project_relu(qin, ws, bs, Qs, Tq, D, ld);
-  project_relu(kin, ws + D * D, bs + D, Ks, Tk, D, ld);
-  project_relu(kin, ws + 2 * D * D, bs + 2 * D, Vs, Tk, D, ld);
-  __syncthreads();
-
-  attend(Qs, Ks, Vs, Tq, Tk, ld, H, q_len[b], k_len[b], group, inv_scale);
-  __syncthreads();
-
-  // out = LayerNorm(o + q), one warp a row, butterfly sums (fixed order)
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  float* ob = out + static_cast<long long>(b) * Tq * D;
-  for (int t = warp; t < Tq; t += kWarps) {
-    float y[kMaxLnPerLane];
-    float sum = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxLnPerLane; ++i) {
-      const int c = lane + 32 * i;
-      y[i] = c < D ? Qs[t * ld + c] + qin[t * D + c] : 0.0f;
-      sum += y[i];
+  // projections: Q of the own query rows (scaled by 1/√dh), K and V of the
+  // own key rows, chunk by chunk of the weights' rows
+  const int qjobs = (nq + kRows - 1) / kRows * D4;
+  const int kjobs = (nk + kRows - 1) / kRows * D4;
+  for (int kb = 0; kb < D; kb += kc_max) {
+    const int kc = min(kc_max, D - kb);
+    if (kb > 0) {
+      __syncthreads();  // the previous chunk is used up
+      load_weights(p, Wc, kb, kc, kc_max);
+      __syncthreads();
     }
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mean = sum / D;
-    float sq = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kMaxLnPerLane; ++i) {
-      y[i] = lane + 32 * i < D ? y[i] - mean : 0.0f;
-      sq = fmaf(y[i], y[i], sq);
-    }
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float denom = sqrtf(sq / D + kLnEps);
-#pragma unroll
-    for (int i = 0; i < kMaxLnPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < D) ob[t * D + c] = bs[3 * D + c] * y[i] / denom + bs[4 * D + c];
+    const bool first = kb == 0, last = kb + kc == D;
+    for (int j = tid; j < qjobs + kjobs; j += kThreads) {
+      if (j < qjobs) {
+        project_tile<1>(qin, nq, D, ld, j / D4 * kRows, j % D4 * 4, kb, kc, first,
+                        last, p.inv_scale, Wc, par, Qs, nullptr, nullptr, nullptr);
+      } else {
+        const int jk = j - qjobs;
+        project_tile<2>(kin, nk, D, ld, jk / D4 * kRows, jk % D4 * 4, kb, kc, first,
+                        last, 1.0f, Wc + kc_max * D, par + D, Ko,
+                        Wc + 2 * kc_max * D, par + 2 * D, Vo);
+      }
     }
   }
+  const float* gamma = par + 3 * D;
+  const float* beta = par + 4 * D;
+
+  if (split) {
+    __syncthreads();
+    attend_split<DH>(p, cluster, Qs, Ko, Vo, red, sc, nk, nk_max, k0, q_live,
+                     k_live, rank, lane, warp);
+    if (rank == 0 && warp == 0)
+      layer_norm_rows(Qs, ld, qin, gamma, beta, p.out + static_cast<long long>(b) * D, 1, D,
+                      lane);
+    return;
+  }
+
+  cluster_sync();  // every CTA's K and V rows are projected
+  // gather every CTA's rows into the full copies (over the weights): a
+  // thread keeps one column of float4s and takes every step-th row, 8 loads
+  // in flight; key row t lies in the CTA whose slice [r·Tk/cs,
+  // (r+1)·Tk/cs) holds it
+  float* Kf = rest;
+  float* Vf = rest + p.Tk * ld;
+  const int step = kThreads / D4;
+  if (tid < step * D4) {
+    const int c = tid % D4 * 4;
+    for (int t0 = tid / D4; t0 < p.Tk; t0 += 4 * step) {
+      float4 kv[4], vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = t0 + u * step;
+        if (t < p.Tk) {
+          const int r = ((t + 1) * cs - 1) / p.Tk;
+          const int off = (t - r * p.Tk / cs) * ld + c;
+          kv[u] = ld4(cluster.map_shared_rank(Ko, r) + off);
+          vv[u] = ld4(cluster.map_shared_rank(Vo, r) + off);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int t = t0 + u * step;
+        if (t < p.Tk) {
+          st4(Kf + t * ld + c, kv[u]);
+          st4(Vf + t * ld + c, vv[u]);
+        }
+      }
+    }
+  }
+  cluster_arrive();  // done reading the peers; waited for before exiting
+  __syncthreads();
+
+  attend_rows<DH>(p, Qs, Kf, Vf, nq, q0, q_live, k_live, lane, warp);
+  __syncthreads();
+  float* ob = p.out + (static_cast<long long>(b) * p.Tq + q0) * D;
+  for (int t = warp * kLnRows; t < nq; t += kWarps * kLnRows)
+    layer_norm_rows(Qs + t * ld, ld, qin + t * D, gamma, beta, ob + t * D,
+                    min(kLnRows, nq - t), D, lane);
+  cluster_wait();
+}
+
+template <int DH>
+int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
+  // the dynamic shared memory each device's variant is opted in to
+  static int opted[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > opted[device]) {
+    err = cudaFuncSetAttribute(mha_fwd_kernel<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[device] = smem;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(grid);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, mha_fwd_kernel<DH>, p);
+  // read (and clear) the launch's error either way, so that a refused
+  // launch is not reported again by a later one
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs; the wrapper refuses shapes above
-// mha_fwd_max_smem_bytes().
-int mha_fwd_smem_bytes(int Tq, int Tk, int D) {
-  return static_cast<int>(sizeof(float)) *
-         (3 * D * D + 5 * D + (Tq + Tk) * D + (Tq + 2 * Tk) * (D + kPad));
-}
-
-int mha_fwd_max_smem_bytes() { return kMaxSmem; }
-
-// Launches the kernel on `stream`; returns cudaGetLastError() (0 = launched).
-// The caller has checked shapes, types, devices and contiguity, that
-// D = 8·H divides 256, and that mha_fwd_smem_bytes fits.
+// Launches K3 on `stream` with the geometry of
+// ops/cuda/mha.py::launch_plan: `grid` = B·cs CTAs of `threads` threads in
+// clusters of `cs`, `group` lanes a (query row, head), `smem` bytes of
+// dynamic shared memory.  Returns the launch's CUDA error (0 = launched); a
+// refused cluster launch (cudaErrorClusterOutOfResources among others) is
+// returned, never retried with another cluster size.  The caller has
+// checked shapes, types, devices, contiguity, 16-byte alignment and the
+// limits.
 int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
                    const int* k_len, const float* wq, const float* bq,
                    const float* wk, const float* bk, const float* wv,
                    const float* bv, const float* gamma, const float* beta,
-                   float* out, int B, int Tq, int Tk, int D, int H,
-                   void* stream) {
-  if (D != kHeadWidth * H) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = mha_fwd_smem_bytes(Tq, Tk, D);
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mha_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   float* out, int Tq, int Tk, int D, int H, int dh, int cs,
+                   int group, int grid, int threads, int smem, void* stream) {
+  if (threads != kThreads || dh > kMaxDh || D != dh * H || D % 4 != 0 ||
+      Tk > kWarp * kPerLane || group < 1 || group > kWarp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma,
+                 beta, out, Tq, Tk, D, H, dh, cs, group,
+                 1.0f / sqrtf(static_cast<float>(dh))};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh == 8 ? launch<8>(p, grid, smem, s) : launch<0>(p, grid, smem, s);
+}
+
+// The clusters of `cs` CTAs with `smem` bytes each that the current device
+// runs at once (cudaOccupancyMaxActiveClusters), into *clusters; returns
+// the CUDA error.  ops/cuda/mha.py's ACTIVE_CLUSTERS is checked against it.
+int mha_fwd_active_clusters(int cs, int smem, int* clusters) {
+  // raise the opt-in only: launch() assumes it never falls
+  cudaFuncAttributes attrs;
+  cudaError_t err = cudaFuncGetAttributes(&attrs, mha_fwd_kernel<8>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > attrs.maxDynamicSharedSizeBytes) {
+    err = cudaFuncSetAttribute(mha_fwd_kernel<8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int rows = 1;  // query rows a warp takes at once: Tq rounded up to 2^n, at most 32
-  while (rows < Tq && rows < 32) rows <<= 1;
-  const float inv_scale = 1.0f / sqrtf(static_cast<float>(kHeadWidth));
-  mha_fwd_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, beta, out,
-      Tq, Tk, D, H, 32 / rows, inv_scale);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cs);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(mha_fwd_kernel<8>), &config));
 }
 
 const char* mha_error_string(int err) {

@@ -27,13 +27,13 @@ import functools
 import torch
 
 from tlsan_tpu_torch.ops.cuda import build
+from tlsan_tpu_torch.ops.cuda.common import SMEM_LIMIT, check_tensor, launch
 
 SOURCE = "fwa_fwd"
 BWD_SOURCE = "fwa_bwd"
 
 WARP = 32
 MAX_HEAD_WIDTH = 32        # kMaxDh in csrc/fwa_common.cuh
-SMEM_LIMIT = 232_448       # shared memory a block may use on the H100
 FWD_WARPS, BWD_WARPS = 4, 8  # warps (units) a block
 GROUP = 128                # kGroup in csrc/fwa_bwd.cu: slots summed together
 
@@ -44,12 +44,6 @@ _F32 = torch.float32
 _I32 = torch.int32
 # K2's cross-block scratch per device index: (slots f32, tickets i32, all 0)
 _scratch: dict = {}
-# the current device's index and a device's current stream as plain ints,
-# through torch's own hooks (what its compiler launches with) where the
-# build has them: no Python Stream object a call
-_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
-_raw_stream = (getattr(torch._C, "_cuda_getCurrentRawStream", None)
-               or (lambda index: torch.cuda.current_stream(index).cuda_stream))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,21 +122,6 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-def check_tensor(fn: str, name: str, t: torch.Tensor, dtype: torch.dtype,
-                 shape, device):
-    """Raise unless `t` is on `device` with `dtype`, `shape` and a
-    contiguous layout; `fn` and `name` go into the message."""
-    if t.device != device:
-        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{fn}: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"{fn}: {name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be contiguous")
-
-
 def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
     """Checks shared by both kernels, one pass over the tensors; returns
     (B, S, D, dh)."""
@@ -174,15 +153,6 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
     return B, S, D, dh
 
 
-def _launch(index: int, call) -> int:
-    """Run `call(stream)` on device `index`'s current stream, entering the
-    device's context only when another device is current."""
-    if index == _current_device():
-        return call(_raw_stream(index))
-    with torch.cuda.device(index):
-        return call(_raw_stream(index))
-
-
 def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                 b2: torch.Tensor) -> torch.Tensor:
@@ -197,7 +167,7 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         return out
     plan = launch_plan(B, S, D, num_heads)
     lib = _library()
-    err = _launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
+    err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
         x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
         num_heads, dh, plan.grid, plan.threads, plan.smem, stream))
@@ -240,7 +210,7 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     plan = launch_plan(B, S, D, num_heads, True)
     lib = _bwd_library()
     slots, tickets = _bwd_scratch(x, plan)
-    err = _launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
+    err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
         x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
         slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),

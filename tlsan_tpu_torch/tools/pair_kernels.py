@@ -1,13 +1,15 @@
-"""Time the feature-wise attention kernels K1 and K2 of two checkouts in
-turns on one card: other, this, this, other.
+"""Time the kernels of two checkouts in turns on one card: other, this,
+this, other.
 
-    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT
+    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT [--kernels fwa|mha|all]
 
 Each turn is a fresh process in one checkout: it builds that checkout's
-kernels and runs its ``chip_smoke.py`` kernel phases at the main-path shapes
-(K1 at B=128, 64 and 16 with S=10 and 25; K2 at B=32 and 16), with one
-per-call timing for both checkouts (the median of 5 runs of 100 calls
-between CUDA events).  Its ``kernel fwa_*`` lines are printed with the
+kernels and runs its ``chip_smoke.py`` kernel phases at the main-path shapes,
+with one per-call timing for both checkouts (the median of 5 runs of 100
+calls between CUDA events): ``fwa`` (the default) K1 at B=128, 64 and 16
+with S=10 and 25 and K2 at B=32 and 16; ``mha`` K3 at B=128, 32, 64 and 16
+with (Tq, Tk) = (96, 96) and (1, 96), self- and cross-attention; ``all``
+both.  Its ``kernel fwa_*`` or ``kernel mha_*`` lines are printed with the
 checkout's tag.  Two versions are compared only within one such call: the
 card, its power limit and its host then stay the same.
 """
@@ -42,24 +44,38 @@ def per_call_ms(fn, iters=100, warmup=20, repeats=5):
 
 c._cuda_ms = per_call_ms
 c.phase_build()
+"""
+# the phases of each kind, with signatures every checkout since the
+# parent of the K3 redesign has
+PHASES = {
+    "fwa": """
 c.phase_kernel(c.MAIN_SHAPES + c.LOCAL_FWA + c.LOCAL_FWA_TRAIN, c.MAIN_SHAPES)
 c.phase_kernel_bwd(c.TRAIN_SHAPES + c.LOCAL_FWA_TRAIN, c.TRAIN_SHAPES)
-"""
+""",
+    "mha": """
+c.phase_kernel_mha(c.MHA_MAIN + c.MHA_TRAIN + c.LOCAL_MHA + c.LOCAL_MHA_TRAIN, c.MHA_MAIN)
+""",
+}
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", help="root of the other checkout")
+    parser.add_argument("--kernels", choices=("fwa", "mha", "all"), default="fwa",
+                        help="which kernels to time (default: fwa, K1 and K2)")
     args = parser.parse_args(argv)
+    kinds = ("fwa", "mha") if args.kernels == "all" else (args.kernels,)
+    script = TURN + "".join(PHASES[kind] for kind in kinds)
+    prefixes = tuple(f"kernel {kind}" for kind in kinds)
     for tag, root in (("other", args.other), ("this", ROOT), ("this", ROOT),
                       ("other", args.other)):
-        turn = subprocess.run([sys.executable, "-c", TURN], cwd=root,
+        turn = subprocess.run([sys.executable, "-c", script], cwd=root,
                               capture_output=True, text=True, timeout=900)
         if turn.returncode != 0:
             print(f"[{tag}] failed:\n{turn.stdout}\n{turn.stderr}", file=sys.stderr)
             return 1
         for line in turn.stdout.splitlines():
-            if line.startswith("kernel fwa"):
+            if line.startswith(prefixes):
                 print(f"[{tag}] {line}", flush=True)
     return 0
 
