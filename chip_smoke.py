@@ -30,15 +30,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              of each (device time from the profiler, per-call time from
              CUDA events), and the card's bound; the build's report must
              show no spill in K3's dh = 8 variant;
-  4. path    per family (TLSAN, then ATRank) at the reference widths (D=64,
-             H=8, 32-wide embeddings, one block; TLSAN Ls=10, Ts=24; ATRank
-             T=96) and the Electronics catalog (39,991 users, 22,048 items,
+  4. path    per family (TLSAN, ATRank, then the seven baselines below)
+             at the reference widths (TLSAN and ATRank: D=64, H=8, 32-wide
+             embeddings, one block; TLSAN Ls=10, Ts=24; ATRank T=96) and the Electronics catalog (39,991 users, 22,048 items,
              673 categories; SURVEY.md dataset table), seeded random
              weights: checkpoint.save, Recommender.from_model_dir on cuda and
              on cpu, the HTTP service on 127.0.0.1 (healthz, a single and an
              8-request POST, 1,000 (TLSAN) or 500 (ATRank) timed single-user
              POSTs), then bulk recommends of 4,000 featurized users over a
-             window of at least 5 s.  The kernel launch counts must rise by
+             window of at least 3 s.  The kernel launch counts must rise by
              exactly the family's launches per request batch (TLSAN: K1 2,
              the long and the short tower; ATRank: K3 2 a block, the
              self-attention and the readout) and no other kernel may
@@ -57,27 +57,53 @@ Phases, each of which fails the run (non-zero exit, no result line):
              initial one; a second Trainer must restore the step and
              schedule count and evaluate bit for bit as the last save did;
              20 steps from the same start must agree with the CPU plain
-             path.  Then train examples/s over a window of at least 5 s,
+             path.  Then train examples/s over a window of at least 3 s,
              eval users/s, and one profiled chunk;
   6. local   K1, K2 and K3 against their plain versions at the per-rank
              shapes of a dp=2 mesh (B=64 a request batch, B=16 a train
              step), with times and bounds: K4, the kernels per rank;
-  7. mesh    per family, a dp=2 × mp=2 world of four ranks: on one card
-             four processes over Gloo with CUDA tensors, on four or more
-             cards one a rank over NCCL (logged).  Each rank trains with
-             `Trainer(dp=2, mp=2)` from the seed of a single-process Trainer
-             on the card: 20 steps (lr 1.0 for TLSAN, 0.1 for ATRank;
-             losses and every unpadded parameter within PARITY_TOL of the
-             single process), one epoch of
+  7. mesh    per family (TLSAN, ATRank), a dp=2 × mp=2 world of four
+             ranks: on one card four processes over Gloo with CUDA
+             tensors, on four or more cards one a rank over NCCL (logged).
+             Each rank trains with `Trainer(dp=2, mp=2)` from the seed of
+             a single-process Trainer on the card: 20 steps (lr 1.0 for
+             TLSAN, 0.1 for ATRank; losses and every unpadded parameter
+             within PARITY_TOL of the single process), one epoch of
              100-step chunks (loss falls, AUC ends above 0.5 and its
              start), an evaluation equal to the single process's of the
-             saved weights, and two timed chunks; then serves the 4,000
+             saved weights, and a timed chunk; then serves the 4,000
              featurized users with `Recommender(mesh=...)` (ids equal to
              the single-device Recommender's up to ties, scores within
              SCORE_TOL).  Every rank's K1/K2/K3 launches are counted
              exactly; a rank that fails, or a world past its time limit,
-             fails the run;
-  8. summary one JSON line of per-kernel numbers, then the device line last.
+             fails the run.  Then the seven baselines on ONE world of four ranks (a single
+             spawn): per family a Trainer(dp=2, mp=2) from the seed takes
+             5 steps at lr 0.1 (`programs.chunk_program`), digests a
+             summary, evaluates its 1,024 test users and saves; one
+             process on the card does the same (losses and every unpadded
+             parameter within PARITY_TOL, the metrics within one test
+             user), and `Recommender(mesh=...)` serves the save to 1,024
+             featurized users as one device does; no rank launches K1, K2
+             or K3;
+  8. summary per family one line of train examples/s, eval users/s, bulk
+             users/s, HTTP p50/p99 and idle shares beside the card's name
+             and power limit; the whole run's wall time; one JSON line of
+             per-kernel numbers; then the device line last.
+
+The seven baselines (SHAN, PACA, BPR-MF, LSPM, CNN, Bi-LSTM, CSAN) run
+phases 4 and 5 after TLSAN and ATRank, at the reference widths of their
+flag tables (SURVEY.md §2.6) and the same catalog: SHAN and PACA 32-wide
+items (SHAN Ls=96, Ts=24; PACA 90 positions, 10 kernels), BPR-MF 64-wide
+users against item(32)⊕cate(32), LSPM k=5, CNN T=80 with ten towers of 32
+filters, Bi-LSTM 64 hidden units at T=96, CSAN hidden_units 32 at T=96.
+They launch no kernel of the port, so every one of their phases checks
+that the K1, K2 and K3 counts do not move.  Their depths are shallower:
+200 timed HTTP POSTs, a 2 s bulk window, the CPU check on the first 512
+bulk users and every HTTP answer; 200 train steps of batch 32 in chunks
+of 50 (Bi-LSTM, whose step is some 8,000 launches: 100 in chunks of 10)
+on rows planted on 16 items and 8 categories with negatives from the
+whole catalog, evaluations of 1,024 test users every 100 steps, 1 s train
+and eval windows, 10 steps against the CPU plain path.
 
 It needs the repository's tlsan_tpu_torch package beside it and CUDA; it
 imports nothing of JAX.
@@ -102,6 +128,7 @@ import torch
 
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index, round8
+from tlsan_tpu_torch.models import get_model
 from tlsan_tpu_torch.models.atrank import ATRank
 from tlsan_tpu_torch.models.tlsan import TLSAN
 from tlsan_tpu_torch.ops.cuda import build
@@ -152,7 +179,7 @@ FWA_EDGES = [(37, 1), (37, 32), (37, 33), (37, 64), (37, 17, 64, 4), (37, 17, 12
              (4, 40, 128, 4)]
 KERNEL_SHAPES = MAIN_SHAPES + [(37, 17)] + FWA_EDGES + [(4, 301)]
 BULK_USERS = 4_000   # not a multiple of 128: the last batch has 0-length rows
-BULK_WINDOW_S = 5.0  # bulk users/s: every user served over one window
+BULK_WINDOW_S = 3.0  # bulk users/s: every user served over one window
 
 # training (TrainConfig defaults: batch 32, test batch 128)
 TRAIN_B, TEST_B = 32, 128
@@ -183,13 +210,37 @@ PARITY_STEPS = 20
 # path after 20 steps of lr 1.0: f32 sums in other orders, amplified by
 # training
 PARITY_TOL = 1e-4
-TRAIN_WINDOW_S = 5.0
+TRAIN_WINDOW_S = 3.0
 EVAL_WINDOW_S = 2.0
+EVAL_EVERY = 100  # steps between evaluations
+
+# the seven baselines (SHAN, PACA, BPR-MF, LSPM, CNN, Bi-LSTM, CSAN): the
+# same catalog at shallower depths, so that the whole run stays near 450 s
+PAIRWISE = ("bpr", "lspm")  # (i, j) pairs, no label
+LS_SHAN = T_ATRANK  # SHAN's long history, at the prefix families' cap
+T_PACA = 90         # round8(90) capped at paca_max_len (train/cli.py:131-137)
+T_CNN = 80          # the CLI's CNN history cap (train/cli.py:145)
+LSPM_K = 5
+PLANTED_ITEMS = 16  # the items the baselines' seeded rows use (see below)
+BASE_PLANTED_CATES = 8
+# Bi-LSTM's step is some 8,000 launches (96 steps × 2 directions, forward
+# and backward): 100 steps in chunks of 10
+BILSTM_TRAIN_ROWS, BILSTM_STEPS_PER_CALL = 3_200, 10
+BASE_LATENCY_REQUESTS = 200  # p99 is the 2nd slowest
+BASE_BULK_WINDOW_S = 2.0
+BASE_CPU_CHECK_USERS = 512   # 4 whole batches: the CPU runs CSAN's [B,T,T,E] slowly
+BASE_TRAIN_ROWS, BASE_TEST_USERS, BASE_STEPS_PER_CALL = 6_400, 1_024, 50
+BASE_PARITY_STEPS = 10
+BASE_TRAIN_WINDOW_S, BASE_EVAL_WINDOW_S = 1.0, 1.0
+# their mesh: 5 steps at lr 0.1 from one process's seed, then an
+# evaluation and a save of 1,024 test users, served to 1,024 users
+MESH_BASE_STEPS, MESH_BASE_LR, MESH_BASE_USERS = 5, 0.1, 1_024
 
 # the mesh: dp=2 × mp=2, each rank with half of every batch's rows
 MESH_DP, MESH_MP = 2, 2
 MESH_SERVE_B, MESH_TRAIN_B = BATCH // MESH_DP, TRAIN_B // MESH_DP
-MESH_TIMED_CHUNKS, MESH_SERVE_CALLS = 2, 2
+# one timed chunk and one timed serving call: the whole run stays near 450 s
+MESH_TIMED_CHUNKS, MESH_SERVE_CALLS = 1, 1
 MESH_TIMEOUT_S = 480
 # K4's per-rank shapes: K1 and K2 at the local rows of a request batch and
 # a train step, K3 likewise
@@ -219,15 +270,19 @@ K4 = [{"name": "fwa_per_rank", "route": "cuda",
        "kernels": ("mha_fwd",)}]
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the run's log, stamped with the seconds since start."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def phase_card() -> str:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    log(line)
+    print(line, flush=True)  # as nvidia-smi gives it, on a line of its own
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
     return line
@@ -327,8 +382,8 @@ def _cuda_ms(fn, iters: int = 100, warmup: int = 20, repeats: int = 5) -> float:
 
 def _profile(fn):
     """Run fn once under torch.profiler.  Returns (wall ms, {kernel name:
-    (launches, device µs)}) for the kernels that ran on the card.  The
-    profiler's own cost inflates the wall time a little."""
+    (launches, device µs)}) for the kernels (and copies) that ran on the
+    card.  The profiler's own cost inflates the wall time a little."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -338,9 +393,13 @@ def _profile(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = {e.key: (e.count, e.self_device_time_total)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    # summed from the raw device events: key_averages() builds the whole
+    # host-and-device event tree first, some 30 s for a 70,000-launch chunk
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            count, us = kernels.get(e.name(), (0, 0.0))
+            kernels[e.name()] = (count + 1, us + 1e-3 * e.duration_ns())
     return wall_ms, kernels
 
 
@@ -743,8 +802,10 @@ def _atrank_requests(rng: np.random.Generator, n: int):
     return reqs
 
 
-def _planted_cates(rng: np.random.Generator, items: int) -> np.ndarray:
-    return (2 * rng.integers(0, PLANTED_CATES // 2, items)
+def _planted_cates(rng: np.random.Generator, items: int,
+                   cates: int = PLANTED_CATES) -> np.ndarray:
+    """Each item's category: one of the first `cates`, of the item's parity."""
+    return (2 * rng.integers(0, cates // 2, items)
             + np.arange(items) % 2).astype(np.int32)
 
 
@@ -845,6 +906,15 @@ class Family:
     # and the gap then grows past 1e-4; at lr 0.1 both stay at rounding
     # level (tests/test_torch_atrank.py:366-368 has the same finding)
     parity_lr: float = 1.0
+    # the depth of each phase (the seven baselines run shallower ones)
+    bulk_window_s: float = BULK_WINDOW_S
+    cpu_check_users: int = BULK_USERS  # bulk users checked against the CPU
+    train_rows: int = TRAIN_ROWS
+    test_users: int = TEST_USERS
+    steps_per_call: int = STEPS_PER_CALL
+    parity_steps: int = PARITY_STEPS
+    train_window_s: float = TRAIN_WINDOW_S
+    eval_window_s: float = EVAL_WINDOW_S
 
 
 TLSAN_FAMILY = Family(
@@ -871,6 +941,110 @@ ATRANK_FAMILY = Family(
     per_summary={"mha_fwd": 2 * ATRANK_BLOCKS}, parity_lr=0.1)
 
 
+def baseline_train_data(name: str):
+    """(rng, users, items, n_train, n_test) → (train, test, cate_list): the
+    seeded rows of one baseline family in its packers' layout, with the
+    planted rule of `atrank_train_data` (history items of the parity the
+    user likes; a label of 1, or the pair's positive, exactly when the
+    item has that parity; categories carry it).  Histories and positives
+    use the first PLANTED_ITEMS items of the catalog (five of the seven
+    read items without categories, and 200 steps see each of 22,048 items
+    a few times only); negatives — a label-0 item, a pair's j — come from
+    the whole catalog, as the reference's builders draw them
+    (`_gen_neg_list`), so every family also sees the planted items'
+    popularity.  A tenth of the rows has an empty history (sl = 0);
+    padding is zeros, as the packers leave it (LSPM's window
+    right-aligned); BPR-MF's rows are (u, i, j) alone."""
+
+    def make(rng: np.random.Generator, users: int, items: int, n_train: int,
+             n_test: int):
+        cate_list = _planted_cates(rng, items, BASE_PLANTED_CATES)
+        planted = PLANTED_ITEMS
+
+        def history(n, liked, width, empty=EMPTY_HISTORY_SHARE):
+            sl = rng.integers(1, width + 1, n).astype(np.int32)
+            sl[rng.random(n) < empty] = 0
+            ids = _of_parity(rng, planted, liked, (n, width))
+            ids[np.arange(width)[None, :] >= sl[:, None]] = 0
+            return ids, sl
+
+        def rows(u):
+            n = len(u)
+            liked = (1 - u % 2).astype(np.int32)
+            out = {"u": u.astype(np.int32)}
+            if name == "shan":
+                out["hist_i"], out["sl"] = history(n, liked, LS_SHAN)
+                out["hist_i_new"], out["sl_new"] = history(n, liked, TS, empty=0.0)
+            elif name == "paca":
+                del out["u"]  # PACA's packers carry no user (PACA/input.py)
+                out["hist_i"], out["sl"] = history(n, liked, T_PACA)
+            elif name == "lspm":
+                ids, sl = history(n, liked, LSPM_K)
+                out["hist_i"] = np.ascontiguousarray(ids[:, ::-1])  # right-aligned
+                out["sl"] = sl
+            elif name != "bpr":
+                T = T_CNN if name == "cnn" else T_ATRANK
+                out["hist_i"], out["sl"] = history(n, liked, T)
+                pad = np.arange(T)[None, :] >= out["sl"][:, None]
+                if name == "cnn":
+                    out["hist_t"] = rng.integers(0, 13, (n, T)).astype(np.int32)
+                    out["hist_t"][pad] = 0
+                elif name == "csan":  # day deltas, oldest first, as featurize gives
+                    gaps = rng.integers(0, 30, (n, T))
+                    delta = 1 + np.cumsum(gaps[:, ::-1], axis=1)[:, ::-1]
+                    out["hist_t"] = np.where(pad, 0, delta).astype(np.float32)
+            return out, liked
+
+        test_users = rng.choice(users, n_test, replace=False)
+        train, liked = rows(test_users[rng.integers(0, n_test, n_train)])
+        pos = _of_parity(rng, planted, liked, (n_train,))
+        neg = _of_parity(rng, items, 1 - liked, (n_train,))
+        if name in PAIRWISE:
+            train["i"], train["j"] = pos, neg
+        else:
+            y = rng.integers(0, 2, n_train)
+            train["y"] = y.astype(np.float32)
+            train["i"] = np.where(y == 1, pos, neg)
+        test, liked = rows(test_users)
+        test["i"] = _of_parity(rng, planted, liked, (n_test,))
+        test["j"] = _of_parity(rng, items, 1 - liked, (n_test,))
+        return Batches(train, n_train), Batches(test, n_test), cate_list
+
+    return make
+
+
+def _baseline(name: str, **cfg) -> Family:
+    """A baseline family at the reference widths: plain PyTorch, no kernel
+    launch on any of its paths, and the shallower depths."""
+    return Family(
+        name, get_model(name),
+        ModelConfig(model=name, user_count=USERS, item_count=ITEMS, cate_count=CATES,
+                    **cfg),
+        _atrank_requests, baseline_train_data(name), BASE_LATENCY_REQUESTS,
+        per_batch={}, per_step={}, per_eval_batch={}, per_summary={},
+        parity_lr=MESH_BASE_LR, bulk_window_s=BASE_BULK_WINDOW_S,
+        cpu_check_users=BASE_CPU_CHECK_USERS, train_rows=BASE_TRAIN_ROWS,
+        test_users=BASE_TEST_USERS, steps_per_call=BASE_STEPS_PER_CALL,
+        parity_steps=BASE_PARITY_STEPS, train_window_s=BASE_TRAIN_WINDOW_S,
+        eval_window_s=BASE_EVAL_WINDOW_S)
+
+
+# the seven baselines at the reference widths (SURVEY.md §2.6 flag tables):
+# 32-wide item, cate and user embeddings where they have them
+BASELINES = [
+    _baseline("shan", Ls=LS_SHAN, Ts=TS),
+    _baseline("paca", Ls=T_PACA, paca_max_len=T_PACA),
+    _baseline("bpr"),  # 64-wide users against item(32)⊕cate(32)
+    _baseline("lspm", lspm_k=LSPM_K, regulation_rate=1e-2),
+    # ten towers of 32 filters, heights 1..10, over T = 80 (train/cli.py:145)
+    _baseline("cnn", max_length=T_CNN, hidden_units=D),
+    dataclasses.replace(_baseline("bilstm", max_length=T_ATRANK, lstm_hidden_units=64),
+                        train_rows=BILSTM_TRAIN_ROWS,
+                        steps_per_call=BILSTM_STEPS_PER_CALL),
+    _baseline("csan", max_length=T_ATRANK, hidden_units=32),
+]
+
+
 # --------------------------------------------------------------------- paths
 
 
@@ -895,7 +1069,9 @@ def _http(url: str, payload=None):
         return json.loads(r.read())
 
 
-def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> None:
+def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> float:
+    """Logs the profiled call's device time by kernel; returns its idle
+    share."""
     busy_ms = 1e-3 * sum(us for _, us in prof.values())
     log(f"{tag}: profiled {what}: wall {wall_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
@@ -907,6 +1083,7 @@ def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> None:
         if hits:
             log(f"  {kernel}: {1e-3 * sum(us for _, us in hits):.3f} ms in "
                 f"{sum(cnt for cnt, _ in hits)} launches")
+    return 1 - busy_ms / wall_ms
 
 
 def phase_path(tmp: str, fam: Family) -> dict:
@@ -960,7 +1137,7 @@ def phase_path(tmp: str, fam: Family) -> dict:
         ids, scores = rec.recommend(bulk)  # warm-up, checked below
         n = expect_launches(n, batches(n_batches), "bulk recommend")
         calls, t0 = 0, time.perf_counter()
-        while time.perf_counter() - t0 < BULK_WINDOW_S:
+        while time.perf_counter() - t0 < fam.bulk_window_s:
             rec.recommend(bulk)
             calls += 1
         window_s = time.perf_counter() - t0
@@ -980,13 +1157,15 @@ def phase_path(tmp: str, fam: Family) -> dict:
         f"requests: p50 {p50:.3f} ms, p99 {p99:.3f} ms, max {max(latency_ms):.3f} ms")
     log(f"{tag}: bulk recommend of {BULK_USERS} users in {n_batches} batches of "
         f"{BATCH}, {calls} calls in {window_s:.3f} s: {users_per_s:.1f} users/s")
-    _log_profile(tag, "bulk recommend", wall_ms, prof)
+    idle = _log_profile(tag, "bulk recommend", wall_ms, prof)
 
-    # the same checkpoint on the CPU, through the plain versions
+    # the same checkpoint on the CPU, through the plain versions: the first
+    # cpu_check_users users (whole batches of 128, so the same batches)
     if ids.shape != (BULK_USERS, K) or not np.isfinite(scores).all():
         raise AssertionError(f"bulk: shape {ids.shape} or non-finite scores")
-    want_ids, want_scores = cpu_rec.recommend(bulk)
-    assert_topk_match(want_ids, want_scores, ids, scores, SCORE_TOL)
+    m = fam.cpu_check_users
+    want_ids, want_scores = cpu_rec.recommend({k: v[:m] for k, v in bulk.items()})
+    assert_topk_match(want_ids, want_scores, ids[:m], scores[:m], SCORE_TOL)
     for body, reqs in answers:
         want_ids, want_scores = cpu_rec.recommend(
             featurize_many(fam.name, cfg, reqs, cate_list=cate_list))
@@ -997,8 +1176,10 @@ def phase_path(tmp: str, fam: Family) -> dict:
                           np.array([r["items"] for r in got]),
                           np.array([r["scores"] for r in got]), HTTP_SCORE_TOL)
     log(f"{tag}: launches {launches}; GPU answers match the CPU plain "
-        f"path (scores to {SCORE_TOL}, ids up to ties)")
-    return {"launches": launches, "users_per_s": users_per_s}
+        f"path (scores to {SCORE_TOL}, ids up to ties) for {m} bulk users "
+        f"and every HTTP answer")
+    return {"launches": launches, "users_per_s": users_per_s, "http_p50_ms": p50,
+            "http_p99_ms": p99, "serve_idle_share": idle}
 
 
 def _records(model_dir: str):
@@ -1008,14 +1189,16 @@ def _records(model_dir: str):
 
 def phase_train(tmp: str, fam: Family) -> dict:
     cfg, tag = fam.cfg, f"train {fam.name}"
+    # a loss record and a summary every chunk, an evaluation every 100 steps
     tc = TrainConfig(model_dir=os.path.join(tmp, "train"), max_epochs=1,
-                     steps_per_call=STEPS_PER_CALL, eval_freq=STEPS_PER_CALL,
-                     summary_freq=STEPS_PER_CALL, best_after_step=0,
+                     steps_per_call=fam.steps_per_call, eval_freq=EVAL_EVERY,
+                     display_freq=fam.steps_per_call,
+                     summary_freq=fam.steps_per_call, best_after_step=0,
                      save_auc_gate=0.0, seed=SEED)
     assert (tc.train_batch_size, tc.test_batch_size) == (TRAIN_B, TEST_B)
     train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
-                                            ITEMS, TRAIN_ROWS, TEST_USERS)
-    eval_batches = -(-TEST_USERS // TEST_B)
+                                            ITEMS, fam.train_rows, fam.test_users)
+    eval_batches = -(-fam.test_users // TEST_B)
 
     def work(steps=0, evals=0, summaries=0):
         return _plus(_times(fam.per_step, steps),
@@ -1031,9 +1214,9 @@ def phase_train(tmp: str, fam: Family) -> dict:
     evals = [r for r in recs if r["kind"] in ("eval", "final")]
     losses = [r["loss"] for r in recs if r["kind"] == "train"]
     steps = trainer.step
-    summaries = len(losses)  # display and summaries share the 100-step cadence
+    summaries = len(losses)  # a summary with every loss record
     n = expect_launches(_plus(), work(steps, len(evals), summaries), "Trainer.train")
-    if steps != TRAIN_ROWS // TRAIN_B or trainer.opt_state.count != steps:
+    if steps != fam.train_rows // TRAIN_B or trainer.opt_state.count != steps:
         raise AssertionError(f"step {steps}, schedule count {trainer.opt_state.count}")
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"chunk losses {losses} are not finite and falling")
@@ -1049,7 +1232,7 @@ def phase_train(tmp: str, fam: Family) -> dict:
 
     # eval users/s over whole evaluations (each ends in a read to the host)
     evals_done, t0 = 0, time.perf_counter()
-    while time.perf_counter() - t0 < EVAL_WINDOW_S:
+    while time.perf_counter() - t0 < fam.eval_window_s:
         trainer.evaluate()
         evals_done += 1
     eval_s = time.perf_counter() - t0
@@ -1060,14 +1243,14 @@ def phase_train(tmp: str, fam: Family) -> dict:
     trainer._train_chunk(chunks[0])
     torch.cuda.synchronize()
     done, t0 = 0, time.perf_counter()
-    while time.perf_counter() - t0 < TRAIN_WINDOW_S:
+    while time.perf_counter() - t0 < fam.train_window_s:
         trainer._train_chunk(chunks[done % len(chunks)])
         done += 1
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
-    n = expect_launches(n, work(steps=(done + 1) * STEPS_PER_CALL), "train window")
+    n = expect_launches(n, work(steps=(done + 1) * fam.steps_per_call), "train window")
     wall_ms, prof = _profile(lambda: trainer._train_chunk(chunks[0]))
-    n = expect_launches(n, work(steps=STEPS_PER_CALL), "profiled chunk")
+    n = expect_launches(n, work(steps=fam.steps_per_call), "profiled chunk")
 
     # resume: a second Trainer on the same model_dir
     resumed = Trainer(fam.model, cfg, dataclasses.replace(tc, from_scratch=False),
@@ -1083,19 +1266,19 @@ def phase_train(tmp: str, fam: Family) -> dict:
     trainer.close()
     resumed.close()  # the train path ends here
 
-    examples_per_s = done * STEPS_PER_CALL * TRAIN_B / window_s
-    log(f"{tag}: {done} chunks of {STEPS_PER_CALL} steps of {TRAIN_B} in "
+    examples_per_s = done * fam.steps_per_call * TRAIN_B / window_s
+    log(f"{tag}: {done} chunks of {fam.steps_per_call} steps of {TRAIN_B} in "
         f"{window_s:.3f} s: {examples_per_s:.1f} train examples/s")
-    eval_users_per_s = evals_done * TEST_USERS / eval_s
-    log(f"{tag}: {evals_done} evaluate() of {TEST_USERS} users (AUC and top-50 "
+    eval_users_per_s = evals_done * fam.test_users / eval_s
+    log(f"{tag}: {evals_done} evaluate() of {fam.test_users} users (AUC and top-50 "
         f"over {ITEMS} items) in {eval_s:.3f} s: {eval_users_per_s:.1f} eval users/s")
-    _log_profile(tag, f"chunk of {STEPS_PER_CALL} steps", wall_ms, prof)
+    idle = _log_profile(tag, f"chunk of {fam.steps_per_call} steps", wall_ms, prof)
     log(f"{tag}: resumed at step {steps} (count {steps}); its evaluation equals "
         f"the last save's bit for bit; launches {launches}")
 
     # the same start trained on the CPU through the plain versions
     parity = dataclasses.replace(tc, tb_histograms=False)
-    idx = trainer._epoch_index(0)[0][:PARITY_STEPS]
+    idx = trainer._epoch_index(0)[0][:fam.parity_steps]
     out = {}
     for device in ("cuda", "cpu"):
         tr = Trainer(fam.model, cfg, dataclasses.replace(
@@ -1114,11 +1297,11 @@ def phase_train(tmp: str, fam: Family) -> dict:
         worst = max(worst, diff)
         if not torch.allclose(pg[name], pc[name], rtol=PARITY_TOL, atol=PARITY_TOL):
             raise AssertionError(f"parity: {name} differs by {diff:.3e}")
-    log(f"{tag}: {PARITY_STEPS} steps on the card (kernels) and on the CPU "
+    log(f"{tag}: {fam.parity_steps} steps on the card (kernels) and on the CPU "
         f"(plain) agree: max abs diff {worst:.3e} over losses and every "
         f"parameter (rtol = atol = {PARITY_TOL})")
     return {"launches": launches, "examples_per_s": examples_per_s,
-            "eval_users_per_s": eval_users_per_s}
+            "eval_users_per_s": eval_users_per_s, "train_idle_share": idle}
 
 
 # --------------------------------------------------------------------- mesh
@@ -1272,27 +1455,127 @@ def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
             "users_per_s": users_per_s}
 
 
+def phase_mesh_baselines(tmp: str, fams, backend: str, device: str) -> None:
+    """The seven baselines on ONE dp=2 × mp=2 world (one spawn for all):
+    per family, a Trainer(dp=2, mp=2) from the seed takes MESH_BASE_STEPS
+    steps at lr 0.1, digests a summary, evaluates its test users and saves
+    (`programs.chunk_program`); then `Recommender(mesh=...)` serves the
+    save to MESH_BASE_USERS featurized users (`programs.serve_program`).
+    One process on the card does the same: the losses and every unpadded
+    parameter must agree within PARITY_TOL, the metrics within one test
+    user, the served ids up to ties with scores within SCORE_TOL; no rank
+    may launch K1, K2 or K3."""
+    jobs, runs = [], []
+    for fam in fams:
+        cfg = fam.cfg
+        tc = TrainConfig(model_dir=os.path.join(tmp, fam.name), max_epochs=1,
+                         steps_per_call=MESH_BASE_STEPS, learning_rate=MESH_BASE_LR,
+                         best_after_step=0, save_auc_gate=0.0, seed=SEED,
+                         dp=MESH_DP, mp=MESH_MP)
+        train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                                ITEMS, fam.train_rows, fam.test_users)
+        idx = epoch_index(fam.train_rows, TRAIN_B, MESH_BASE_STEPS, 0, SEED)[0]
+        requests = featurize_many(fam.name, cfg, fam.requests(
+            np.random.default_rng(SEED + 2), MESH_BASE_USERS), cate_list=cate_list)
+        jobs.append((programs.chunk_program, dict(cfg=cfg, tc=tc, cate_list=cate_list,
+                                                  train=train, test=test, idx=idx)))
+        jobs.append((programs.serve_program, dict(model_dir=tc.model_dir,
+                                                  cate_list=cate_list,
+                                                  requests=requests, k=K,
+                                                  batch_size=BATCH)))
+        runs.append((fam, tc, train, test, cate_list, idx, requests))
+    t0 = time.perf_counter()
+    ranks = run_local(programs.sequence, MESH_DP, MESH_MP, backend, device,
+                      MESH_TIMEOUT_S, *jobs)
+    world_s = time.perf_counter() - t0
+    log(f"mesh baselines: one world of {MESH_DP}x{MESH_MP} ranks ({backend}, "
+        f"{device}) for {len(fams)} families in {world_s:.3f} s")
+
+    none = {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0}
+    for f, (fam, tc, train, test, cate_list, idx, requests) in enumerate(runs):
+        tag = f"mesh {fam.name}"
+        stepped = [r[2 * f] for r in ranks]
+        served = [r[2 * f + 1] for r in ranks]
+        for r, (st, sv) in enumerate(zip(stepped, served)):
+            for part, got in list(st["launches"].items()) + list(sv["launches"].items()):
+                if got != none:
+                    raise AssertionError(f"{tag}: rank {r} {part} launched {got}")
+            if not (np.array_equal(sv["ids"], served[0]["ids"])
+                    and np.array_equal(sv["scores"], served[0]["scores"])):
+                raise AssertionError(f"{tag}: rank {r} answered otherwise than rank 0")
+        # one process on the card, from the same seed
+        one = Trainer(fam.model, fam.cfg, dataclasses.replace(
+            tc, dp=1, mp=1, model_dir=os.path.join(tmp, fam.name + "_one")),
+            cate_list, train, test, device="cuda")
+        losses = one._train_chunk(torch.from_numpy(idx).cuda()).cpu()
+        metrics = one.evaluate()
+        state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+        one.close()
+        worst = float((torch.from_numpy(stepped[0]["losses"]) - losses).abs().max())
+        if not torch.allclose(torch.from_numpy(stepped[0]["losses"]), losses,
+                              rtol=PARITY_TOL, atol=PARITY_TOL):
+            raise AssertionError(f"{tag}: losses {stepped[0]['losses']} against {losses}")
+        for name, v in state.items():
+            got = torch.from_numpy(stepped[0]["state"][name])
+            diff = float((got - v).abs().max())
+            worst = max(worst, diff)
+            if not torch.allclose(got, v, rtol=PARITY_TOL, atol=PARITY_TOL):
+                raise AssertionError(f"{tag}: {name} differs by {diff:.3e}")
+        # a pos − neg difference at the rounding edge may flip one user
+        off = max(abs(stepped[0]["metrics"][k] - metrics[k]) for k in metrics)
+        if off > 1.0 / fam.test_users + 1e-9:
+            raise AssertionError(f"{tag}: metrics {stepped[0]['metrics']} against "
+                                 f"one process's {metrics}")
+        if stepped[0]["pad_max"] != 0.0:
+            raise AssertionError(f"{tag}: padding rows moved ({stepped[0]['pad_max']})")
+        rec = Recommender.from_model_dir(tc.model_dir, cate_list, device="cuda",
+                                         batch_size=BATCH, k=K)
+        want_ids, want_scores = rec.recommend(requests)
+        ids, scores = served[0]["ids"], served[0]["scores"]
+        if ids.shape != (MESH_BASE_USERS, K) or not np.isfinite(scores).all():
+            raise AssertionError(f"{tag}: served {ids.shape}, or non-finite")
+        assert_topk_match(want_ids, want_scores, ids, scores, SCORE_TOL)
+        log(f"{tag}: {MESH_BASE_STEPS} steps at lr {MESH_BASE_LR} agree with one "
+            f"process to {worst:.3e} over losses and every parameter; metrics "
+            f"within {off:.3e} (auc {stepped[0]['metrics']['auc']:.6f}); "
+            f"{MESH_BASE_USERS} users served as one device serves them; no "
+            f"K1/K2/K3 launch on any rank")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     phase_build()
     kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd(),
                "mha_fwd": phase_kernel_mha()}
     phase_fwa_scale()
     local = phase_kernel_local()
-    runs, meshed = [], []
-    for fam in (TLSAN_FAMILY, ATRANK_FAMILY):
+    runs, meshed, numbers = [], [], {}
+    for fam in (TLSAN_FAMILY, ATRANK_FAMILY, *BASELINES):
+        t0 = time.perf_counter()
         for phase in (phase_path, phase_train):
             with tempfile.TemporaryDirectory() as tmp:
-                runs.append(phase(tmp, fam)["launches"])
+                out = phase(tmp, fam)
+            runs.append(out.pop("launches"))
+            numbers.setdefault(fam.name, {}).update(out)
+        log(f"{fam.name}: path and train in {time.perf_counter() - t0:.1f} s")
     backend, device = mesh_setup()
     for fam in (TLSAN_FAMILY, ATRANK_FAMILY):
         with tempfile.TemporaryDirectory() as tmp:
             meshed.append(phase_mesh(tmp, fam, backend, device)["launches"])
-    # launches summed over the four one-device paths; K1's times are at the
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_mesh_baselines(tmp, BASELINES, backend, device)
+    for name, n in numbers.items():
+        log(f"family {name} ({card}): train {n['examples_per_s']:.1f} examples/s, "
+            f"eval {n['eval_users_per_s']:.1f} users/s, bulk {n['users_per_s']:.1f} "
+            f"users/s, HTTP p50 {n['http_p50_ms']:.3f} ms p99 {n['http_p99_ms']:.3f} ms, "
+            f"idle share {n['train_idle_share']:.3f} (train chunk) "
+            f"{n['serve_idle_share']:.3f} (bulk recommend)")
+    # launches summed over the one-device paths (the baselines' are 0, as
+    # their phases check); K1's times are at the
     # serving shapes (B=128), K2's at the training shapes (B=32), K3's at
     # the serving shapes (B=128), each per batch (both towers, or the
     # self-attention and the readout).  K4's launches are every rank's on

@@ -161,8 +161,8 @@ def test_loss_and_every_grad_leaf_match_jax(concat_time_emb, with_valid):
 def test_one_hot_of_bucket_12_is_a_zero_row():
     """hist_t = 12 contributes only the bias through the time projection,
     as jax.nn.one_hot(12, 12) is all zeros (torch's one_hot would raise)."""
-    from tlsan_tpu_torch.models.atrank import _one_hot
-    got = _one_hot(torch.tensor([[0, 11, 12]], dtype=torch.int32), 12, torch.float32)
+    from tlsan_tpu_torch.nn.layers import one_hot
+    got = one_hot(torch.tensor([[0, 11, 12]], dtype=torch.int32), 12, torch.float32)
     want = jax.nn.one_hot(jnp.asarray([[0, 11, 12]]), 12, dtype=jnp.float32)
     assert torch.equal(got, torch.from_numpy(np.array(want)))
 
@@ -217,10 +217,10 @@ def test_bucket_time_and_prefix_packers_are_byte_identical():
     assert max(builders.bucket_time(days, days[-1] + 5000)) == 12
     train, test = _prefix_tuples(57, 7), _prefix_tuples(23, 8, test=True)
     _assert_batches_identical(
-        batcher.pack_prefix_train(train, T),
+        batcher.pack_prefix_train(train, T, with_time=True, time_dtype=np.int32),
         jax_batcher.pack_prefix_train(train, T, with_time=True, time_dtype=np.int32))
     _assert_batches_identical(
-        batcher.pack_prefix_test(test, T),
+        batcher.pack_prefix_test(test, T, with_time=True, time_dtype=np.int32),
         jax_batcher.pack_prefix_test(test, T, with_time=True, time_dtype=np.int32))
 
 

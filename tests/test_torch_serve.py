@@ -82,9 +82,13 @@ def test_featurize_many_bitwise_equal_to_jax(setup):
 
 
 def test_featurize_unported_family_raises(setup):
-    _, _, cfg, _, cate_list = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        featurize_many("shan", cfg, _requests(1, 2), cate_list=cate_list)
+    """Every family featurizes now; an unknown name raises ValueError, as
+    in the JAX package."""
+    jcfg, _, cfg, _, cate_list = setup
+    with pytest.raises(ValueError, match="unknown model family"):
+        jax_featurize_many("nope", jcfg, _requests(1, 2), cate_list=cate_list)
+    with pytest.raises(ValueError, match="unknown model family"):
+        featurize_many("nope", cfg, _requests(1, 2), cate_list=cate_list)
 
 
 @pytest.mark.parametrize("exclude", [False, True])

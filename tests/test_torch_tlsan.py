@@ -195,7 +195,10 @@ def test_init_params_distribution():
 
 
 def test_unported_family_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model("shan")
+    """All nine families resolve, each to the class of its name; an
+    unknown name raises KeyError, as in the JAX package."""
+    for name in ("tlsan", "shan", "atrank", "bpr", "lspm", "paca", "cnn",
+                 "bilstm", "csan"):
+        assert get_model(name).name == name
     with pytest.raises(KeyError):
         get_model("nope")

@@ -248,8 +248,16 @@ def test_session_packers_are_byte_identical():
                               jax_batcher.pack_session_train(train, LS, TS))
     _assert_batches_identical(batcher.pack_session_test(test, LS, TS),
                               jax_batcher.pack_session_test(test, LS, TS))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        batcher.pack_session_train(train, LS, TS, variant="shan")
+    # the shan variant: (uid, pre, new, item, label) and (uid, pre, new,
+    # (pos, neg)) tuples, the TLSAN tuples without time and category
+    shan_train = [(t[0], t[1], t[2], t[4], t[5]) for t in train]
+    shan_test = [(t[0], t[1], t[2], t[4]) for t in test]
+    _assert_batches_identical(
+        batcher.pack_session_train(shan_train, LS, TS, variant="shan"),
+        jax_batcher.pack_session_train(shan_train, LS, TS, variant="shan"))
+    _assert_batches_identical(
+        batcher.pack_session_test(shan_test, LS, TS, variant="shan"),
+        jax_batcher.pack_session_test(shan_test, LS, TS, variant="shan"))
 
 
 @pytest.mark.parametrize("n,b,k", [(256, 32, 4), (1000, 32, 100), (37, 8, 3)])

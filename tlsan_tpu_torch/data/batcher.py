@@ -7,8 +7,10 @@ there by an index; shuffling is an index permutation.  Padding semantics
 match the reference exactly: the long-term window keeps the *last* k items
 when the history is longer and left-aligns (TLSAN/input.py:40-49); the
 short-term session left-aligns with zeros (TLSAN/input.py:50-51); pad id
-is 0.  Ported so far: the `tlsan` variant of the session packers and the
-ATRank variant of the prefix packers (left-aligned, int32 time buckets).
+is 0; LSPM's window right-aligns (LSPM/input.py:30-37).  Every packer of
+the JAX package is here: the session packers' tlsan, shan and paca
+variants, the prefix packers of the five prefix families, and BPR-MF's
+triples.
 """
 
 from __future__ import annotations
@@ -67,82 +69,157 @@ class Batches:
         return self.arrays[key]
 
 
-def _not_ported(variant: str):
-    return NotImplementedError(
-        f"packing variant {variant!r} is not ported yet; it comes with its "
-        "model family (ROADMAP.md queue 1, items 10-17)")
+def pack_session_train(
+    train_set: list, Ls: int, Ts: int, variant: str = "tlsan"
+) -> Batches:
+    """Pack session-scheme train tuples into static shapes.
 
-
-def pack_session_train(train_set: list, Ls: int, Ts: int,
-                       variant: str = "tlsan") -> Batches:
-    """Pack TLSAN train tuples (uid, pre, new, time_emb, item, label,
-    now_cate) → u, i, y, c, hist_i[N,Ls], hist_t[N,Ls], hist_i_new[N,Ts],
-    sl, sl_new (feed semantics of TLSAN/input.py:17-54)."""
-    if variant != "tlsan":
-        raise _not_ported(variant)
+    tlsan tuples: (uid, pre, new, time_emb, item, label, now_cate)
+                  → u, i, y, c, hist_i[N,Ls], hist_t[N,Ls], hist_i_new[N,Ts],
+                    sl, sl_new  (feed semantics of TLSAN/input.py:17-54)
+    shan tuples:  (uid, pre, new, item, label) — long history padded to Ls
+                  full width (SHAN/input.py pads to the batch max, which
+                  the model restores with a mask), no time.
+    paca tuples:  (pre, item, label) — single history (PACA/input.py).
+    """
     n = len(train_set)
-    u = np.fromiter((t[0] for t in train_set), np.int32, n)
-    i = np.fromiter((t[4] for t in train_set), np.int32, n)
-    y = np.fromiter((t[5] for t in train_set), np.float32, n)
-    c = np.fromiter((t[6] for t in train_set), np.int32, n)
-    sl = np.fromiter((min(len(t[1]), Ls) for t in train_set), np.int32, n)
-    sl_new = np.fromiter((len(t[2]) for t in train_set), np.int32, n)
-    hist_i = _scatter_pad([t[1] for t in train_set], Ls, np.int32)
-    hist_t = _scatter_pad([t[3] for t in train_set], Ls, np.float32)
-    hist_i_new = _scatter_pad([t[2] for t in train_set], Ts, np.int32, window="first")
-    return Batches(
-        dict(u=u, i=i, y=y, c=c, hist_i=hist_i, hist_t=hist_t,
-             hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+    if variant == "tlsan":
+        u = np.fromiter((t[0] for t in train_set), np.int32, n)
+        i = np.fromiter((t[4] for t in train_set), np.int32, n)
+        y = np.fromiter((t[5] for t in train_set), np.float32, n)
+        c = np.fromiter((t[6] for t in train_set), np.int32, n)
+        sl = np.fromiter((min(len(t[1]), Ls) for t in train_set), np.int32, n)
+        sl_new = np.fromiter((len(t[2]) for t in train_set), np.int32, n)
+        hist_i = _scatter_pad([t[1] for t in train_set], Ls, np.int32)
+        hist_t = _scatter_pad([t[3] for t in train_set], Ls, np.float32)
+        hist_i_new = _scatter_pad([t[2] for t in train_set], Ts, np.int32, window="first")
+        return Batches(
+            dict(u=u, i=i, y=y, c=c, hist_i=hist_i, hist_t=hist_t,
+                 hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+    if variant == "shan":
+        u = np.fromiter((t[0] for t in train_set), np.int32, n)
+        i = np.fromiter((t[3] for t in train_set), np.int32, n)
+        y = np.fromiter((t[4] for t in train_set), np.float32, n)
+        sl = np.fromiter((min(len(t[1]), Ls) for t in train_set), np.int32, n)
+        sl_new = np.fromiter((len(t[2]) for t in train_set), np.int32, n)
+        hist_i = _scatter_pad([t[1] for t in train_set], Ls, np.int32)
+        hist_i_new = _scatter_pad([t[2] for t in train_set], Ts, np.int32, window="first")
+        return Batches(
+            dict(u=u, i=i, y=y, hist_i=hist_i, hist_i_new=hist_i_new,
+                 sl=sl, sl_new=sl_new), n)
+    if variant == "paca":
+        i = np.fromiter((t[1] for t in train_set), np.int32, n)
+        y = np.fromiter((t[2] for t in train_set), np.float32, n)
+        sl = np.fromiter((min(len(t[0]), Ls) for t in train_set), np.int32, n)
+        hist_i = _scatter_pad([t[0] for t in train_set], Ls, np.int32)
+        return Batches(dict(i=i, y=y, hist_i=hist_i, sl=sl), n)
+    raise ValueError(variant)
 
 
 def pack_session_test(test_set: list, Ls: int, Ts: int,
                       variant: str = "tlsan") -> Batches:
-    """Pack TLSAN test tuples; the target is the (pos, neg) pair
+    """Pack session-scheme test tuples; the target is the (pos, neg) pair
     (TLSAN/input.py:78-84)."""
-    if variant != "tlsan":
-        raise _not_ported(variant)
+    n = len(test_set)
+    if variant == "tlsan":
+        u = np.fromiter((t[0] for t in test_set), np.int32, n)
+        pos = np.fromiter((t[4][0] for t in test_set), np.int32, n)
+        neg = np.fromiter((t[4][1] for t in test_set), np.int32, n)
+        c = np.fromiter((t[5] for t in test_set), np.int32, n)
+        sl = np.fromiter((min(len(t[1]), Ls) for t in test_set), np.int32, n)
+        sl_new = np.fromiter((len(t[2]) for t in test_set), np.int32, n)
+        hist_i = _scatter_pad([t[1] for t in test_set], Ls, np.int32)
+        hist_t = _scatter_pad([t[3] for t in test_set], Ls, np.float32)
+        hist_i_new = _scatter_pad([t[2] for t in test_set], Ts, np.int32, window="first")
+        return Batches(
+            dict(u=u, i=pos, j=neg, c=c, hist_i=hist_i, hist_t=hist_t,
+                 hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+    if variant == "shan":
+        u = np.fromiter((t[0] for t in test_set), np.int32, n)
+        pos = np.fromiter((t[3][0] for t in test_set), np.int32, n)
+        neg = np.fromiter((t[3][1] for t in test_set), np.int32, n)
+        sl = np.fromiter((min(len(t[1]), Ls) for t in test_set), np.int32, n)
+        sl_new = np.fromiter((len(t[2]) for t in test_set), np.int32, n)
+        hist_i = _scatter_pad([t[1] for t in test_set], Ls, np.int32)
+        hist_i_new = _scatter_pad([t[2] for t in test_set], Ts, np.int32, window="first")
+        return Batches(
+            dict(u=u, i=pos, j=neg, hist_i=hist_i, hist_i_new=hist_i_new,
+                 sl=sl, sl_new=sl_new), n)
+    if variant == "paca":
+        pos = np.fromiter((t[1][0] for t in test_set), np.int32, n)
+        neg = np.fromiter((t[1][1] for t in test_set), np.int32, n)
+        sl = np.fromiter((min(len(t[0]), Ls) for t in test_set), np.int32, n)
+        hist_i = _scatter_pad([t[0] for t in test_set], Ls, np.int32)
+        return Batches(dict(i=pos, j=neg, hist_i=hist_i, sl=sl), n)
+    raise ValueError(variant)
+
+
+def pack_prefix_train(
+    train_set: list,
+    max_len: int,
+    with_time: bool = False,
+    pack_pos_neg: bool = False,
+    align: str = "left",
+    time_dtype=np.float32,
+) -> Batches:
+    """Pack prefix-scheme train tuples (ATRank/CNN/CSAN/Bi-LSTM/LSPM).
+
+    ATRank feed (ATRank/input.py:3-42): u, i, y, hist_i[N,T], hist_t, sl;
+    ATRank and CNN take int32 time buckets, CSAN float day deltas, Bi-LSTM
+    no time.  LSPM packs (pos, neg) per tuple and right-aligns a fixed
+    k-window (LSPM/input.py:30-37).
+    """
+    n = len(train_set)
+    u = np.fromiter((t[0] for t in train_set), np.int32, n)
+    sl = np.fromiter((min(len(t[1]), max_len) for t in train_set), np.int32, n)
+    hist_i = _scatter_pad([t[1] for t in train_set], max_len, np.int32, align=align)
+    arrays = dict(u=u, hist_i=hist_i, sl=sl)
+    if pack_pos_neg:
+        arrays["i"] = np.fromiter((t[2][0] for t in train_set), np.int32, n)
+        arrays["j"] = np.fromiter((t[2][1] for t in train_set), np.int32, n)
+    elif with_time:
+        arrays["hist_t"] = _scatter_pad([t[2] for t in train_set], max_len,
+                                        time_dtype, align=align)
+        arrays["i"] = np.fromiter((t[3] for t in train_set), np.int32, n)
+        arrays["y"] = np.fromiter((t[4] for t in train_set), np.float32, n)
+    else:
+        arrays["i"] = np.fromiter((t[2] for t in train_set), np.int32, n)
+        arrays["y"] = np.fromiter((t[3] for t in train_set), np.float32, n)
+    return Batches(arrays, n)
+
+
+def pack_prefix_test(
+    test_set: list,
+    max_len: int,
+    with_time: bool = False,
+    align: str = "left",
+    time_dtype=np.float32,
+) -> Batches:
+    """Pack prefix-scheme test tuples: the last element is the (pos, neg)
+    pair."""
     n = len(test_set)
     u = np.fromiter((t[0] for t in test_set), np.int32, n)
-    pos = np.fromiter((t[4][0] for t in test_set), np.int32, n)
-    neg = np.fromiter((t[4][1] for t in test_set), np.int32, n)
-    c = np.fromiter((t[5] for t in test_set), np.int32, n)
-    sl = np.fromiter((min(len(t[1]), Ls) for t in test_set), np.int32, n)
-    sl_new = np.fromiter((len(t[2]) for t in test_set), np.int32, n)
-    hist_i = _scatter_pad([t[1] for t in test_set], Ls, np.int32)
-    hist_t = _scatter_pad([t[3] for t in test_set], Ls, np.float32)
-    hist_i_new = _scatter_pad([t[2] for t in test_set], Ts, np.int32, window="first")
-    return Batches(
-        dict(u=u, i=pos, j=neg, c=c, hist_i=hist_i, hist_t=hist_t,
-             hist_i_new=hist_i_new, sl=sl, sl_new=sl_new), n)
+    sl = np.fromiter((min(len(t[1]), max_len) for t in test_set), np.int32, n)
+    hist_i = _scatter_pad([t[1] for t in test_set], max_len, np.int32, align=align)
+    arrays = dict(u=u, hist_i=hist_i, sl=sl)
+    if with_time:
+        arrays["hist_t"] = _scatter_pad([t[2] for t in test_set], max_len,
+                                        time_dtype, align=align)
+        pair = [t[3] for t in test_set]
+    else:
+        pair = [t[2] for t in test_set]
+    arrays["i"] = np.fromiter((p[0] for p in pair), np.int32, n)
+    arrays["j"] = np.fromiter((p[1] for p in pair), np.int32, n)
+    return Batches(arrays, n)
 
 
-def pack_prefix_train(train_set: list, max_len: int) -> Batches:
-    """Pack ATRank prefix train tuples (uid, hist, hist_t, item, label) →
-    u, hist_i[N,T], sl, hist_t[N,T] (int32 buckets), i, y, left-aligned
-    (feed semantics of ATRank/input.py:3-42).  The JAX package's other
-    variants (no time, float time, LSPM's right-aligned pairs) come with
-    their families (ROADMAP.md queue 1, items 13-17)."""
-    n = len(train_set)
-    return Batches(dict(
-        u=np.fromiter((t[0] for t in train_set), np.int32, n),
-        hist_i=_scatter_pad([t[1] for t in train_set], max_len, np.int32),
-        sl=np.fromiter((min(len(t[1]), max_len) for t in train_set), np.int32, n),
-        hist_t=_scatter_pad([t[2] for t in train_set], max_len, np.int32),
-        i=np.fromiter((t[3] for t in train_set), np.int32, n),
-        y=np.fromiter((t[4] for t in train_set), np.float32, n)), n)
-
-
-def pack_prefix_test(test_set: list, max_len: int) -> Batches:
-    """Pack ATRank prefix test tuples (uid, hist, hist_t, (pos, neg)) → u,
-    hist_i, sl, hist_t, i, j; the target is the (pos, neg) pair."""
-    n = len(test_set)
-    return Batches(dict(
-        u=np.fromiter((t[0] for t in test_set), np.int32, n),
-        hist_i=_scatter_pad([t[1] for t in test_set], max_len, np.int32),
-        sl=np.fromiter((min(len(t[1]), max_len) for t in test_set), np.int32, n),
-        hist_t=_scatter_pad([t[2] for t in test_set], max_len, np.int32),
-        i=np.fromiter((t[3][0] for t in test_set), np.int32, n),
-        j=np.fromiter((t[3][1] for t in test_set), np.int32, n)), n)
+def pack_pairwise(triples: np.ndarray) -> Batches:
+    """BPR-MF's (uid, pos, neg) int32[N, 3] triples as u, i, j — the
+    arrays the JAX package's CLI slices out of them
+    (tlsan_tpu/train/cli.py:178-189)."""
+    triples = np.asarray(triples)
+    return Batches(dict(u=triples[:, 0], i=triples[:, 1], j=triples[:, 2]),
+                   len(triples))
 
 
 def epoch_permutation(n: int, epoch: int, seed: int = 1234) -> np.ndarray:

@@ -1,32 +1,27 @@
 """Model registry.  Each model is an ``nn.Module`` built as ``Model(cfg,
 device)``, with ``init_params(generator)``, ``user_repr(batch, cate_list)``,
 ``item_repr``, ``all_item_repr``, ``pair_logits``, ``eval_logits`` and
-``loss``.
-
-TLSAN and ATRank are ported so far; each other family names the ROADMAP.md
-item (queue 1) that ports it.
+``loss(batch, cate_list, generator=None)``.  All nine families of the JAX
+package are here.
 """
 
 from tlsan_tpu_torch.models.atrank import ATRank
+from tlsan_tpu_torch.models.bilstm import BiLSTM
+from tlsan_tpu_torch.models.bpr import BPR
+from tlsan_tpu_torch.models.cnn import CNN
+from tlsan_tpu_torch.models.csan import CSAN
+from tlsan_tpu_torch.models.lspm import LSPM
+from tlsan_tpu_torch.models.paca import PACA
+from tlsan_tpu_torch.models.shan import SHAN
 from tlsan_tpu_torch.models.tlsan import TLSAN
 
-_PORTED = {"tlsan": TLSAN, "atrank": ATRank}
-# family → ROADMAP.md queue-1 item that ports it
-_NOT_PORTED = {
-    "shan": "item 11 (SHAN)", "bpr": "item 12 (BPR-MF)",
-    "lspm": "item 13 (LSPM)", "paca": "item 14 (PACA)",
-    "cnn": "item 15 (CNN)", "bilstm": "item 16 (Bi-LSTM)",
-    "csan": "item 17 (CSAN)",
-}
+MODELS = {"tlsan": TLSAN, "shan": SHAN, "atrank": ATRank, "bpr": BPR,
+          "lspm": LSPM, "paca": PACA, "cnn": CNN, "bilstm": BiLSTM,
+          "csan": CSAN}
 
 
 def get_model(name: str):
     """Resolve a model class by family name."""
-    if name in _PORTED:
-        return _PORTED[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet: ROADMAP.md "
-            f"queue 1, {_NOT_PORTED[name]}")
-    raise KeyError(
-        f"unknown model {name!r}; one of {sorted([*_PORTED, *_NOT_PORTED])}")
+    if name not in MODELS:
+        raise KeyError(f"unknown model {name!r}; one of {sorted(MODELS)}")
+    return MODELS[name]

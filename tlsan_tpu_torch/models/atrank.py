@@ -41,8 +41,8 @@ from tlsan_tpu_torch.nn.embedding import (
     item_cate_rows,
     lookup,
 )
-from tlsan_tpu_torch.nn.init import glorot_uniform
-from tlsan_tpu_torch.nn.layers import dense
+from tlsan_tpu_torch.nn.init import glorot_uniform, zeros_param
+from tlsan_tpu_torch.nn.layers import dense, one_hot
 from tlsan_tpu_torch.ops.multihead_attention import (
     feedforward,
     multihead_attention,
@@ -53,30 +53,19 @@ Batch = Dict[str, torch.Tensor]
 N_TIME_BUCKETS = 12  # one-hot width (ATRank/model.py:71)
 
 
-def _param(*shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
-
-
 def _block(D: int, device) -> nn.ModuleDict:
     """One {attn, ffn} block with the JAX package's parameter names."""
-    attn = {name: _param(D, D, device=device) for name in ("wq", "wk", "wv")}
-    attn.update({name: _param(D, device=device)
+    attn = {name: zeros_param(D, D, device=device) for name in ("wq", "wk", "wv")}
+    attn.update({name: zeros_param(D, device=device)
                  for name in ("bq", "bk", "bv", "ln_gamma", "ln_beta")})
-    ffn = {"w1": _param(D, D // 4, device=device),
-           "b1": _param(D // 4, device=device),
-           "w2": _param(D // 4, D, device=device),
-           "b2": _param(D, device=device),
-           "ln_gamma": _param(D, device=device),
-           "ln_beta": _param(D, device=device)}
+    ffn = {"w1": zeros_param(D, D // 4, device=device),
+           "b1": zeros_param(D // 4, device=device),
+           "w2": zeros_param(D // 4, D, device=device),
+           "b2": zeros_param(D, device=device),
+           "ln_gamma": zeros_param(D, device=device),
+           "ln_beta": zeros_param(D, device=device)}
     return nn.ModuleDict({"attn": nn.ParameterDict(attn),
                           "ffn": nn.ParameterDict(ffn)})
-
-
-def _one_hot(buckets: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    """jax.nn.one_hot: a comparison with arange(n), so bucket n (and
-    anything outside 0..n-1) gives a zero row (torch's one_hot raises)."""
-    classes = torch.arange(n, dtype=buckets.dtype, device=buckets.device)
-    return (buckets[..., None] == classes).to(dtype)
 
 
 class ATRank(nn.Module):
@@ -91,15 +80,15 @@ class ATRank(nn.Module):
         super().__init__()
         self.cfg = cfg
         D = cfg.hidden_units
-        self.item_emb = _param(cfg.item_count, cfg.itemid_embedding_size,
-                               device=device)
-        self.item_b = _param(cfg.item_count, device=device)
-        self.cate_emb = _param(cfg.cate_count, cfg.cateid_embedding_size,
-                               device=device)
+        self.item_emb = zeros_param(cfg.item_count, cfg.itemid_embedding_size,
+                                    device=device)
+        self.item_b = zeros_param(cfg.item_count, device=device)
+        self.cate_emb = zeros_param(cfg.cate_count, cfg.cateid_embedding_size,
+                                    device=device)
         time_in = (cfg.itemid_embedding_size + cfg.cateid_embedding_size
                    + N_TIME_BUCKETS) if cfg.concat_time_emb else 1
-        self.time_w = _param(time_in, D, device=device)
-        self.time_b = _param(D, device=device)
+        self.time_w = zeros_param(time_in, D, device=device)
+        self.time_b = zeros_param(D, device=device)
         self.self_blocks = nn.ModuleList(
             _block(D, device) for _ in range(cfg.num_blocks))
         self.vanilla_blocks = nn.ModuleList(
@@ -145,7 +134,7 @@ class ATRank(nn.Module):
         cfg = self.cfg
         h = items(batch["hist_i"])
         if cfg.concat_time_emb:
-            onehot = _one_hot(batch["hist_t"], N_TIME_BUCKETS, h.dtype)
+            onehot = one_hot(batch["hist_t"], N_TIME_BUCKETS, h.dtype)
             h = dense(torch.cat([h, onehot], dim=-1), self.time_w, self.time_b)
         else:
             t = batch["hist_t"].to(h.dtype)[..., None]
@@ -228,11 +217,5 @@ class ATRank(nn.Module):
         i_emb = items(batch["i"])
         logits = base.pointwise_logits(u, i_emb, lookup(self.item_b, batch["i"]))
         valid = batch.get("valid")
-        if valid is None:
-            l2 = base.l2_tables(u, i_emb)
-        else:
-            v = valid.to(torch.float32)[:, None]
-            l2 = 0.5 * (torch.sum(torch.square(u) * v)
-                        + torch.sum(torch.square(i_emb) * v))
         return (base.sigmoid_ce_loss(logits, batch["y"], valid)
-                + self.cfg.regulation_rate * base.sum_over_batch(l2))
+                + self.cfg.regulation_rate * base.batch_l2(valid, u, i_emb))

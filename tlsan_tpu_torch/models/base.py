@@ -2,17 +2,18 @@
 
 Ported from tlsan_tpu/models/base.py (reference: TLSAN/model.py:137-172):
 pointwise dot-product logits with item bias, sigmoid cross-entropy loss
-with table-level L2, the pairwise AUC and the full-catalog eval product.
-`bpr_loss` comes with the models that use it (BPR-MF, LSPM).
+with table-level L2, the BPR pairwise loss (BPR-MF, LSPM), the pairwise
+AUC and the full-catalog eval product.
 
 Under a (dp, mp) mesh (nn/embedding.py `mesh_context`) each rank holds a
 dp share of the batch, and a loss equals the single-process loss of the
 global batch: the cross-entropy's numerator and denominator are summed
 over dp (`sum_over_batch`), and the L2 of full tables, of which each mp
 rank holds a row shard, is summed over mp and enters once, not once per dp
-rank (`l2_full_tables`).  Each rank's gradient is then its share of the
-global one, and the dp all_reduce of the gradients (train/state.py) sums
-the shares.
+rank (`l2_full_tables`); that of dense weights, which every rank holds
+whole, enters once (`l2_replicated`).  Each rank's gradient is then its
+share of the global one, and the dp all_reduce of the gradients
+(train/state.py) sums the shares.
 """
 
 from __future__ import annotations
@@ -43,12 +44,17 @@ def full_catalog_logits(u_repr, all_emb, all_b=None):
 
 def sigmoid_ce_loss(logits, labels, valid=None):
     """Mean sigmoid cross-entropy (reference: TLSAN/model.py:171), in the
-    JAX package's stable form max(x, 0) − x·y + log1p(exp(−|x|)).  `valid`
-    masks padded batch rows: the mean is over valid rows (at least 1)."""
+    JAX package's stable form max(x, 0) − x·y + log1p(exp(−|x|)), with its
+    gradient at x = 0 too.  `valid` masks padded batch rows: the mean is
+    over valid rows (at least 1)."""
     logits = logits.float()
     labels = labels.float()
-    ce = (torch.clamp_min(logits, 0.0) - logits * labels
-          + torch.log1p(torch.exp(-torch.abs(logits))))
+    # at a logit of exactly 0 (a zero user vector: an empty history in
+    # CSAN) the form has kinks; JAX's subgradients there are ½ for the max
+    # and 1 for |x|, which torch.maximum and this `where` reproduce
+    # (clamp_min and abs would give 1 and 0)
+    ce = (torch.maximum(logits, torch.zeros_like(logits)) - logits * labels
+          + torch.log1p(torch.exp(-torch.where(logits >= 0, logits, -logits))))
     mesh = current_batch_mesh()
     if mesh is not None and mesh.dp > 1:
         # over the global batch: Σ ce·v / max(Σ v, 1), both sums over dp
@@ -61,6 +67,29 @@ def sigmoid_ce_loss(logits, labels, valid=None):
     return torch.sum(ce * v) / torch.clamp_min(torch.sum(v), 1.0)
 
 
+def bpr_loss(pos_logits, neg_logits, valid=None, clip: bool = True,
+             reduction: str = "mean"):
+    """BPR pairwise loss −log σ(pos − neg) over valid rows: LSPM's clipped
+    form −log clip(σ(x), 1e-8, 1) (reference: LSPM/model.py:99-101), or
+    BPR-MF's softplus(−x) (BPR/model.py:71-72).  `reduction` "mean"
+    divides by the valid rows (at least 1); "sum" is LSPM's batch sum.
+    Under a dp mesh both sums run over the global batch."""
+    x = pos_logits.float() - neg_logits.float()
+    if clip:
+        nll = -torch.log(torch.clamp(torch.sigmoid(x), 1e-8, 1.0))
+    else:
+        nll = torch.nn.functional.softplus(-x)
+    v = torch.ones_like(nll) if valid is None else valid.to(nll.dtype)
+    total = sum_over_batch(torch.sum(nll * v))
+    if reduction == "sum":
+        return total
+    mesh = current_batch_mesh()
+    n = torch.sum(v)
+    if mesh is not None and mesh.dp > 1:
+        n = all_reduce(n, mesh.dp_group)
+    return total / torch.clamp_min(n, 1.0)
+
+
 def sum_over_batch(x: torch.Tensor) -> torch.Tensor:
     """A sum over this rank's batch rows made a sum over the global batch:
     summed over dp under a mesh, each rank's gradient its own share."""
@@ -68,6 +97,19 @@ def sum_over_batch(x: torch.Tensor) -> torch.Tensor:
     if mesh is None or mesh.dp == 1:
         return x
     return sum_over(x, mesh.dp_group)
+
+
+def batch_l2(valid, *rows: torch.Tensor) -> torch.Tensor:
+    """Σ ½‖r‖² of batch-level embeddings ([B, ...] each) over the valid
+    rows (every row without `valid`), over the global batch under a dp
+    mesh: the row-L2 of ATRank, BPR-MF and LSPM."""
+    if valid is None:
+        l2 = l2_tables(*rows)
+    else:
+        v = valid.to(torch.float32)
+        l2 = 0.5 * sum(torch.sum(torch.square(r) * v.reshape((-1,) + (1,) * (r.dim() - 1)))
+                       for r in rows)
+    return sum_over_batch(l2)
 
 
 def l2_full_tables(*tables):
@@ -81,6 +123,14 @@ def l2_full_tables(*tables):
     if mesh.mp > 1:
         l2 = sum_over(l2, mesh.mp_group)
     return once_over_dp(l2, mesh) if mesh.dp > 1 else l2
+
+
+def l2_replicated(*weights):
+    """`l2_tables` of dense weights every rank holds whole (SHAN's layer
+    maps, PACA's position table): its gradient counted once over dp."""
+    l2 = l2_tables(*weights)
+    mesh = current_batch_mesh()
+    return once_over_dp(l2, mesh) if mesh is not None and mesh.dp > 1 else l2
 
 
 def l2_tables(*tables):

@@ -39,17 +39,13 @@ from tlsan_tpu_torch.nn.embedding import (
     item_cate_rows,
     lookup,
 )
-from tlsan_tpu_torch.nn.init import glorot_uniform
+from tlsan_tpu_torch.nn.init import glorot_uniform, zeros_param
 from tlsan_tpu_torch.ops.feature_attention import (
     feature_wise_attention,
     feature_wise_attention_reference,
 )
 
 Batch = Dict[str, torch.Tensor]
-
-
-def _param(*shape, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 class TLSAN(nn.Module):
@@ -64,24 +60,24 @@ class TLSAN(nn.Module):
         self.cfg = cfg
         D = cfg.hidden_units
         dh = D // cfg.num_heads
-        self.gamma = _param(device=device)
-        self.item_emb = _param(cfg.item_count, cfg.itemid_embedding_size,
-                               device=device)
-        self.item_b = _param(cfg.item_count, device=device)
-        self.user_emb = _param(cfg.user_count, cfg.userid_embedding_size,
-                               device=device)
-        self.usert_emb = _param(cfg.user_count, cfg.Ls, device=device)
-        self.cate_emb = _param(cfg.cate_count, cfg.cateid_embedding_size,
-                               device=device)
+        self.gamma = zeros_param(device=device)
+        self.item_emb = zeros_param(cfg.item_count, cfg.itemid_embedding_size,
+                                    device=device)
+        self.item_b = zeros_param(cfg.item_count, device=device)
+        self.user_emb = zeros_param(cfg.user_count, cfg.userid_embedding_size,
+                                    device=device)
+        self.usert_emb = zeros_param(cfg.user_count, cfg.Ls, device=device)
+        self.cate_emb = zeros_param(cfg.cate_count, cfg.cateid_embedding_size,
+                                    device=device)
         self.long = nn.ModuleList(nn.ParameterDict({
-            "w1": _param(dh, dh, device=device), "b1": _param(dh, device=device),
-            "w2": _param(dh, dh, device=device), "b2": _param(dh, device=device),
-            "proj_w": _param(D, D, device=device),
-            "proj_b": _param(D, device=device),
+            "w1": zeros_param(dh, dh, device=device), "b1": zeros_param(dh, device=device),
+            "w2": zeros_param(dh, dh, device=device), "b2": zeros_param(dh, device=device),
+            "proj_w": zeros_param(D, D, device=device),
+            "proj_b": zeros_param(D, device=device),
         }) for _ in range(cfg.num_blocks))
         self.short = nn.ModuleList(nn.ParameterDict({
-            "w1": _param(dh, dh, device=device), "b1": _param(dh, device=device),
-            "w2": _param(dh, dh, device=device), "b2": _param(dh, device=device),
+            "w1": zeros_param(dh, dh, device=device), "b1": zeros_param(dh, device=device),
+            "w2": zeros_param(dh, dh, device=device), "b2": zeros_param(dh, device=device),
         }) for _ in range(cfg.num_blocks))
 
     @torch.no_grad()

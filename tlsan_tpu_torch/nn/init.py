@@ -12,6 +12,13 @@ import math
 from typing import Sequence
 
 import torch
+from torch import nn
+
+
+def zeros_param(*shape: int, device) -> nn.Parameter:
+    """An f32 parameter of zeros on `device`: the models allocate their
+    parameters so, and `init_params` draws the values."""
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
 
 
 def glorot_uniform(shape: Sequence[int],
@@ -26,3 +33,13 @@ def glorot_uniform(shape: Sequence[int],
     u = torch.rand(tuple(shape), generator=generator, dtype=torch.float32,
                    device=generator.device)
     return (2.0 * u - 1.0) * limit
+
+
+def truncated_normal(shape: Sequence[int], stddev: float,
+                     generator: torch.Generator) -> torch.Tensor:
+    """f32 normal(0, stddev) truncated to ±2·stddev, as
+    ``stddev * jax.random.truncated_normal(rng, -2, 2, shape)``, drawn on
+    the generator's device."""
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=generator.device)
+    return torch.nn.init.trunc_normal_(out, 0.0, stddev, -2.0 * stddev,
+                                       2.0 * stddev, generator=generator)

@@ -1,6 +1,7 @@
-"""Shared layers.  Ported from tlsan_tpu/nn/layers.py: `dropout`,
-`layer_norm` and `dense`; `lstm_scan`, `reverse_valid` and `gather_time`
-come with the models that use them (ROADMAP.md queue 1, item 1)."""
+"""Shared layers, ported from tlsan_tpu/nn/layers.py: layer norm, dropout,
+dense, the TF-1.8 LSTM as a loop over time, the valid-prefix reversal and
+the per-row time gather; and the one-hot of the time buckets that ATRank
+and CNN share."""
 
 from __future__ import annotations
 
@@ -43,3 +44,55 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if activation is not None:
         out = activation(out)
     return out
+
+
+def one_hot(buckets: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """jax.nn.one_hot: a comparison with arange(n), so bucket n (and
+    anything outside 0..n-1) gives a zero row (torch's one_hot raises)."""
+    classes = torch.arange(n, dtype=buckets.dtype, device=buckets.device)
+    return (buckets[..., None] == classes).to(dtype)
+
+
+def lstm_scan(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, hidden: int,
+              forget_bias: float = 1.0) -> torch.Tensor:
+    """TF-1.8 LSTMCell over [B, T, D] → outputs [B, T, H], one step at a
+    time (the JAX package's lax.scan).  The layout is tf.nn.rnn_cell.LSTMCell's
+    (reference: Bi-LSTM/model.py:197-205): one kernel [D+H, 4H] applied to
+    concat([x_t, h]), split into (i, j, f, o), `forget_bias` added to f.
+    Plain matrix products and elementwise ops, not torch.nn.LSTM, whose
+    gates come in another order with two biases."""
+    B = x.shape[0]
+    c = x.new_zeros((B, hidden))
+    h = x.new_zeros((B, hidden))
+    outs = []
+    for t in range(x.shape[1]):
+        z = torch.cat([x[:, t], h], dim=-1) @ w + b
+        i, j, f, o = torch.split(z, hidden, dim=-1)
+        c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(j)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        outs.append(h)
+    return torch.stack(outs, dim=1)
+
+
+def _take_time(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[b, idx[b, t], ...] for x [B, T] or [B, T, D] and idx [B, T']."""
+    idx = idx.long()
+    if x.dim() == 3:
+        idx = idx[..., None].expand(-1, -1, x.shape[2])
+    return torch.gather(x, 1, idx)
+
+
+def reverse_valid(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse the first `lengths[b]` steps of each row, like
+    tf.reverse_sequence: the padding past a row's length keeps its place."""
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    n = lengths.long()[:, None]
+    return _take_time(x, torch.where(pos < n, n - 1 - pos, pos))
+
+
+def gather_time(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """x[b, t[b], :] (≡ reference extract_axis_1, Bi-LSTM/model.py:191-195).
+    A negative t wraps as in jnp.take_along_axis: t = −1, the step before
+    an empty history, reads the last step."""
+    T = x.shape[1]
+    return _take_time(x, (t.long() % T)[:, None])[:, 0]

@@ -201,6 +201,37 @@ def train_program(mesh: Mesh, cfg, tc, cate_list: np.ndarray, train: Batches,
     return out
 
 
+def chunk_program(mesh: Mesh, cfg, tc, cate_list: np.ndarray, train: Batches,
+                  test: Batches, idx: np.ndarray) -> dict:
+    """A fresh `Trainer(get_model(cfg.model), cfg, tc, ...)` from tc.seed
+    on this rank takes the [S, B] global batch indices `idx` as one chunk
+    ("losses"), digests a train summary of the chunk's last batch
+    ("summary": the packed histogram rows and "l2", on every rank),
+    evaluates ("metrics") and saves to tc.model_dir as a best checkpoint
+    at step S, so that `serve_program` can serve it.  Rank 0 returns the
+    whole weights ("state"); "launches" holds this rank's kernel launches
+    of each part."""
+    dev = mesh.device
+    out = {"rank": mesh.rank, "launches": {}}
+    tr = Trainer(get_model(cfg.model), cfg, tc, cate_list, train, test, device=dev)
+    chunk = torch.from_numpy(idx).to(dev)
+    reset_launches()
+    out["losses"] = tr._train_chunk(chunk).cpu().numpy()
+    tr.step += len(idx)
+    out["launches"]["chunk"] = launch_counts()
+    if tc.tb_histograms:
+        rows, l2 = tr._summaries(chunk[-1])
+        out["summary"] = {"rows": rows.cpu().numpy(), "l2": float(l2)}
+    reset_launches()
+    out["metrics"] = tr.evaluate()
+    out["launches"]["evaluate"] = launch_counts()
+    tr._save(best=True)
+    out["state"] = _whole_state(tr.model, mesh, api.counts(cfg))
+    out["pad_max"] = _pad_max(tr.model, mesh, api.counts(cfg))
+    tr.close()
+    return out
+
+
 def serve_program(mesh: Mesh, model_dir: str, cate_list: np.ndarray,
                   requests: Dict[str, np.ndarray], k: int = 50,
                   batch_size: int = 128, exclude_history: bool = False,

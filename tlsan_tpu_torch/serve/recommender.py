@@ -10,7 +10,8 @@ no GPU and no explicit ``device="cpu"`` it raises.
 
 By default recommendations may include items from the user's own history —
 the reference's eval semantics (SURVEY.md §8 quirk list); pass
-`exclude_history=True` to mask them.
+`exclude_history=True` to mask them (LSPM's right-aligned window
+included).
 
 With a (dp, mp) `mesh` (ported from tlsan_tpu/serve/recommender.py:56-75,
 :113-165) every rank of the world serves the same requests: the user
@@ -84,8 +85,21 @@ class Recommender:
         self.cate_list = torch.as_tensor(np.asarray(cate_list, np.int32),
                                          device=self.device)
         self._exclude = exclude_history
+        # LSPM packs its fixed-k window right-aligned (LSPM/input.py:30-37)
+        self._right_aligned = self.cfg.model == "lspm"
 
     # ------------------------------------------------------------- compute
+
+    def _history_valid(self, ids_key: str, ids: torch.Tensor,
+                       lengths: torch.Tensor) -> torch.Tensor:
+        """[B, L] bool: the columns of `ids` that hold history items.  The
+        packers fill [0, sl); LSPM's right-aligned window fills [L-sl, L)
+        (LSPM/input.py:30-37, JAX serve/recommender.py:37-50)."""
+        L = ids.shape[1]
+        cols = torch.arange(L, device=ids.device)[None, :]
+        if self._right_aligned and ids_key == "hist_i":
+            return cols >= L - lengths[:, None]
+        return cols < lengths[:, None]
 
     def _recommend(self, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,10 +111,8 @@ class Recommender:
             for ids_key, len_key in _HISTORY_KEYS:
                 if ids_key in batch and len_key in batch:
                     ids = batch[ids_key]  # [B, L]
-                    L = ids.shape[1]
-                    cols = torch.arange(L, device=ids.device)[None, :]
-                    valid = cols < batch[len_key][:, None]
-                    rows = torch.arange(B, device=ids.device)[:, None].expand(B, L)
+                    valid = self._history_valid(ids_key, ids, batch[len_key])
+                    rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
                     # an add, as in the JAX package: duplicate ids still
                     # give −inf, never NaN
                     logits.index_put_(
@@ -145,7 +157,11 @@ class Recommender:
             hist = set()
             for ids_key, len_key in _HISTORY_KEYS:
                 if ids_key in batch and len_key in batch:
-                    hist.update(batch[ids_key][r][:int(batch[len_key][r])].tolist())
+                    row, n = batch[ids_key][r], int(batch[len_key][r])
+                    if self._right_aligned and ids_key == "hist_i":
+                        hist.update(row[len(row) - n:].tolist())
+                    else:
+                        hist.update(row[:n].tolist())
             keep = [c for c, cand in enumerate(ids[r]) if cand not in hist][:self.k]
             out_i[r, :len(keep)] = ids[r][keep]
             out_v[r, :len(keep)] = vals[r][keep]

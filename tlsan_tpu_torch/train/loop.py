@@ -10,8 +10,10 @@ best_after_step, AUC-gated checkpointing, and the lr step schedule.
     [K, B, ...] batches by an `epoch_index` chunk and runs K optimizer steps
     as a plain Python loop (the JAX lax.scan).  Each step is a forward, a
     backward through autograd — on CUDA TLSAN's feature-wise attention runs
-    K1 forward and K2 backward, ATRank's multi-head attention K3 forward —
-    and the clipped SGD update in place.
+    K1 forward and K2 backward, ATRank's multi-head attention K3 forward;
+    the seven baselines run plain PyTorch — and the clipped SGD update in
+    place.  Pairwise families (BPR-MF, LSPM) train on (i, j) pairs with no
+    label.
   - Loss and histogram records are deferred: they stay device tensors until
     an eval or epoch boundary, so the host does not wait on the card between
     chunks.
@@ -114,7 +116,7 @@ class Trainer:
     def __init__(self, model, cfg: ModelConfig, tc: TrainConfig,
                  cate_list: np.ndarray, train_batches: Batches,
                  test_batches: Batches, device=None):
-        """`model` is the model class (``TLSAN`` or ``ATRank``).  Restores
+        """`model` is the model class (any of `models.MODELS`).  Restores
         the newest checkpoint under ``tc.model_dir`` if there is one (after the
         `from_scratch` wipe), else draws the initial weights from
         ``torch.Generator().manual_seed(tc.seed)`` — on the CPU, so every
@@ -267,11 +269,17 @@ class Trainer:
         with mesh_context(mesh):
             u = model.user_repr(batch, self.cate_list)
         rows.append(self._digest(u, None if mesh is None else mesh.dp_group))
+        # a row-sharded table's L2 sums over mp; a replicated weight's
+        # (SHAN's layer maps, PACA's position table) is whole on each rank
         l2 = torch.zeros((), device=self.device)
+        l2_rows = torch.zeros((), device=self.device)
         for n in model.l2_full_tables:
-            l2 = l2 + base.l2_tables(getattr(model, n))
+            if sharded and is_vocab_sharded(n):
+                l2_rows = l2_rows + base.l2_tables(getattr(model, n))
+            else:
+                l2 = l2 + base.l2_tables(getattr(model, n))
         if sharded:
-            l2 = all_reduce(l2, mesh.mp_group)
+            l2 = l2 + all_reduce(l2_rows, mesh.mp_group)
         return torch.stack(rows), l2
 
     # ------------------------------------------------------------------
