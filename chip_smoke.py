@@ -62,22 +62,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
   6. local   K1, K2 and K3 against their plain versions at the per-rank
              shapes of a dp=2 mesh (B=64 a request batch, B=16 a train
              step), with times and bounds: K4, the kernels per rank;
-  7. mesh    per family (TLSAN, ATRank), a dp=2 × mp=2 world of four
-             ranks: on one card four processes over Gloo with CUDA
-             tensors, on four or more cards one a rank over NCCL (logged).
-             Each rank trains with `Trainer(dp=2, mp=2)` from the seed of
+  7. mesh    every family on ONE dp=2 × mp=2 world of four ranks (a
+             single spawn): on one card four processes over Gloo with
+             CUDA tensors, on four or more cards one a rank over NCCL
+             (logged).  Per family each rank trains with `Trainer(dp=2, mp=2)` from the seed of
              a single-process Trainer on the card: 20 steps (lr 1.0 for
              TLSAN, 0.1 for ATRank; losses and every unpadded parameter
              within PARITY_TOL of the single process), one epoch of
-             100-step chunks (loss falls, AUC ends above 0.5 and its
-             start), an evaluation equal to the single process's of the
-             saved weights, and a timed chunk; then serves the 4,000
-             featurized users with `Recommender(mesh=...)` (ids equal to
+             100-step chunks with evaluations of 1,024 test users (loss
+             falls, AUC ends above 0.5 and its start), an evaluation equal
+             to the single process's of the saved weights, and a timed
+             chunk; then serves 1,000 featurized users with
+             `Recommender(mesh=...)` (ids equal to
              the single-device Recommender's up to ties, scores within
              SCORE_TOL).  Every rank's K1/K2/K3 launches are counted
              exactly; a rank that fails, or a world past its time limit,
-             fails the run.  Then the seven baselines on ONE world of four ranks (a single
-             spawn): per family a Trainer(dp=2, mp=2) from the seed takes
+             fails the run.  The seven baselines on the same world: per
+             family a Trainer(dp=2, mp=2) from the seed takes
              5 steps at lr 0.1 (`programs.chunk_program`), digests a
              summary, evaluates its 1,024 test users and saves; one
              process on the card does the same (losses and every unpadded
@@ -85,7 +86,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
              user), and `Recommender(mesh=...)` serves the save to 1,024
              featurized users as one device does; no rank launches K1, K2
              or K3;
-  8. summary per family one line of train examples/s, eval users/s, bulk
+  8. cli     the three command lines in-process through their main(argv),
+             as a user runs them, with no pandas: data.cli download (a
+             file:// base URL), convert and remap of seeded SNAP dumps
+             (tools/snap_fixture.py) that must remap to exactly the
+             Electronics counts (39,991 users, 22,048 items, 673
+             categories, 561,100 reviews; filtered rows and an asin
+             without meta on top); train.cli --model tlsan for one epoch
+             at the reference widths from a cold cache (the native builder
+             must run; chunks of 500, evaluations every 1,000 steps; K1
+             and K2 counted exactly for the steps, evaluations and
+             summaries; AUC must rise; latest and sidecar written); then
+             serve.cli --k 50 --out for every test user from a cache hit,
+             its first 512 users as the CPU Recommender serves them; then
+             on a Digital-Music-sized fixture (1,659 users, 1,583 items,
+             53 categories, 28,852 reviews) train.cli --model atrank (K3
+             exact) and --model tlsan in one process and on a dp=2 × mp=2
+             world (every evaluation within 1e-4), and every family's
+             prepare with the native builder byte for byte as the numpy
+             builders give it.  One line a stage with its seconds;
+  9. summary per family one line of train examples/s, eval users/s, bulk
              users/s, HTTP p50/p99 and idle shares beside the card's name
              and power limit; the whole run's wall time; one JSON line of
              per-kernel numbers; then the device line last.
@@ -98,9 +118,10 @@ users against item(32)⊕cate(32), LSPM k=5, CNN T=80 with ten towers of 32
 filters, Bi-LSTM 64 hidden units at T=96, CSAN hidden_units 32 at T=96.
 They launch no kernel of the port, so every one of their phases checks
 that the K1, K2 and K3 counts do not move.  Their depths are shallower:
-200 timed HTTP POSTs, a 2 s bulk window, the CPU check on the first 512
-bulk users and every HTTP answer; 200 train steps of batch 32 in chunks
-of 50 (Bi-LSTM, whose step is some 8,000 launches: 100 in chunks of 10)
+200 timed HTTP POSTs (Bi-LSTM 100), a 2 s bulk window, the CPU check on
+the first 512 bulk users and every HTTP answer; 200 train steps of batch
+32 in chunks of 50 (Bi-LSTM, whose step is some 8,000 launches: 50 in
+chunks of 10, evaluated every 50)
 on rows planted on 16 items and 8 categories with negatives from the
 whole catalog, evaluations of 1,024 test users every 100 steps, 1 s train
 and eval windows, 10 steps against the CPU plain path.
@@ -115,19 +136,24 @@ import ctypes
 import dataclasses
 import json
 import os
+import pathlib
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
+from tlsan_tpu_torch.data import cli as data_cli
+from tlsan_tpu_torch.data import native
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index, round8
+from tlsan_tpu_torch.data.remap import load_category
 from tlsan_tpu_torch.models import get_model
 from tlsan_tpu_torch.models.atrank import ATRank
 from tlsan_tpu_torch.models.tlsan import TLSAN
@@ -142,11 +168,14 @@ from tlsan_tpu_torch.ops.feature_attention import (
 from tlsan_tpu_torch.ops.multihead_attention import multihead_attention_reference
 from tlsan_tpu_torch.parallel import programs
 from tlsan_tpu_torch.parallel.multihost import run_local
+from tlsan_tpu_torch.serve import cli as serve_cli
 from tlsan_tpu_torch.serve.featurize import featurize_many
 from tlsan_tpu_torch.serve.http import RecommendService, serve
 from tlsan_tpu_torch.serve.recommender import Recommender
 from tlsan_tpu_torch.train import checkpoint
+from tlsan_tpu_torch.train import cli as train_cli
 from tlsan_tpu_torch.train.loop import Trainer
+from tlsan_tpu_torch.tools.snap_fixture import write_snap_fixture
 
 SEED = 1234
 KERNEL_TOL = 1e-5    # f32 parity, the bar of tests/test_pallas_{fwa,mha}.py
@@ -224,8 +253,10 @@ LSPM_K = 5
 PLANTED_ITEMS = 16  # the items the baselines' seeded rows use (see below)
 BASE_PLANTED_CATES = 8
 # Bi-LSTM's step is some 8,000 launches (96 steps × 2 directions, forward
-# and backward): 100 steps in chunks of 10
-BILSTM_TRAIN_ROWS, BILSTM_STEPS_PER_CALL = 3_200, 10
+# and backward): 50 steps in chunks of 10 with evaluations every 50, and 100
+# timed HTTP POSTs
+BILSTM_TRAIN_ROWS, BILSTM_STEPS_PER_CALL, BILSTM_EVAL_EVERY = 1_600, 10, 50
+BILSTM_LATENCY_REQUESTS = 100
 BASE_LATENCY_REQUESTS = 200  # p99 is the 2nd slowest
 BASE_BULK_WINDOW_S = 2.0
 BASE_CPU_CHECK_USERS = 512   # 4 whole batches: the CPU runs CSAN's [B,T,T,E] slowly
@@ -239,8 +270,10 @@ MESH_BASE_STEPS, MESH_BASE_LR, MESH_BASE_USERS = 5, 0.1, 1_024
 # the mesh: dp=2 × mp=2, each rank with half of every batch's rows
 MESH_DP, MESH_MP = 2, 2
 MESH_SERVE_B, MESH_TRAIN_B = BATCH // MESH_DP, TRAIN_B // MESH_DP
-# one timed chunk and one timed serving call: the whole run stays near 450 s
+# one timed chunk and one timed serving call, evaluations of 1,024 test
+# users and 1,000 users served: the whole run stays near 600 s
 MESH_TIMED_CHUNKS, MESH_SERVE_CALLS = 1, 1
+MESH_TEST_USERS, MESH_BULK_USERS = 1_024, 1_000  # a partial last batch
 MESH_TIMEOUT_S = 480
 # K4's per-rank shapes: K1 and K2 at the local rows of a request batch and
 # a train step, K3 likewise
@@ -248,6 +281,16 @@ LOCAL_FWA = [(MESH_SERVE_B, LS), (MESH_SERVE_B, TS + 1)]
 LOCAL_FWA_TRAIN = [(MESH_TRAIN_B, LS), (MESH_TRAIN_B, TS + 1)]
 LOCAL_MHA = [(MESH_SERVE_B, T_ATRANK, T_ATRANK), (MESH_SERVE_B, 1, T_ATRANK)]
 LOCAL_MHA_TRAIN = [(MESH_TRAIN_B, T_ATRANK, T_ATRANK), (MESH_TRAIN_B, 1, T_ATRANK)]
+
+# the cli phase: seeded SNAP dumps that remap to exactly these counts
+# (users, items, categories, reviews; SURVEY.md dataset table)
+CLI_FIXTURES = {"Electronics": (USERS, ITEMS, CATES, 561_100),
+                "Digital_Music": (1_659, 1_583, 53, 28_852)}
+CLI_CPU_CHECK_USERS = 512
+CLI_MESH_EVAL_FREQ = 200
+CLI_MESH_TOL = 1e-4
+CLI_FAMILIES = ("tlsan", "atrank", "shan", "csan", "lspm", "paca", "cnn",
+                "bilstm", "bpr")
 
 KERNELS = [{"name": "fwa_fwd", "route": "cuda",
             "source": "tlsan_tpu_torch/csrc/fwa_fwd.cu",
@@ -910,6 +953,7 @@ class Family:
     bulk_window_s: float = BULK_WINDOW_S
     cpu_check_users: int = BULK_USERS  # bulk users checked against the CPU
     train_rows: int = TRAIN_ROWS
+    eval_every: int = EVAL_EVERY
     test_users: int = TEST_USERS
     steps_per_call: int = STEPS_PER_CALL
     parity_steps: int = PARITY_STEPS
@@ -1040,7 +1084,9 @@ BASELINES = [
     _baseline("cnn", max_length=T_CNN, hidden_units=D),
     dataclasses.replace(_baseline("bilstm", max_length=T_ATRANK, lstm_hidden_units=64),
                         train_rows=BILSTM_TRAIN_ROWS,
-                        steps_per_call=BILSTM_STEPS_PER_CALL),
+                        steps_per_call=BILSTM_STEPS_PER_CALL,
+                        eval_every=BILSTM_EVAL_EVERY,
+                        latency_requests=BILSTM_LATENCY_REQUESTS),
     _baseline("csan", max_length=T_ATRANK, hidden_units=32),
 ]
 
@@ -1191,7 +1237,7 @@ def phase_train(tmp: str, fam: Family) -> dict:
     cfg, tag = fam.cfg, f"train {fam.name}"
     # a loss record and a summary every chunk, an evaluation every 100 steps
     tc = TrainConfig(model_dir=os.path.join(tmp, "train"), max_epochs=1,
-                     steps_per_call=fam.steps_per_call, eval_freq=EVAL_EVERY,
+                     steps_per_call=fam.steps_per_call, eval_freq=fam.eval_every,
                      display_freq=fam.steps_per_call,
                      summary_freq=fam.steps_per_call, best_after_step=0,
                      save_auc_gate=0.0, seed=SEED)
@@ -1329,19 +1375,21 @@ def phase_kernel_local() -> dict:
     return {"fwa_per_rank": fwa, "mha_per_rank": mha}
 
 
-def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
-    """The family's train and serve paths on a dp=2 × mp=2 world, against
-    one process on the card."""
-    cfg, tag = fam.cfg, f"mesh {fam.name}"
+def _mesh_family(tmp: str, fam: Family) -> dict:
+    """One family's inputs to the mesh world, its jobs there, and the
+    single process's 20 steps on the card to hold them against."""
+    cfg = fam.cfg
     tc = TrainConfig(model_dir=os.path.join(tmp, "mesh"), max_epochs=1,
                      steps_per_call=STEPS_PER_CALL, eval_freq=STEPS_PER_CALL,
                      summary_freq=STEPS_PER_CALL, best_after_step=0,
                      save_auc_gate=0.0, seed=SEED, dp=MESH_DP, mp=MESH_MP)
     train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
                                             ITEMS, TRAIN_ROWS, TEST_USERS)
+    test = Batches({k: v[:MESH_TEST_USERS] for k, v in test.arrays.items()},
+                   MESH_TEST_USERS)  # the first of the one-device phases' users
     idx = epoch_index(TRAIN_ROWS, TRAIN_B, STEPS_PER_CALL, 0, SEED)[0][:PARITY_STEPS]
     bulk = featurize_many(fam.name, cfg, fam.requests(np.random.default_rng(SEED + 2),
-                                                      BULK_USERS), cate_list=cate_list)
+                                                      MESH_BULK_USERS), cate_list=cate_list)
 
     # one process on the card, from the same seed
     one = Trainer(fam.model, cfg, dataclasses.replace(
@@ -1350,26 +1398,52 @@ def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
     want_losses = one._train_chunk(torch.from_numpy(idx).cuda()).cpu()
     want_state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
     one.close()
+    jobs = ((programs.train_program, dict(cfg=cfg, tc=tc, cate_list=cate_list,
+                                          train=train, test=test, parity_idx=idx,
+                                          parity_lr=fam.parity_lr,
+                                          timed_chunks=MESH_TIMED_CHUNKS)),
+            (programs.serve_program, dict(model_dir=tc.model_dir, cate_list=cate_list,
+                                          requests=bulk, k=K, batch_size=BATCH,
+                                          calls=MESH_SERVE_CALLS)))
+    return dict(fam=fam, tc=tc, train=train, test=test, cate_list=cate_list,
+                bulk=bulk, want_losses=want_losses, want_state=want_state,
+                jobs=jobs)
 
+
+def phase_mesh(tmp: str, fams, baselines, backend: str, device: str) -> list:
+    """Every family's mesh paths on ONE dp=2 × mp=2 world (a single
+    spawn): `fams` (TLSAN, ATRank) train and serve in full, `baselines`
+    as `phase_mesh_baselines` sets out; each is held against one process
+    on the card.  Returns each of `fams`' launches over the ranks."""
+    runs = [_mesh_family(os.path.join(tmp, fam.name), fam) for fam in fams]
+    base_tmp = os.path.join(tmp, "baselines")
+    base_jobs, base_runs = _mesh_baseline_jobs(base_tmp, baselines)
     t0 = time.perf_counter()
-    ranks = run_local(
-        programs.sequence, MESH_DP, MESH_MP, backend, device, MESH_TIMEOUT_S,
-        (programs.train_program, dict(cfg=cfg, tc=tc, cate_list=cate_list,
-                                      train=train, test=test, parity_idx=idx,
-                                      parity_lr=fam.parity_lr,
-                                      timed_chunks=MESH_TIMED_CHUNKS)),
-        (programs.serve_program, dict(model_dir=tc.model_dir, cate_list=cate_list,
-                                      requests=bulk, k=K, batch_size=BATCH,
-                                      calls=MESH_SERVE_CALLS)))
+    ranks = run_local(programs.sequence, MESH_DP, MESH_MP, backend, device,
+                      MESH_TIMEOUT_S, *[job for run in runs for job in run["jobs"]],
+                      *base_jobs)
     world_s = time.perf_counter() - t0
+    log(f"mesh: one world of {MESH_DP}x{MESH_MP} ranks ({backend}, {device}) for "
+        f"{[fam.name for fam in (*fams, *baselines)]} in {world_s:.3f} s")
+    out = [_mesh_check(run, [r[2 * i:2 * i + 2] for r in ranks], backend, device)
+           for i, run in enumerate(runs)]
+    phase_mesh_baselines(base_tmp, base_runs, [r[2 * len(runs):] for r in ranks])
+    return out
+
+
+def _mesh_check(run: dict, ranks: list, backend: str, device: str) -> dict:
+    """One family's results on every rank against the single process."""
+    fam, tc, train, test = run["fam"], run["tc"], run["train"], run["test"]
+    cfg, cate_list, bulk, tag = fam.cfg, run["cate_list"], run["bulk"], f"mesh {fam.name}"
+    want_losses, want_state = run["want_losses"], run["want_state"]
     trained, served = ranks[0]
 
     # launches: every rank, every part, exactly
     recs = _records(tc.model_dir)
     evals = [r for r in recs if r["kind"] in ("eval", "final")]
     losses = [r["loss"] for r in recs if r["kind"] == "train"]
-    eval_batches = -(-TEST_USERS // TEST_B)
-    serve_batches = -(-BULK_USERS // BATCH)
+    eval_batches = -(-MESH_TEST_USERS // TEST_B)
+    serve_batches = -(-MESH_BULK_USERS // BATCH)
 
     def work(steps=0, evals_=0, summaries=0, batches=0):
         return _plus(_times(fam.per_step, steps),
@@ -1431,14 +1505,13 @@ def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
     rec = Recommender.from_model_dir(tc.model_dir, cate_list, device="cuda",
                                      batch_size=BATCH, k=K)
     want_ids, want_scores = rec.recommend(bulk)
-    if served["ids"].shape != (BULK_USERS, K) or not np.isfinite(served["scores"]).all():
+    if served["ids"].shape != (MESH_BULK_USERS, K) or not np.isfinite(served["scores"]).all():
         raise AssertionError(f"{tag}: served {served['ids'].shape}, or non-finite")
     assert_topk_match(want_ids, want_scores, served["ids"], served["scores"], SCORE_TOL)
 
     examples_per_s = MESH_TIMED_CHUNKS * STEPS_PER_CALL * TRAIN_B / trained["chunks_s"]
-    users_per_s = MESH_SERVE_CALLS * BULK_USERS / served["calls_s"]
-    log(f"{tag}: world of {MESH_DP}x{MESH_MP} ranks ({backend}, {device}) in "
-        f"{world_s:.3f} s; {PARITY_STEPS} steps at lr {fam.parity_lr} agree "
+    users_per_s = MESH_SERVE_CALLS * MESH_BULK_USERS / served["calls_s"]
+    log(f"{tag}: its Trainer.train() {trained['train_s']:.3f} s; {PARITY_STEPS} steps at lr {fam.parity_lr} agree "
         f"with one process to {worst:.3e}; chunk losses {losses}; AUC "
         f"{[round(r['auc'], 6) for r in evals]}; the save evaluates in one "
         f"process as on the mesh: {json.dumps(again)}")
@@ -1446,7 +1519,7 @@ def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
     log(f"{tag}: {MESH_TIMED_CHUNKS} chunks of {STEPS_PER_CALL} steps of "
         f"{TRAIN_B} ({MESH_TRAIN_B} a rank) in {trained['chunks_s']:.3f} s: "
         f"{examples_per_s:.1f} train examples/s ({where})")
-    log(f"{tag}: {MESH_SERVE_CALLS} bulk recommends of {BULK_USERS} users "
+    log(f"{tag}: {MESH_SERVE_CALLS} bulk recommends of {MESH_BULK_USERS} users "
         f"({MESH_SERVE_B} rows a rank a batch) in {served['calls_s']:.3f} s: "
         f"{users_per_s:.1f} users/s; ids equal the single-device "
         f"Recommender's up to ties, scores within {SCORE_TOL}; launches over "
@@ -1455,16 +1528,8 @@ def phase_mesh(tmp: str, fam: Family, backend: str, device: str) -> dict:
             "users_per_s": users_per_s}
 
 
-def phase_mesh_baselines(tmp: str, fams, backend: str, device: str) -> None:
-    """The seven baselines on ONE dp=2 × mp=2 world (one spawn for all):
-    per family, a Trainer(dp=2, mp=2) from the seed takes MESH_BASE_STEPS
-    steps at lr 0.1, digests a summary, evaluates its test users and saves
-    (`programs.chunk_program`); then `Recommender(mesh=...)` serves the
-    save to MESH_BASE_USERS featurized users (`programs.serve_program`).
-    One process on the card does the same: the losses and every unpadded
-    parameter must agree within PARITY_TOL, the metrics within one test
-    user, the served ids up to ties with scores within SCORE_TOL; no rank
-    may launch K1, K2 or K3."""
+def _mesh_baseline_jobs(tmp: str, fams):
+    """The baselines' jobs on the mesh world, and what their check needs."""
     jobs, runs = [], []
     for fam in fams:
         cfg = fam.cfg
@@ -1484,13 +1549,19 @@ def phase_mesh_baselines(tmp: str, fams, backend: str, device: str) -> None:
                                                   requests=requests, k=K,
                                                   batch_size=BATCH)))
         runs.append((fam, tc, train, test, cate_list, idx, requests))
-    t0 = time.perf_counter()
-    ranks = run_local(programs.sequence, MESH_DP, MESH_MP, backend, device,
-                      MESH_TIMEOUT_S, *jobs)
-    world_s = time.perf_counter() - t0
-    log(f"mesh baselines: one world of {MESH_DP}x{MESH_MP} ranks ({backend}, "
-        f"{device}) for {len(fams)} families in {world_s:.3f} s")
+    return jobs, runs
 
+
+def phase_mesh_baselines(tmp: str, runs, ranks) -> None:
+    """The seven baselines' results on the mesh world: per family, a
+    Trainer(dp=2, mp=2) from the seed took MESH_BASE_STEPS steps at lr
+    0.1, digested a summary, evaluated its test users and saved
+    (`programs.chunk_program`); then `Recommender(mesh=...)` served the
+    save to MESH_BASE_USERS featurized users (`programs.serve_program`).
+    One process on the card does the same: the losses and every unpadded
+    parameter must agree within PARITY_TOL, the metrics within one test
+    user, the served ids up to ties with scores within SCORE_TOL; no rank
+    may launch K1, K2 or K3."""
     none = {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0}
     for f, (fam, tc, train, test, cate_list, idx, requests) in enumerate(runs):
         tag = f"mesh {fam.name}"
@@ -1542,6 +1613,265 @@ def phase_mesh_baselines(tmp: str, fams, backend: str, device: str) -> None:
             f"K1/K2/K3 launch on any rank")
 
 
+# ---------------------------------------------------------------------- CLI
+
+
+class _Tee:
+    """sys.stdout's stand-in while a command line runs in-process: writes
+    go through and are kept, so the header lines can be read."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _run_cli(main_fn, argv):
+    """`main_fn(argv)` in this process; returns (its result, its stdout)."""
+    tee = _Tee(sys.stdout)
+    sys.stdout = tee
+    try:
+        return main_fn(argv), "".join(tee.lines)
+    finally:
+        sys.stdout = tee.out
+
+
+def _header(out: str) -> dict:
+    """The train CLI's header line (model=... builder=...) as a dict."""
+    line = next(ln for ln in out.splitlines() if ln.startswith("model="))
+    return dict(field.split("=", 1) for field in line.split())
+
+
+def _cli_summaries(steps: int, k: int, display_freq: int, summary_freq: int) -> int:
+    """Histogram summaries of an epoch of `steps` in chunks of `k`, at the
+    Trainer's cadence (train/loop.py::Trainer.train)."""
+    since_display = since_summary = n = 0
+    for _ in range(steps // k):
+        since_display += k
+        since_summary += k
+        if since_display >= display_freq:
+            since_display = 0
+            if since_summary >= summary_freq:
+                since_summary, n = 0, n + 1
+    return n
+
+
+def cli_data(tmp: str, category: str, card: str) -> str:
+    """The seeded SNAP dumps of `category` through data.cli's download (a
+    file:// base URL), convert and remap; the remap must give the
+    fixture's counts exactly, with no pandas loaded.  Returns the data
+    directory."""
+    users, items, cates, reviews = CLI_FIXTURES[category]
+    snap, raw = os.path.join(tmp, f"snap_{category}"), os.path.join(tmp, f"raw_{category}")
+    data_dir = os.path.join(tmp, "Data")
+    t0 = time.perf_counter()
+    want = write_snap_fixture(snap, category, users, items, cates, reviews, seed=SEED)
+    times = {"fixture": time.perf_counter() - t0}
+    stages = [
+        ("download", ["download", "--category", category, "--out", raw,
+                      "--base_url", pathlib.Path(snap).as_uri()]),
+        ("convert", ["convert",
+                     "--reviews", os.path.join(raw, f"reviews_{category}_5.json.gz"),
+                     "--meta", os.path.join(raw, f"meta_{category}.json.gz"),
+                     "--out", raw]),
+        ("remap", ["remap", "--reviews", os.path.join(raw, "reviews.npz"),
+                   "--meta", os.path.join(raw, "meta.npz"),
+                   "--out", os.path.join(data_dir, f"{category}.npz")])]
+    for stage, argv in stages:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():  # the fixture's asin without meta
+            warnings.filterwarnings("ignore", "dropping .* no metadata")
+            rc, _ = _run_cli(data_cli.main, argv)
+        times[stage] = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"data.cli {stage} exited {rc}")
+    counts = dataclasses.asdict(load_category(os.path.join(data_dir, f"{category}.npz"))[3])
+    if counts != want:
+        raise AssertionError(f"remap of the {category} fixture: {counts}, expected {want}")
+    if "pandas" in sys.modules:
+        raise AssertionError("the data pipeline loaded pandas")
+    log(f"cli data {category} ({card}): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; remapped to {counts} with no pandas loaded")
+    return data_dir
+
+
+def _cli_train(data_dir: str, model_dir: str, category: str, fam: Family,
+               extra=(), check_launches: bool = True):
+    """One epoch of train.cli for `fam`'s model on the card; the launch
+    counts must be exact for the steps, evaluations and summaries run
+    (`check_launches`: in this process).  Returns (header, eval records,
+    epoch record, launches)."""
+    argv = ["--model", fam.name, "--dataset", category, "--data_dir", data_dir,
+            "--max_epochs", "1", "--model_dir", model_dir, *extra]
+    reset_launches()  # the train CLI's path starts here
+    _, out = _run_cli(train_cli.main, argv)
+    launches = launch_counts()  # and ends here
+    recs = _records(model_dir)
+    evals = [r for r in recs if r["kind"] in ("eval", "final")]
+    epoch = next(r for r in recs if r["kind"] == "epoch")
+    steps, head = evals[-1]["step"], {}
+    if check_launches:  # a spawned world's ranks print the header and launch
+        head = _header(out)
+        test_batches = -(-int(head["test"]) // TEST_B)
+        summaries = _cli_summaries(steps, int(head["steps_per_call"]), 100,
+                                   1000)  # the CLI's default cadences
+        want = _plus(_times(fam.per_step, steps),
+                     _times(fam.per_eval_batch, len(evals) * test_batches),
+                     _times(fam.per_summary, summaries))
+        if launches != want:
+            raise AssertionError(
+                f"train.cli {fam.name}: launches {launches}, expected {want} "
+                f"({steps} steps, {len(evals)} evaluations of {test_batches} "
+                f"batches, {summaries} summaries)")
+    if not evals[-1]["auc"] > evals[0]["auc"]:
+        raise AssertionError(f"train.cli {fam.name}: AUC {evals[0]['auc']} → "
+                             f"{evals[-1]['auc']} did not rise")
+    for name in (checkpoint.LATEST, f"{fam.name}-{steps}.ckpt", f"{fam.name}-{steps}.json"):
+        if not os.path.exists(os.path.join(model_dir, name)):
+            raise AssertionError(f"train.cli {fam.name}: no {name} under {model_dir}")
+    return head, evals, epoch, launches
+
+
+def phase_cli(tmp: str, card: str) -> list:
+    """The three command lines in-process, as a user runs them: data.cli
+    from seeded SNAP dumps to the category file, train.cli and serve.cli
+    at the Electronics scale (TLSAN), then ATRank and the dp=2 × mp=2
+    mesh on a Digital-Music-sized fixture, and every family's prepare
+    with the native builder against the numpy builders.  Returns the
+    launches of each path driven."""
+    runs = []
+    os.environ["TLSAN_DATA_CACHE"] = os.path.join(tmp, "cache")  # starts cold
+    data_dir = cli_data(tmp, "Electronics", card)
+    if not native.available():
+        raise AssertionError("the native builder does not build on this host")
+
+    # TLSAN at the reference widths: one epoch, K1/K2 counted exactly
+    model_dir = os.path.join(tmp, "tlsan_Electronics")
+    t0 = time.perf_counter()
+    head, evals, epoch, launches = _cli_train(
+        data_dir, model_dir, "Electronics", TLSAN_FAMILY, ["--eval_freq", "1000"])
+    runs.append(launches)
+    if head["builder"] != "native" or head["steps_per_call"] != "500":
+        raise AssertionError(f"train.cli header {head}: expected the native "
+                             "builder and 500 steps a chunk")
+    log(f"cli train tlsan Electronics ({card}): {head['train']} rows, "
+        f"{evals[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; "
+        f"cold prepare (native) {head['prepare_s']} s; "
+        f"{epoch['examples_per_s']:.1f} train examples/s over the epoch with "
+        f"{len(evals) - 1} evaluations of {head['test']} users inside; AUC "
+        f"{[round(r['auc'], 6) for r in evals]}; launches {launches}")
+
+    # serve.cli on that model_dir: every test user, from a cache hit
+    recs_path = os.path.join(tmp, "recs.jsonl")
+    reset_launches()  # the serve CLI's path starts here
+    metric, _ = _run_cli(serve_cli.main, [
+        "--model_dir", model_dir, "--dataset", "Electronics", "--data_dir",
+        data_dir, "--k", str(K), "--out", recs_path, "--show", "0"])
+    n_users = int(head["test"])
+    runs.append(expect_launches(_plus(), _times(TLSAN_FAMILY.per_batch,
+                                                2 * -(-n_users // BATCH)),
+                                "serve.cli"))  # a warm-up and a timed call
+    if metric["builder"] != "cache":
+        raise AssertionError(f"serve.cli's prepare was a {metric['builder']}, not a cache hit")
+    with open(recs_path) as f:
+        recs = [json.loads(line) for line in f]
+    if len(recs) != n_users:
+        raise AssertionError(f"serve.cli wrote {len(recs)} lines for {n_users} users")
+    prep = train_cli.prepare("tlsan", os.path.join(data_dir, "Electronics.npz"),
+                             ModelConfig(model="tlsan"))  # the same cache entry
+    first = {k: v[:CLI_CPU_CHECK_USERS] for k, v in prep.test.arrays.items()
+             if k not in ("i", "j")}
+    cpu = Recommender.from_model_dir(model_dir, prep.cate_list, device="cpu", k=K)
+    ids_c, sc_c = cpu.recommend(first)
+    ids_g = np.array([r["items"] for r in recs[:CLI_CPU_CHECK_USERS]])
+    sc_g = np.array([r["scores"] for r in recs[:CLI_CPU_CHECK_USERS]], np.float32)
+    if [r["user"] for r in recs[:CLI_CPU_CHECK_USERS]] != first["u"].tolist():
+        raise AssertionError("serve.cli's users are not the test rows in order")
+    assert_topk_match(ids_g, sc_g, ids_c, sc_c, SCORE_TOL)
+    log(f"cli serve tlsan Electronics ({card}): {n_users} users, "
+        f"{metric['value']:.1f} users/s (top-{K} over {metric['catalog']} items); "
+        f"prepare warm (cache hit) {metric['prepare_s']:.3f} s; the first "
+        f"{CLI_CPU_CHECK_USERS} users as the CPU serves them (scores to "
+        f"{SCORE_TOL}, as written to 4 decimals)")
+
+    # ATRank and the mesh on a Digital-Music-sized fixture
+    data_dir = cli_data(tmp, "Digital_Music", card)
+    t0 = time.perf_counter()
+    head, evals, epoch, launches = _cli_train(
+        data_dir, os.path.join(tmp, "atrank_Digital_Music"), "Digital_Music",
+        ATRANK_FAMILY)
+    runs.append(launches)
+    log(f"cli train atrank Digital_Music ({card}): {head['train']} rows, "
+        f"{evals[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; "
+        f"{epoch['examples_per_s']:.1f} train examples/s over the epoch; AUC "
+        f"{[round(r['auc'], 6) for r in evals]}; launches {launches}")
+    one_dir, mesh_dir = (os.path.join(tmp, f"tlsan_{w}") for w in ("one", "mesh"))
+    extra = ["--eval_freq", str(CLI_MESH_EVAL_FREQ), "--best_after_step", "0"]
+    t0 = time.perf_counter()
+    head, evals_one, epoch, launches = _cli_train(data_dir, one_dir, "Digital_Music",
+                                                  TLSAN_FAMILY, extra)
+    runs.append(launches)
+    log(f"cli train tlsan Digital_Music ({card}): {head['train']} rows, "
+        f"{evals_one[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; "
+        f"{epoch['examples_per_s']:.1f} train examples/s over the epoch; AUC "
+        f"{[round(r['auc'], 6) for r in evals_one]}; launches {launches}")
+    backend, device = mesh_setup()
+    t0 = time.perf_counter()
+    _, _, _, mesh_launches = _cli_train(
+        data_dir, mesh_dir, "Digital_Music", TLSAN_FAMILY,
+        [*extra, "--dp", str(MESH_DP), "--mp", str(MESH_MP), "--dist_backend",
+         backend, "--device", device], check_launches=False)
+    mesh_s = time.perf_counter() - t0
+    if any(mesh_launches.values()):  # the ranks launch; this process must not
+        raise AssertionError(f"the spawning process launched {mesh_launches}")
+    evals_mesh = [r for r in _records(mesh_dir) if r["kind"] in ("eval", "final")]
+    worst = 0.0
+    for a, b in zip(evals_one, evals_mesh, strict=True):
+        if a["step"] != b["step"] or a.keys() != b.keys():
+            raise AssertionError(f"mesh evaluation {b} against one process's {a}")
+        worst = max([worst] + [abs(a[k] - b[k]) for k in a
+                               if k not in ("kind", "step", "wall_s")])
+    if worst > CLI_MESH_TOL:
+        raise AssertionError(f"the mesh's metrics differ from one process's by {worst:.3e}")
+    log(f"cli train tlsan Digital_Music --dp {MESH_DP} --mp {MESH_MP} "
+        f"--dist_backend {backend} ({card}): {len(evals_mesh)} evaluations "
+        f"within {worst:.3e} of one process (tolerance {CLI_MESH_TOL}); the "
+        f"world's run {mesh_s:.3f} s")
+
+    # every family's prepare: the card host's native builder against numpy
+    path = os.path.join(data_dir, "Digital_Music.npz")
+    t0 = time.perf_counter()
+    for name in CLI_FAMILIES:
+        cfg = ModelConfig(model=name, hidden_units=32 if name == "csan" else D)
+        fast = train_cli.prepare(name, path, cfg, use_cache=False)
+        native.available, available = (lambda: False), native.available
+        try:
+            slow = train_cli.prepare(name, path, cfg, use_cache=False)
+        finally:
+            native.available = available
+        if (fast.builder, slow.builder) != ("native", "numpy") or fast.cfg != slow.cfg:
+            raise AssertionError(f"prepare {name}: {fast.builder} {fast.cfg} "
+                                 f"against {slow.builder} {slow.cfg}")
+        for split in ("train", "test"):
+            a, b = getattr(fast, split), getattr(slow, split)
+            if a.n != b.n or a.arrays.keys() != b.arrays.keys() or any(
+                    a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])
+                    for k in a.arrays):
+                raise AssertionError(f"prepare {name}: native {split} arrays "
+                                     "differ from the numpy builders'")
+    log(f"cli prepare ({card}): the native builder equals the numpy builders "
+        f"byte for byte for {len(CLI_FAMILIES)} families on Digital_Music in "
+        f"{time.perf_counter() - t0:.3f} s")
+    del os.environ["TLSAN_DATA_CACHE"]
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1563,11 +1893,11 @@ def main() -> int:
             numbers.setdefault(fam.name, {}).update(out)
         log(f"{fam.name}: path and train in {time.perf_counter() - t0:.1f} s")
     backend, device = mesh_setup()
-    for fam in (TLSAN_FAMILY, ATRANK_FAMILY):
-        with tempfile.TemporaryDirectory() as tmp:
-            meshed.append(phase_mesh(tmp, fam, backend, device)["launches"])
     with tempfile.TemporaryDirectory() as tmp:
-        phase_mesh_baselines(tmp, BASELINES, backend, device)
+        meshed += [out["launches"] for out in phase_mesh(
+            tmp, (TLSAN_FAMILY, ATRANK_FAMILY), BASELINES, backend, device)]
+    with tempfile.TemporaryDirectory() as tmp:
+        runs.extend(phase_cli(tmp, card))
     for name, n in numbers.items():
         log(f"family {name} ({card}): train {n['examples_per_s']:.1f} examples/s, "
             f"eval {n['eval_users_per_s']:.1f} users/s, bulk {n['users_per_s']:.1f} "

@@ -47,5 +47,7 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "data.batcher", "ops.multihead_attention", "ops.cuda.mha",
                  "models.atrank", "parallel.mesh", "parallel.multihost",
                  "parallel.api", "parallel.sharded_embedding",
-                 "parallel.topk", "parallel.programs"):
+                 "parallel.topk", "parallel.programs", "data.builders",
+                 "data.native", "data.cache", "data.cli", "train.cli",
+                 "serve.cli", "tools.snap_fixture"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

@@ -4,7 +4,8 @@
       --dataset Digital_Music --data_dir Data --port 8080 [--device cpu]
 
 Ported from tlsan_tpu/serve/http.py; it runs on CUDA unless ``--device cpu``
-is given.
+is given.  The category file is ``<data_dir>/<dataset>.npz`` (else the
+reference's ``.pkl``, which needs pandas; data/remap.py).
 
 Endpoints:
   GET  /healthz        → {"status": "ok", model/catalog info}
@@ -24,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import queue
 import threading
 import traceback
@@ -33,7 +33,7 @@ from typing import Optional
 
 import numpy as np
 
-from tlsan_tpu_torch.data.remap import load_category
+from tlsan_tpu_torch.data.remap import category_path, load_category
 from tlsan_tpu_torch.serve.featurize import featurize_many
 from tlsan_tpu_torch.serve.recommender import Recommender, resolve_device
 
@@ -151,8 +151,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)  # raise before loading anything
-    _, _, cate_list, _ = load_category(
-        os.path.join(args.data_dir, f"{args.dataset}.pkl"))
+    _, _, cate_list, _ = load_category(category_path(args.data_dir, args.dataset))
     rec = Recommender.from_model_dir(
         args.model_dir, cate_list, args.model, device=device, k=args.k,
         batch_size=args.batch, exclude_history=args.exclude_history)
