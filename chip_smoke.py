@@ -59,10 +59,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
              20 steps from the same start must agree with the CPU plain
              path.  Then train examples/s over a window of at least 3 s,
              eval users/s, and one profiled chunk;
-  6. local   K1, K2 and K3 against their plain versions at the per-rank
+  6. ext     after every family's path and train: the rest of the
+             Trainer at the Electronics catalog, the reference widths and
+             one seeded start a comparison: TLSAN 200 touched-row SGD
+             steps against 200 dense ones in f32 (params within rtol
+             2e-3, atol 2e-5, mean loss 1e-3) and in bf16 (2e-2, 2e-3,
+             1e-2), with the idle share of one profiled sparse chunk;
+             ATRank 100 sparse Adam steps against dense Adam in bf16
+             (moments within rtol 5e-2, atol 2e-4 / 1e-7, params 1e-1);
+             LSPM 200 touched-row SGD steps against dense in f32;
+             Adadelta (lr 1.0) and RMSProp (lr 1e-3), 100 dense TLSAN
+             steps each, against the CPU port within PARITY_TOL; the auto
+             gate on an 80,000-item catalog (119,991 rows: sparse engages
+             for SGD at batch 32, Adam at batch 256 stays dense), with 100
+             dense and 100 sparse steps there in f32 and in bf16.  K1/K2/K3
+             counted exactly in every run; examples/s of each logged;
+  7. local   K1, K2 and K3 against their plain versions at the per-rank
              shapes of a dp=2 mesh (B=64 a request batch, B=16 a train
              step), with times and bounds: K4, the kernels per rank;
-  7. mesh    every family on ONE dp=2 × mp=2 world of four ranks (a
+  8. mesh    every family on ONE dp=2 × mp=2 world of four ranks (a
              single spawn): on one card four processes over Gloo with
              CUDA tensors, on four or more cards one a rank over NCCL
              (logged).  Per family each rank trains with `Trainer(dp=2, mp=2)` from the seed of
@@ -85,8 +100,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
              parameter within PARITY_TOL, the metrics within one test
              user), and `Recommender(mesh=...)` serves the save to 1,024
              featurized users as one device does; no rank launches K1, K2
-             or K3;
-  8. cli     the three command lines in-process through their main(argv),
+             or K3.  The three production legs of the JAX package's
+             dry run (`programs.PRODUCTION_LEGS`: TLSAN sparse SGD in
+             bf16, ATRank sparse Adam in bf16, LSPM sparse SGD in f32) on
+             the same world: 20 steps, an evaluation and a save each,
+             against one process on the card (f32: loss 1e-3, params rtol
+             2e-3, atol 2e-5; bf16 SGD as the ext phase; bf16 Adam: each
+             moment tree within a quarter of its norm, the params within
+             2·lr a step), launches exact;
+  9. cli     the three command lines in-process through their main(argv),
              as a user runs them, with no pandas: data.cli download (a
              file:// base URL), convert and remap of seeded SNAP dumps
              (tools/snap_fixture.py) that must remap to exactly the
@@ -102,10 +124,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
              on a Digital-Music-sized fixture (1,659 users, 1,583 items,
              53 categories, 28,852 reviews) train.cli --model atrank (K3
              exact) and --model tlsan in one process and on a dp=2 × mp=2
-             world (every evaluation within 1e-4), and every family's
+             world (every evaluation within 1e-4), --model tlsan --profile
+             (its trace of three chunks names fwa_fwd_kernel and
+             fwa_bwd_kernel; their launches counted), and every family's
              prepare with the native builder byte for byte as the numpy
              builders give it.  One line a stage with its seconds;
-  9. summary per family one line of train examples/s, eval users/s, bulk
+  10. summary per family one line of train examples/s, eval users/s, bulk
              users/s, HTTP p50/p99 and idle shares beside the card's name
              and power limit; the whole run's wall time; one JSON line of
              per-kernel numbers; then the device line last.
@@ -291,6 +315,28 @@ CLI_MESH_EVAL_FREQ = 200
 CLI_MESH_TOL = 1e-4
 CLI_FAMILIES = ("tlsan", "atrank", "shan", "csan", "lspm", "paca", "cnn",
                 "bilstm", "bpr")
+
+# the ext phase: the rest of the Trainer (sparse updates, bf16, Adam,
+# Adadelta, RMSProp, the auto gate, profile_trace)
+EXT_STEPS = 200        # sparse against dense, TLSAN (f32 and bf16) and LSPM
+EXT_ADAM_STEPS = 100   # ATRank, sparse Adam against dense Adam, in bf16
+EXT_OPT_STEPS = 100    # Adadelta and RMSProp on the card against the CPU
+EXT_GATE_ITEMS = 80_000  # + the 39,991 users: 119,991 rows ≥ sparse_auto_rows
+EXT_GATE_STEPS = 100   # the readings at the 80,000-item catalog
+EXT_PROFILE_STEPS = 100  # the profiled sparse chunk
+ADAM_LR = 0.01         # the JAX dry run's Adam rate (__graft_entry__.py:213)
+# sparse against dense: tests/test_sparse.py:101-106 (f32), :271-274
+# (bf16), :298-316 (Adam in bf16: the moments tight, the parameters to
+# the walk of its near-zero-grad leaves)
+SPARSE_RTOL, SPARSE_ATOL, SPARSE_LOSS_RTOL = 2e-3, 2e-5, 1e-3
+BF16_RTOL, BF16_ATOL, BF16_LOSS_RTOL = 2e-2, 2e-3, 1e-2
+ADAM_BF16_MU, ADAM_BF16_NU, ADAM_MOMENT_RTOL, ADAM_WALK = 2e-4, 1e-7, 5e-2, 1e-1
+# the production legs on the mesh world: 20 steps of each; Adam's moment
+# trees in bf16 within a quarter of their norm (tests/test_torch_sparse_mesh.py)
+MESH_LEG_STEPS = 20
+MESH_BF16_MOMENT_NORM = 0.25
+# the cli phase's train.cli --profile run: chunks of 20, three traced
+CLI_PROFILE_STEPS_PER_CALL = 20
 
 KERNELS = [{"name": "fwa_fwd", "route": "cuda",
             "source": "tlsan_tpu_torch/csrc/fwa_fwd.cu",
@@ -1350,6 +1396,200 @@ def phase_train(tmp: str, fam: Family) -> dict:
             "eval_users_per_s": eval_users_per_s, "train_idle_share": idle}
 
 
+# ---------------------------------------------------------------------- ext
+
+
+def _ext_run(tmp: str, fam: Family, data, tag: str, steps: int, device="cuda",
+             cfg=None, **over):
+    """A fresh Trainer of `fam` from the seed on `device` takes the first
+    `steps` batches of epoch 0 as one chunk.  Returns (trainer, losses on
+    the CPU, whole state on the CPU, seconds of the chunk, its launches);
+    on the card the launches must be `fam.per_step` a step exactly."""
+    train, test, cate_list = data
+    tc = TrainConfig(model_dir=os.path.join(tmp, tag), max_epochs=1,
+                     steps_per_call=steps, eval_freq=10**9, best_after_step=0,
+                     tb_histograms=False, seed=SEED, **over)
+    tr = Trainer(fam.model, cfg or fam.cfg, tc, cate_list, train, test, device=device)
+    idx = torch.from_numpy(tr._epoch_index(0)[0][:steps]).to(device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    n = launch_counts()
+    t0 = time.perf_counter()
+    losses = tr._train_chunk(idx)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if device == "cuda":
+        expect_launches(n, _times(fam.per_step, steps), f"ext {tag}")
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    return tr, losses.cpu(), state, dt, _times(fam.per_step, steps)
+
+
+def _worst(got: dict, want: dict) -> float:
+    return max(float((got[k] - want[k]).abs().max()) for k in want)
+
+
+def _check_close(tag: str, got: dict, want: dict, rtol: float, atol: float,
+                 skip=()) -> float:
+    for k, w in want.items():
+        if k not in skip and not torch.allclose(got[k], w, rtol=rtol, atol=atol):
+            raise AssertionError(f"{tag}: {k} differs by "
+                                 f"{float((got[k] - w).abs().max()):.3e}")
+    return _worst(got, want)
+
+
+def _slot_states(tr) -> dict:
+    return {s: {n: t.detach().cpu() for n, t in zip(tr._names, ts)}
+            for s, ts in tr.opt_state.slots.items()}
+
+
+def _sparse_pair(tmp: str, fam: Family, data, steps: int, card: str, **over):
+    """`fam` from one seeded start, `steps` dense steps against `steps`
+    touched-row steps on the card.  Returns (dense run, sparse run), each
+    (trainer, losses, state, seconds, launches)."""
+    runs = []
+    for use_sparse in (False, True):
+        runs.append(_ext_run(tmp, fam, data, f"{fam.name}_{use_sparse}_"
+                             + "_".join(map(str, over.values())), steps,
+                             sparse_updates=use_sparse, **over))
+        if runs[-1][0]._use_sparse != use_sparse:
+            raise AssertionError(f"ext {fam.name}: sparse_updates={use_sparse} "
+                                 "did not take")
+    for label, (_, _, _, dt, _) in zip(("dense", "sparse"), runs):
+        log(f"ext {fam.name} {over} ({card}): {steps} {label} steps of {TRAIN_B} "
+            f"in {dt:.3f} s: {steps * TRAIN_B / dt:.1f} train examples/s")
+    return runs
+
+
+def phase_ext(tmp: str, card: str) -> list:
+    """The rest of the Trainer on the card at the Electronics catalog and
+    the reference widths, from one seeded start each: TLSAN's touched-row
+    SGD against the dense step in f32 and in bf16, ATRank's sparse Adam
+    against dense Adam in bf16, LSPM's sparse SGD against dense; Adadelta
+    and RMSProp against the CPU port; the auto gate at an 80,000-item
+    catalog, with dense and sparse readings there; the idle share of one
+    profiled sparse chunk.  K1/K2/K3 counted exactly in every run.
+    Returns the launches of each run."""
+    runs = []
+    tlsan = TLSAN_FAMILY.train_data(np.random.default_rng(SEED + 1), USERS, ITEMS,
+                                    TRAIN_ROWS, TEST_USERS)
+    for dtype, rtol, atol, loss_rtol in (("float32", SPARSE_RTOL, SPARSE_ATOL,
+                                          SPARSE_LOSS_RTOL),
+                                         ("bfloat16", BF16_RTOL, BF16_ATOL,
+                                          BF16_LOSS_RTOL)):
+        dense, sp = _sparse_pair(tmp, TLSAN_FAMILY, tlsan, EXT_STEPS, card,
+                                 compute_dtype=dtype)
+        runs += [dense[4], sp[4]]
+        worst = _check_close(f"ext tlsan sparse {dtype}", sp[2], dense[2], rtol, atol)
+        ld, ls = float(dense[1].mean()), float(sp[1].mean())
+        if not abs(ls - ld) <= loss_rtol * abs(ld):
+            raise AssertionError(f"ext tlsan sparse {dtype}: mean loss {ls} against {ld}")
+        if dtype == "bfloat16" and any(v.dtype != torch.float32 for v in sp[2].values()):
+            raise AssertionError("ext tlsan bf16: a master parameter is not f32")
+        log(f"ext tlsan {dtype}: {EXT_STEPS} touched-row steps against dense: "
+            f"params within {worst:.3e} (rtol {rtol}, atol {atol}), mean loss "
+            f"{ls:.6f} against {ld:.6f}")
+        if dtype == "float32":  # the idle share of one profiled sparse chunk
+            tr = sp[0]
+            idx = torch.from_numpy(tr._epoch_index(1)[0][:EXT_PROFILE_STEPS]).cuda()
+            n = launch_counts()
+            wall_ms, prof = _profile(lambda: tr._train_chunk(idx))
+            expect_launches(n, _times(TLSAN_FAMILY.per_step, EXT_PROFILE_STEPS),
+                            "ext profiled sparse chunk")
+            runs.append(_times(TLSAN_FAMILY.per_step, EXT_PROFILE_STEPS))
+            _log_profile(f"ext tlsan ({card})",
+                         f"sparse chunk of {EXT_PROFILE_STEPS} steps", wall_ms, prof)
+        dense[0].close()
+        sp[0].close()
+
+    # ATRank: sparse Adam against dense Adam, both in bf16
+    atrank = ATRANK_FAMILY.train_data(np.random.default_rng(SEED + 1), USERS, ITEMS,
+                                      TRAIN_ROWS, TEST_USERS)
+    dense, sp = _sparse_pair(tmp, ATRANK_FAMILY, atrank, EXT_ADAM_STEPS, card,
+                             optimizer="adam", learning_rate=ADAM_LR,
+                             compute_dtype="bfloat16")
+    runs += [dense[4], sp[4]]
+    slots_d, slots_s = _slot_states(dense[0]), _slot_states(sp[0])
+    worst_mu = _check_close("ext atrank adam bf16 mu", slots_s["mu"], slots_d["mu"],
+                            ADAM_MOMENT_RTOL, ADAM_BF16_MU)
+    worst_nu = _check_close("ext atrank adam bf16 nu", slots_s["nu"], slots_d["nu"],
+                            ADAM_MOMENT_RTOL, ADAM_BF16_NU)
+    walk = _worst(sp[2], dense[2])
+    if not walk < ADAM_WALK:
+        raise AssertionError(f"ext atrank adam bf16: params walked {walk:.3e} apart")
+    log(f"ext atrank adam bf16: {EXT_ADAM_STEPS} touched-row steps against dense: "
+        f"mu within {worst_mu:.3e}, nu within {worst_nu:.3e}, params {walk:.3e}")
+    dense[0].close()
+    sp[0].close()
+
+    # LSPM: touched-row SGD in f32 (its auxiliary vocab tables short_w, long_w)
+    lspm = next(f for f in BASELINES if f.name == "lspm")
+    lspm_data = lspm.train_data(np.random.default_rng(SEED + 1), USERS, ITEMS,
+                                TRAIN_ROWS, TEST_USERS)
+    dense, sp = _sparse_pair(tmp, lspm, lspm_data, EXT_STEPS, card)
+    worst = _check_close("ext lspm sparse", sp[2], dense[2], SPARSE_RTOL, SPARSE_ATOL)
+    ld, ls = float(dense[1].mean()), float(sp[1].mean())
+    if not abs(ls - ld) <= SPARSE_LOSS_RTOL * abs(ld):
+        raise AssertionError(f"ext lspm sparse: mean loss {ls} against {ld}")
+    log(f"ext lspm: {EXT_STEPS} touched-row steps against dense: params within "
+        f"{worst:.3e}, mean loss {ls:.6f} against {ld:.6f}")
+    dense[0].close()
+    sp[0].close()
+
+    # Adadelta and RMSProp: the card against the CPU port
+    for optimizer, lr in (("adadelta", 1.0), ("rmsprop", 1e-3)):
+        out = {}
+        for device in ("cuda", "cpu"):
+            tr, losses, state, dt, n = _ext_run(
+                tmp, TLSAN_FAMILY, tlsan, f"{optimizer}_{device}", EXT_OPT_STEPS,
+                device=device, optimizer=optimizer, learning_rate=lr,
+                sparse_updates=False)
+            out[device] = (losses, state, _slot_states(tr))
+            if device == "cuda":
+                runs.append(n)
+                log(f"ext tlsan {optimizer} ({card}): {EXT_OPT_STEPS} steps in "
+                    f"{dt:.3f} s: {EXT_OPT_STEPS * TRAIN_B / dt:.1f} train examples/s")
+            tr.close()
+        (lg, pg, sg), (lc, pc, sc) = out["cuda"], out["cpu"]
+        if not torch.allclose(lg, lc, rtol=PARITY_TOL, atol=PARITY_TOL):
+            raise AssertionError(f"ext {optimizer}: losses {lg} against the CPU's {lc}")
+        worst = _check_close(f"ext {optimizer}", pg, pc, PARITY_TOL, PARITY_TOL)
+        for slot in sg:
+            worst = max(worst, _check_close(f"ext {optimizer} {slot}", sg[slot],
+                                            sc[slot], PARITY_TOL, PARITY_TOL))
+        log(f"ext tlsan {optimizer}: {EXT_OPT_STEPS} steps at lr {lr} on the card "
+            f"and on the CPU agree to {worst:.3e} (losses, params, slots)")
+
+    # the auto gate at 80,000 items, and the readings there
+    big = TLSAN_FAMILY.train_data(np.random.default_rng(SEED + 3), USERS,
+                                  EXT_GATE_ITEMS, TRAIN_ROWS, TEST_USERS)
+    cfg = dataclasses.replace(TLSAN_FAMILY.cfg, item_count=EXT_GATE_ITEMS)
+    gate = Trainer(TLSAN_FAMILY.model, cfg, TrainConfig(
+        model_dir=os.path.join(tmp, "gate_adam"), optimizer="adam",
+        train_batch_size=256, tb_histograms=False), big[2], big[0], big[1],
+        device="cuda")
+    if gate._use_sparse:
+        raise AssertionError("auto gate: adam at batch 256 engaged sparse")
+    gate.close()
+    for dtype in ("float32", "bfloat16"):
+        for forced in (False, None):  # None: the auto gate must engage it
+            tr, _, _, dt, n = _ext_run(tmp, TLSAN_FAMILY, big, f"gate_{dtype}_{forced}",
+                                       EXT_GATE_STEPS, cfg=cfg, sparse_updates=forced,
+                                       compute_dtype=dtype)
+            runs.append(n)
+            if tr._use_sparse != (forced is None):
+                raise AssertionError(f"auto gate at {EXT_GATE_ITEMS + USERS} rows: "
+                                     f"sparse {tr._use_sparse}")
+            tr.close()
+            log(f"ext tlsan {EXT_GATE_ITEMS} items {dtype} ({card}): "
+                f"{EXT_GATE_STEPS} {'dense' if forced is False else 'sparse (auto)'} "
+                f"steps of {TRAIN_B} in {dt:.3f} s: "
+                f"{EXT_GATE_STEPS * TRAIN_B / dt:.1f} train examples/s")
+    log(f"ext auto gate: sparse engaged at {EXT_GATE_ITEMS + USERS} vocab rows "
+        "(sgd, batch 32), dense kept for adam at batch 256")
+    return runs
+
+
 # --------------------------------------------------------------------- mesh
 
 
@@ -1413,21 +1653,25 @@ def _mesh_family(tmp: str, fam: Family) -> dict:
 def phase_mesh(tmp: str, fams, baselines, backend: str, device: str) -> list:
     """Every family's mesh paths on ONE dp=2 × mp=2 world (a single
     spawn): `fams` (TLSAN, ATRank) train and serve in full, `baselines`
-    as `phase_mesh_baselines` sets out; each is held against one process
-    on the card.  Returns each of `fams`' launches over the ranks."""
+    as `phase_mesh_baselines` sets out, and the three production legs as
+    `phase_mesh_legs` does; each is held against one process on the card.
+    Returns each of `fams`' launches over the ranks, then the legs'."""
     runs = [_mesh_family(os.path.join(tmp, fam.name), fam) for fam in fams]
     base_tmp = os.path.join(tmp, "baselines")
     base_jobs, base_runs = _mesh_baseline_jobs(base_tmp, baselines)
+    leg_jobs, leg_runs = _mesh_leg_jobs(os.path.join(tmp, "legs"))
     t0 = time.perf_counter()
     ranks = run_local(programs.sequence, MESH_DP, MESH_MP, backend, device,
                       MESH_TIMEOUT_S, *[job for run in runs for job in run["jobs"]],
-                      *base_jobs)
+                      *base_jobs, *leg_jobs)
     world_s = time.perf_counter() - t0
     log(f"mesh: one world of {MESH_DP}x{MESH_MP} ranks ({backend}, {device}) for "
         f"{[fam.name for fam in (*fams, *baselines)]} in {world_s:.3f} s")
     out = [_mesh_check(run, [r[2 * i:2 * i + 2] for r in ranks], backend, device)
            for i, run in enumerate(runs)]
-    phase_mesh_baselines(base_tmp, base_runs, [r[2 * len(runs):] for r in ranks])
+    n_base = 2 * len(runs) + len(base_jobs)
+    phase_mesh_baselines(base_tmp, base_runs, [r[2 * len(runs):n_base] for r in ranks])
+    out.append({"launches": phase_mesh_legs(leg_runs, [r[n_base:] for r in ranks])})
     return out
 
 
@@ -1550,6 +1794,106 @@ def _mesh_baseline_jobs(tmp: str, fams):
                                                   batch_size=BATCH)))
         runs.append((fam, tc, train, test, cate_list, idx, requests))
     return jobs, runs
+
+
+def _leg_family(name: str) -> Family:
+    return {"tlsan": TLSAN_FAMILY, "atrank": ATRANK_FAMILY,
+            **{f.name: f for f in BASELINES}}[name]
+
+
+def _mesh_leg_jobs(tmp: str):
+    """The JAX package's three production legs (`programs.PRODUCTION_LEGS`:
+    TLSAN sparse SGD in bf16, ATRank sparse Adam in bf16, LSPM sparse SGD
+    in f32) as jobs of the mesh world: each a fresh Trainer(dp=2, mp=2)
+    from the seed takes MESH_LEG_STEPS steps, evaluates MESH_TEST_USERS
+    and saves (`programs.production_leg`)."""
+    jobs, runs = [], []
+    for name, optimizer, dtype in programs.PRODUCTION_LEGS:
+        fam = _leg_family(name)
+        train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                                ITEMS, TRAIN_ROWS, TEST_USERS)
+        test = Batches({k: v[:MESH_TEST_USERS] for k, v in test.arrays.items()},
+                       MESH_TEST_USERS)
+        tc = TrainConfig(model_dir=os.path.join(tmp, f"leg_{name}"), max_epochs=1,
+                         steps_per_call=MESH_LEG_STEPS, tb_histograms=False,
+                         best_after_step=0, save_auc_gate=0.0, seed=SEED,
+                         dp=MESH_DP, mp=MESH_MP)
+        idx = epoch_index(TRAIN_ROWS, TRAIN_B, MESH_LEG_STEPS, 0, SEED)[0]
+        jobs.append((programs.production_leg, dict(
+            cfg=fam.cfg, tc=tc, cate_list=cate_list, train=train, test=test, idx=idx,
+            optimizer=optimizer, dtype=dtype)))
+        runs.append((fam, optimizer, dtype, tc, train, test, cate_list, idx))
+    return jobs, runs
+
+
+def _tree_rel(got: dict, want: dict) -> float:
+    """‖got − want‖ / ‖want‖ over every entry of two trees of arrays."""
+    diff = sum(float(np.sum(np.square(got[k] - w, dtype=np.float64)))
+               for k, w in want.items())
+    norm = sum(float(np.sum(np.square(w, dtype=np.float64))) for w in want.values())
+    return float(np.sqrt(diff / max(norm, 1e-300)))
+
+
+def phase_mesh_legs(runs, ranks) -> dict:
+    """The production legs' results on the mesh world against one process
+    on the card from the same seed (the leg's config at dp = mp = 1): f32
+    losses within 1e-3 and parameters within rtol 2e-3, atol 2e-5
+    (tests/test_sparse.py:200-206); the bf16 legs to the bf16 bounds,
+    Adam's moments tightly and its parameters to their walk; every rank's
+    K1/K2/K3 launches exact.  Returns the launches over the ranks."""
+    total = _plus()
+    for f, (fam, optimizer, dtype, tc, train, test, cate_list, idx) in enumerate(runs):
+        tag = f"mesh leg {fam.name}/{optimizer}/{dtype}"
+        legs = [r[f] for r in ranks]
+        eval_batches = -(-MESH_TEST_USERS // TEST_B)
+        want = {"chunk": _times(fam.per_step, MESH_LEG_STEPS),
+                "evaluate": _times(fam.per_eval_batch, eval_batches)}
+        for r, leg in enumerate(legs):
+            if not leg["sparse"]:
+                raise AssertionError(f"{tag}: rank {r} did not engage the sparse step")
+            for part, got in leg["launches"].items():
+                full = {k: got.get(k, 0) for k in total}
+                if full != _plus(want[part]):
+                    raise AssertionError(f"{tag}: rank {r} {part}: launches {full}, "
+                                         f"expected {_plus(want[part])}")
+                total = _plus(total, full)
+        one = Trainer(fam.model, fam.cfg, programs.leg_config(dataclasses.replace(
+            tc, dp=1, mp=1, model_dir=tc.model_dir + "_one"), optimizer, dtype),
+            cate_list, train, test, device="cuda")
+        losses = one._train_chunk(torch.from_numpy(idx).cuda()).cpu().numpy()
+        state = {k: v.detach().cpu() for k, v in one.model.state_dict().items()}
+        slots = _slot_states(one)
+        one.close()
+        got = {k: torch.from_numpy(v) for k, v in legs[0]["state"].items()}
+        bf16 = dtype == "bfloat16"
+        loss_rtol = BF16_LOSS_RTOL if bf16 else SPARSE_LOSS_RTOL
+        if not np.allclose(legs[0]["losses"], losses, rtol=loss_rtol, atol=0):
+            raise AssertionError(f"{tag}: losses {legs[0]['losses']} against {losses}")
+        if optimizer == "adam" and bf16:
+            # Adam's update on a near-zero-grad entry is about ±lr, its sign
+            # set by rounding: two runs part by at most 2·lr a step
+            worst = _worst(got, state)
+            if not worst < 2 * ADAM_LR * MESH_LEG_STEPS:
+                raise AssertionError(f"{tag}: params walked {worst:.3e} apart")
+            # a rank rounds each weight gradient's sum over its half of
+            # the rows to bf16 before the dp sum: each moment tree within a
+            # quarter of its norm (tests/test_torch_sparse_mesh.py)
+            for slot in ("mu", "nu"):
+                saved = legs[0]["opt_state"]["slots"][slot]
+                rel = _tree_rel(saved, {k: v.numpy() for k, v in slots[slot].items()})
+                if not rel <= MESH_BF16_MOMENT_NORM:
+                    raise AssertionError(f"{tag}: {slot} differs by {rel:.3e} of "
+                                         "its norm")
+        elif bf16:
+            worst = _check_close(tag, got, state, BF16_RTOL, BF16_ATOL)
+        else:
+            worst = _check_close(tag, got, state, SPARSE_RTOL, SPARSE_ATOL)
+        if legs[0]["pad_max"] != 0.0:
+            raise AssertionError(f"{tag}: padding rows moved ({legs[0]['pad_max']})")
+        log(f"{tag}: {MESH_LEG_STEPS} touched-row steps on the 4-rank world agree "
+            f"with one process on the card to {worst:.3e}; AUC "
+            f"{legs[0]['metrics']['auc']:.6f}; launches exact on every rank")
+    return total
 
 
 def phase_mesh_baselines(tmp: str, runs, ranks) -> None:
@@ -1702,10 +2046,11 @@ def cli_data(tmp: str, category: str, card: str) -> str:
 
 
 def _cli_train(data_dir: str, model_dir: str, category: str, fam: Family,
-               extra=(), check_launches: bool = True):
+               extra=(), check_launches: bool = True, profile_steps: int = 0):
     """One epoch of train.cli for `fam`'s model on the card; the launch
     counts must be exact for the steps, evaluations and summaries run
-    (`check_launches`: in this process).  Returns (header, eval records,
+    (`check_launches`: in this process), and the `profile_steps` that
+    --profile's trace runs on copies.  Returns (header, eval records,
     epoch record, launches)."""
     argv = ["--model", fam.name, "--dataset", category, "--data_dir", data_dir,
             "--max_epochs", "1", "--model_dir", model_dir, *extra]
@@ -1721,7 +2066,7 @@ def _cli_train(data_dir: str, model_dir: str, category: str, fam: Family,
         test_batches = -(-int(head["test"]) // TEST_B)
         summaries = _cli_summaries(steps, int(head["steps_per_call"]), 100,
                                    1000)  # the CLI's default cadences
-        want = _plus(_times(fam.per_step, steps),
+        want = _plus(_times(fam.per_step, steps + profile_steps),
                      _times(fam.per_eval_batch, len(evals) * test_batches),
                      _times(fam.per_summary, summaries))
         if launches != want:
@@ -1821,6 +2166,26 @@ def phase_cli(tmp: str, card: str) -> list:
         f"{evals_one[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; "
         f"{epoch['examples_per_s']:.1f} train examples/s over the epoch; AUC "
         f"{[round(r['auc'], 6) for r in evals_one]}; launches {launches}")
+    # --profile: a torch.profiler trace of three chunks, on copies, before
+    # the epoch; the trace must name K1 and K2
+    profile_dir = os.path.join(tmp, "tlsan_profile")
+    t0 = time.perf_counter()
+    head, evals_p, _, launches = _cli_train(
+        data_dir, profile_dir, "Digital_Music", TLSAN_FAMILY,
+        ["--profile", "--steps_per_call", str(CLI_PROFILE_STEPS_PER_CALL),
+         "--eval_freq", "1000"], profile_steps=3 * CLI_PROFILE_STEPS_PER_CALL)
+    runs.append(launches)
+    trace = os.path.join(profile_dir, "profile", "trace.json")
+    with open(trace, "rb") as f:
+        text = f.read()
+    missing = [k for k in (b"fwa_fwd_kernel", b"fwa_bwd_kernel") if k not in text]
+    if missing:
+        raise AssertionError(f"train.cli --profile: {trace} names no {missing}")
+    log(f"cli train tlsan --profile Digital_Music ({card}): a trace of "
+        f"{3 * CLI_PROFILE_STEPS_PER_CALL} steps ({len(text)} bytes, naming "
+        f"fwa_fwd_kernel and fwa_bwd_kernel) and the epoch in "
+        f"{time.perf_counter() - t0:.3f} s; AUC {[round(r['auc'], 6) for r in evals_p]}; "
+        f"launches {launches}")
     backend, device = mesh_setup()
     t0 = time.perf_counter()
     _, _, _, mesh_launches = _cli_train(
@@ -1892,6 +2257,10 @@ def main() -> int:
             runs.append(out.pop("launches"))
             numbers.setdefault(fam.name, {}).update(out)
         log(f"{fam.name}: path and train in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        runs.extend(phase_ext(tmp, card))
+        log(f"ext: in {time.perf_counter() - t0:.1f} s")
     backend, device = mesh_setup()
     with tempfile.TemporaryDirectory() as tmp:
         meshed += [out["launches"] for out in phase_mesh(

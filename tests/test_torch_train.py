@@ -212,8 +212,34 @@ def test_clip_is_optax_not_clip_grad_norm():
 
 @pytest.mark.parametrize("name", ["adam", "adadelta", "rmsprop"])
 def test_other_optimizers_are_queued(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        state.make_optimizer(TrainConfig(optimizer=name))
+    """Once queued (ROADMAP item 24), now ported: each optimizer against
+    optax's make_optimizer for 30 updates across lr_drop_step, with
+    gradient norms on both sides of the clip (tests/test_torch_optim.py
+    holds the slots too, and the clip off)."""
+    kw = dict(optimizer=name, learning_rate=0.05, max_gradient_norm=5.0,
+              lr_drop_step=15)
+    jopt, opt = jax_make_optimizer(JaxTrainConfig(**kw)), state.make_optimizer(TrainConfig(**kw))
+    rng = np.random.default_rng(5)
+    shapes = {"table": (30, 8), "w": (8, 8), "b": (8,), "gamma": ()}
+    init = {k: np.asarray(rng.normal(size=s), np.float32) for k, s in shapes.items()}
+    jparams = {k: jnp.asarray(v) for k, v in init.items()}
+    jstate = jopt.init(jparams)
+    params = [torch.nn.Parameter(torch.from_numpy(init[k].copy())) for k in shapes]
+    st = opt.init(params)
+    for step in range(30):
+        scale = 0.02 * np.exp(rng.uniform(0.0, 4.0))
+        grads = {k: np.asarray(rng.normal(size=s) * scale, np.float32)
+                 for k, s in shapes.items()}
+        updates, jstate = jopt.update({k: jnp.asarray(v) for k, v in grads.items()},
+                                      jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for p, k in zip(params, shapes):
+            p.grad = torch.from_numpy(grads[k])
+        st = opt.step(params, st)
+        assert st.count == step + 1
+        for p, k in zip(params, shapes):
+            np.testing.assert_allclose(p.detach().numpy(), np.asarray(jparams[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=f"{name} {step} {k}")
 
 
 # -------------------------------------------------------------- data layout
@@ -413,11 +439,19 @@ def test_checkpoint_round_trip_keeps_opt_state(tmp_path):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     train, test, cate_list = synthetic(n=64)
+    # sparse updates and bf16 are ported (tests/test_torch_sparse.py,
+    # tests/test_torch_bf16.py); a dtype the port does not know raises
     for over in (dict(sparse_updates=True), dict(compute_dtype="bfloat16")):
         tc, _ = _tiny_configs(str(tmp_path / "x"), **over)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Trainer(TLSAN, ModelConfig(**CFG), tc, cate_list, train, test,
-                    device="cpu")
+        tr = Trainer(TLSAN, ModelConfig(**CFG), tc, cate_list, train, test,
+                     device="cpu")
+        assert tr._use_sparse == bool(tc.sparse_updates)
+        assert tr.bf16 == (tc.compute_dtype == "bfloat16")
+        tr.close()
+    tc, _ = _tiny_configs(str(tmp_path / "x"), compute_dtype="fp16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        Trainer(TLSAN, ModelConfig(**CFG), tc, cate_list, train, test,
+                device="cpu")
     # the mesh is ported (tests/test_torch_mesh.py), and needs its world
     tc, _ = _tiny_configs(str(tmp_path / "x"), dp=2)
     with pytest.raises(RuntimeError, match="initialized process group"):

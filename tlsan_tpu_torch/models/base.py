@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from tlsan_tpu_torch.nn.embedding import current_batch_mesh
+from tlsan_tpu_torch.nn.embedding import current_batch_mesh, current_mesh
 from tlsan_tpu_torch.parallel.mesh import all_reduce, once_over_dp, sum_over
 
 
@@ -107,20 +107,22 @@ def batch_l2(valid, *rows: torch.Tensor) -> torch.Tensor:
         l2 = l2_tables(*rows)
     else:
         v = valid.to(torch.float32)
-        l2 = 0.5 * sum(torch.sum(torch.square(r) * v.reshape((-1,) + (1,) * (r.dim() - 1)))
+        l2 = 0.5 * sum(torch.sum(torch.square(r.float()) * v.reshape((-1,) + (1,) * (r.dim() - 1)))
                        for r in rows)
     return sum_over_batch(l2)
 
 
 def l2_full_tables(*tables):
-    """`l2_tables` of whole vocab tables, of which under a mesh each mp rank
-    holds a row shard (pad rows are zero): summed over mp, and its gradient
-    counted once over dp."""
+    """`l2_tables` of whole vocab tables, of which under a vocab-sharded
+    mesh each mp rank holds a row shard (pad rows are zero): summed over
+    mp, and its gradient counted once over dp.  The sparse step's row
+    blocks are whole on every rank, so with the sharded lookups off
+    (`mesh_context(mesh, False)`) no mp sum is taken."""
     l2 = l2_tables(*tables)
     mesh = current_batch_mesh()
     if mesh is None:
         return l2
-    if mesh.mp > 1:
+    if current_mesh() is not None:
         l2 = sum_over(l2, mesh.mp_group)
     return once_over_dp(l2, mesh) if mesh.dp > 1 else l2
 
@@ -135,7 +137,8 @@ def l2_replicated(*weights):
 
 def l2_tables(*tables):
     """Σ tf.nn.l2_loss(t) = Σ sum(t²)/2 (reference: TLSAN/model.py:164-169),
-    in f32."""
+    accumulated in f32 whatever the tables' dtype (under bf16 a large
+    table's sum of squares in bf16 would lose the term)."""
     return sum(0.5 * torch.sum(torch.square(t.float())) for t in tables)
 
 

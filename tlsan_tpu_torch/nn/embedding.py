@@ -19,6 +19,18 @@ the per-site form, as the JAX package does at `:180`: building the fused
 table would need the cate rows of every item of the shard through the
 exchange.  The catalog's own rows (`item_cate_rows`) are the one place that
 needs them: there the small cate table is gathered whole instead.
+`mesh_context(mesh, vocab_is_sharded=False)` keeps the mesh for the batch
+(the dp sums of losses and metrics) with plain lookups: the sparse step
+runs the model on row blocks gathered whole (train/sparse.py).
+
+The backward of a gather is chosen by `gather_bwd(mode)` (ported from
+`tlsan_tpu/nn/embedding.py:70-132`): ``take``, torch's index backward (a
+scatter-add); ``onehot``, ``one_hot(ids, V)ᵀ @ ct`` accumulated in f32 and
+cast to the table's dtype (`OneHotGather`), for a [V, D] table; ``auto``
+(the default) engages the one-hot product only where the JAX package's
+``_accel()`` is true, on a TPU, so on the card and on the CPU ``auto`` is
+``take``: no H100 crossover of the two has been measured.  The forward is
+the same row gather in every mode.
 """
 
 from __future__ import annotations
@@ -36,36 +48,86 @@ _state = threading.local()
 
 
 @contextmanager
-def mesh_context(mesh: Optional[Mesh]):
+def mesh_context(mesh: Optional[Mesh], vocab_is_sharded: bool = True):
     """Declare the mesh the enclosed forwards run on (None: one device).
-    With mp > 1 the vocab lookups run the sharded lookup; with dp > 1 the
-    losses and metrics sum over the dp group."""
-    prev = getattr(_state, "mesh", None)
-    _state.mesh = mesh
+    With mp > 1 and `vocab_is_sharded` the vocab lookups run the sharded
+    lookup; with dp > 1 the losses and metrics sum over the dp group."""
+    prev = getattr(_state, "ctx", (None, False))
+    _state.ctx = (mesh, vocab_is_sharded)
     try:
         yield
     finally:
-        _state.mesh = prev
+        _state.ctx = prev
 
 
 def current_batch_mesh() -> Optional[Mesh]:
     """The active mesh, whatever its shape (None on one device)."""
-    return getattr(_state, "mesh", None)
+    return getattr(_state, "ctx", (None, False))[0]
 
 
 def current_mesh() -> Optional[Mesh]:
-    """The active mesh when its vocab tables are sharded (mp > 1)."""
-    mesh = current_batch_mesh()
-    return mesh if mesh is not None and mesh.mp > 1 else None
+    """The active mesh when its vocab tables are sharded (mp > 1 and
+    declared so)."""
+    mesh, sharded = getattr(_state, "ctx", (None, False))
+    return mesh if sharded and mesh is not None and mesh.mp > 1 else None
+
+
+GATHER_BWD_MODES = ("auto", "take", "onehot")
+
+
+@contextmanager
+def gather_bwd(mode: str):
+    """The gather backward of the enclosed forwards: 'auto' (the default;
+    'take' off a TPU), 'take' (the index backward's scatter-add) or
+    'onehot' (the one-hot product, for every [V, D] table)."""
+    if mode not in GATHER_BWD_MODES:
+        raise ValueError(f"gather_bwd mode must be one of {GATHER_BWD_MODES}, "
+                         f"got {mode!r}")
+    prev = gather_bwd_mode()
+    _state.gather_bwd = mode
+    try:
+        yield
+    finally:
+        _state.gather_bwd = prev
+
+
+def gather_bwd_mode() -> str:
+    return getattr(_state, "gather_bwd", "auto")
+
+
+class OneHotGather(torch.autograd.Function):
+    """rows = table[ids], whose backward is ``one_hot(ids, V)ᵀ @ ct``,
+    accumulated in f32 and cast to the table's dtype (the JAX package's
+    `_take_matmul_bwd`, `tlsan_tpu/nn/embedding.py:106-132`).  The
+    one-hot entries are exact, so it differs from the scatter-add by f32
+    summation order only."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.vocab, ctx.dtype = table.shape[0], table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, ct):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1).long()
+        ct2 = ct.reshape(flat.shape[0], ct.shape[-1]).float()
+        classes = torch.arange(ctx.vocab, device=flat.device)
+        oh = (flat[:, None] == classes).float()
+        return (oh.T @ ct2).to(ctx.dtype), None
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Gather rows of an embedding table ([V, D] or [V] bias) at integer
     (int32 or int64) ids; under a vocab-sharded mesh `table` is this rank's
-    row shard and the ids are global."""
+    row shard and the ids are global.  A [V, D] table's backward is the
+    one-hot product under ``gather_bwd('onehot')``."""
     mesh = current_mesh()
     if mesh is not None:
         return sharded_lookup(mesh, table, ids)
+    if table.dim() == 2 and gather_bwd_mode() == "onehot":
+        return OneHotGather.apply(table, ids)
     return table[ids]
 
 

@@ -13,7 +13,8 @@ Shapes: x [B, S, D], lengths [B] → out [B, D], soft [B, S, H, D/H].
 
 `feature_wise_attention` runs the plain version for a CPU tensor and, for
 a CUDA f32 tensor, `ops/cuda/fwa.py::FWAFunction`: the CUDA forward kernel
-K1 and, under autograd, the CUDA backward kernel K2.  Anything else raises.
+K1 and, under autograd, the CUDA backward kernel K2.  A bf16 tensor runs
+as f32 between two casts; any other dtype on CUDA raises.
 Train-time dropout (rate > 0 with a generator) runs in the plain version
 only; on CUDA it raises until the kernels draw their own masks (ROADMAP.md
 queue 1, item 25).
@@ -106,8 +107,17 @@ def feature_wise_attention(x, lengths, num_heads: int, w1, b1, w2, b2,
                            dropout_rate: float = 0.0,
                            generator: Optional[torch.Generator] = None):
     """Plain version on the CPU, K1 (and K2 under autograd) on a CUDA f32
-    tensor.  Dropout engages when `dropout_rate` > 0 and a generator is
-    given (training); without one it is the identity."""
+    tensor.  A bf16 `x` (mixed precision) is cast to f32 with the weights,
+    runs as f32 does, and its output is cast back: the kernels keep their
+    f32 contract, so the card and the CPU compute the same function, and
+    the casts' backward hands K2 an f32 gradient.  Dropout engages when
+    `dropout_rate` > 0 and a generator is given (training); without one it
+    is the identity."""
+    if x.dtype == torch.bfloat16:
+        w1, b1, w2, b2 = (t.float() for t in (w1, b1, w2, b2))
+        return feature_wise_attention(
+            x.float(), lengths, num_heads, w1, b1, w2, b2, dropout_rate,
+            generator).to(torch.bfloat16)
     if x.device.type == "cpu":
         return feature_wise_attention_reference(
             x, lengths, num_heads, w1, b1, w2, b2,

@@ -14,8 +14,8 @@ Shapes: queries [B, Tq, D], keys [B, Tk, D] → [B, Tq, D].
 
 `multihead_attention` runs the plain version for a CPU tensor and, for a
 CUDA f32 tensor, `ops/cuda/mha.py::MHAFunction`: the CUDA kernel K3
-forward, the plain version recomputed under autograd backward.  Anything
-else raises.  Train-time dropout (rate > 0 with a generator) runs in the
+forward, the plain version recomputed under autograd backward.  A bf16
+tensor runs as f32 between two casts; any other dtype on CUDA raises.  Train-time dropout (rate > 0 with a generator) runs in the
 plain version only; on CUDA it raises until the kernel draws its own masks
 (ROADMAP.md queue 1, item 25).
 """
@@ -73,8 +73,15 @@ def multihead_attention(queries, q_len, keys, k_len, num_heads: int,
                         dropout_rate: float = 0.0,
                         generator: Optional[torch.Generator] = None):
     """The attention output [B, Tq, D]: the plain version on the CPU, K3
-    (`MHAFunction`) on a CUDA f32 tensor.  Dropout engages when
-    `dropout_rate` > 0 and a generator is given (training)."""
+    (`MHAFunction`) on a CUDA f32 tensor.  bf16 `queries` (mixed
+    precision) are cast to f32 with the keys and weights, run as f32 does,
+    and the output is cast back: K3 keeps its f32 contract.  Dropout
+    engages when `dropout_rate` > 0 and a generator is given (training)."""
+    if queries.dtype == torch.bfloat16:
+        return multihead_attention(
+            queries.float(), q_len, keys.float(), k_len, num_heads,
+            {k: v.float() for k, v in p.items()}, dropout_rate,
+            generator).to(torch.bfloat16)
     if queries.device.type == "cpu":
         return multihead_attention_reference(
             queries, q_len, keys, k_len, num_heads, p,

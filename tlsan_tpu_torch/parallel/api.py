@@ -102,8 +102,8 @@ def unpad_vocab_rows(state: State, counts_true: Counts) -> State:
 
 def shard_train_state(model: nn.Module, mesh: Mesh) -> nn.Module:
     """Keep this rank's row range of every vocab table (in place); dense
-    weights stay replicated.  SGD keeps no per-parameter state, so the
-    optimizer state (its count) needs no placing.  Returns `model`."""
+    weights stay replicated.  An optimizer's slots are made from the
+    placed parameters, or placed by `place_named`.  Returns `model`."""
     if mesh.mp > 1:
         for name, p in model.named_parameters():
             if is_vocab_sharded(name):
@@ -127,12 +127,31 @@ def shard_model(model: nn.Module, mesh: Mesh, device) -> nn.Module:
 def gather_state(model: nn.Module, mesh: Mesh, counts_true: Counts) -> State:
     """The whole, unpadded state of a mesh-placed model, on the CPU, on
     every rank (collective: every rank calls it)."""
-    state = {}
-    for name, t in model.state_dict().items():
+    return gather_named(model.state_dict(), mesh, counts_true)
+
+
+def gather_named(state: State, mesh: Mesh, counts_true: Counts) -> State:
+    """A mesh-placed flat state (a model's, or an optimizer slot's by
+    parameter name) whole and unpadded, on the CPU, on every rank
+    (collective)."""
+    out = {}
+    for name, t in state.items():
         if mesh.mp > 1 and is_vocab_sharded(name):
             t = gather_rows(t, mesh)
-        state[name] = t.detach().to("cpu", copy=True)  # never the live tensor
-    return unpad_vocab_rows(state, counts_true)
+        out[name] = t.detach().to("cpu", copy=True)  # never the live tensor
+    return unpad_vocab_rows(out, counts_true)
+
+
+def place_named(state: State, mesh: Mesh, counts_true: Counts,
+                counts_padded: Counts, device) -> State:
+    """The inverse of `gather_named`: a whole, unpadded flat state padded
+    for mp and cut to this rank's rows, on `device`."""
+    out = {}
+    for name, t in pad_vocab_rows(state, counts_true, counts_padded).items():
+        if mesh.mp > 1 and is_vocab_sharded(name):
+            t = t[shard_rows(t.shape[0], mesh)]
+        out[name] = t.to(device, copy=True)
+    return out
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], mesh: Mesh,

@@ -214,11 +214,16 @@ def chunk_program(mesh: Mesh, cfg, tc, cate_list: np.ndarray, train: Batches,
     dev = mesh.device
     out = {"rank": mesh.rank, "launches": {}}
     tr = Trainer(get_model(cfg.model), cfg, tc, cate_list, train, test, device=dev)
+    out["sparse"] = tr._use_sparse
     chunk = torch.from_numpy(idx).to(dev)
     reset_launches()
     out["losses"] = tr._train_chunk(chunk).cpu().numpy()
     tr.step += len(idx)
     out["launches"]["chunk"] = launch_counts()
+    opt_state = tr._ckpt_opt_state()  # collective: every rank gathers
+    out["opt_state"] = None if mesh.rank else {
+        "count": opt_state["count"],
+        "slots": {s: _numpy(v) for s, v in opt_state.get("slots", {}).items()}}
     if tc.tb_histograms:
         rows, l2 = tr._summaries(chunk[-1])
         out["summary"] = {"rows": rows.cpu().numpy(), "l2": float(l2)}
@@ -230,6 +235,34 @@ def chunk_program(mesh: Mesh, cfg, tc, cate_list: np.ndarray, train: Batches,
     out["pad_max"] = _pad_max(tr.model, mesh, api.counts(cfg))
     tr.close()
     return out
+
+
+# The JAX package's production legs of its multi-chip dry run
+# (__graft_entry__.py:253-256): one family of each sparse-space shape —
+# full-table L2 (TLSAN), row L2 with scatter-moment Adam (ATRank), LSPM's
+# auxiliary vocab tables — as (family, optimizer, compute dtype)
+PRODUCTION_LEGS = (("tlsan", "sgd", "bfloat16"),
+                   ("atrank", "adam", "bfloat16"),
+                   ("lspm", "sgd", "float32"))
+
+
+def leg_config(tc, optimizer: str, dtype: str):
+    """`tc` made a production leg's: sparse forced, the optimizer at the
+    dry run's rate (sgd 1.0, adam 0.01), the compute dtype."""
+    return dataclasses.replace(
+        tc, sparse_updates=True, optimizer=optimizer, compute_dtype=dtype,
+        learning_rate=1.0 if optimizer == "sgd" else 0.01)
+
+
+def production_leg(mesh: Mesh, cfg, tc, cate_list: np.ndarray, train: Batches,
+                   test: Batches, idx: np.ndarray, optimizer: str,
+                   dtype: str) -> dict:
+    """One production leg on this rank: `chunk_program` with `tc` made the
+    leg's (`leg_config`).  "sparse" says whether the touched-row step
+    engaged; rank 0's "opt_state" holds the count and the whole, unpadded
+    slots (numpy)."""
+    return chunk_program(mesh, cfg, leg_config(tc, optimizer, dtype), cate_list,
+                         train, test, idx)
 
 
 def serve_program(mesh: Mesh, model_dir: str, cate_list: np.ndarray,

@@ -5,10 +5,14 @@ TLSAN/model.py:302-313, TLSAN/train.py:59-84): step-named
 ``<name>-<step>.ckpt`` files under model_dir, a ``<name>-<step>.json``
 config sidecar per save, ``latest``/``best`` pointers, and the
 `from_scratch` wipe.  The file is a ``torch.save`` of ``{"step", "params":
-state_dict on the CPU, "opt_state"}``.  For SGD the optimizer slot is
-``{"count": n}``, the schedule count (train/state.py), so a resumed run
-continues the lr schedule; a serving-only save writes None.  Reading the
-JAX package's msgpack checkpoints is the migration slice's work.
+state_dict on the CPU, "opt_state"}``.  The optimizer entry is ``{"count":
+n}``, the schedule count (train/state.py), so a resumed run continues the
+lr schedule, and for Adam, Adadelta and RMSProp also ``"slots": {slot:
+{parameter name: tensor}}`` (train/state.py `OptState.to_dict`), unpadded
+under mp as the parameters are.  The sparse step keeps the same state as
+the dense one (its count is the step), so either restores the other's
+save.  A serving-only save writes None.  Reading the JAX package's
+msgpack checkpoints is the migration slice's work.
 """
 
 from __future__ import annotations

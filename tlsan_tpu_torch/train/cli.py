@@ -16,9 +16,13 @@ spawns the whole world on this machine; with ``--rank R --world W
 builds the example set and writes the packed cache; the other ranks read
 it after a barrier.
 
-The flags that configure JAX (``--platform``, ``--compile_cache``) are not
-carried over; the flags of features still to port raise
-NotImplementedError naming their ROADMAP.md item.
+``--optimizer {sgd,adam,adadelta,rmsprop}``, ``--sparse/--no_sparse``
+(touched-row updates; auto by catalog size without either),
+``--compute_dtype bf16``, ``--gather_bwd {auto,take,onehot}`` (the
+embedding gathers' backward for the whole run) and ``--profile`` (a
+`Trainer.profile_trace` before training) run as the JAX CLI's do.  The
+flags that configure JAX (``--platform``, ``--compile_cache``) are not
+carried over.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from tlsan_tpu_torch.data.builders import (
 )
 from tlsan_tpu_torch.data.remap import category_path, load_category
 from tlsan_tpu_torch.models import get_model
+from tlsan_tpu_torch.nn.embedding import GATHER_BWD_MODES, gather_bwd
 from tlsan_tpu_torch.parallel.mesh import Mesh, barrier, make_mesh
 from tlsan_tpu_torch.parallel.multihost import init_distributed, rank_device, run_local
 from tlsan_tpu_torch.serve.recommender import resolve_device
@@ -221,20 +226,6 @@ def _device_arg(value: str) -> str:
     return value
 
 
-def _not_ported(args) -> Optional[str]:
-    """What a flag asks for that the port does not do yet, and its item."""
-    if args.optimizer != "sgd":
-        return (f"--optimizer {args.optimizer}: only sgd is ported "
-                "(ROADMAP.md item 24)")
-    if args.sparse_updates:
-        return "--sparse: sparse updates are not ported (ROADMAP.md item 18)"
-    if args.compute_dtype in ("bf16", "bfloat16"):
-        return "--compute_dtype bf16 is not ported (ROADMAP.md item 19)"
-    if args.profile:
-        return "--profile: Trainer.profile_trace is not ported (ROADMAP.md item 26)"
-    return None
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -247,7 +238,9 @@ def main(argv=None):
     p.add_argument("--test_batch_size", type=int, default=128)
     p.add_argument("--learning_rate", type=float, default=1.0)
     p.add_argument("--optimizer", default="sgd",
-                   help="sgd (adam, adadelta and rmsprop: ROADMAP.md item 24)")
+                   choices=["sgd", "adam", "adadelta", "rmsprop"],
+                   help="optax's update rules at their defaults, after the "
+                        "global-norm clip")
     p.add_argument("--lr_drop_step", type=int, default=None)
     p.add_argument("--steps_per_call", type=int, default=None,
                    help="train steps a chunk (default: 100, or 500 at "
@@ -317,22 +310,27 @@ def main(argv=None):
                         "packed-dataset cache (data/cache.py)")
     p.add_argument("--sparse", dest="sparse_updates", action="store_true",
                    default=None,
-                   help="sparse touched-row updates: not ported (ROADMAP.md "
-                        "item 18)")
+                   help="force touched-row vocab-table updates (sgd and "
+                        "adam); without --sparse or --no_sparse they engage "
+                        "at 100,000 vocab rows or more (not for adam at "
+                        "batch > 128)")
     p.add_argument("--no_sparse", dest="sparse_updates", action="store_false",
-                   help="dense [V,D] table updates (what the port runs)")
+                   help="force dense [V,D] table updates")
     p.add_argument("--compute_dtype", choices=["f32", "float32", "bf16",
                                                "bfloat16"],
                    default="float32",
-                   help="f32 (bf16: ROADMAP.md item 19)")
-    p.add_argument("--gather_bwd", choices=["auto", "take", "onehot"],
+                   help="bf16: the network's forward and backward on bf16 "
+                        "copies, f32 master weights, loss head and L2; "
+                        "evaluation in f32")
+    p.add_argument("--gather_bwd", choices=list(GATHER_BWD_MODES),
                    default="auto",
-                   help="accepted so that the JAX package's command lines "
-                        "parse; the embedding gathers' backward is torch's "
-                        "index backward whatever the value")
+                   help="the embedding gathers' backward: take (scatter-"
+                        "add), onehot (one_hot(ids)^T @ grad, f32 "
+                        "accumulation) or auto (take: the one-hot product "
+                        "engages only on a TPU in the JAX package)")
     p.add_argument("--profile", action="store_true",
-                   help="a trace of a few chunks: not ported (ROADMAP.md "
-                        "item 26)")
+                   help="before training, write a torch.profiler trace of "
+                        "3 chunks (run on copies) under <model_dir>/profile")
     p.add_argument("--from_scratch", action="store_true", default=True)
     p.add_argument("--resume", dest="from_scratch", action="store_false")
     p.add_argument("--no_histograms", dest="tb_histograms",
@@ -343,9 +341,6 @@ def main(argv=None):
                         "histograms at display_freq; the default matches "
                         "the eval cadence)")
     args = p.parse_args(argv)
-    missing = _not_ported(args)
-    if missing is not None:
-        raise NotImplementedError(missing)
     world = args.dp * args.mp
     if world > 1 and args.dist_backend is None:
         p.error(f"--dp {args.dp} --mp {args.mp}: --dist_backend is required")
@@ -453,12 +448,17 @@ def _train(mesh: Optional[Mesh], args, cfg: ModelConfig, tc: TrainConfig):
               f"cates={cfg.cate_count} steps_per_call={tc.steps_per_call} "
               f"builder={prep.builder} prepare_s={prepare_s:.3f} "
               f"device={device}", flush=True)
-    trainer = Trainer(get_model(args.model), cfg, tc, prep.cate_list,
-                      prep.train, prep.test, device=device)
-    try:
-        best = trainer.train()
-    finally:
-        trainer.close()
+    with gather_bwd(args.gather_bwd):
+        trainer = Trainer(get_model(args.model), cfg, tc, prep.cate_list,
+                          prep.train, prep.test, device=device)
+        try:
+            if args.profile:
+                out = trainer.profile_trace()
+                if chief:
+                    print(f"profiler trace written to {out}", flush=True)
+            best = trainer.train()
+        finally:
+            trainer.close()
     if chief:
         print(f"best: {best}", flush=True)
     return best

@@ -32,15 +32,24 @@ and metrics are those of the whole model and test set; rank 0 alone writes
 metrics and checkpoints, in the unpadded form, so a save restores under
 any (dp, mp).
 
-Not ported (each raises, or is absent): sparse updates (ROADMAP.md queue
-1, item 18), bf16 (item 19), `profile_trace` (item 26).
+Sparse touched-row updates (train/sparse.py) engage for SGD and Adam
+when `tc.sparse_updates` forces them or, with it None, at
+`tc.sparse_auto_rows` vocab rows or more, except Adam at batch > 128 (the
+JAX Trainer's gate, tlsan_tpu/train/loop.py:169-186), on one device and on
+the mesh.  Under `tc.compute_dtype` bfloat16 the train loss and the
+summary's forward run on `bf16_cast` copies of the parameters and the
+batch's float fields; gradients land in f32 on the master parameters,
+and evaluation stays f32.  `profile_trace` writes a `torch.profiler`
+trace of a few chunks run on copies of the model and optimizer state.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,10 +68,11 @@ from tlsan_tpu_torch.parallel.mesh import (
 )
 from tlsan_tpu_torch.serve.recommender import resolve_device
 from tlsan_tpu_torch.train import checkpoint as ckpt
+from tlsan_tpu_torch.train import sparse
 from tlsan_tpu_torch.train import tensorboard as tb
 from tlsan_tpu_torch.train.evaluate import Evaluator
 from tlsan_tpu_torch.train.metrics import MetricWriter
-from tlsan_tpu_torch.train.state import OptState, make_optimizer
+from tlsan_tpu_torch.train.state import OptState, bf16_cast, make_optimizer, wants_bf16
 
 # the tables a train summary digests, when the model has them, in the JAX
 # package's order (tlsan_tpu/train/loop.py:439-461); TLSAN's carry the
@@ -101,17 +111,6 @@ class _NullWriter:
         pass
 
 
-def _check_supported(tc: TrainConfig) -> None:
-    if tc.sparse_updates:
-        raise NotImplementedError(
-            "sparse updates are not ported yet (ROADMAP.md queue 1, item 18); "
-            "the dense step computes the same update")
-    if tc.compute_dtype not in ("float32", "f32", "fp32"):
-        raise NotImplementedError(
-            f"compute_dtype {tc.compute_dtype!r}: bf16 is not ported yet "
-            "(ROADMAP.md queue 1, item 19)")
-
-
 class Trainer:
     def __init__(self, model, cfg: ModelConfig, tc: TrainConfig,
                  cate_list: np.ndarray, train_batches: Batches,
@@ -121,7 +120,7 @@ class Trainer:
         `from_scratch` wipe), else draws the initial weights from
         ``torch.Generator().manual_seed(tc.seed)`` — on the CPU, so every
         device, and every mesh, starts from the same weights."""
-        _check_supported(tc)
+        self.bf16 = wants_bf16(tc)  # raises on a dtype it does not know
         self.device = resolve_device(device)
         # float32 matrix products in full f32 (TF32 off), as the JAX package
         # pins precision='highest'
@@ -157,14 +156,11 @@ class Trainer:
         self.model = (model(cfg, self.device) if self.mesh is None
                       else model(self._cfg_true, "cpu")).init_params(
             torch.Generator().manual_seed(tc.seed))
-        self.opt_state = self.opt.init()
         self.step = 0
+        saved = None
         latest = ckpt.latest_checkpoint(tc.model_dir)
         if latest is not None:
-            self.step, _, opt_state = ckpt.restore(latest, self.model)
-            # a serving-only save has no optimizer state: SGD's count is the step
-            self.opt_state = OptState(
-                self.step if opt_state is None else int(opt_state["count"]))
+            self.step, _, saved = ckpt.restore(latest, self.model)
             if self.is_chief:
                 print(f"restored from {latest} at step {self.step}", flush=True)
         self._sharded = []
@@ -173,6 +169,16 @@ class Trainer:
             self._sharded = [tc.mp > 1 and is_vocab_sharded(n)
                              for n, _ in self.model.named_parameters()]
         self.params = list(self.model.parameters())
+        self._names = [n for n, _ in self.model.named_parameters()]
+        self.opt_state = self._restore_opt_state(saved)
+
+        self._sparse = None
+        if (sparse.wants_sparse(tc, cfg.item_count, cfg.user_count)
+                and sparse.sparsifiable(dict(self.model.named_parameters()),
+                                        self.train_data)):
+            self._sparse = sparse.SparseStep(
+                self.model, tc, self.train_data, self.opt, self.mesh,
+                api.vocab_rows(api.counts(cfg)))
 
         self._dropout_gen = None
         if cfg.dropout > 0.0:
@@ -188,12 +194,41 @@ class Trainer:
             self._limits = torch.tensor(tb.tf_bucket_limits(),
                                         dtype=torch.float32, device=self.device)
 
+    @property
+    def _use_sparse(self) -> bool:
+        return self._sparse is not None
+
+    def _restore_opt_state(self, saved) -> OptState:
+        """The optimizer state from a checkpoint's (None: a serving-only
+        save, whose count is its step), placed as the parameters are;
+        slots the save lacks (another optimizer's save) start at zero."""
+        state = self.opt.init(self.params)
+        state.count = self.step if saved is None else int(saved["count"])
+        for slot, by_name in (saved or {}).get("slots", {}).items():
+            if slot not in state.slots:
+                continue
+            if self.mesh is not None:
+                by_name = api.place_named(by_name, self.mesh, self._counts_true,
+                                          api.counts(self.cfg), self.device)
+            for t, name in zip(state.slots[slot], self._names):
+                t.copy_(by_name[name])
+        return state
+
+    def _forward(self, method: str, batch: Dict[str, torch.Tensor], *args):
+        """`model.<method>(batch, cate_list, *args)`; under bf16 on cast
+        copies of the parameters and the batch's float fields."""
+        if not self.bf16:
+            return getattr(self.model, method)(batch, self.cate_list, *args)
+        return sparse.call_with(self.model, method,
+                                bf16_cast(dict(self.model.named_parameters())),
+                                bf16_cast(batch), self.cate_list, *args)
+
     # ------------------------------------------------------------------
 
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         for p in self.params:
             p.grad = None
-        loss = self.model.loss(batch, self.cate_list, self._dropout_gen)
+        loss = self._forward("loss", batch, self._dropout_gen)
         loss.backward()
         self.opt_state = self.opt.step(self.params, self.opt_state,
                                        self.mesh, self._sharded)
@@ -211,6 +246,12 @@ class Trainer:
         losses of the global batches, on the device."""
         # one gather per array for the whole chunk; each step slices it
         xs = {k: v[self._local(idx)] for k, v in self.train_data.items()}
+        if self._sparse is not None:
+            gxs = {k: self.train_data[k][idx] for k in self._sparse.keys}
+            losses, self.opt_state = self._sparse.chunk(
+                self.model, gxs, xs, self.cate_list, self.opt_state,
+                self._dropout_gen)
+            return losses
         with mesh_context(self.mesh):
             return torch.stack([
                 self._train_step({k: v[s] for k, v in xs.items()})
@@ -267,7 +308,7 @@ class Trainer:
                 rows.append(self._digest(p))
         batch = {k: v[self._local(batch_idx)] for k, v in self.train_data.items()}
         with mesh_context(mesh):
-            u = model.user_repr(batch, self.cate_list)
+            u = self._forward("user_repr", batch)
         rows.append(self._digest(u, None if mesh is None else mesh.dp_group))
         # a row-sharded table's L2 sums over mp; a replicated weight's
         # (SHAN's layer maps, PACA's position table) is whole on each rank
@@ -289,18 +330,65 @@ class Trainer:
         metrics.update(self.evaluator.topk(self.model))
         return metrics
 
+    def _ckpt_opt_state(self) -> Dict:
+        """The optimizer state to save: the count (the step, for the sparse
+        step as for the dense one) and each slot by parameter name, whole
+        and unpadded under a mesh as the parameters are (collective), so a
+        save restores under any (dp, mp) and into either step."""
+        state = self.opt_state.to_dict(self._names)
+        for slot, by_name in state.get("slots", {}).items():
+            state["slots"][slot] = (
+                {k: v.detach().cpu() for k, v in by_name.items()}
+                if self.mesh is None else
+                api.gather_named(by_name, self.mesh, self._counts_true))
+        return state
+
     def _save(self, best: bool = False) -> None:
         """Under a mesh every rank joins the gather of the whole, unpadded
         state, rank 0 writes it, and every rank waits for the write."""
         state = self.model
         if self.mesh is not None:
             state = api.gather_state(self.model, self.mesh, self._counts_true)
+        opt_state = self._ckpt_opt_state()
         if self.is_chief:
             ckpt.save(self.tc.model_dir, self.model.name, self.step, state,
-                      {"count": self.opt_state.count}, self._cfg_true, self.tc,
-                      best=best)
+                      opt_state, self._cfg_true, self.tc, best=best)
         if self.mesh is not None:
             barrier(self.mesh)
+
+    def profile_trace(self, n_chunks: int = 3,
+                      out_dir: Optional[str] = None) -> str:
+        """A `torch.profiler` trace (host and, on CUDA, device events) of
+        the first `n_chunks` chunks of epoch 0, written as Chrome trace
+        JSON under `out_dir` (default ``{model_dir}/profile``; one file a
+        rank under a mesh).  The chunks run on copies of the model and the
+        optimizer state, and the dropout generator's state is put back, so
+        the real run that follows is unchanged.  Returns `out_dir`."""
+        out_dir = out_dir or os.path.join(self.tc.model_dir, "profile")
+        os.makedirs(out_dir, exist_ok=True)
+        idx = torch.from_numpy(self._epoch_index(0)[:n_chunks]).to(self.device)
+        live = self.model, self.params, self.opt_state
+        gen = None if self._dropout_gen is None else self._dropout_gen.get_state()
+        self.model = copy.deepcopy(self.model)
+        self.params = list(self.model.parameters())
+        self.opt_state = self.opt_state.clone()
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        try:
+            with torch.profiler.profile(activities=activities) as prof:
+                for chunk in idx:
+                    self._train_chunk(chunk)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            name = ("trace.json" if self.mesh is None
+                    else f"trace_rank{self.mesh.rank}.json")
+            prof.export_chrome_trace(os.path.join(out_dir, name))
+        finally:
+            self.model, self.params, self.opt_state = live
+            if gen is not None:
+                self._dropout_gen.set_state(gen)
+        return out_dir
 
     def train(self) -> Dict[str, float]:
         tc = self.tc
