@@ -129,10 +129,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
              fwa_bwd_kernel; their launches counted), and every family's
              prepare with the native builder byte for byte as the numpy
              builders give it.  One line a stage with its seconds;
-  10. summary per family one line of train examples/s, eval users/s, bulk
+  10. fanout  the replica fan-out (train/ensemble.py), R replicas in one
+             launch of each kernel: K1, K2 and K3 with a replica axis of
+             weights at R = 1, 3 and 8 (the train step's B=32, the AUC
+             pass's B=128, B=37 and edges of their mappings) against their
+             plain versions on each replica (KERNEL_TOL; K2 to its error
+             scale) and against single launches on each replica's slice,
+             bit for bit (K3 where the plan's cluster size is the same for
+             R·B rows as for B, else within KERNEL_TOL), bitwise
+             repeatable, with per-call and device times of one replica
+             launch, one single launch and R of them, and the bound at R;
+             FWAFunction and MHAFunction under torch.func.vmap (one launch,
+             gradients against autograd of the plain version under vmap).
+             Then TLSAN, ATRank and LSPM fan-outs of 8 seeds at the
+             Electronics catalog on the train phase's planted rows: each
+             replica's 20 steps against a Trainer at its seed
+             (PARITY_TOL), the per-replica AUC against the single
+             evaluator on the same weights (within one test user), TLSAN
+             lr_scales [1, 2] against Trainers at lr and 2·lr and a bf16
+             fan-out of 2 seeds against bf16 Trainers, launches
+             exact (TLSAN K1 2 and K2 2 a step, ATRank K3 2 a block a
+             step, LSPM none, whatever R is; an AUC batch K1 2 or K3 3),
+             replica-examples/s of a 100-step chunk at R = 1 and R = 8
+             beside the Trainer's, the idle share of one profiled R = 8
+             chunk; and `python -m tlsan_tpu_torch.train.ensemble` on the
+             cli phase's Digital-Music file, 2 seeds, one epoch (one JSON
+             line with the JAX fan-out's keys, K1/K2 exact);
+  11. summary per family one line of train examples/s, eval users/s, bulk
              users/s, HTTP p50/p99 and idle shares beside the card's name
-             and power limit; the whole run's wall time; one JSON line of
-             per-kernel numbers; then the device line last.
+             and power limit, and of the fan-out's readings; the whole
+             run's wall time; one JSON line of per-kernel numbers (with the
+             fanout phase's replica fields); then the device line last.
 
 The seven baselines (SHAN, PACA, BPR-MF, LSPM, CNN, Bi-LSTM, CSAN) run
 phases 4 and 5 after TLSAN and ATRank, at the reference widths of their
@@ -198,6 +225,8 @@ from tlsan_tpu_torch.serve.http import RecommendService, serve
 from tlsan_tpu_torch.serve.recommender import Recommender
 from tlsan_tpu_torch.train import checkpoint
 from tlsan_tpu_torch.train import cli as train_cli
+from tlsan_tpu_torch.train import ensemble
+from tlsan_tpu_torch.train.ensemble import ReplicaFanout
 from tlsan_tpu_torch.train.loop import Trainer
 from tlsan_tpu_torch.tools.snap_fixture import write_snap_fixture
 
@@ -337,6 +366,29 @@ MESH_LEG_STEPS = 20
 MESH_BF16_MOMENT_NORM = 0.25
 # the cli phase's train.cli --profile run: chunks of 20, three traced
 CLI_PROFILE_STEPS_PER_CALL = 20
+
+# the fanout phase: R replicas in one launch of each kernel.  The kernels
+# at R = 1, 3 and 8 on the fan-out's shapes (a train step at B=32, its AUC
+# pass at B=128), B=37 and the edges of their mappings where R of them fit;
+# the path at R = 8 (the README's seed envelope), 20 steps of each replica
+# against a Trainer at its seed, lr_scales [1, 2], examples/s of a 100-step
+# chunk at R = 1 and R = 8 and the idle share of one; the command line on
+# the cli phase's Digital-Music fixture, 2 seeds, one epoch
+FANOUT_R = 8
+FANOUT_SEEDS = [SEED + r for r in range(FANOUT_R)]
+FANOUT_KERNEL_RS = (1, 3, FANOUT_R)
+FANOUT_FWA = TRAIN_SHAPES + MAIN_SHAPES + [(37, 17), (37, 1), (37, 33), (37, 17, 128, 4)]
+FANOUT_MHA = MHA_TRAIN + MHA_MAIN + [(37, 17, 17), (1, T_ATRANK, T_ATRANK),
+                                     (37, 1, 256), (9, 7, 250, 64, 4)]
+# the parity runs' lr: each family's parity lr, ATRank's 0.01.  A replica
+# launch of R·B rows takes another K3 cluster size and a batched product
+# rounds otherwise than a single one, so at R = 8 a replica starts one ulp
+# from its Trainer (at R = 1 the two are bit for bit); TLSAN stays there,
+# while at lr 0.1 and 1.0 an ATRank ReLU unit within rounding of its kink
+# flips within 20 steps and the two part by 1e-4 and more (PERF.md §6)
+FANOUT_PARITY_LR = {"atrank": 0.01}
+FANOUT_LR_SCALES = [1.0, 2.0]
+FANOUT_CLI_SEEDS = ["1", "2"]
 
 KERNELS = [{"name": "fwa_fwd", "route": "cuda",
             "source": "tlsan_tpu_torch/csrc/fwa_fwd.cu",
@@ -2237,6 +2289,442 @@ def phase_cli(tmp: str, card: str) -> list:
     return runs
 
 
+# ------------------------------------------------------------------ fanout
+
+# launches of one AUC pass's batch (the fan-out evaluates the AUC alone):
+# TLSAN's pair logits are one user forward; ATRank encodes once and reads
+# out twice
+PER_AUC_BATCH = {"tlsan": {"fwa_fwd": 2}, "atrank": {"mha_fwd": 3 * ATRANK_BLOCKS}}
+
+
+def _replica_fwa_inputs(R: int, shape, seed: int):
+    """K1/K2's inputs for R replicas, each `_fwa_inputs` of its own seed,
+    stacked on a leading axis: (x, lengths, num_heads, w1, b1, w2, b2), g."""
+    B, S, d, h = _fwa_shape(shape)
+    x, lengths, w1, b1, w2, b2 = (torch.stack(ts) for ts in zip(
+        *[_fwa_inputs(B, S, seed + r, d, h) for r in range(R)]))
+    g = torch.from_numpy(np.random.default_rng(seed + 99).normal(
+        size=(R, B, d)).astype(np.float32)).cuda()
+    return (x, lengths, h, w1, b1, w2, b2), g
+
+
+def _replica_mha_inputs(R: int, B: int, Tq: int, Tk: int, self_attention: bool,
+                        seed: int, d: int):
+    """K3's arguments for R replicas, each `_mha_inputs` of its own seed,
+    stacked on a leading axis (self-attention: keys is queries)."""
+    per = [_mha_inputs(B, Tq, Tk, self_attention, seed + r, d) for r in range(R)]
+    q = torch.stack([p[0] for p in per])
+    k = q if self_attention else torch.stack([p[1] for p in per])
+    q_len = torch.stack([p[2] for p in per])
+    k_len = q_len if self_attention else torch.stack([p[3] for p in per])
+    ws = [torch.stack([p[4][n] for p in per]) for n in cuda_mha.WEIGHTS]
+    return q, k, q_len, k_len, ws
+
+
+def _slice(args, r):
+    """Replica r's arguments of a replica call."""
+    return tuple(t[r] if torch.is_tensor(t) else t for t in args)
+
+
+def _replica_times(kernel: str, replica, single, singles) -> dict:
+    """Per-call ms (CUDA events) of one replica launch, one single launch
+    and R single launches; device ms (the profiler) of the replica launch
+    and of the R singles."""
+    return {"ms": _cuda_ms(replica), "single_ms": _cuda_ms(single),
+            "singles_ms": _cuda_ms(singles),
+            "device_ms": _device_ms(replica, kernel),
+            "singles_device_ms": _device_ms(singles, kernel)}
+
+
+def _add_replica(main: dict, times: dict, bounds) -> None:
+    for key, v in (*times.items(), ("bytes_ms", bounds[0]), ("ops_ms", bounds[1])):
+        if isinstance(v, float):
+            main[key] = main.get(key, 0.0) + v
+
+
+def _replica_row(main: dict, worst: float, tag: str) -> dict:
+    """The kernel line's replica fields from the summed main-path times."""
+    bound_ms = max(main["bytes_ms"], main["ops_ms"])
+    log(f"kernel {tag} at R={FANOUT_R} (the two main-path launches of a train "
+        f"step, summed): replica launch {main['ms']:.6f} ms a call against one "
+        f"single launch {main['single_ms']:.6f} ms and {FANOUT_R} of them "
+        f"{main['singles_ms']:.6f} ms; bound {bound_ms:.6f} ms "
+        f"({'bytes' if main['bytes_ms'] >= main['ops_ms'] else 'operations'})")
+    return {"replicas": FANOUT_R, "replica_ms": main["ms"],
+            "replica_single_ms": main["single_ms"],
+            "replica_singles_ms": main["singles_ms"],
+            "replica_bound_ms": bound_ms, "replica_max_abs_err": worst}
+
+
+def phase_fanout_kernels() -> dict:
+    """K1, K2 and K3 with a replica axis of weights at R = 1, 3 and 8:
+    against their plain versions on each replica, against single launches
+    on each replica's slice (bit for bit for K1 and K2, and for K3 where
+    the plan's cluster size is the same for R·B rows as for B), bitwise
+    repeatable; FWAFunction's and MHAFunction's vmap rules on the card (one
+    launch, gradients against autograd of the plain version under vmap);
+    times and bounds at R = 8.  Returns each kernel's replica fields."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    worst_f = worst_b = 0.0
+    main_f, main_b = {}, {}
+    train_main = [_fwa_shape(s) for s in TRAIN_SHAPES]
+    for i, shape in enumerate(FANOUT_FWA):
+        B, S, d, h = _fwa_shape(shape)
+        for R in FANOUT_KERNEL_RS:
+            what = f"replica {_fwa_tag('fwa', B, S, d, h)} R={R}"
+            args, g = _replica_fwa_inputs(R, shape, SEED + 100 + 10 * i)
+            got, again = cuda_fwa.fwa_forward(*args), cuda_fwa.fwa_forward(*args)
+            bwd, bwd_again = cuda_fwa.fwa_backward(*args, g), cuda_fwa.fwa_backward(*args, g)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again) or not all(
+                    torch.equal(a, b) for a, b in zip(bwd, bwd_again)):
+                raise AssertionError(f"{what}: two calls differ")
+            for r in range(R):
+                one = _slice(args, r)
+                if not torch.equal(cuda_fwa.fwa_forward(*one), got[r]):
+                    raise AssertionError(f"{what}: K1 replica {r} differs from a single launch")
+                err = float((got[r] - feature_wise_attention_reference(*one)).abs().max())
+                if not err <= KERNEL_TOL:
+                    raise AssertionError(f"{what}: K1 replica {r} max abs err {err:.3e}")
+                worst_f = max(worst_f, err)
+                mine = [t[r] for t in bwd]
+                if not all(torch.equal(a, b) for a, b in
+                           zip(cuda_fwa.fwa_backward(*one, g[r]), mine)):
+                    raise AssertionError(f"{what}: K2 replica {r} differs from a single launch")
+                worst_b = max(worst_b, _max_err(
+                    mine, fwa_backward_reference(*one, g[r]),
+                    fwa_backward_error_scale(*one, g[r]), f"{what} K2 replica {r}"))
+            msg = (f"kernel {what}: K1 and K2 each replica within tolerance of the "
+                   f"plain version and bit for bit a single launch; bitwise repeatable")
+            if R == FANOUT_R and (B, S, d, h) in train_main:
+                slices = [_slice(args, r) for r in range(R)]
+                times_f = _replica_times(
+                    "fwa_fwd_kernel", lambda: cuda_fwa.fwa_forward(*args),
+                    lambda: cuda_fwa.fwa_forward(*slices[0]),
+                    lambda: [cuda_fwa.fwa_forward(*a) for a in slices])
+                times_b = _replica_times(
+                    "fwa_bwd_kernel", lambda: cuda_fwa.fwa_backward(*args, g),
+                    lambda: cuda_fwa.fwa_backward(*slices[0], g[0]),
+                    lambda: [cuda_fwa.fwa_backward(*a, g[r]) for r, a in enumerate(slices)])
+                bf = [R * v for v in _fwa_bound(B, S, d, h)]
+                bb = [R * v for v in _fwa_bwd_bound(B, S, d, h)]
+                _add_replica(main_f, times_f, bf)
+                _add_replica(main_b, times_b, bb)
+                msg += (f"; K1 {times_f} bound {max(bf):.6f} ms; K2 {times_b} bound "
+                        f"{max(bb):.6f} ms")
+            log(msg)
+    rows["fwa_fwd"] = _replica_row(main_f, worst_f, "fwa_fwd")
+    rows["fwa_bwd"] = _replica_row(main_b, worst_b, "fwa_bwd")
+
+    # FWAFunction's vmap rule on the card: one K1 and one K2 launch for R
+    # replicas, the lengths shared, gradients as autograd of the plain
+    # version under vmap gives them
+    B, S = TRAIN_SHAPES[1]
+    (x, lengths, h, w1, b1, w2, b2), g = _replica_fwa_inputs(3, (B, S), SEED + 190)
+    grads = []
+    for fn in (cuda_fwa.FWAFunction.apply, feature_wise_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        n = launch_counts()
+        out = torch.func.vmap(lambda x, w1, b1, w2, b2: fn(x, lengths[0], h, w1, b1, w2, b2))(
+            *leaves)
+        grads.append(torch.autograd.grad(out, leaves, g))
+        if fn is not feature_wise_attention_reference:
+            expect_launches(n, {"fwa_fwd": 1, "fwa_bwd": 1}, "FWAFunction under vmap")
+    for r in range(3):
+        one = (x[r], lengths[0], h, w1[r], b1[r], w2[r], b2[r])
+        _max_err([t[r] for t in grads[0]], [t[r] for t in grads[1]],
+                 fwa_backward_error_scale(*one, g[r]), f"FWAFunction under vmap replica {r}")
+    log("kernel fwa: FWAFunction under vmap (3 replicas, shared lengths) is one K1 and "
+        "one K2 launch; its gradients match autograd of the plain version under vmap")
+
+    worst, main = 0.0, {}
+    mha_main = [_mha_shape(m) for m in MHA_TRAIN]
+    for i, shape in enumerate(FANOUT_MHA):
+        B, Tq, Tk, d, h = _mha_shape(shape)
+        for self_attention in ([True, False] if Tq == Tk else [False]):
+            for R in FANOUT_KERNEL_RS:
+                what = (f"replica mha_fwd B={B} Tq={Tq} Tk={Tk}"
+                        + ("" if (d, h) == (D, H) else f" D={d} H={h}")
+                        + f" {'self' if self_attention else 'cross'} R={R}")
+                q, k, ql, kl, ws = _replica_mha_inputs(R, B, Tq, Tk, self_attention,
+                                                       SEED + 200 + 10 * i, d)
+                args = (q, k, ql, kl, h, *ws)
+                got, again = cuda_mha.mha_forward(*args), cuda_mha.mha_forward(*args)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                cs_r = cuda_mha.launch_plan(R * B, Tq, Tk, d, h, self_attention).cs
+                cs_1 = cuda_mha.launch_plan(B, Tq, Tk, d, h, self_attention).cs
+                single_err = 0.0
+                for r in range(R):
+                    one = _slice(args, r)
+                    single = cuda_mha.mha_forward(*one)
+                    if cs_r == cs_1 and not torch.equal(single, got[r]):
+                        raise AssertionError(f"{what}: replica {r} differs from a "
+                                             f"single launch of the same cluster size")
+                    single_err = max(single_err, float((single - got[r]).abs().max()))
+                    want, _ = multihead_attention_reference(
+                        one[0], one[2], one[1], one[3], h, dict(zip(cuda_mha.WEIGHTS, one[5:])))
+                    err = float((got[r] - want).abs().max())
+                    if not err <= KERNEL_TOL or not single_err <= KERNEL_TOL:
+                        raise AssertionError(f"{what}: replica {r} max abs err {err:.3e}, "
+                                             f"{single_err:.3e} from a single launch")
+                    worst = max(worst, err)
+                msg = (f"kernel {what}: clusters of {cs_r} (a single launch {cs_1}); each "
+                       f"replica within tolerance of the plain version and "
+                       + ("bit for bit" if cs_r == cs_1 else f"{single_err:.3e} from")
+                       + " a single launch; bitwise repeatable")
+                if R == FANOUT_R and (B, Tq, Tk, d, h) in mha_main and \
+                        self_attention == (Tq == Tk):
+                    slices = [_slice(args, r) for r in range(R)]
+                    times = _replica_times(
+                        "mha_fwd_kernel", lambda: cuda_mha.mha_forward(*args),
+                        lambda: cuda_mha.mha_forward(*slices[0]),
+                        lambda: [cuda_mha.mha_forward(*a) for a in slices])
+                    bounds = [R * v for v in _mha_bound(B, Tq, Tk, self_attention, d)]
+                    _add_replica(main, times, bounds)
+                    msg += f"; {times} bound {max(bounds):.6f} ms"
+                log(msg)
+    rows["mha_fwd"] = _replica_row(main, worst, "mha_fwd")
+
+    # MHAFunction's vmap rule on the card: self-attention stays one tensor,
+    # one K3 launch for R replicas, gradients as autograd of the plain
+    # version under vmap
+    B, Tq, Tk = MHA_TRAIN[0]
+    q, _, ql, _, ws = _replica_mha_inputs(3, B, Tq, Tk, True, SEED + 290, D)
+    g = torch.from_numpy(np.random.default_rng(SEED + 291).normal(
+        size=tuple(q.shape)).astype(np.float32)).cuda()
+    grads = []
+    for fn in (cuda_mha.MHAFunction.apply, None):
+        leaves = [t.clone().requires_grad_(True) for t in (q, *ws)]
+        n = launch_counts()
+
+        def one(x, ln, *w):
+            if fn is None:
+                return multihead_attention_reference(x, ln, x, ln, H,
+                                                     dict(zip(cuda_mha.WEIGHTS, w)))[0]
+            return fn(x, x, ln, ln, H, *w)
+
+        out = torch.func.vmap(one)(leaves[0], ql, *leaves[1:])
+        grads.append(torch.autograd.grad(out, leaves, g))
+        if fn is not None:
+            expect_launches(n, {"mha_fwd": 1}, "MHAFunction under vmap")
+    for a, b in zip(*grads):
+        if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
+            raise AssertionError(f"MHAFunction under vmap: gradients differ from autograd "
+                                 f"by {float((a - b).abs().max()):.3e}")
+    log("kernel mha_fwd: MHAFunction under vmap (3 replicas, self-attention) is one K3 "
+        "launch; its gradients match autograd of the plain version under vmap")
+    return rows
+
+
+def _fanout_family(tmp: str, fam: Family, data, card: str) -> dict:
+    """`fam`'s fan-out of FANOUT_R seeds on the card, at FANOUT_PARITY_LR:
+    each replica's 20 steps against a Trainer at its seed (a fan-out of one
+    replica bit for bit), the per-replica AUC against the
+    single evaluator on the same weights, launches exact whatever R is
+    (the kernels take the replica axis), replica-examples/s of a 100-step
+    chunk at R = 1 and R = FANOUT_R beside the Trainer's, and the idle
+    share of one profiled chunk.  Returns the path's launches and
+    readings."""
+    tag = f"fanout {fam.name}"
+    train, test, cate_list = data
+    tc = TrainConfig(model_dir=os.path.join(tmp, fam.name), max_epochs=1,
+                     steps_per_call=STEPS_PER_CALL, eval_freq=10**9,
+                     best_after_step=0, tb_histograms=False, seed=SEED,
+                     learning_rate=FANOUT_PARITY_LR.get(fam.name, fam.parity_lr))
+    per_auc = PER_AUC_BATCH.get(fam.name, {})
+    auc_batches = -(-test.n // TEST_B)
+    reset_launches()  # the fan-out path starts here
+    n = launch_counts()
+    t0 = time.perf_counter()
+    fan, fan1 = (ReplicaFanout(fam.model, fam.cfg, tc, cate_list, train, test, seeds,
+                               device="cuda")
+                 for seeds in (FANOUT_SEEDS, FANOUT_SEEDS[:1]))
+    chunks = torch.from_numpy(fan._epoch_index(0)).cuda()  # [n_chunks, R, K, B]
+    chunks1 = torch.from_numpy(fan1._epoch_index(0)).cuda()
+    losses = fan._fan_chunk(chunks[0][:, :PARITY_STEPS]).cpu()
+    n = expect_launches(n, _times(fam.per_step, PARITY_STEPS),
+                        f"{tag}: {PARITY_STEPS} steps of {FANOUT_R} replicas")
+    fan1._fan_chunk(chunks1[0][:, :PARITY_STEPS])
+    n = expect_launches(n, _times(fam.per_step, PARITY_STEPS),
+                        f"{tag}: {PARITY_STEPS} steps of one replica")
+    aucs = fan.auc()
+    n = expect_launches(n, _times(per_auc, auc_batches), f"{tag}: the replica AUC")
+    setup_s = time.perf_counter() - t0
+    worst = worst_auc = 0.0
+    for r, seed in enumerate(FANOUT_SEEDS):
+        tr = Trainer(fam.model, fam.cfg, dataclasses.replace(
+            tc, seed=seed, model_dir=os.path.join(tmp, f"{fam.name}_{seed}")),
+            cate_list, train, test, device="cuda")
+        loss = tr._train_chunk(chunks[0][r, :PARITY_STEPS]).mean().cpu()
+        n = expect_launches(n, _times(fam.per_step, PARITY_STEPS), f"{tag}: Trainer {seed}")
+        single = {k: v.detach() for k, v in tr.model.named_parameters()}
+        if r == 0 and not all(torch.equal(fan1.params[k][0], v) for k, v in single.items()):
+            raise AssertionError(f"{tag}: a fan-out of one replica is not bit for bit "
+                                 f"the Trainer at its seed after {PARITY_STEPS} steps")
+        worst = max(worst, abs(float(loss - losses[r])), _check_close(
+            f"{tag} replica {r}", {k: v[r].detach() for k, v in fan.params.items()},
+            single, PARITY_TOL, PARITY_TOL))
+        if not abs(float(loss - losses[r])) <= PARITY_TOL * (1 + abs(float(loss))):
+            raise AssertionError(f"{tag} replica {r}: loss {float(losses[r])} against "
+                                 f"the Trainer's {float(loss)}")
+        # the single evaluator on the replica's own weights
+        with torch.no_grad():
+            for k, p in tr.model.named_parameters():
+                p.copy_(fan.params[k][r])
+        auc_one = tr.evaluator.auc(tr.model)
+        n = expect_launches(n, _times(per_auc, auc_batches), f"{tag}: evaluator {seed}")
+        worst_auc = max(worst_auc, abs(auc_one - float(aucs[r])))
+        tr.close()
+    if not worst_auc <= 1.0 / test.n + 1e-9:
+        raise AssertionError(f"{tag}: replica AUCs {aucs} differ from the single "
+                             f"evaluator's by {worst_auc} (more than one test user)")
+    log(f"{tag} ({card}): {FANOUT_R} replicas (seeds {FANOUT_SEEDS}) set up and "
+        f"{PARITY_STEPS} steps in {setup_s:.3f} s; each replica within {worst:.3e} of a "
+        f"Trainer at its seed after {PARITY_STEPS} steps at lr {tc.learning_rate} "
+        f"(losses and every parameter; tolerance {PARITY_TOL}), one replica alone bit "
+        f"for bit; replica AUCs {np.round(aucs, 6).tolist()} within "
+        f"{worst_auc:.6f} of the single evaluator on the same weights; launches "
+        f"{fam.per_step or 'none'} a step and {per_auc or 'none'} an AUC batch, "
+        f"whatever R is")
+
+    # replica-examples/s of one chunk at R = 1 and R = FANOUT_R, after a
+    # warm-up chunk each, beside the Trainer's in the same run
+    K = STEPS_PER_CALL
+    rates = {}
+    tr = Trainer(fam.model, fam.cfg, dataclasses.replace(
+        tc, model_dir=os.path.join(tmp, f"{fam.name}_timed")), cate_list, train, test,
+        device="cuda")
+    for label, run, R in (("trainer", lambda c: tr._train_chunk(chunks1[c][0]), 1),
+                          ("R=1", lambda c: fan1._fan_chunk(chunks1[c]), 1),
+                          (f"R={FANOUT_R}", lambda c: fan._fan_chunk(chunks[c]), FANOUT_R)):
+        run(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(1 % len(chunks))
+        torch.cuda.synchronize()
+        rates[label] = R * K * TRAIN_B / (time.perf_counter() - t0)
+    n = expect_launches(n, _times(fam.per_step, 6 * K), f"{tag}: timed chunks")
+    wall_ms, prof = _profile(lambda: fan._fan_chunk(chunks[2 % len(chunks)]))
+    n = expect_launches(n, _times(fam.per_step, K), f"{tag}: profiled chunk")
+    launches = launch_counts()  # the fan-out path ends here
+    tr.close()
+    log(f"{tag} ({card}): one {K}-step chunk of batch {TRAIN_B}: Trainer "
+        f"{rates['trainer']:.1f} examples/s; fan-out R=1 {rates['R=1']:.1f}, "
+        f"R={FANOUT_R} {rates[f'R={FANOUT_R}']:.1f} replica-examples/s "
+        f"({rates[f'R={FANOUT_R}'] / rates['trainer']:.2f}x the Trainer)")
+    idle = _log_profile(tag, f"R={FANOUT_R} chunk of {K} steps", wall_ms, prof)
+    return {"launches": launches, "rates": rates, "idle_share": idle}
+
+
+def _fanout_tlsan_variants(tmp: str, data, card: str) -> dict:
+    """TLSAN on the card, 20 steps each: replicas of one seed at lr_scales
+    [1, 2] against Trainers at lr and 2·lr (PARITY_TOL), and a bf16
+    fan-out of 2 seeds (the attention dispatchers' bf16 branch under vmap:
+    K1/K2 in f32 between casts) against bf16 Trainers at its seeds (the ext
+    phase's bf16 bounds)."""
+    train, test, cate_list = data
+    fam = TLSAN_FAMILY
+    tc = TrainConfig(model_dir=os.path.join(tmp, "variants"), max_epochs=1,
+                     steps_per_call=PARITY_STEPS, eval_freq=10**9, best_after_step=0,
+                     tb_histograms=False, seed=SEED)
+    reset_launches()  # the variants' path starts here
+    worst, runs = {}, 0
+    for what, seeds, scales, over, (rtol, atol) in (
+            ("lr_scales", [SEED] * len(FANOUT_LR_SCALES), FANOUT_LR_SCALES, {},
+             (PARITY_TOL, PARITY_TOL)),
+            ("bf16", FANOUT_SEEDS[:2], None, {"compute_dtype": "bfloat16"},
+             (BF16_RTOL, BF16_ATOL))):
+        ftc = dataclasses.replace(tc, **over)
+        fan = ReplicaFanout(fam.model, fam.cfg, ftc, cate_list, train, test, seeds, scales,
+                            device="cuda")
+        idx = torch.from_numpy(fan._epoch_index(0)[0]).cuda()
+        losses = fan._fan_chunk(idx).cpu()
+        runs += 1 + len(seeds)  # the fan-out's chunk and a Trainer's a seed
+        worst[what] = 0.0
+        for r, seed in enumerate(seeds):
+            tr = Trainer(fam.model, fam.cfg, dataclasses.replace(
+                ftc, seed=seed, learning_rate=(scales[r] if scales else 1.0) * tc.learning_rate,
+                model_dir=os.path.join(tmp, f"{what}_{r}")), cate_list, train, test,
+                device="cuda")
+            loss = tr._train_chunk(idx[r]).mean().cpu()
+            if not abs(float(loss - losses[r])) <= atol + rtol * abs(float(loss)):
+                raise AssertionError(f"fanout {what} replica {r}: loss {float(losses[r])} "
+                                     f"against the Trainer's {float(loss)}")
+            worst[what] = max(worst[what], abs(float(loss - losses[r])), _check_close(
+                f"fanout {what} replica {r}", {k: v[r].detach() for k, v in fan.params.items()},
+                {k: v.detach() for k, v in tr.model.named_parameters()}, rtol, atol))
+            tr.close()
+    launches = expect_launches(_plus(), _times(fam.per_step, runs * PARITY_STEPS),
+                               "fanout tlsan variants")  # and ends here
+    log(f"fanout tlsan ({card}): lr_scales {FANOUT_LR_SCALES}, each replica within "
+        f"{worst['lr_scales']:.3e} of a Trainer at its scaled lr after {PARITY_STEPS} "
+        f"steps (tolerance {PARITY_TOL}); bf16, each replica within {worst['bf16']:.3e} "
+        f"of a bf16 Trainer at its seed (rtol {BF16_RTOL}, atol {BF16_ATOL})")
+    return launches
+
+
+def _fanout_cli(tmp: str, card: str) -> dict:
+    """`python -m tlsan_tpu_torch.train.ensemble` in-process on the cli
+    phase's Digital-Music category file: 2 seeds, one epoch, one JSON line
+    with the JAX fan-out's keys; K1 and K2 counted exactly."""
+    data_dir = os.path.join(tmp, "Data")
+    os.environ["TLSAN_DATA_CACHE"] = os.path.join(tmp, "cache")
+    try:
+        reset_launches()  # the command line's path starts here
+        t0 = time.perf_counter()
+        result, out = _run_cli(ensemble.main, [
+            "--model", "tlsan", "--dataset", "Digital_Music", "--data_dir", data_dir,
+            "--seeds", *FANOUT_CLI_SEEDS, "--max_epochs", "1", "--eval_freq", "1000"])
+        launches = launch_counts()  # and ends here
+    finally:
+        del os.environ["TLSAN_DATA_CACHE"]
+    lines = out.strip().splitlines()
+    head = dict(f.split("=", 1) for f in
+                next(ln for ln in lines if ln.startswith("fanout model=")).split()[1:])
+    printed = json.loads(lines[-1])
+    want_keys = {"seeds", "lr_scales", "best_auc", "best_step", "mean_best", "range",
+                 "wall_s", "compile_s", "post_compile_wall_s", "replica_examples_per_s",
+                 "post_compile_replica_examples_per_s"}
+    if set(printed) != want_keys or head.get("device") != "cuda":
+        raise AssertionError(f"ensemble main printed {sorted(printed)}, header {head}")
+    steps = epoch_index(int(head["train"]), TRAIN_B, 100, 0, 1).shape
+    steps = steps[0] * steps[1]
+    evals = len(result["curves"]) + 1
+    want = _plus(_times(TLSAN_FAMILY.per_step, steps),
+                 _times(PER_AUC_BATCH["tlsan"], evals * -(-int(head["test"]) // TEST_B)))
+    if launches != want:
+        raise AssertionError(f"ensemble main: launches {launches}, expected {want}")
+    log(f"fanout cli tlsan Digital_Music ({card}): {len(FANOUT_CLI_SEEDS)} seeds, "
+        f"{steps} steps in {time.perf_counter() - t0:.3f} s; {json.dumps(printed)}; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_fanout(tmp: str, card: str):
+    """The replica fan-out on the card: the kernels' replica axis, then
+    TLSAN, ATRank and LSPM fan-outs at the Electronics catalog, lr_scales,
+    and the command line.  Returns (the kernels' replica fields, each
+    path's launches, the readings)."""
+    t0 = time.perf_counter()
+    rows = phase_fanout_kernels()
+    paths, readings = [], {}
+    lspm = next(fam for fam in BASELINES if fam.name == "lspm")
+    for fam in (TLSAN_FAMILY, ATRANK_FAMILY, lspm):
+        data = fam.train_data(np.random.default_rng(SEED + 1), USERS, ITEMS,
+                              fam.train_rows, fam.test_users)
+        out = _fanout_family(tmp, fam, data, card)
+        paths.append(out.pop("launches"))
+        readings[fam.name] = out
+        if fam is TLSAN_FAMILY:
+            paths.append(_fanout_tlsan_variants(tmp, data, card))
+    paths.append(_fanout_cli(tmp, card))
+    log(f"fanout: in {time.perf_counter() - t0:.1f} s")
+    return rows, paths, readings
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2267,30 +2755,45 @@ def main() -> int:
             tmp, (TLSAN_FAMILY, ATRANK_FAMILY), BASELINES, backend, device)]
     with tempfile.TemporaryDirectory() as tmp:
         runs.extend(phase_cli(tmp, card))
+        # the fan-out's command line reads the cli phase's Digital-Music file
+        replica_rows, fanout_paths, fanout = phase_fanout(tmp, card)
     for name, n in numbers.items():
         log(f"family {name} ({card}): train {n['examples_per_s']:.1f} examples/s, "
             f"eval {n['eval_users_per_s']:.1f} users/s, bulk {n['users_per_s']:.1f} "
             f"users/s, HTTP p50 {n['http_p50_ms']:.3f} ms p99 {n['http_p99_ms']:.3f} ms, "
             f"idle share {n['train_idle_share']:.3f} (train chunk) "
             f"{n['serve_idle_share']:.3f} (bulk recommend)")
+    for name, n in fanout.items():
+        rates = n["rates"]
+        log(f"fanout {name} ({card}): Trainer {rates['trainer']:.1f} examples/s; "
+            f"R=1 {rates['R=1']:.1f}, R={FANOUT_R} {rates[f'R={FANOUT_R}']:.1f} "
+            f"replica-examples/s; idle share {n['idle_share']:.3f} (R={FANOUT_R} chunk)")
     # launches summed over the one-device paths (the baselines' are 0, as
     # their phases check); K1's times are at the
     # serving shapes (B=128), K2's at the training shapes (B=32), K3's at
     # the serving shapes (B=128), each per batch (both towers, or the
     # self-attention and the readout).  K4's launches are every rank's on
-    # the two mesh paths, its times per rank at B=64
+    # the two mesh paths, its times per rank at B=64.  The replica fields
+    # are the fanout phase's: times at R = 8 on the train-step shapes
+    # (B=32), summed over the step's two launches, and the launches of the
+    # fan-out paths (K4: none, the fan-out runs on one device)
     launches, mesh_launches = _plus(*runs), _plus(*meshed)
+    fanout_launches = _plus(*fanout_paths)
+    no_replicas = dict.fromkeys(next(iter(replica_rows.values())))
 
-    def row(meta, k, n):
+    def row(meta, k, n, replica):
         return dict({key: v for key, v in meta.items() if key != "kernels"},
                     launches=n, max_abs_err=k["max_abs_err"], ms=k["ms"],
                     plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-                    bound_by=k["bound_by"], library_ms=None)
+                    bound_by=k["bound_by"], library_ms=None, **replica)
 
-    line = [row(meta, kernels[meta["name"]], launches[meta["name"]])
+    line = [row(meta, kernels[meta["name"]], launches[meta["name"]],
+                dict(replica_rows[meta["name"]],
+                     replica_launches=fanout_launches[meta["name"]]))
             for meta in KERNELS]
     line += [row(meta, local[meta["name"]],
-                 sum(mesh_launches[k] for k in meta["kernels"])) for meta in K4]
+                 sum(mesh_launches[k] for k in meta["kernels"]),
+                 dict(no_replicas, replica_launches=0)) for meta in K4]
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

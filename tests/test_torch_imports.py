@@ -49,5 +49,5 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "parallel.api", "parallel.sharded_embedding",
                  "parallel.topk", "parallel.programs", "data.builders",
                  "data.native", "data.cache", "data.cli", "train.cli",
-                 "serve.cli", "tools.snap_fixture"):
+                 "serve.cli", "tools.snap_fixture", "train.ensemble"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

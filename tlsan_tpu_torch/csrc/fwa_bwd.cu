@@ -54,6 +54,14 @@
 //     ends.  At the training shapes (B = 32, 32 blocks) the tree is one
 //     level; at B = 8192 two.
 //
+// Replicas.  A replica axis of weights (x, g, dx [R, B, ...], lengths
+// [R, B], the weights and their gradients [R, dh, dh] and [R, dh]) is the
+// grid's y axis, as in K1: blocks (·, r) run replica r's units, and replica r
+// has its own cross-block tree, its own slots and tickets (the scratch holds
+// R trees one after the other), with the grouping of one replica's launch,
+// so replica r's dx, dW1, db1, dW2 and db2 are bit for bit those of a launch
+// on its slice alone.
+//
 // Exactness: expf (not __expf), IEEE division, no fast-math, and the mask is
 // the additive −1e30 of the reference.  A row of length 0 has every step
 // masked; its softmax is uniform and its gradients are not zero (dm2 flows
@@ -193,10 +201,28 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                float* __restrict__ slots, unsigned* __restrict__ tickets,
                float* __restrict__ dw1, float* __restrict__ db1,
                float* __restrict__ dw2, float* __restrict__ db2,
-               int units, int S, int D, int H, int dh) {
+               int units, int S, int D, int H, int dh, int replica_slots,
+               int replica_tickets) {
   extern __shared__ float smem[];
   __shared__ bool last;
   const int n = features<DH>(dh);
+  {  // replica blockIdx.y's rows, weights, gradients and cross-block tree
+    const long long r = blockIdx.y, rows = units / H;
+    x += r * rows * S * D;
+    g += r * rows * D;
+    dx += r * rows * S * D;
+    lengths += r * rows;
+    w1 += r * dh * dh;
+    w2 += r * dh * dh;
+    dw1 += r * dh * dh;
+    dw2 += r * dh * dh;
+    b1 += r * dh;
+    b2 += r * dh;
+    db1 += r * dh;
+    db2 += r * dh;
+    slots += r * replica_slots;
+    tickets += r * replica_tickets;
+  }
   const int P = 2 * n * n + 2 * n;
   const int stride = 4 * n + 1;
   const int per_warp = kWarp * stride + P;
@@ -344,8 +370,8 @@ template <int DH, bool ONE>
 int launch(const float* x, const int* lengths, const float* w1, const float* b1,
            const float* w2, const float* b2, const float* g, float* dx, float* slots,
            unsigned* tickets, float* dw1, float* db1, float* dw2, float* db2, int units,
-           int S, int D, int H, int dh, int grid, int threads, int smem,
-           cudaStream_t stream) {
+           int S, int D, int H, int dh, int grid, int replicas, int replica_slots,
+           int replica_tickets, int threads, int smem, cudaStream_t stream) {
   static int opted = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -353,9 +379,9 @@ int launch(const float* x, const int* lengths, const float* w1, const float* b1,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = smem;
   }
-  fwa_bwd_kernel<DH, ONE><<<grid, threads, smem, stream>>>(
+  fwa_bwd_kernel<DH, ONE><<<dim3(grid, replicas), threads, smem, stream>>>(
       x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S,
-      D, H, dh);
+      D, H, dh, replica_slots, replica_tickets);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,23 +392,25 @@ bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 
 extern "C" {
 
 // Launches K2 on `stream` with the geometry of ops/cuda/fwa.py::launch_plan
-// (grid blocks of `threads` = 32 · warps threads, one warp a unit of the
-// B·H units, `smem` bytes of dynamic shared memory); `slots` holds the
-// plan's scratch floats and `tickets` its scratch integers, all 0.  Returns
+// (grid × replicas blocks of `threads` = 32 · warps threads, one warp a unit
+// of a replica's B·H units, `smem` bytes of dynamic shared memory); the
+// tensors hold `replicas` replicas one after the other; `slots` holds the
+// plan's scratch floats and `tickets` its scratch integers, all 0,
+// `replica_slots` and `replica_tickets` of them a replica.  Returns
 // cudaGetLastError() (0 = launched).  The caller has checked shapes, types,
 // devices, contiguity and dh <= 32.
 int fwa_bwd_launch(const float* x, const int* lengths, const float* w1,
                    const float* b1, const float* w2, const float* b2,
                    const float* g, float* dx, float* slots, unsigned* tickets,
                    float* dw1, float* db1, float* dw2, float* db2, int units, int S,
-                   int D, int H, int dh, int grid, int threads, int smem,
-                   void* stream) {
+                   int D, int H, int dh, int grid, int replicas, int replica_slots,
+                   int replica_tickets, int threads, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool exact = dh == 8 && aligned16(x) && aligned16(g) && aligned16(dx);
   const bool one = S <= kWarp;
 #define FWA_BWD_ARGS                                                                     \
   x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, H, \
-      dh, grid, threads, smem, s
+      dh, grid, replicas, replica_slots, replica_tickets, threads, smem, s
   if (exact) return one ? launch<8, true>(FWA_BWD_ARGS) : launch<8, false>(FWA_BWD_ARGS);
   return one ? launch<kMaxDh, true>(FWA_BWD_ARGS) : launch<kMaxDh, false>(FWA_BWD_ARGS);
 #undef FWA_BWD_ARGS

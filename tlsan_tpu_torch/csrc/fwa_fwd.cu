@@ -17,6 +17,14 @@
 // design fills the card with independent warps and keeps each warp's chain
 // short.
 //
+// Replicas.  A replica axis of weights (R parameter sets, each with its own
+// rows: x [R, B, S, D], lengths [R, B], W1/W2 [R, dh, dh], b1/b2 [R, dh] →
+// out [R, B, D]) is the grid's y axis: block (i, r) runs unit block i of
+// replica r on replica r's rows and weights, with the arithmetic of one
+// replica's launch, so replica r's output is bit for bit what a launch on
+// its slice alone gives.  R replicas are one launch, as jax.vmap of the
+// pallas_call adds a grid axis.
+//
 // Design (fwa_common.cuh).  One warp per (batch row, head): 1,024 warps at
 // B = 128, H = 8, four to a block, spread over all 132 SMs.  Lane t loads its
 // step's dh features as float4s and computes m1 and m2 in registers, with
@@ -55,6 +63,16 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                float* __restrict__ out, int units, int S, int D, int H, int dh) {
   extern __shared__ float sw[];
   const int n = features<DH>(dh);
+  {  // replica blockIdx.y's rows, lengths, weights and outputs
+    const long long r = blockIdx.y, rows = units / H;
+    x += r * rows * S * D;
+    lengths += r * rows;
+    out += r * rows * D;
+    w1 += r * dh * dh;
+    w2 += r * dh * dh;
+    b1 += r * dh;
+    b2 += r * dh;
+  }
   const int lane = threadIdx.x & (kWarp - 1);
   const int unit = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
   const bool active = unit < units;
@@ -116,8 +134,9 @@ __global__ void fwa_empty_kernel() {}
 template <int DH, bool ONE>
 int launch(const float* x, const int* lengths, const float* w1, const float* b1,
            const float* w2, const float* b2, float* out, int units, int S, int D,
-           int H, int dh, int grid, int threads, int smem, cudaStream_t stream) {
-  fwa_fwd_kernel<DH, ONE><<<grid, threads, smem, stream>>>(
+           int H, int dh, int grid, int replicas, int threads, int smem,
+           cudaStream_t stream) {
+  fwa_fwd_kernel<DH, ONE><<<dim3(grid, replicas), threads, smem, stream>>>(
       x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh);
   return static_cast<int>(cudaGetLastError());
 }
@@ -127,19 +146,20 @@ int launch(const float* x, const int* lengths, const float* w1, const float* b1,
 extern "C" {
 
 // Launches K1 on `stream` with the geometry of ops/cuda/fwa.py::launch_plan
-// (grid blocks of `threads` = 32 · warps threads, one warp a unit of the
-// B·H units, `smem` bytes of weights); returns cudaGetLastError() (0 =
+// (grid × replicas blocks of `threads` = 32 · warps threads, one warp a unit
+// of a replica's B·H units, `smem` bytes of weights); the tensors hold
+// `replicas` replicas one after the other.  Returns cudaGetLastError() (0 =
 // launched).  The caller has checked shapes, types, devices, contiguity
 // and dh <= 32.
 int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
                    const float* b1, const float* w2, const float* b2, float* out,
-                   int units, int S, int D, int H, int dh, int grid, int threads,
-                   int smem, void* stream) {
+                   int units, int S, int D, int H, int dh, int grid, int replicas,
+                   int threads, int smem, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool exact = dh == 8 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   const bool one = S <= kWarp;
 #define FWA_FWD_ARGS \
-  x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, threads, smem, s
+  x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, replicas, threads, smem, s
   if (exact) return one ? launch<8, true>(FWA_FWD_ARGS) : launch<8, false>(FWA_FWD_ARGS);
   return one ? launch<kMaxDh, true>(FWA_FWD_ARGS) : launch<kMaxDh, false>(FWA_FWD_ARGS);
 #undef FWA_FWD_ARGS

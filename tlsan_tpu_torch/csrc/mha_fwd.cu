@@ -57,6 +57,15 @@
 //      every exp argument is the reference's; only the order of the sums
 //      differs.  No partial softmax is rescaled.
 //
+// Replicas.  A replica axis of weights (R parameter sets, each with its own
+// rows: queries, keys and out [R·B, T, D], the lengths [R·B], wq, wk, wv
+// [R, D, D], the biases, γ and β [R, D]) folds into the batch rows: the
+// cluster of row b takes replica b / B's weights (B = `rows`, the rows a
+// replica), so R replicas are one launch, as jax.vmap of the pallas_call
+// adds a grid axis.  A row's arithmetic is that of one replica's launch;
+// replica r's output is bit for bit a launch's on its slice alone wherever
+// launch_plan picks the same cluster size for R·B rows as for B.
+//
 // dh = 8 (the reference's 64 / 8) is specialised with the head's q, scores
 // and sums in registers; any other dh <= 32 runs a generic variant with
 // plain loops.  D <= 256 and a multiple of 4, Tk <= 256 (a group of 32
@@ -111,7 +120,7 @@ struct Params {
   const float* gamma;
   const float* beta;
   float* out;
-  int Tq, Tk, D, H, dh, cs, group;
+  int Tq, Tk, D, H, dh, cs, group, rows;
   float inv_scale;
 };
 
@@ -152,14 +161,14 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // Rows kb .. kb+kc-1 of wq, wk and wv into Wc ([3][kc_max][D]), four
-// loads in flight a thread.
+// loads in flight a thread; `wo` is the replica's offset into the weights.
 __device__ __forceinline__ void load_weights(const Params& p, float* Wc, int kb,
-                                             int kc, int kc_max) {
+                                             int kc, int kc_max, long long wo) {
   const int D4 = p.D / 4, per = kc * D4;
 #pragma unroll 4
   for (int i = threadIdx.x; i < 3 * per; i += kThreads) {
     const int m = i / per, j = i - m * per;
-    const float* w = m == 0 ? p.wq : m == 1 ? p.wk : p.wv;
+    const float* w = (m == 0 ? p.wq : m == 1 ? p.wk : p.wv) + wo;
     st4(Wc + m * kc_max * p.D + j * 4, ldg4(w + kb * p.D + j * 4));
   }
 }
@@ -555,6 +564,9 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   const int cs = p.cs, D = p.D, H = p.H, ld = D + kPad, D4 = D / 4;
   const int rank = static_cast<int>(cluster.block_rank());
   const int b = blockIdx.x / cs;
+  // the replica's offsets into the weights and into the vectors
+  const long long wo = static_cast<long long>(b / p.rows) * D * D;
+  const int vo = b / p.rows * D;
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   // this CTA's rows: the r-th slice of the keys and, for Tq > 1, of the
   // queries; for Tq = 1 every CTA projects the one query row
@@ -599,7 +611,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   for (int i = tid; i < 5 * D4; i += kThreads) {
     const int m = i / D4, j = i - m * D4;
     const float* src = m == 0 ? p.bq : m == 1 ? p.bk : m == 2 ? p.bv : m == 3 ? p.gamma : p.beta;
-    st4(par + i * 4, ldg4(src + j * 4));
+    st4(par + i * 4, ldg4(src + vo + j * 4));
   }
   const float* qg = p.queries + (static_cast<long long>(b) * p.Tq + q0) * D;
 #pragma unroll 4
@@ -609,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 #pragma unroll 4
     for (int i = tid; i < nk * D4; i += kThreads) st4(kin + i * 4, ldg4(kg + i * 4));
   }
-  load_weights(p, Wc, 0, min(kc_max, D), kc_max);
+  load_weights(p, Wc, 0, min(kc_max, D), kc_max, wo);
   const int q_live = p.q_len[b], k_live = p.k_len[b];
   __syncthreads();
 
@@ -621,7 +633,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
     const int kc = min(kc_max, D - kb);
     if (kb > 0) {
       __syncthreads();  // the previous chunk is used up
-      load_weights(p, Wc, kb, kc, kc_max);
+      load_weights(p, Wc, kb, kc, kc_max, wo);
       __syncthreads();
     }
     const bool first = kb == 0, last = kb + kc == D;
@@ -734,7 +746,8 @@ extern "C" {
 // Launches K3 on `stream` with the geometry of
 // ops/cuda/mha.py::launch_plan: `grid` = B·cs CTAs of `threads` threads in
 // clusters of `cs`, `group` lanes a (query row, head), `smem` bytes of
-// dynamic shared memory.  Returns the launch's CUDA error (0 = launched); a
+// dynamic shared memory; the B batch rows are B / `rows` replicas of `rows`
+// rows, each with its own weights.  Returns the launch's CUDA error (0 = launched); a
 // refused cluster launch (cudaErrorClusterOutOfResources among others) is
 // returned, never retried with another cluster size.  The caller has
 // checked shapes, types, devices, contiguity, 16-byte alignment and the
@@ -744,12 +757,13 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
                    const float* wk, const float* bk, const float* wv,
                    const float* bv, const float* gamma, const float* beta,
                    float* out, int Tq, int Tk, int D, int H, int dh, int cs,
-                   int group, int grid, int threads, int smem, void* stream) {
+                   int group, int rows, int grid, int threads, int smem,
+                   void* stream) {
   if (threads != kThreads || dh > kMaxDh || D != dh * H || D % 4 != 0 ||
-      Tk > kWarp * kPerLane || group < 1 || group > kWarp)
+      Tk > kWarp * kPerLane || group < 1 || group > kWarp || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma,
-                 beta, out, Tq, Tk, D, H, dh, cs, group,
+                 beta, out, Tq, Tk, D, H, dh, cs, group, rows,
                  1.0f / sqrtf(static_cast<float>(dh))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dh == 8 ? launch<8>(p, grid, smem, s) : launch<0>(p, grid, smem, s);

@@ -100,13 +100,21 @@ class OneHotGather(torch.autograd.Function):
     accumulated in f32 and cast to the table's dtype (the JAX package's
     `_take_matmul_bwd`, `tlsan_tpu/nn/embedding.py:106-132`).  The
     one-hot entries are exact, so it differs from the scatter-add by f32
-    summation order only."""
+    summation order only.  Its forward and backward are plain torch, so
+    ``torch.func.vmap`` batches them by rule (the replica fan-out runs it
+    as ``jax.vmap`` runs the JAX one)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, table, ids):
+    def forward(table, ids):
+        return table[ids]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, ids = inputs
         ctx.save_for_backward(ids)
         ctx.vocab, ctx.dtype = table.shape[0], table.dtype
-        return table[ids]
 
     @staticmethod
     def backward(ctx, ct):

@@ -1,6 +1,7 @@
-"""What the CUDA kernels' wrappers share: the check of one tensor, and a
+"""What the CUDA kernels' wrappers share: the check of one tensor, a
 launch on the current stream with no Python Stream object and no device
-context unless another device is current."""
+context unless another device is current, and the replica axis of a vmap
+rule."""
 
 from __future__ import annotations
 
@@ -38,3 +39,11 @@ def launch(index: int, call) -> int:
         return call(raw_stream(index))
     with torch.cuda.device(index):
         return call(raw_stream(index))
+
+
+def replica_first(t: torch.Tensor, dim, size: int) -> torch.Tensor:
+    """`t` as a vmap rule hands it over, made a contiguous tensor with the
+    replica axis first: its batched axis `dim` moved to the front or, when
+    it is shared by the replicas (`dim` None), expanded to `size` of them."""
+    t = t.movedim(dim, 0) if dim is not None else t.expand(size, *t.shape)
+    return t.contiguous()

@@ -11,6 +11,17 @@ raise on anything else; they never fall back to the plain versions.
 ``launches`` and ``bwd_launches`` count each kernel's launches in this
 process.
 
+Both kernels take a leading replica axis of weights: R parameter sets,
+each with its own rows (x [R, B, S, D], lengths [R, B], the weights [R,
+dh, dh] and [R, dh]), in one launch whatever R is, as ``jax.vmap`` of the
+``pallas_call`` adds a grid axis.  Under ``torch.func.vmap`` (the replica
+fan-out, train/ensemble.py) `FWAFunction`'s vmap rule moves the replica
+axis to the front, expands what is shared (eval's lengths, an unbatched
+weight) and applies `FWAFunction` itself to the replica axis: one K1
+launch forward and one K2 launch backward for all R replicas.  A CUDA
+tensor under vmap launches the replica kernels or raises; nothing loops
+over the replicas.
+
 Both kernels run one warp per (batch row, head) unit; `launch_plan` gives
 their geometry (pure Python, so the CPU tests hold it).  They take any
 S >= 1 and heads of up to `MAX_HEAD_WIDTH` features.  K2 sums its weight
@@ -23,11 +34,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
 from tlsan_tpu_torch.ops.cuda import build
-from tlsan_tpu_torch.ops.cuda.common import SMEM_LIMIT, check_tensor, launch
+from tlsan_tpu_torch.ops.cuda.common import (
+    SMEM_LIMIT,
+    check_tensor,
+    launch,
+    replica_first,
+)
 
 SOURCE = "fwa_fwd"
 BWD_SOURCE = "fwa_bwd"
@@ -48,9 +65,10 @@ _scratch: dict = {}
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """One launch: `grid` blocks of `threads` threads (`warps` units a
-    block, `units` = B·H in all), `smem` bytes of dynamic shared memory;
-    for K2 also `slots` scratch floats and `tickets` scratch integers."""
+    """One launch: `grid` × `replicas` blocks of `threads` threads
+    (`warps` units a block, `units` = B·H a replica), `smem` bytes of
+    dynamic shared memory; for K2 also `slots` scratch floats and
+    `tickets` scratch integers a replica (its cross-block tree)."""
     dh: int
     units: int
     warps: int
@@ -59,17 +77,21 @@ class Plan:
     smem: int
     slots: int = 0
     tickets: int = 0
+    replicas: int = 1
 
 
 @functools.lru_cache(maxsize=512)
 def launch_plan(B: int, S: int, D: int, num_heads: int,
-                backward: bool = False) -> Plan:
+                backward: bool = False, replicas: int = 1) -> Plan:
     """The geometry of K1 (or, with `backward`, K2) for x [B, S, D] in
-    `num_heads` heads; raises ValueError for what the kernels refuse."""
-    if B < 1 or S < 1 or num_heads < 1 or D % num_heads:
+    `num_heads` heads, for each of `replicas` replicas (the grid's y axis;
+    a replica's blocks, and K2's scratch tree, are those of one replica's
+    launch); raises ValueError for what the kernels refuse."""
+    if B < 1 or S < 1 or num_heads < 1 or D % num_heads or replicas < 1:
         raise ValueError(
-            f"feature-wise attention needs B, S >= 1 and D % num_heads == 0; "
-            f"got B={B}, S={S}, D={D}, num_heads={num_heads}")
+            f"feature-wise attention needs B, S, replicas >= 1 and "
+            f"D % num_heads == 0; got B={B}, S={S}, D={D}, "
+            f"num_heads={num_heads}, replicas={replicas}")
     dh = D // num_heads
     if dh > MAX_HEAD_WIDTH:
         raise ValueError(
@@ -81,7 +103,8 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
     if not backward:
         warps = FWD_WARPS
         grid = -(-units // warps)
-        return Plan(dh, units, warps, grid, WARP * warps, 4 * weights)
+        return Plan(dh, units, warps, grid, WARP * warps, 4 * weights,
+                    replicas=replicas)
     # W1 | W2 | b1 | b2, then per warp 32 staged steps of 4·dh + 1 floats
     # and its weight-gradient sums (64 bytes kept for the static flag)
     per_warp = WARP * (4 * dh + 1) + weights
@@ -95,14 +118,15 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
         slots += n
         tickets += n
     return Plan(dh, units, warps, grid, WARP * warps,
-                4 * (weights + warps * per_warp), slots * weights, tickets)
+                4 * (weights + warps * per_warp), slots * weights, tickets,
+                replicas)
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.fwa_fwd_launch.argtypes is None:
         lib.fwa_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.fwa_fwd_launch.restype = ctypes.c_int
         lib.fwa_empty_launch.argtypes = [ctypes.c_void_p]
         lib.fwa_empty_launch.restype = ctypes.c_int
@@ -115,7 +139,7 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     if lib.fwa_bwd_launch.argtypes is None:
         lib.fwa_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.fwa_bwd_launch.restype = ctypes.c_int
         lib.fwa_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fwa_bwd_error_string.restype = ctypes.c_char_p
@@ -124,12 +148,15 @@ def _bwd_library() -> ctypes.CDLL:
 
 def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
     """Checks shared by both kernels, one pass over the tensors; returns
-    (B, S, D, dh)."""
+    (lead, B, S, D, dh), `lead` () for one replica or (R,) for a replica
+    axis that every tensor leads with."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, x is on {x.device}")
-    if x.dim() != 3:
-        raise ValueError(f"{fn}: x must be [B, S, D], got {tuple(x.shape)}")
-    B, S, D = x.shape
+    if x.dim() not in (3, 4):
+        raise ValueError(
+            f"{fn}: x must be [B, S, D] or [R, B, S, D], got {tuple(x.shape)}")
+    lead = tuple(x.shape[:-3])
+    B, S, D = x.shape[-3:]
     if S < 1 or num_heads < 1 or D % num_heads:
         raise ValueError(
             f"{fn}: needs S >= 1 and D % num_heads == 0; "
@@ -140,17 +167,17 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
             f"{fn}: the kernel takes heads of at most {MAX_HEAD_WIDTH} "
             f"features; got D={D}, num_heads={num_heads} (dh={dh})")
     index = x.get_device()
-    wshape, bshape = (dh, dh), (dh,)
-    todo = [("x", x, _F32, (B, S, D)), ("lengths", lengths, _I32, (B,)),
+    wshape, bshape = lead + (dh, dh), lead + (dh,)
+    todo = [("x", x, _F32, lead + (B, S, D)), ("lengths", lengths, _I32, lead + (B,)),
             ("w1", w1, _F32, wshape), ("b1", b1, _F32, bshape),
             ("w2", w2, _F32, wshape), ("b2", b2, _F32, bshape)]
     if g is not None:
-        todo.append(("g", g, _F32, (B, D)))
+        todo.append(("g", g, _F32, lead + (B, D)))
     for name, t, dtype, shape in todo:
         if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
                 or not t.is_contiguous()):
             check_tensor(fn, name, t, dtype, shape, x.device)
-    return B, S, D, dh
+    return lead, B, S, D, dh
 
 
 def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
@@ -158,19 +185,21 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 b2: torch.Tensor) -> torch.Tensor:
     """K1.  x f32 [B, S, D], lengths i32 [B], w1/w2 f32 [dh, dh], b1/b2 f32
     [dh] (dh = D / num_heads <= 32), all contiguous on one CUDA device →
-    out f32 [B, D].  Records no gradient: `FWAFunction` does."""
+    out f32 [B, D]; or every tensor with a leading replica axis R (x [R,
+    B, S, D], ..., out [R, B, D]), R replicas in one launch.  Records no
+    gradient: `FWAFunction` does."""
     global launches
-    B, S, D, dh = _check_inputs("fwa_forward", x, lengths, num_heads,
-                                w1, b1, w2, b2)
-    out = x.new_empty((B, D))
-    if B == 0:
+    lead, B, S, D, dh = _check_inputs("fwa_forward", x, lengths, num_heads,
+                                      w1, b1, w2, b2)
+    out = x.new_empty(lead + (B, D))
+    if B == 0 or math.prod(lead) == 0:
         return out
-    plan = launch_plan(B, S, D, num_heads)
+    plan = launch_plan(B, S, D, num_heads, replicas=math.prod(lead))
     lib = _library()
     err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
         x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
-        num_heads, dh, plan.grid, plan.threads, plan.smem, stream))
+        num_heads, dh, plan.grid, plan.replicas, plan.threads, plan.smem, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_fwd launch failed: {lib.fwa_error_string(err).decode()}")
@@ -179,14 +208,15 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
 
 
 def _bwd_scratch(x: torch.Tensor, plan: Plan):
-    """x's device's K2 scratch, grown to the plan's size: (slots, tickets).
-    The kernel leaves every ticket at 0 again."""
+    """x's device's K2 scratch, grown to the plan's size, one tree a
+    replica: (slots, tickets).  The kernel leaves every ticket at 0 again."""
     index = x.get_device()
+    need_slots, need_tickets = plan.replicas * plan.slots, plan.replicas * plan.tickets
     slots, tickets = _scratch.get(index, (None, None))
-    if slots is None or slots.numel() < plan.slots:
-        slots = x.new_empty(max(plan.slots, 1))
-    if tickets is None or tickets.numel() < plan.tickets:
-        tickets = x.new_zeros(max(plan.tickets, 1), dtype=_I32)
+    if slots is None or slots.numel() < need_slots:
+        slots = x.new_empty(max(need_slots, 1))
+    if tickets is None or tickets.numel() < need_tickets:
+        tickets = x.new_zeros(max(need_tickets, 1), dtype=_I32)
     _scratch[index] = (slots, tickets)
     return slots, tickets
 
@@ -195,19 +225,22 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
                  b2: torch.Tensor, g: torch.Tensor):
     """K2.  The inputs of `fwa_forward` plus g = dL/dout f32 [B, D], all
-    contiguous on one CUDA device → (dx [B, S, D], dw1, db1, dw2, db2).
-    The weight gradients are summed without atomics, so two calls on the
-    same inputs agree bit for bit."""
+    contiguous on one CUDA device → (dx [B, S, D], dw1, db1, dw2, db2); or
+    every tensor with a leading replica axis R, each replica's gradients
+    its own ([R, B, S, D], [R, dh, dh], ...), in one launch.  The weight
+    gradients are summed without atomics, so two calls on the same inputs
+    agree bit for bit."""
     global bwd_launches
-    B, S, D, dh = _check_inputs("fwa_backward", x, lengths, num_heads,
-                                w1, b1, w2, b2, g)
+    lead, B, S, D, dh = _check_inputs("fwa_backward", x, lengths, num_heads,
+                                      w1, b1, w2, b2, g)
     # the kernel writes every entry; an empty batch gives zero gradients
     new = x.new_empty if B else x.new_zeros
-    dx = x.new_empty((B, S, D))
-    dw1, db1, dw2, db2 = new((dh, dh)), new((dh,)), new((dh, dh)), new((dh,))
-    if B == 0:
+    dx = x.new_empty(lead + (B, S, D))
+    dw1, db1 = new(lead + (dh, dh)), new(lead + (dh,))
+    dw2, db2 = new(lead + (dh, dh)), new(lead + (dh,))
+    if B == 0 or math.prod(lead) == 0:
         return dx, dw1, db1, dw2, db2
-    plan = launch_plan(B, S, D, num_heads, True)
+    plan = launch_plan(B, S, D, num_heads, True, math.prod(lead))
     lib = _bwd_library()
     slots, tickets = _bwd_scratch(x, plan)
     err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
@@ -215,7 +248,8 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
         slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh,
-        plan.grid, plan.threads, plan.smem, stream))
+        plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
+        plan.smem, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_bwd launch failed: {lib.fwa_bwd_error_string(err).decode()}")
@@ -227,13 +261,19 @@ class FWAFunction(torch.autograd.Function):
     """Feature-wise attention with K1 forward and K2 backward.  Like the
     JAX custom_vjp, it saves only the inputs (x, lengths and the weights)
     and recomputes the maps in the backward.  Arguments are those of
-    `fwa_forward`; lengths and num_heads get no gradient."""
+    `fwa_forward`, with or without the replica axis; lengths and num_heads
+    get no gradient.  Under ``torch.func.vmap`` its vmap rule applies it
+    to the replica axis."""
 
     @staticmethod
-    def forward(ctx, x, lengths, num_heads, w1, b1, w2, b2):
+    def forward(x, lengths, num_heads, w1, b1, w2, b2):
+        return fwa_forward(x, lengths, num_heads, w1, b1, w2, b2)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, lengths, num_heads, w1, b1, w2, b2 = inputs
         ctx.num_heads = num_heads
         ctx.save_for_backward(x, lengths, w1, b1, w2, b2)
-        return fwa_forward(x, lengths, num_heads, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
@@ -242,3 +282,11 @@ class FWAFunction(torch.autograd.Function):
         dx, dw1, db1, dw2, db2 = fwa_backward(
             x, lengths, ctx.num_heads, w1, b1, w2, b2, g.contiguous())
         return dx, None, None, dw1, db1, dw2, db2
+
+    @staticmethod
+    def vmap(info, in_dims, x, lengths, num_heads, w1, b1, w2, b2):
+        R = info.batch_size
+        dims = in_dims[:2] + in_dims[3:]
+        x, lengths, w1, b1, w2, b2 = (
+            replica_first(t, d, R) for t, d in zip((x, lengths, w1, b1, w2, b2), dims))
+        return FWAFunction.apply(x, lengths, num_heads, w1, b1, w2, b2), 0

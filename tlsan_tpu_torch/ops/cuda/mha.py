@@ -20,6 +20,17 @@ heads of up to
 `MAX_KEYS` keys, and as many query rows as one CTA's shared memory holds
 (at D = 64: Tq and Tk up to 256, and past it for Tq); anything else raises
 ValueError naming the limit.
+
+K3 takes a leading replica axis of weights: R parameter sets, each with
+its own rows (queries [R, B, Tq, D], ..., wq [R, D, D], bq [R, D]), in one
+launch whatever R is; the R·B rows share one launch plan.  Under
+``torch.func.vmap`` (the replica fan-out, train/ensemble.py)
+`MHAFunction`'s vmap rule moves the replica axis to the front, expands
+what is shared and applies `MHAFunction` itself to the replica axis: one
+K3 launch forward, and a backward that recomputes the plain version under
+vmap and differentiates it.  A CUDA tensor under
+vmap launches the replica kernel or raises; nothing loops over the
+replicas.
 """
 
 from __future__ import annotations
@@ -27,11 +38,17 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import torch
 
 from tlsan_tpu_torch.ops.cuda import build
-from tlsan_tpu_torch.ops.cuda.common import SMEM_LIMIT, check_tensor, launch
+from tlsan_tpu_torch.ops.cuda.common import (
+    SMEM_LIMIT,
+    check_tensor,
+    launch,
+    replica_first,
+)
 
 SOURCE = "mha_fwd"
 # the weight arguments of `mha_forward`, in order, by their JAX names
@@ -152,7 +169,7 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.mha_fwd_launch.argtypes is None:
         lib.mha_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.mha_fwd_launch.restype = ctypes.c_int
         lib.mha_fwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
@@ -165,18 +182,22 @@ def _library() -> ctypes.CDLL:
 def _check_inputs(fn: str, queries, keys, q_len, k_len, weights):
     """One pass over the tensors: device, dtype, shape, contiguity and the
     16-byte alignment of the float rows the kernel reads as float4.
-    Returns (B, Tq, Tk, D)."""
+    Returns (lead, B, Tq, Tk, D), `lead` () for one replica or (R,) for a
+    replica axis that every tensor leads with."""
     if queries.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, queries is on {queries.device}")
-    if queries.dim() != 3 or keys.dim() != 3:
-        raise ValueError(f"{fn}: queries and keys must be [B, T, D], got "
-                         f"{tuple(queries.shape)} and {tuple(keys.shape)}")
-    B, Tq, D = queries.shape
-    Tk = keys.shape[1]
+    if queries.dim() not in (3, 4) or keys.dim() != queries.dim():
+        raise ValueError(f"{fn}: queries and keys must be [B, T, D] or "
+                         f"[R, B, T, D], got {tuple(queries.shape)} and "
+                         f"{tuple(keys.shape)}")
+    lead = tuple(queries.shape[:-3])
+    B, Tq, D = queries.shape[-3:]
+    Tk = keys.shape[-2]
     index = queries.get_device()
-    todo = [("queries", queries, _F32, (B, Tq, D)), ("keys", keys, _F32, (B, Tk, D)),
-            ("q_len", q_len, _I32, (B,)), ("k_len", k_len, _I32, (B,))]
-    todo += [(name, w, _F32, (D, D) if name.startswith("w") else (D,))
+    todo = [("queries", queries, _F32, lead + (B, Tq, D)),
+            ("keys", keys, _F32, lead + (B, Tk, D)),
+            ("q_len", q_len, _I32, lead + (B,)), ("k_len", k_len, _I32, lead + (B,))]
+    todo += [(name, w, _F32, lead + ((D, D) if name.startswith("w") else (D,)))
              for name, w in zip(WEIGHTS, weights)]
     for name, t, dtype, shape in todo:
         if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
@@ -184,7 +205,7 @@ def _check_inputs(fn: str, queries, keys, q_len, k_len, weights):
             check_tensor(fn, name, t, dtype, shape, queries.device)
         if dtype is _F32 and t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
-    return B, Tq, Tk, D
+    return lead, B, Tq, Tk, D
 
 
 def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
@@ -193,21 +214,26 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     """K3.  queries f32 [B, Tq, D], keys f32 [B, Tk, D] (the same tensor
     for self-attention), q_len and k_len i32 [B], wq/wk/wv f32 [D, D],
     bq/bk/bv/ln_gamma/ln_beta f32 [D], all contiguous on one CUDA device →
-    out f32 [B, Tq, D].  Records no gradient: `MHAFunction` does."""
+    out f32 [B, Tq, D]; or every tensor with a leading replica axis R
+    (queries [R, B, Tq, D], ..., wq [R, D, D], out [R, B, Tq, D]), R
+    replicas in one launch of R·B rows.  Records no gradient:
+    `MHAFunction` does."""
     global launches
     weights = (wq, bq, wk, bk, wv, bv, ln_gamma, ln_beta)
-    B, Tq, Tk, D = _check_inputs("mha_forward", queries, keys, q_len, k_len, weights)
-    out = queries.new_empty((B, Tq, D))
-    if B == 0:
+    lead, B, Tq, Tk, D = _check_inputs("mha_forward", queries, keys, q_len, k_len,
+                                       weights)
+    out = queries.new_empty(lead + (B, Tq, D))
+    rows = math.prod(lead) * B  # R·B
+    if rows == 0:
         return out
     # the kernel shares one slice for queries and keys when they are one
     # tensor, as here
-    plan = launch_plan(B, Tq, Tk, D, num_heads, queries.data_ptr() == keys.data_ptr())
+    plan = launch_plan(rows, Tq, Tk, D, num_heads, queries.data_ptr() == keys.data_ptr())
     lib = _library()
     err = launch(queries.get_device(), lambda stream: lib.mha_fwd_launch(
         queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
         *(t.data_ptr() for t in weights), out.data_ptr(), Tq, Tk, D, num_heads,
-        plan.dh, plan.cs, plan.group, plan.grid, plan.threads, plan.smem, stream))
+        plan.dh, plan.cs, plan.group, B, plan.grid, plan.threads, plan.smem, stream))
     if err != 0:
         raise RuntimeError(
             f"mha_fwd launch failed (cluster of {plan.cs}, {plan.smem} bytes of "
@@ -220,14 +246,20 @@ class MHAFunction(torch.autograd.Function):
     """Multi-head attention with K3 forward.  Like the JAX custom_vjp, it
     saves only the inputs and recomputes in the backward, through the
     plain version under autograd.  Arguments are those of `mha_forward`;
-    q_len, k_len and num_heads get no gradient.  For self-attention
-    (queries is keys) the two gradients are summed by autograd."""
+    q_len, k_len and num_heads get no gradient; with or without the
+    replica axis.  For self-attention (queries is keys) the two gradients
+    are summed by autograd.  Under ``torch.func.vmap`` its vmap rule
+    applies it to the replica axis."""
 
     @staticmethod
-    def forward(ctx, queries, keys, q_len, k_len, num_heads, *weights):
+    def forward(queries, keys, q_len, k_len, num_heads, *weights):
+        return mha_forward(queries, keys, q_len, k_len, num_heads, *weights)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        queries, keys, q_len, k_len, num_heads, *weights = inputs
         ctx.num_heads = num_heads
         ctx.save_for_backward(queries, keys, q_len, k_len, *weights)
-        return mha_forward(queries, keys, q_len, k_len, num_heads, *weights)
 
     @staticmethod
     def backward(ctx, g):
@@ -236,12 +268,31 @@ class MHAFunction(torch.autograd.Function):
             multihead_attention_reference,
         )
 
+        def plain(q, k, ql, kl, *ws):
+            return multihead_attention_reference(q, ql, k, kl, ctx.num_heads,
+                                                 dict(zip(WEIGHTS, ws)))[0]
+
         queries, keys, q_len, k_len, *weights = ctx.saved_tensors
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True)
                       for t in (queries, keys, *weights)]
-            out, _ = multihead_attention_reference(
-                leaves[0], q_len, leaves[1], k_len, ctx.num_heads,
-                dict(zip(WEIGHTS, leaves[2:])))
-            grads = torch.autograd.grad(out, leaves, g)
+            # the replica axis, where there is one, under vmap
+            fn = torch.func.vmap(plain) if queries.dim() == 4 else plain
+            grads = torch.autograd.grad(
+                fn(leaves[0], leaves[1], q_len, k_len, *leaves[2:]), leaves, g)
         return (grads[0], grads[1], None, None, None, *grads[2:])
+
+    @staticmethod
+    def vmap(info, in_dims, queries, keys, q_len, k_len, num_heads, *weights):
+        R = info.batch_size
+        # self-attention passes one tensor as queries and keys: the kernel
+        # (and its plan) read that from the pointers, so it stays one tensor
+        same = (in_dims[0] == in_dims[1] and queries.shape == keys.shape
+                and queries.stride() == keys.stride()
+                and queries.data_ptr() == keys.data_ptr())
+        queries = replica_first(queries, in_dims[0], R)
+        keys = queries if same else replica_first(keys, in_dims[1], R)
+        q_len, k_len, *weights = (
+            replica_first(t, d, R) for t, d in zip((q_len, k_len, *weights),
+                                              in_dims[2:4] + in_dims[5:]))
+        return MHAFunction.apply(queries, keys, q_len, k_len, num_heads, *weights), 0

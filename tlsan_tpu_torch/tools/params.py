@@ -7,11 +7,16 @@ A JAX tree (as numpy arrays) nests dicts and lists: TLSAN's is ``{"gamma",
 keep those names and layouts, the path joined by dots (``long.0.w1``,
 ``self_blocks.0.attn.wq``), so the copy is exact both ways, and gradients
 come out in the same layout.
+
+The replica fan-out's stacked parameters (train/ensemble.py: a leading
+replica axis R on every parameter) move to and from the JAX fan-out's
+stacked tree (``tlsan_tpu/train/ensemble.py``: a leading R on every leaf)
+the same way, by `stacked_from_numpy` and `stacked_to_numpy`.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -34,11 +39,10 @@ def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      device) -> nn.Module:
-    """A `get_model(cfg.model)` model on `device` holding the values of the
-    JAX tree `tree`."""
-    model = get_model(cfg.model)(cfg, device)
+def _checked(tree: Dict[str, Any], model: nn.Module,
+             lead: Tuple[int, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The JAX tree `tree` flattened to f32 tensors by `model`'s parameter
+    names, each leaf shaped as the model's parameter after `lead`."""
     flat = _flatten(tree)
     state = model.state_dict()
     if set(flat) != set(state):
@@ -46,13 +50,36 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             f"parameter names differ: missing {sorted(set(state) - set(flat))}, "
             f"unexpected {sorted(set(flat) - set(state))}")
     for name, arr in flat.items():
-        if tuple(arr.shape) != tuple(state[name].shape):
-            raise ValueError(f"{name}: shape {arr.shape}, the model has "
-                             f"{tuple(state[name].shape)}")
-    model.load_state_dict(
-        {name: torch.from_numpy(np.array(arr, np.float32))
-         for name, arr in flat.items()})
+        want = lead + tuple(state[name].shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"{name}: shape {arr.shape}, expected {want}")
+    return {name: torch.from_numpy(np.array(arr, np.float32))
+            for name, arr in flat.items()}
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
+                      device) -> nn.Module:
+    """A `get_model(cfg.model)` model on `device` holding the values of the
+    JAX tree `tree`."""
+    model = get_model(cfg.model)(cfg, device)
+    model.load_state_dict(_checked(tree, model))
     return model
+
+
+def stacked_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, replicas: int,
+                       device) -> Dict[str, torch.Tensor]:
+    """The JAX fan-out's stacked tree (`replicas` on a leading axis of every
+    leaf) as the port fan-out's stacked parameters: f32 tensors [R, ...]
+    on `device`, by parameter name."""
+    model = get_model(cfg.model)(cfg, "cpu")
+    return {name: t.to(device) for name, t in
+            _checked(tree, model, (replicas,)).items()}
+
+
+def stacked_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port fan-out's stacked parameters (by name, [R, ...]) as the JAX
+    fan-out's stacked tree of numpy arrays."""
+    return _unflatten({k: v.detach().cpu().numpy() for k, v in params.items()})
 
 
 def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:

@@ -20,6 +20,10 @@ Under a (dp, mp) mesh (ported from tlsan_tpu/train/evaluate.py:31-41,
 rows; with vocab-sharded tables the top-k goes through
 parallel/topk.py; the win, hit and user counts are summed over dp, so
 every rank reads the metrics of the whole test set.
+
+The replica fan-out (train/ensemble.py) evaluates R replicas at once:
+`make_replica_auc_fn` runs the AUC pass's body under ``torch.func.vmap``
+over parameters stacked on a leading replica axis, the test data shared.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from tlsan_tpu_torch.nn.embedding import current_batch_mesh, mesh_context
 from tlsan_tpu_torch.parallel.api import shard_batch
 from tlsan_tpu_torch.parallel.mesh import Mesh, all_reduce
 from tlsan_tpu_torch.parallel.topk import sharded_topk_scores
+from tlsan_tpu_torch.train.sparse import call_with
 
 TOPK_KS = (1, 10, 20, 30, 40, 50)
 
@@ -61,6 +66,14 @@ def _sum_over_dp(x: torch.Tensor) -> torch.Tensor:
     return x if mesh is None else all_reduce(x, mesh.dp_group)
 
 
+def _auc_counts(pos, neg, batch) -> torch.Tensor:
+    """(wins, users) of one batch: valid users whose positive outscores
+    the negative, and valid users."""
+    v = batch["valid"].float()
+    wins = ((pos - neg) > 0).float()
+    return torch.stack([torch.sum(wins * v), torch.sum(v)])
+
+
 def make_auc_fn(cate_list):
     """Returns auc(model, data) → the AUC over valid users, a 0-d tensor
     (batch AUCs weighted by batch size, TLSAN/train.py:86-96)."""
@@ -69,12 +82,32 @@ def make_auc_fn(cate_list):
     def auc(model, data: Data) -> torch.Tensor:
         counts = 0.0  # (wins, users)
         for batch in _batches(data):
-            pos, neg = model.pair_logits(batch, cate_list)
-            v = batch["valid"].float()
-            wins = ((pos - neg) > 0).float()
-            counts = counts + torch.stack([torch.sum(wins * v), torch.sum(v)])
+            counts = counts + _auc_counts(*model.pair_logits(batch, cate_list),
+                                          batch)
         wins_sum, n = _sum_over_dp(counts)
         return wins_sum / torch.clamp_min(n, 1.0)
+
+    return auc
+
+
+def make_replica_auc_fn(model, cate_list):
+    """Returns auc(params, data) → [R] AUCs of R replicas of `model`, whose
+    parameters `params` (by name) are stacked on a leading replica axis:
+    `make_auc_fn`'s pass with its body under ``torch.func.vmap`` over the
+    parameters, the test data shared (one device)."""
+
+    def counts(params, batch):
+        return _auc_counts(*call_with(model, "pair_logits", params, batch,
+                                      cate_list), batch)
+
+    replica_counts = torch.func.vmap(counts, in_dims=(0, None))
+
+    @torch.no_grad()
+    def auc(params, data: Data) -> torch.Tensor:
+        total = 0.0  # [R, (wins, users)]
+        for batch in _batches(data):
+            total = total + replica_counts(params, batch)
+        return total[:, 0] / torch.clamp_min(total[:, 1], 1.0)
 
     return auc
 

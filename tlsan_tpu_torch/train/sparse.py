@@ -343,7 +343,7 @@ class SparseStep:
                     row_scatter_add_(m, uids, (1 - b1) * g, self.rows_mesh)
                     n.mul_(b2)
                     row_scatter_add_(n, uids, (1 - b2) * (g * g), self.rows_mesh)
-                T.add_(opt.direction(m, n, state.count) * neg_lr)
+                T.add_(opt.moment_direction(m, n, state.count) * neg_lr)
         return loss + 0.5 * self.rr * sum(untouched.values(), torch.zeros_like(loss))
 
     def chunk(self, model: nn.Module, gxs: Mapping[str, torch.Tensor],

@@ -30,6 +30,13 @@ the update follow as on one device.  An optimizer's per-parameter state
 (the slots) is shaped like its parameter, so a vocab table's state is
 row-sharded with it.
 
+The replica fan-out (train/ensemble.py) stacks R replicas' parameters on a
+leading axis and takes `replica_step`: the same update arithmetic, with the
+global norm and the clip per replica (optax's clip under ``jax.vmap``: the
+norm over replica r's leaves only) and an optional per-replica factor on
+the update after the clip and the schedule (`scales`, the fan-out's SGD
+lr_scales).
+
 `bf16_cast` and `wants_bf16` are the mixed-precision helpers: the network
 runs on bf16 copies, and the cast's backward gives f32 gradients on the
 f32 master parameters.
@@ -107,6 +114,19 @@ def dp_sum_gradients(grads: Sequence[torch.Tensor],
             zip(flat.split([g.numel() for g in grads]), grads)]
 
 
+def replica_global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`global_norm` of each replica of replica-stacked gradients (a leading
+    axis R on every tensor) → [R]."""
+    return torch.sqrt(sum(torch.sum((g * g).reshape(g.shape[0], -1), dim=1)
+                          for g in grads))
+
+
+def per_replica(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-replica vector [R] shaped to broadcast over `like`'s trailing
+    axes."""
+    return v.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
 def clip_factor(g_norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     """The clip as one factor: 1 below `max_norm`, else max_norm / g_norm
     (the sparse steps scale by it; `clip_by_global_norm` applies it)."""
@@ -181,21 +201,47 @@ class Optimizer:
         self.apply(list(params), grads, state, range(len(params)))
         return OptState(state.count + 1, state.slots)
 
+    @torch.no_grad()
+    def replica_step(self, params: Sequence[torch.Tensor], state: OptState,
+                     scales: Optional[torch.Tensor] = None) -> OptState:
+        """`step` of R replicas stacked on a leading axis of every parameter
+        (and slot): each replica clipped by its own global norm, and its
+        update times `scales[r]` when given."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        g_norm = replica_global_norm(grads)
+        trigger = g_norm < self.max_norm
+        grads = [torch.where(per_replica(trigger, g), g,
+                             g / per_replica(g_norm, g) * self.max_norm)
+                 for g in grads]
+        self.apply(list(params), grads, state, range(len(params)), scales)
+        return OptState(state.count + 1, state.slots)
+
     def apply(self, params: Sequence[torch.Tensor],
               grads: Sequence[torch.Tensor], state: OptState,
-              which: Sequence[int]) -> None:
+              which: Sequence[int], scales: Optional[torch.Tensor] = None) -> None:
         """The update of parameters `params` (slot indices `which`) by the
-        clipped gradients `grads`, at schedule count `state.count`."""
+        clipped gradients `grads`, at schedule count `state.count`:
+        p ← p + (−lr)·u, with u the optimizer's `direction`; with
+        per-replica `scales` [R], p ← p + ((−lr)·u)·scales[r]."""
+        neg_lr = -self.schedule(state.count)
+        for p, g, i in zip(params, grads, which):
+            u = self.direction(g, state, i) * neg_lr
+            if scales is not None:
+                u = u * per_replica(scales, u)
+            p.add_(u)
+
+    def direction(self, g: torch.Tensor, state: OptState, i: int) -> torch.Tensor:
+        """The update direction u of gradient `g` (slot index `i`), the
+        slots updated in place."""
         raise NotImplementedError
 
 
 class SGD(Optimizer):
     name = "sgd"
 
-    def apply(self, params, grads, state, which):
-        neg_lr = -self.schedule(state.count)
-        for p, g in zip(params, grads):
-            p.add_(g * neg_lr)
+    def direction(self, g, state, i):
+        return g
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -214,19 +260,17 @@ class Adam(Optimizer):
         return (_bias_correction(self.b1, count + 1),
                 _bias_correction(self.b2, count + 1))
 
-    def direction(self, m: torch.Tensor, n: torch.Tensor, count: int) -> torch.Tensor:
+    def moment_direction(self, m: torch.Tensor, n: torch.Tensor,
+                         count: int) -> torch.Tensor:
         """m̂ / (√n̂ + eps) for moments already updated at `count`."""
         c1, c2 = self.corrections(count)
         return (m / c1) / (torch.sqrt(n / c2) + self.eps)
 
-    def apply(self, params, grads, state, which):
-        neg_lr = -self.schedule(state.count)
-        mu, nu = state.slots["mu"], state.slots["nu"]
-        for p, g, i in zip(params, grads, which):
-            m, n = mu[i], nu[i]
-            m.mul_(self.b1).add_(g * (1 - self.b1))
-            n.mul_(self.b2).add_(g * g * (1 - self.b2))
-            p.add_(self.direction(m, n, state.count) * neg_lr)
+    def direction(self, g, state, i):
+        m, n = state.slots["mu"][i], state.slots["nu"][i]
+        m.mul_(self.b1).add_(g * (1 - self.b1))
+        n.mul_(self.b2).add_(g * g * (1 - self.b2))
+        return self.moment_direction(m, n, state.count)
 
 
 class Adadelta(Optimizer):
@@ -234,15 +278,12 @@ class Adadelta(Optimizer):
     slot_names = ("e_g", "e_x")
     rho, eps = 0.9, 1e-6
 
-    def apply(self, params, grads, state, which):
-        neg_lr = -self.schedule(state.count)
-        e_g, e_x = state.slots["e_g"], state.slots["e_x"]
-        for p, g, i in zip(params, grads, which):
-            eg, ex = e_g[i], e_x[i]
-            eg.mul_(self.rho).add_(g * g * (1 - self.rho))
-            u = torch.sqrt(ex + self.eps) / torch.sqrt(eg + self.eps) * g
-            ex.mul_(self.rho).add_(u * u * (1 - self.rho))
-            p.add_(u * neg_lr)
+    def direction(self, g, state, i):
+        eg, ex = state.slots["e_g"][i], state.slots["e_x"][i]
+        eg.mul_(self.rho).add_(g * g * (1 - self.rho))
+        u = torch.sqrt(ex + self.eps) / torch.sqrt(eg + self.eps) * g
+        ex.mul_(self.rho).add_(u * u * (1 - self.rho))
+        return u
 
 
 class RMSProp(Optimizer):
@@ -250,13 +291,10 @@ class RMSProp(Optimizer):
     slot_names = ("nu",)
     decay, eps = 0.9, 1e-8
 
-    def apply(self, params, grads, state, which):
-        neg_lr = -self.schedule(state.count)
-        nu = state.slots["nu"]
-        for p, g, i in zip(params, grads, which):
-            n = nu[i]
-            n.mul_(self.decay).add_(g * g * (1 - self.decay))
-            p.add_(torch.rsqrt(n + self.eps) * g * neg_lr)
+    def direction(self, g, state, i):
+        n = state.slots["nu"][i]
+        n.mul_(self.decay).add_(g * g * (1 - self.decay))
+        return torch.rsqrt(n + self.eps) * g
 
 
 OPTIMIZERS = {cls.name: cls for cls in (SGD, Adam, Adadelta, RMSProp)}
