@@ -29,7 +29,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
              over 256 keys); a cluster the card refuses must raise; times
              of each (device time from the profiler, per-call time from
              CUDA events), and the card's bound; the build's report must
-             show no spill in K3's dh = 8 variant;
+             show no spill in K3's dh = 8 variant without dropout (the
+             dropout variant's report is logged);
+     dropout K1 and K2 at the train step's shapes (B=32, S=10 and 25)
+             and K3 at B=32, (96, 96) self-attention and (1, 96) readout,
+             with keep masks at rate 0.1 drawn on the card, against their
+             plain versions given the same masks (KERNEL_TOL; K2 to its
+             error scale; FWAFunction and MHAFunction gradients against
+             autograd), the dispatchers against the plain versions drawing
+             from a generator in the same state, bitwise repeatable, every
+             mask's keep share within 5 binomial deviations; per-call,
+             device and plain times of the masked kernels and their bound
+             (the masks' bytes added) beside the unmasked kernels';
   4. path    per family (TLSAN, ATRank, then the seven baselines below)
              at the reference widths (TLSAN and ATRank: D=64, H=8, 32-wide
              embeddings, one block; TLSAN Ls=10, Ts=24; ATRank T=96) and the Electronics catalog (39,991 users, 22,048 items,
@@ -108,6 +119,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
              2e-3, atol 2e-5; bf16 SGD as the ext phase; bf16 Adam: each
              moment tree within a quarter of its norm, the params within
              2·lr a step), launches exact;
+  8b. dropout the Trainer with dropout 0.1 for TLSAN and ATRank (the train
+             phase's 300 steps and evaluations; K1/K2 and K3 launches exact,
+             the losses finite, evaluation equal to rate 0 bit for bit); a
+             TLSAN dp=2 leg with dropout (every rank takes its rows of the
+             global batch's masks) against one process (PARITY_TOL); a
+             fan-out of 4 seeds with dropout for TLSAN and ATRank (ATRank
+             at FANOUT_PARITY_LR), each replica against a Trainer at its
+             seed (PARITY_TOL), launches exact;
+  8c. migrate the JAX package's TLSAN --model_dir (the committed fixture
+             tlsan_tpu_torch/tools/fixtures/jax_tlsan/, written by
+             tests/test_torch_checkpoint_jax.py: Adam, 3 steps, a 30-item
+             catalog) resumed by the port's Trainer, whose next 5 steps with
+             K1/K2 give the JAX Trainer's parameters (1e-4; b2 to the walk
+             bound), and served by serve.cli --model_dir as the JAX
+             Recommender serves it.  The TF migration tools need
+             TensorFlow, which the card's machine lacks: they run in the
+             CPU tests only (tests/test_torch_tf_import.py);
   9. cli     the three command lines in-process through their main(argv),
              as a user runs them, with no pandas: data.cli download (a
              file:// base URL), convert and remap of seeded SNAP dumps
@@ -123,7 +151,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
              its first 512 users as the CPU Recommender serves them; then
              on a Digital-Music-sized fixture (1,659 users, 1,583 items,
              53 categories, 28,852 reviews) train.cli --model atrank (K3
-             exact) and --model tlsan in one process and on a dp=2 × mp=2
+             exact), --model tlsan --dropout 0.1 and --model atrank
+             --dropout 0.1 (batch 128; the kernels with the masks,
+             launches exact),
+             and --model tlsan in one process and on a dp=2 × mp=2
              world (every evaluation within 1e-4), --model tlsan --profile
              (its trace of three chunks names fwa_fwd_kernel and
              fwa_bwd_kernel; their launches counted), and every family's
@@ -159,7 +190,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              users/s, HTTP p50/p99 and idle shares beside the card's name
              and power limit, and of the fan-out's readings; the whole
              run's wall time; one JSON line of per-kernel numbers (with the
-             fanout phase's replica fields); then the device line last.
+             fanout phase's replica fields and the dropout phase's masked
+             fields and the dropout paths' launches); then the device line
+             last.
 
 The seven baselines (SHAN, PACA, BPR-MF, LSPM, CNN, Bi-LSTM, CSAN) run
 phases 4 and 5 after TLSAN and ATRank, at the reference widths of their
@@ -188,6 +221,7 @@ import dataclasses
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -227,6 +261,7 @@ from tlsan_tpu_torch.train import checkpoint
 from tlsan_tpu_torch.train import cli as train_cli
 from tlsan_tpu_torch.train import ensemble
 from tlsan_tpu_torch.train.ensemble import ReplicaFanout
+from tlsan_tpu_torch.train.evaluate import Evaluator
 from tlsan_tpu_torch.train.loop import Trainer
 from tlsan_tpu_torch.tools.snap_fixture import write_snap_fixture
 
@@ -288,6 +323,7 @@ TRAIN_ROWS, TEST_USERS, STEPS_PER_CALL = 9_600, 4_096, 100
 EMPTY_HISTORY_SHARE = 0.1  # rows with sl = 0
 PLANTED_CATES = 128  # categories the seeded rows use, of the catalog's 673
 PARITY_STEPS = 20
+DROPOUT = 0.1  # the dropout phases' rate
 # GPU (kernels, atomics in the gathers' backward) against the CPU plain
 # path after 20 steps of lr 1.0: f32 sums in other orders, amplified by
 # training
@@ -430,7 +466,8 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    """Build every kernel; K3's dh = 8 variant must not spill."""
+    """Build every kernel; K3's dh = 8 variant without dropout must not
+    spill."""
     t0 = time.perf_counter()
     reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE])
     log(f"build: {sorted(reports) or 'all cached'} in "
@@ -441,11 +478,18 @@ def phase_build() -> None:
                 log(f"  {name}: {line.strip()}")
     if cuda_mha.SOURCE in reports:
         lines = reports[cuda_mha.SOURCE].splitlines()
-        props = [lines[i + 1] for i, line in enumerate(lines[:-1])
-                 if "Function properties for" in line and "mha_fwd_kernelILi8E" in line]
-        if not props or any("0 bytes spill stores, 0 bytes spill loads" not in p
-                            for p in props):
-            raise AssertionError(f"mha_fwd's dh = 8 variant spills: {props}")
+
+        def props(variant):
+            return [lines[i + 1].strip() for i, line in enumerate(lines[:-1])
+                    if "Function properties for" in line and variant in line]
+
+        # the variant without dropout must not spill; the dropout variant's
+        # report is logged (PERF.md: a few bytes, a speed matter)
+        plain = props("mha_fwd_kernelILi8ELb0E")
+        if not plain or any("0 bytes spill stores, 0 bytes spill loads" not in p
+                            for p in plain):
+            raise AssertionError(f"mha_fwd's dh = 8 variant spills: {plain}")
+        log(f"build: mha_fwd's dh = 8 dropout variant: {props('mha_fwd_kernelILi8ELb1E')}")
 
 
 # ------------------------------------------------------------ launch counts
@@ -906,6 +950,205 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
                 _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
     _refused_cluster_raises()
     return _summed(main, worst)
+
+
+def _keep_share_ok(mask: torch.Tensor, keep: float, what: str) -> float:
+    """The share of kept entries of one dropout mask, which must lie within
+    5 binomial standard deviations of `keep`."""
+    n = mask.numel()
+    share = float(mask.float().mean())
+    if not abs(share - keep) <= 5.0 * (keep * (1.0 - keep) / n) ** 0.5:
+        raise AssertionError(f"{what}: keep share {share:.6f} of {n} draws, "
+                             f"expected {keep} within 5 binomial deviations")
+    return share
+
+
+def _drop_row(main: dict, worst: float, plain: dict) -> dict:
+    """The dropout fields of a kernel's row: the masked kernel's per-call,
+    device and plain times and bound over the main path's launches, its
+    max abs err, and the unmasked per-call and device times of the same
+    run beside them."""
+    out = _summed(main, worst)
+    return {"dropout_ms": out["ms"], "dropout_device_ms": out["device_ms"],
+            "dropout_plain_ms": out["plain_ms"], "dropout_bound_ms": out["bound_ms"],
+            "dropout_bound_by": out["bound_by"], "dropout_max_abs_err": worst,
+            "nodrop_ms": plain["ms"], "nodrop_device_ms": plain["device_ms"]}
+
+
+def _device_sum(a, b):
+    """Two device readings summed, or the first that was not measured."""
+    try:
+        return f"{float(a) + float(b):.6f}"
+    except ValueError:
+        return a if not a[0].isdigit() else b
+
+
+def phase_dropout() -> dict:
+    """Dropout on the card: K1 and K2 at the train step's shapes (B = 32,
+    S = 10 and 25) and K3 at B = 32, (96, 96) self-attention and (1, 96)
+    readout, rate DROPOUT, each with keep masks drawn on the card and
+    against its plain version given the same masks (KERNEL_TOL; K2 to its
+    error scale; MHAFunction's gradients to MHA_GRAD_TOL); the dispatchers
+    against the plain version drawing from a generator with the same state
+    (the same masks, drawn the same way); bitwise repeatable; every mask's
+    keep share within 5 binomial deviations of 1 − rate.  Per-call, device
+    and plain times of the masked kernels and their bound (the masks'
+    bytes added), beside the unmasked kernels' times in the same run.
+    Returns each kernel's dropout fields, summed over the step's launches."""
+    from tlsan_tpu_torch.ops.feature_attention import draw_masks, feature_wise_attention
+    from tlsan_tpu_torch.ops.multihead_attention import draw_mask, multihead_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    keep = 1.0 - DROPOUT
+    rows = {}
+    for kernel in ("fwa_fwd", "fwa_bwd"):
+        worst, main, plain_main = 0.0, {}, {}
+        for i, (B, S) in enumerate(TRAIN_SHAPES):
+            x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, SEED + 50 + i)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 60 + i)
+            state = gen.get_state()
+            masks = draw_masks(x, H, DROPOUT, gen)
+            for m in masks:
+                _keep_share_ok(m, keep, f"{kernel} B={B} S={S} mask")
+            what = f"{kernel} B={B} S={S} dropout {DROPOUT}"
+            fwd = (x, lengths, H, w1, b1, w2, b2)
+            g = torch.from_numpy(np.random.default_rng(SEED + 70 + i).normal(
+                size=(B, D)).astype(np.float32)).cuda()
+            if kernel == "fwa_fwd":
+                run = lambda: cuda_fwa.fwa_forward(*fwd, *masks, keep)  # noqa: E731
+                nodrop = lambda: cuda_fwa.fwa_forward(*fwd)  # noqa: E731
+                plain = lambda: feature_wise_attention_reference(  # noqa: E731
+                    *fwd, dropout_rate=DROPOUT, keep_masks=masks)
+                got, again, want = run(), run(), plain()
+                torch.cuda.synchronize()
+                if not bool(torch.isfinite(got).all()) or not torch.equal(got, again):
+                    raise AssertionError(f"{what}: non-finite, or two calls differ")
+                err = float((got - want).abs().max())
+                if not err <= KERNEL_TOL:
+                    raise AssertionError(f"{what}: max abs err {err:.3e}")
+                if float((got - nodrop()).abs().max()) == 0.0:
+                    raise AssertionError(f"{what}: the masks changed nothing")
+                # the dispatcher draws the same masks from the same state
+                gen.set_state(state)
+                disp = feature_wise_attention(*fwd, DROPOUT, gen)
+                gen.set_state(state)
+                ref = feature_wise_attention_reference(*fwd, dropout_rate=DROPOUT,
+                                                       generator=gen)
+                err = max(err, float((disp - ref).abs().max()))
+                if not err <= KERNEL_TOL:
+                    raise AssertionError(f"{what}: the dispatcher is {err:.3e} "
+                                         "from the plain version on the same draws")
+                bytes_ms, ops_ms = _fwa_bound(B, S)
+                ops_ms *= (4 * (D // H) + 11) / (4 * (D // H) + 9)  # x_in, m1_in
+            else:
+                run = lambda: cuda_fwa.fwa_backward(*fwd, g, *masks, keep)  # noqa: E731
+                nodrop = lambda: cuda_fwa.fwa_backward(*fwd, g)  # noqa: E731
+                plain = lambda: fwa_backward_reference(  # noqa: E731
+                    *fwd, g, keep_masks=masks, dropout_rate=DROPOUT)
+                got, again = run(), run()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{what}: two calls differ")
+                scale = fwa_backward_error_scale(*fwd, g, keep_masks=masks,
+                                                 dropout_rate=DROPOUT)
+                err = _max_err(got, plain(), scale, what + " vs fwa_backward_reference")
+                # FWAFunction (K1 and K2 with the masks) against autograd
+                leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+                auto = torch.autograd.grad(feature_wise_attention_reference(
+                    leaves[0], lengths, H, *leaves[1:], dropout_rate=DROPOUT,
+                    keep_masks=masks), leaves, g)
+                err = max(err, _max_err(got, auto, scale, what + " vs autograd"))
+                leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+                out = cuda_fwa.FWAFunction.apply(leaves[0], lengths, H, *leaves[1:],
+                                                 *masks, DROPOUT)
+                err = max(err, _max_err(torch.autograd.grad(out, leaves, g), auto, scale,
+                                        what + " FWAFunction vs autograd"))
+                bytes_ms, ops_ms = _fwa_bwd_bound(B, S)
+                ops_ms *= (12 * (D // H) + 23) / (12 * (D // H) + 18)
+            bytes_ms += 1e3 * 2 * B * S * D / HBM_BYTES_PER_S  # the masks' bytes
+            worst = max(worst, err)
+            name = f"{kernel}_kernel"
+            kernel_ms, nodrop_ms = _cuda_ms(run), _cuda_ms(nodrop)
+            device_ms, nodrop_dev = _device_ms(run, name), _device_ms(nodrop, name)
+            plain_ms = _cuda_ms(plain)
+            log(f"dropout {what}: max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} "
+                f"device_ms={device_ms} plain_ms={plain_ms:.6f} "
+                f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f}; unmasked "
+                f"kernel_ms={nodrop_ms:.6f} device_ms={nodrop_dev}; bitwise repeatable")
+            _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+            main["device_ms"] = _device_sum(main.get("device_ms", "0"), device_ms)
+            plain_main["ms"] = plain_main.get("ms", 0.0) + nodrop_ms
+            plain_main["device_ms"] = _device_sum(plain_main.get("device_ms", "0"),
+                                                  nodrop_dev)
+        rows[kernel] = _drop_row(main, worst, plain_main)
+
+    worst, main, plain_main = 0.0, {}, {}
+    for i, (B, Tq, Tk) in enumerate(MHA_TRAIN):
+        self_attention = Tq == Tk
+        q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, SEED + 80 + i)
+        ws = [w[n] for n in cuda_mha.WEIGHTS]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 90 + i)
+        state = gen.get_state()
+        mask = draw_mask(q, k, H, DROPOUT, gen)
+        _keep_share_ok(mask, keep, f"mha_fwd B={B} Tq={Tq} Tk={Tk} mask")
+        what = f"mha_fwd B={B} Tq={Tq} Tk={Tk} dropout {DROPOUT}"
+        run = lambda: cuda_mha.mha_forward(q, k, ql, kl, H, *ws, mask, keep)  # noqa: E731
+        nodrop = lambda: cuda_mha.mha_forward(q, k, ql, kl, H, *ws)  # noqa: E731
+        plain = lambda: multihead_attention_reference(  # noqa: E731
+            q, ql, k, kl, H, w, DROPOUT, keep_mask=mask)
+        got, again, (want, _) = run(), run(), plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()) or not torch.equal(got, again):
+            raise AssertionError(f"{what}: non-finite, or two calls differ")
+        err = float((got - want).abs().max())
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{what}: max abs err {err:.3e}")
+        gen.set_state(state)
+        disp = multihead_attention(q, ql, k, kl, H, w, DROPOUT, gen)
+        gen.set_state(state)
+        ref, _ = multihead_attention_reference(q, ql, k, kl, H, w, DROPOUT, gen)
+        err = max(err, float((disp - ref).abs().max()))
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{what}: the dispatcher is {err:.3e} from the plain "
+                                 "version on the same draws")
+        # MHAFunction's gradients with the mask against autograd
+        g = torch.from_numpy(np.random.default_rng(SEED + 100 + i).normal(
+            size=(B, Tq, D)).astype(np.float32)).cuda()
+        grads = []
+        for kernel_fn in (True, False):
+            x = q.clone().requires_grad_(True)
+            y = x if self_attention else k.clone().requires_grad_(True)
+            lw = [t.clone().requires_grad_(True) for t in ws]
+            out = (cuda_mha.MHAFunction.apply(x, y, ql, kl, H, *lw, mask, DROPOUT)
+                   if kernel_fn else multihead_attention_reference(
+                       x, ql, y, kl, H, dict(zip(cuda_mha.WEIGHTS, lw)), DROPOUT,
+                       keep_mask=mask)[0])
+            grads.append(torch.autograd.grad(out, [x, *lw] if self_attention
+                                             else [x, y, *lw], g))
+        for a, b in zip(*grads):
+            if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
+                raise AssertionError(f"{what}: MHAFunction gradient differs from "
+                                     f"autograd by {float((a - b).abs().max()):.3e}")
+        worst = max(worst, err)
+        bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention)
+        bytes_ms += 1e3 * B * H * Tq * Tk / HBM_BYTES_PER_S  # the mask's bytes
+        ops_ms += 1e3 * B * H * Tq * Tk / F32_FLOPS_PER_S  # its select
+        kernel_ms, nodrop_ms = _cuda_ms(run), _cuda_ms(nodrop)
+        device_ms = _device_ms(run, "mha_fwd_kernel")
+        nodrop_dev = _device_ms(nodrop, "mha_fwd_kernel")
+        plain_ms = _cuda_ms(plain)
+        log(f"dropout {what} {'self' if self_attention else 'cross'}: "
+            f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} device_ms={device_ms} "
+            f"plain_ms={plain_ms:.6f} bound_us={1e3 * max(bytes_ms, ops_ms):.4f}; "
+            f"unmasked kernel_ms={nodrop_ms:.6f} device_ms={nodrop_dev}; bitwise "
+            f"repeatable; MHAFunction gradients match autograd")
+        _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+        main["device_ms"] = _device_sum(main.get("device_ms", "0"), device_ms)
+        plain_main["ms"] = plain_main.get("ms", 0.0) + nodrop_ms
+        plain_main["device_ms"] = _device_sum(plain_main.get("device_ms", "0"), nodrop_dev)
+    rows["mha_fwd"] = _drop_row(main, worst, plain_main)
+    return rows
 
 
 # ------------------------------------------------------------------ families
@@ -2208,6 +2451,17 @@ def phase_cli(tmp: str, card: str) -> list:
         f"{evals[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; "
         f"{epoch['examples_per_s']:.1f} train examples/s over the epoch; AUC "
         f"{[round(r['auc'], 6) for r in evals]}; launches {launches}")
+    # --dropout: both attention families train with the masks in K1/K2 and
+    # K3 (ATRank at batch 128: a quarter of the steps of the run above)
+    for fam, extra in ((TLSAN_FAMILY, []), (ATRANK_FAMILY, ["--train_batch_size", "128"])):
+        t0 = time.perf_counter()
+        head, evals_d, epoch, launches = _cli_train(
+            data_dir, os.path.join(tmp, f"{fam.name}_dropout"), "Digital_Music", fam,
+            ["--dropout", str(DROPOUT), *extra])
+        runs.append(launches)
+        log(f"cli train {fam.name} --dropout {DROPOUT} Digital_Music ({card}): "
+            f"{evals_d[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; AUC "
+            f"{[round(r['auc'], 6) for r in evals_d]}; launches {launches}")
     one_dir, mesh_dir = (os.path.join(tmp, f"tlsan_{w}") for w in ("one", "mesh"))
     extra = ["--eval_freq", str(CLI_MESH_EVAL_FREQ), "--best_after_step", "0"]
     t0 = time.perf_counter()
@@ -2286,6 +2540,242 @@ def phase_cli(tmp: str, card: str) -> list:
         f"byte for byte for {len(CLI_FAMILIES)} families on Digital_Music in "
         f"{time.perf_counter() - t0:.3f} s")
     del os.environ["TLSAN_DATA_CACHE"]
+    return runs
+
+
+# ------------------------------------------------------------------ dropout
+
+DROPOUT_FANOUT_R = 4
+MIGRATE = pathlib.Path(__file__).resolve().parent / "tlsan_tpu_torch/tools/fixtures/jax_tlsan"
+MIGRATE_DATASET = "Tiny"
+# the JAX Trainer's configuration that wrote the fixture
+# (tests/test_torch_checkpoint_jax.py::FIXTURE_TC), and its split of steps
+MIGRATE_TC = dict(optimizer="adam", learning_rate=0.01, train_batch_size=32,
+                  test_batch_size=32, max_epochs=1, steps_per_call=3,
+                  eval_freq=10**9, best_after_step=0, tb_histograms=False,
+                  sparse_updates=False)
+MIGRATE_PRE_STEPS, MIGRATE_K = 3, 10
+# Adam's update of an exactly-zero gradient (FWA's b2) is sign-like rounding
+# noise and walks apart between any two programs by up to lr a step
+# (tests/test_torch_sparse.py's walk bound)
+MIGRATE_WALK_LEAVES, MIGRATE_WALK_BOUND = ("long.0.b2", "short.0.b2"), 1e-1
+MIGRATE_TOL = 1e-4  # tests/test_torch_optim.py's Adam chunk against the JAX Trainer
+
+
+def _dropout_trainer(tmp: str, fam: Family, card: str) -> dict:
+    """`fam`'s Trainer.train() with dropout DROPOUT on the card: the train
+    phase's rows and cadence (300 steps of batch 32, evaluations every
+    100), the launches of a step and an eval batch exact (the kernels take
+    the masks: nothing falls back), the losses finite and the final AUC
+    above 0.5; evaluation draws no mask (the weights evaluated as a model
+    at rate 0 give the same AUC, bit for bit), and the train loss does
+    (with a generator it differs from the loss without).  Returns the
+    path's launches."""
+    tag = f"dropout train {fam.name}"
+    cfg = dataclasses.replace(fam.cfg, dropout=DROPOUT)
+    tc = TrainConfig(model_dir=os.path.join(tmp, f"{fam.name}_dropout"), max_epochs=1,
+                     steps_per_call=fam.steps_per_call, eval_freq=fam.eval_every,
+                     display_freq=fam.steps_per_call, best_after_step=0,
+                     save_auc_gate=0.0, tb_histograms=False, seed=SEED)
+    train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                            ITEMS, fam.train_rows, fam.test_users)
+    eval_batches = -(-fam.test_users // TEST_B)
+    reset_launches()  # the dropout train path starts here
+    t0 = time.perf_counter()
+    tr = Trainer(fam.model, cfg, tc, cate_list, train, test, device="cuda")
+    tr.train()
+    train_s = time.perf_counter() - t0
+    recs = _records(tc.model_dir)
+    evals = [r for r in recs if r["kind"] in ("eval", "final")]
+    losses = [r["loss"] for r in recs if r["kind"] == "train"]
+    launches = expect_launches(_plus(), _plus(
+        _times(fam.per_step, tr.step), _times(fam.per_eval_batch, len(evals) * eval_batches)),
+        f"{tag}: Trainer.train")  # and ends here
+    if tr.step != fam.train_rows // TRAIN_B or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: step {tr.step}, losses {losses}")
+    if not evals[-1]["auc"] > 0.5:
+        raise AssertionError(f"{tag}: final AUC {evals[-1]['auc']}")
+    model0 = fam.model(fam.cfg, "cuda")
+    model0.load_state_dict(tr.model.state_dict())
+    ev0 = Evaluator(fam.cfg, tr.cate_list, test, TEST_B, "cuda")
+    auc, auc0 = tr.evaluator.auc(tr.model), ev0.auc(model0)
+    batch = {k: v[:TRAIN_B] for k, v in tr.train_data.items()}
+    with torch.no_grad():
+        dropped = tr.model.loss(batch, tr.cate_list,
+                                torch.Generator(device="cuda").manual_seed(SEED))
+        plain = tr.model.loss(batch, tr.cate_list)
+    expect_launches(launches, _plus(_times(PER_AUC_BATCH[fam.name], 2 * eval_batches),
+                                    _times(fam.per_summary, 2)), f"{tag}: checks")
+    if auc != auc0 or float(dropped) == float(plain):
+        raise AssertionError(f"{tag}: AUC {auc} against {auc0} at rate 0; loss "
+                             f"{float(dropped)} with masks, {float(plain)} without")
+    log(f"{tag} ({card}): {tr.step} steps in {train_s:.3f} s, chunk losses "
+        f"{[round(x, 4) for x in losses]}, AUC {[round(r['auc'], 6) for r in evals]}; "
+        f"eval equals rate 0 bit for bit ({auc:.6f}); launches {launches}")
+    tr.close()
+    return launches
+
+
+def _dropout_mesh(tmp: str, backend: str, device: str, card: str) -> dict:
+    """One TLSAN dp=2 leg with dropout DROPOUT (programs.chunk_program:
+    MESH_LEG_STEPS global batches of TRAIN_B rows from the seed; every rank
+    draws the global batch's masks and keeps its rows) against one process
+    on the card: losses and every parameter within PARITY_TOL; each rank's
+    K1/K2 launches exact.  Returns the ranks' chunk launches, summed."""
+    fam = TLSAN_FAMILY
+    cfg = dataclasses.replace(fam.cfg, dropout=DROPOUT)
+    train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                            ITEMS, fam.train_rows, 1_024)
+    idx = np.random.default_rng(SEED + 5).integers(0, train.n, (MESH_LEG_STEPS, TRAIN_B))
+    tc = TrainConfig(model_dir=os.path.join(tmp, "mesh_dropout"), dp=MESH_DP, mp=1,
+                     tb_histograms=False, sparse_updates=False, seed=SEED)
+    t0 = time.perf_counter()
+    ranks = run_local(programs.chunk_program, MESH_DP, 1, backend, device, MESH_TIMEOUT_S,
+                      cfg=cfg, tc=tc, cate_list=cate_list, train=train, test=test, idx=idx)
+    world_s = time.perf_counter() - t0
+    for r in ranks:
+        if r["launches"]["chunk"] != _plus(_times(fam.per_step, MESH_LEG_STEPS)):
+            raise AssertionError(f"dropout mesh rank {r['rank']}: launches "
+                                 f"{r['launches']['chunk']}")
+    tr = Trainer(fam.model, cfg, dataclasses.replace(
+        tc, dp=1, model_dir=os.path.join(tmp, "one_dropout")), cate_list, train, test,
+        device="cuda")
+    losses = tr._train_chunk(torch.from_numpy(idx).cuda()).cpu().numpy()
+    worst = float(np.abs(ranks[0]["losses"] - losses).max())
+    if not worst <= PARITY_TOL:
+        raise AssertionError(f"dropout mesh: losses {ranks[0]['losses']} against one "
+                             f"process's {losses}")
+    got = {k: torch.from_numpy(v).cuda() for k, v in ranks[0]["state"].items()}
+    worst = max(worst, _check_close("dropout mesh", got, {
+        k: v.detach() for k, v in tr.model.state_dict().items()}, PARITY_TOL, PARITY_TOL))
+    tr.close()
+    log(f"dropout mesh tlsan dp={MESH_DP} ({backend}, {card}): {MESH_LEG_STEPS} steps "
+        f"at dropout {DROPOUT} within {worst:.3e} of one process (losses and every "
+        f"parameter; tolerance {PARITY_TOL}); the world's run {world_s:.3f} s")
+    return _plus(*(r["launches"]["chunk"] for r in ranks))
+
+
+def _dropout_fanout(tmp: str, fam: Family, card: str) -> dict:
+    """A fan-out of DROPOUT_FANOUT_R seeds with dropout DROPOUT on the card
+    (each replica's masks from its own generator): PARITY_STEPS steps, each
+    replica against a Trainer at its seed with the same dropout
+    (PARITY_TOL), at FANOUT_PARITY_LR; launches exact whatever R is.
+    Returns the fan-out chunk's launches."""
+    tag = f"dropout fanout {fam.name}"
+    cfg = dataclasses.replace(fam.cfg, dropout=DROPOUT)
+    train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                            ITEMS, fam.train_rows, 1_024)
+    tc = TrainConfig(model_dir=os.path.join(tmp, f"fan_{fam.name}"), max_epochs=1,
+                     steps_per_call=STEPS_PER_CALL, eval_freq=10**9, best_after_step=0,
+                     tb_histograms=False, seed=SEED,
+                     learning_rate=FANOUT_PARITY_LR.get(fam.name, fam.parity_lr))
+    seeds = FANOUT_SEEDS[:DROPOUT_FANOUT_R]
+    # construction records the forward's draw shapes (one forward)
+    fan = ReplicaFanout(fam.model, cfg, tc, cate_list, train, test, seeds, device="cuda")
+    chunks = torch.from_numpy(fan._epoch_index(0)).cuda()
+    reset_launches()  # the fan-out's dropout path starts here
+    losses = fan._fan_chunk(chunks[0][:, :PARITY_STEPS]).cpu()
+    launches = expect_launches(_plus(), _times(fam.per_step, PARITY_STEPS),
+                               f"{tag}: {PARITY_STEPS} steps")  # and ends here
+    worst = 0.0
+    for r, seed in enumerate(seeds):
+        tr = Trainer(fam.model, cfg, dataclasses.replace(
+            tc, seed=seed, model_dir=os.path.join(tmp, f"fan_{fam.name}_{seed}")),
+            cate_list, train, test, device="cuda")
+        loss = tr._train_chunk(chunks[0][r, :PARITY_STEPS]).mean().cpu()
+        if not abs(float(loss - losses[r])) <= PARITY_TOL * (1 + abs(float(loss))):
+            raise AssertionError(f"{tag} replica {r}: loss {float(losses[r])} against "
+                                 f"the Trainer's {float(loss)}")
+        worst = max(worst, abs(float(loss - losses[r])), _check_close(
+            f"{tag} replica {r}", {k: v[r].detach() for k, v in fan.params.items()},
+            {k: v.detach() for k, v in tr.model.named_parameters()},
+            PARITY_TOL, PARITY_TOL))
+        tr.close()
+    log(f"{tag} ({card}): {DROPOUT_FANOUT_R} replicas at dropout {DROPOUT}, each "
+        f"within {worst:.3e} of a Trainer at its seed after {PARITY_STEPS} steps at lr "
+        f"{tc.learning_rate} (tolerance {PARITY_TOL}); launches {launches}")
+    return launches
+
+
+def phase_migrate(tmp: str, card: str) -> dict:
+    """The JAX package's TLSAN --model_dir (the committed fixture: Adam, 3
+    steps, a 30-item catalog) on the card: the port's Trainer resumes it
+    (step, schedule count and moments) and its next steps, with K1 and K2
+    counted exactly, give the JAX Trainer's parameters (MIGRATE_TOL; FWA's
+    b2 to the walk bound); serve.cli --model_dir on it gives the JAX
+    Recommender's top-k (HTTP_SCORE_TOL: scores printed to 4 decimals).
+    Returns the path's launches."""
+    model_dir = os.path.join(tmp, "jax_model_dir")
+    shutil.copytree(MIGRATE / "model_dir", model_dir)
+    data_dir = str(MIGRATE / "Data")
+    os.environ["TLSAN_DATA_CACHE"] = "0"
+    try:
+        prep = train_cli.prepare("tlsan", os.path.join(data_dir, f"{MIGRATE_DATASET}.npz"),
+                                 ModelConfig(model="tlsan"))
+        tc = TrainConfig(model_dir=model_dir, from_scratch=False, **MIGRATE_TC)
+        reset_launches()  # the migrate path starts here
+        tr = Trainer(TLSAN, prep.cfg, tc, prep.cate_list, prep.train, prep.test,
+                     device="cuda")
+        if tr.step != MIGRATE_PRE_STEPS or tr.opt_state.count != MIGRATE_PRE_STEPS:
+            raise AssertionError(f"migrate: restored step {tr.step}, count "
+                                 f"{tr.opt_state.count}")
+        with np.load(MIGRATE / "continue.npz") as c:
+            steps = len(c["idx"])
+            loss = float(tr._train_chunk(torch.from_numpy(c["idx"]).cuda()).mean())
+            want = {k[len("param."):]: c[k] for k in c.files if k.startswith("param.")}
+            want_loss = float(c["loss"])
+        n = expect_launches(_plus(), _times(TLSAN_FAMILY.per_step, steps), "migrate resume")
+        worst = abs(loss - want_loss)
+        if not worst <= PARITY_TOL * (1 + abs(want_loss)):
+            raise AssertionError(f"migrate: loss {loss} against the JAX Trainer's {want_loss}")
+        got = {k: v.detach().cpu().numpy() for k, v in tr.model.state_dict().items()}
+        if got.keys() != want.keys():
+            raise AssertionError("migrate: the parameters' names differ")
+        for k, w in want.items():
+            err = float(np.abs(got[k] - w).max())
+            bar = (MIGRATE_WALK_BOUND if k in MIGRATE_WALK_LEAVES
+                   else MIGRATE_TOL * (1 + float(np.abs(w).max())))
+            if not err <= bar:
+                raise AssertionError(f"migrate: {k} differs from the JAX Trainer's by {err:.3e}")
+            if k not in MIGRATE_WALK_LEAVES:
+                worst = max(worst, err)
+        tr.close()
+        out = os.path.join(tmp, "migrate_recs.jsonl")
+        _run_cli(serve_cli.main, ["--model_dir", str(MIGRATE / "model_dir"), "--dataset",
+                                  MIGRATE_DATASET, "--data_dir", data_dir, "--k",
+                                  str(MIGRATE_K), "--out", out, "--device", "cuda"])
+        launches = launch_counts()  # and ends here
+    finally:
+        del os.environ["TLSAN_DATA_CACHE"]
+    with open(out) as f:
+        rows = [json.loads(line) for line in f]
+    with np.load(MIGRATE / "topk.npz") as t:
+        want_ids, want_sc = t["ids"], t["scores"]
+    users = len(want_ids)
+    # serve.cli recommends every user twice (a warm-up and the timed pass)
+    expect_launches(n, _times(TLSAN_FAMILY.per_batch, 2 * -(-users // 128)), "migrate serve")
+    if len(rows) != users:
+        raise AssertionError(f"migrate: serve.cli wrote {len(rows)} users of {users}")
+    assert_topk_match(np.array([r["items"] for r in rows]),
+                      np.array([r["scores"] for r in rows]), want_ids, want_sc,
+                      HTTP_SCORE_TOL)
+    log(f"migrate ({card}): the JAX package's TLSAN --model_dir resumed at step "
+        f"{MIGRATE_PRE_STEPS} (Adam moments and count), {steps} steps within {worst:.3e} "
+        f"of the JAX Trainer's (tolerance {MIGRATE_TOL}; b2 to the walk bound); "
+        f"serve.cli gives the JAX Recommender's top-{MIGRATE_K} for {users} users "
+        f"(scores within {HTTP_SCORE_TOL}); launches {launches}")
+    return launches
+
+
+def phase_dropout_paths(tmp: str, card: str, backend: str, device: str) -> list:
+    """Dropout on the main paths: the Trainer (TLSAN and ATRank), one dp=2
+    mesh leg (TLSAN) and the fan-out (TLSAN and ATRank) on the card.
+    Returns each path's launches."""
+    t0 = time.perf_counter()
+    runs = [_dropout_trainer(tmp, fam, card) for fam in (TLSAN_FAMILY, ATRANK_FAMILY)]
+    runs.append(_dropout_mesh(tmp, backend, device, card))
+    runs += [_dropout_fanout(tmp, fam, card) for fam in (TLSAN_FAMILY, ATRANK_FAMILY)]
+    log(f"dropout paths: in {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -2735,6 +3225,7 @@ def main() -> int:
     kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd(),
                "mha_fwd": phase_kernel_mha()}
     phase_fwa_scale()
+    dropout_rows = phase_dropout()
     local = phase_kernel_local()
     runs, meshed, numbers = [], [], {}
     for fam in (TLSAN_FAMILY, ATRANK_FAMILY, *BASELINES):
@@ -2753,6 +3244,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         meshed += [out["launches"] for out in phase_mesh(
             tmp, (TLSAN_FAMILY, ATRANK_FAMILY), BASELINES, backend, device)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dropout_runs = phase_dropout_paths(tmp, card, backend, device)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs.append(phase_migrate(tmp, card))
     with tempfile.TemporaryDirectory() as tmp:
         runs.extend(phase_cli(tmp, card))
         # the fan-out's command line reads the cli phase's Digital-Music file
@@ -2780,6 +3275,11 @@ def main() -> int:
     launches, mesh_launches = _plus(*runs), _plus(*meshed)
     fanout_launches = _plus(*fanout_paths)
     no_replicas = dict.fromkeys(next(iter(replica_rows.values())))
+    # the dropout fields: the masked kernels at the train step's shapes (per
+    # step: both towers, or the self-attention and the readout), and the
+    # launches of the dropout paths (Trainer, mesh leg, fan-out)
+    dropout_launches = _plus(*dropout_runs)
+    no_dropout = dict.fromkeys(next(iter(dropout_rows.values())))
 
     def row(meta, k, n, replica):
         return dict({key: v for key, v in meta.items() if key != "kernels"},
@@ -2789,11 +3289,14 @@ def main() -> int:
 
     line = [row(meta, kernels[meta["name"]], launches[meta["name"]],
                 dict(replica_rows[meta["name"]],
-                     replica_launches=fanout_launches[meta["name"]]))
+                     replica_launches=fanout_launches[meta["name"]],
+                     **dropout_rows[meta["name"]],
+                     dropout_launches=dropout_launches[meta["name"]]))
             for meta in KERNELS]
     line += [row(meta, local[meta["name"]],
                  sum(mesh_launches[k] for k in meta["kernels"]),
-                 dict(no_replicas, replica_launches=0)) for meta in K4]
+                 dict(no_replicas, replica_launches=0, **no_dropout,
+                      dropout_launches=0)) for meta in K4]
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

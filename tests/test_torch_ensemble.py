@@ -285,9 +285,10 @@ def test_bf16_fanout_matches_jax_bf16_and_trainers(tmp_path):
 
 
 def test_fanout_raises_what_it_does_not_run():
-    """lr_scales with another optimizer than SGD, a mesh and dropout raise
-    ValueError at construction, as the JAX fan-out refuses them (dropout:
-    the kernels draw no masks, ROADMAP item 25)."""
+    """lr_scales with another optimizer than SGD and a mesh raise
+    ValueError at construction, as the JAX fan-out refuses them.  Dropout
+    runs, as in the JAX fan-out (a key per replica): one chunk at rate 0.1
+    gives finite, distinct replica losses."""
     cfg, train, test, cate_list = _family("tlsan")
 
     def make(cfg_over=None, lr_scales=None, **tc_kw):
@@ -299,8 +300,10 @@ def test_fanout_raises_what_it_does_not_run():
         make(optimizer="adam", lr_scales=[1.0, 2.0])
     with pytest.raises(ValueError, match="one device"):
         make(dp=2)
-    with pytest.raises(ValueError, match="item 25"):
-        make(cfg_over={"dropout": 0.1})
+    dropped = make(cfg_over={"dropout": 0.1})
+    losses = dropped._fan_chunk(torch.from_numpy(dropped._epoch_index(0)[0]))
+    assert losses.shape == (len(SEEDS),) and torch.isfinite(losses).all()
+    assert losses[0] != losses[1]
     with pytest.raises(ValueError, match="lr_scales"):
         make(lr_scales=[1.0])
     make(optimizer="adam")  # a shared LR runs

@@ -2,8 +2,11 @@
 
 A subprocess imports every module of tlsan_tpu_torch and chip_smoke.py (a
 subprocess, because this test process has JAX loaded by conftest.py) and
-lists what got loaded: no jax, flax, optax, pandas or tlsan_tpu module may
-be among them.
+lists what got loaded: no jax, flax, optax, msgpack, tensorflow, pandas or
+tlsan_tpu module may be among them.  The migration tools (tools/tf_import.py,
+tools/tf_export.py) import TensorFlow only inside the functions that read or
+write a TF checkpoint, and the JAX checkpoint reader (train/msgpack.py) is
+the port's own.
 """
 
 import json
@@ -27,7 +30,8 @@ print(json.dumps({"imported": names,
                   "loaded": sorted(set(sys.modules) - before)}))
 """
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "pandas", "tlsan_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "msgpack", "tensorflow", "pandas",
+          "tlsan_tpu")
 
 
 def test_port_imports_no_jax_pandas_or_reference_package():
@@ -49,5 +53,6 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "parallel.api", "parallel.sharded_embedding",
                  "parallel.topk", "parallel.programs", "data.builders",
                  "data.native", "data.cache", "data.cli", "train.cli",
-                 "serve.cli", "tools.snap_fixture", "train.ensemble"):
+                 "serve.cli", "tools.snap_fixture", "train.ensemble",
+                 "train.msgpack", "tools.tf_import", "tools.tf_export"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]

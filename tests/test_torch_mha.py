@@ -20,6 +20,7 @@ from tlsan_tpu.models.atrank import _attn_params, _ffn_params
 from tlsan_tpu.nn import layers as jax_layers
 from tlsan_tpu.ops import multihead_attention as jax_mha
 from tlsan_tpu_torch.nn import layers
+from tlsan_tpu_torch.nn.layers import GivenMasks
 from tlsan_tpu_torch.ops import multihead_attention as T
 from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
 
@@ -181,16 +182,23 @@ def test_cpu_dispatch_uses_plain_version_not_kernel():
     assert torch.equal(T.multihead_attention(*args, dropout_rate=0.5), got)
 
 
-def test_cuda_dispatch_refuses_dropout_and_other_dtypes():
-    """On a (mocked) CUDA tensor, a dropout rate with a generator raises
-    naming ROADMAP item 25, and a dtype without a kernel raises: neither
-    reaches a kernel or the plain version."""
+def test_cuda_dispatch_refuses_dropout_and_other_dtypes(monkeypatch):
+    """On a (mocked) CUDA tensor, a dropout rate with a mask source no
+    longer raises: the dispatcher draws the keep mask [B, H, Tq, Tk] and
+    hands it, with the rate, to K3's MHAFunction, not to the plain
+    version.  A dtype without a kernel raises."""
     p = _t(_params(8))
     lens = torch.ones(2, dtype=torch.int32)
-    cuda_f32 = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 25"):
-        T.multihead_attention(cuda_f32, lens, cuda_f32, lens, H, p,
-                              dropout_rate=0.1, generator=torch.Generator())
+    cuda_f32 = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float32,
+                                     shape=(2, 3, D))
+    mask = torch.rand((2, H, 3, 3), generator=torch.Generator().manual_seed(0)) < 0.9
+    calls = []
+    monkeypatch.setattr(cuda_mha.MHAFunction, "apply", lambda *a: calls.append(a))
+    T.multihead_attention(cuda_f32, lens, cuda_f32, lens, H, p, dropout_rate=0.1,
+                          generator=GivenMasks([mask]))
+    (args,) = calls
+    assert args[4] == H and args[-2] is mask and args[-1] == 0.1
+    assert len(args) == 5 + len(cuda_mha.WEIGHTS) + 2
     cuda_f16 = types.SimpleNamespace(device=torch.device("cuda"), dtype=torch.float16)
     with pytest.raises(NotImplementedError, match="no kernel"):
         T.multihead_attention(cuda_f16, lens, cuda_f16, lens, H, p)

@@ -62,6 +62,18 @@
 // so replica r's dx, dW1, db1, dW2 and db2 are bit for bit those of a launch
 // on its slice alone.
 //
+// Dropout (train time) is the DROP variant, with K1's two keep masks and
+// keep = 1 − rate: the forward is recomputed with them (fwa_common.cuh's
+// forward_step_drop), and the chain rule applies them as the plain version
+// (ops/feature_attention.py::fwa_backward_reference) does:
+//   dm1 = (dm2 · W2ᵀ) ⊙ k2 / keep, dz1 = dm1 ⊙ [z1 > 0]   (m1_in > 0 holds
+//                                   exactly where k2 keeps and z1 > 0)
+//   dx  = soft ⊙ g + (dz1 · W1ᵀ) ⊙ k1 / keep
+//   dW1 from x_in = x ⊙ k1 / keep,  dW2 from m1_in = m1 ⊙ k2 / keep
+// ds = g ⊙ x reads the unmasked x.  The staged row holds m1_in in place of
+// m1 and, once ds is formed, x_in in place of x.  Null mask pointers select
+// the variant without dropout, whose code is that before the masks.
+//
 // Exactness: expf (not __expf), IEEE division, no fast-math, and the mask is
 // the additive −1e30 of the reference.  A row of length 0 has every step
 // masked; its softmax is uniform and its gradients are not zero (dm2 flows
@@ -94,14 +106,57 @@ __device__ inline void stage_forward(const float (&xv)[DH], const float (&m1)[DH
   row[4 * n] = 1.0f;
 }
 
+// backward_step under dropout: as it, with dm1 and the W1ᵀ term of dx
+// masked and divided by keep, and x_in staged for dW1 once ds is formed.
+template <int DH>
+__device__ inline void backward_step_drop(float* row, const float (&soft)[DH],
+                                          const float (&gv)[DH], const float (&sds)[DH],
+                                          const float* sw, int dh, float* __restrict__ dxp,
+                                          const Drop& drop, long long off) {
+  const int n = features<DH>(dh);
+  const float* w1 = sw;
+  const float* w2 = sw + n * n;
+  const unsigned k1 = load_keep<DH>(drop.k1 + off, n);
+  float dm2[DH], dz1[DH], dxv[DH];
+#pragma unroll
+  for (int j = 0; j < n; ++j) dm2[j] = soft[j] * (__fmul_rn(gv[j], row[j]) - sds[j]);
+#pragma unroll
+  for (int d = 0; d < n; ++d) {
+    float dm1 = 0.0f;  // (dm2 · W2ᵀ)[d]
+#pragma unroll
+    for (int e = 0; e < n; ++e) dm1 = fmaf(dm2[e], w2[d * n + e], dm1);
+    dz1[d] = row[n + d] > 0.0f ? dm1 / drop.keep : 0.0f;  // m1_in > 0: kept, z1 > 0
+  }
+#pragma unroll
+  for (int d = 0; d < n; ++d) {
+    float acc = 0.0f;  // (dz1 · W1ᵀ)[d]
+#pragma unroll
+    for (int e = 0; e < n; ++e) acc = fmaf(dz1[e], w1[d * n + e], acc);
+    dxv[d] = fmaf(soft[d], gv[d], k1 >> d & 1u ? acc / drop.keep : 0.0f);
+  }
+  store_row<DH>(dxp, n, dxv);
+#pragma unroll
+  for (int j = 0; j < n; ++j) {
+    row[j] = k1 >> j & 1u ? row[j] / drop.keep : 0.0f;  // x_in
+    row[2 * n + j] = dz1[j], row[3 * n + j] = dm2[j];
+  }
+}
+
 // The backward of one valid step, from its staged x and m1, its softmax
 // weights and the unit's statistics: writes dx and stages dz1 and dm2
-// beside x and m1, so that `row` holds (x, m1, dz1, dm2, 1).
-template <int DH>
+// beside x and m1, so that `row` holds (x, m1, dz1, dm2, 1).  Under DROP,
+// m1 is m1_in, the masks are applied (keep flags at `off` from the unit's)
+// and x_in replaces x, so that `row` holds (x_in, m1_in, dz1, dm2, 1).
+template <int DH, bool DROP>
 __device__ inline void backward_step(float* row, const float (&soft)[DH],
                                      const float (&gv)[DH], const float (&sds)[DH],
-                                     const float* sw, int dh, float* __restrict__ dxp) {
+                                     const float* sw, int dh, float* __restrict__ dxp,
+                                     const Drop& drop, long long off) {
   const int n = features<DH>(dh);
+  if constexpr (DROP) {
+    backward_step_drop<DH>(row, soft, gv, sds, sw, n, dxp, drop, off);
+    return;
+  }
   const float* w1 = sw;
   const float* w2 = sw + n * n;
   float dm2[DH], dz1[DH], dxv[DH];
@@ -192,7 +247,7 @@ __device__ inline void sum_slots(const float* src, int count, int P, float* buf,
   }
 }
 
-template <int DH, bool ONE>
+template <int DH, bool ONE, bool DROP>
 __global__ void __launch_bounds__(kMaxThreads)
 fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                const float* __restrict__ w1, const float* __restrict__ b1,
@@ -202,7 +257,8 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                float* __restrict__ dw1, float* __restrict__ db1,
                float* __restrict__ dw2, float* __restrict__ db2,
                int units, int S, int D, int H, int dh, int replica_slots,
-               int replica_tickets) {
+               int replica_tickets, const std::uint8_t* __restrict__ k1,
+               const std::uint8_t* __restrict__ k2, float keep) {
   extern __shared__ float smem[];
   __shared__ bool last;
   const int n = features<DH>(dh);
@@ -211,6 +267,7 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
     x += r * rows * S * D;
     g += r * rows * D;
     dx += r * rows * S * D;
+    if constexpr (DROP) k1 += r * rows * S * D, k2 += r * rows * S * D;
     lengths += r * rows;
     w1 += r * dh * dh;
     w2 += r * dh * dh;
@@ -240,6 +297,8 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   const long long base = static_cast<long long>(b) * S * D + h * n;
   const float* xb = x + base;
   float* dxb = dx + base;
+  Drop drop{};
+  if constexpr (DROP) drop = Drop{k1 + base, k2 + base, keep};
   // the unit's loads go out before the weights' barrier
   int len = 0;
   float gv[DH], xv[DH];
@@ -259,7 +318,7 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
       // S <= 32: lane t's step is computed once
       float* row = stage + lane * stride;
       if (in) {
-        forward_step<DH>(xv, sw, n, lane < len, m1, m2);
+        maps<DH, DROP>(xv, sw, n, lane < len, drop, static_cast<long long>(lane) * D, m1, m2);
         stage_forward<DH>(xv, m1, n, row);
       } else {
 #pragma unroll
@@ -277,16 +336,19 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
         sds[j] = in ? m2[j] * __fmul_rn(gv[j], row[j]) : 0.0f;
       }
       warp_allreduce<DH>(sds, n, lane, Sum());
-      if (in) backward_step<DH>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(lane) * D);
+      if (in) {
+        backward_step<DH, DROP>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(lane) * D,
+                                drop, static_cast<long long>(lane) * D);
+      }
       __syncwarp();
       sum_staged(stage, stride, min(S, kWarp), n, lane, wpart);
     } else {
-      softmax_stats<DH>(xb, sw, n, S, D, len, lane, mx, sm);
+      softmax_stats<DH, DROP>(xb, sw, n, S, D, len, lane, drop, mx, sm);
 #pragma unroll
       for (int j = 0; j < n; ++j) sds[j] = 0.0f;
       for (int t = lane; t < S; t += kWarp) {
         load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
-        forward_step<DH>(xv, sw, n, t < len, m1, m2);
+        maps<DH, DROP>(xv, sw, n, t < len, drop, static_cast<long long>(t) * D, m1, m2);
 #pragma unroll
         for (int j = 0; j < n; ++j) {
           sds[j] = fmaf(expf(m2[j] - mx[j]) / sm[j], __fmul_rn(gv[j], xv[j]), sds[j]);
@@ -298,11 +360,12 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
         if (t < S) {
           float* row = stage + lane * stride;
           load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
-          forward_step<DH>(xv, sw, n, t < len, m1, m2);
+          maps<DH, DROP>(xv, sw, n, t < len, drop, static_cast<long long>(t) * D, m1, m2);
           stage_forward<DH>(xv, m1, n, row);
 #pragma unroll
           for (int j = 0; j < n; ++j) m2[j] = expf(m2[j] - mx[j]) / sm[j];  // soft
-          backward_step<DH>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(t) * D);
+          backward_step<DH, DROP>(row, m2, gv, sds, sw, n, dxb + static_cast<long long>(t) * D,
+                                  drop, static_cast<long long>(t) * D);
         }
         __syncwarp();
         sum_staged(stage, stride, min(S - t0, kWarp), n, lane, wpart);
@@ -366,26 +429,43 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   }
 }
 
-template <int DH, bool ONE>
+template <int DH, bool ONE, bool DROP>
 int launch(const float* x, const int* lengths, const float* w1, const float* b1,
            const float* w2, const float* b2, const float* g, float* dx, float* slots,
            unsigned* tickets, float* dw1, float* db1, float* dw2, float* db2, int units,
            int S, int D, int H, int dh, int grid, int replicas, int replica_slots,
-           int replica_tickets, int threads, int smem, cudaStream_t stream) {
+           int replica_tickets, int threads, int smem, const std::uint8_t* k1,
+           const std::uint8_t* k2, float keep, cudaStream_t stream) {
   static int opted = 48 * 1024;  // dynamic shared memory allowed so far
   if (smem > opted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fwa_bwd_kernel<DH, ONE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        fwa_bwd_kernel<DH, ONE, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted = smem;
   }
-  fwa_bwd_kernel<DH, ONE><<<dim3(grid, replicas), threads, smem, stream>>>(
+  fwa_bwd_kernel<DH, ONE, DROP><<<dim3(grid, replicas), threads, smem, stream>>>(
       x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S,
-      D, H, dh, replica_slots, replica_tickets);
+      D, H, dh, replica_slots, replica_tickets, k1, k2, keep);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH, bool DROP>
+int launch_steps(bool one, const float* x, const int* lengths, const float* w1,
+                 const float* b1, const float* w2, const float* b2, const float* g,
+                 float* dx, float* slots, unsigned* tickets, float* dw1, float* db1,
+                 float* dw2, float* db2, int units, int S, int D, int H, int dh, int grid,
+                 int replicas, int replica_slots, int replica_tickets, int threads,
+                 int smem, const std::uint8_t* k1, const std::uint8_t* k2, float keep,
+                 cudaStream_t stream) {
+#define FWA_BWD_ARGS                                                                     \
+  x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, H, \
+      dh, grid, replicas, replica_slots, replica_tickets, threads, smem, k1, k2, keep, stream
+  return one ? launch<DH, true, DROP>(FWA_BWD_ARGS) : launch<DH, false, DROP>(FWA_BWD_ARGS);
+#undef FWA_BWD_ARGS
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+bool aligned8(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 8 == 0; }
 
 }  // namespace
 
@@ -398,21 +478,28 @@ extern "C" {
 // plan's scratch floats and `tickets` its scratch integers, all 0,
 // `replica_slots` and `replica_tickets` of them a replica.  Returns
 // cudaGetLastError() (0 = launched).  The caller has checked shapes, types,
-// devices, contiguity and dh <= 32.
+// devices, contiguity and dh <= 32.  `k1` and `k2` are K1's dropout keep
+// masks (bytes laid out as x) and `keep` = 1 − rate; null masks run the
+// variant without dropout.
 int fwa_bwd_launch(const float* x, const int* lengths, const float* w1,
                    const float* b1, const float* w2, const float* b2,
                    const float* g, float* dx, float* slots, unsigned* tickets,
                    float* dw1, float* db1, float* dw2, float* db2, int units, int S,
                    int D, int H, int dh, int grid, int replicas, int replica_slots,
-                   int replica_tickets, int threads, int smem, void* stream) {
+                   int replica_tickets, int threads, int smem, const std::uint8_t* k1,
+                   const std::uint8_t* k2, float keep, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool exact = dh == 8 && aligned16(x) && aligned16(g) && aligned16(dx);
+  const bool drop = k1 != nullptr;
+  const bool exact = dh == 8 && aligned16(x) && aligned16(g) && aligned16(dx) &&
+                     (!drop || (aligned8(k1) && aligned8(k2)));
   const bool one = S <= kWarp;
-#define FWA_BWD_ARGS                                                                     \
-  x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, H, \
-      dh, grid, replicas, replica_slots, replica_tickets, threads, smem, s
-  if (exact) return one ? launch<8, true>(FWA_BWD_ARGS) : launch<8, false>(FWA_BWD_ARGS);
-  return one ? launch<kMaxDh, true>(FWA_BWD_ARGS) : launch<kMaxDh, false>(FWA_BWD_ARGS);
+#define FWA_BWD_ARGS                                                                        \
+  one, x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, \
+      H, dh, grid, replicas, replica_slots, replica_tickets, threads, smem, k1, k2, keep, s
+  if (drop) {
+    return exact ? launch_steps<8, true>(FWA_BWD_ARGS) : launch_steps<kMaxDh, true>(FWA_BWD_ARGS);
+  }
+  return exact ? launch_steps<8, false>(FWA_BWD_ARGS) : launch_steps<kMaxDh, false>(FWA_BWD_ARGS);
 #undef FWA_BWD_ARGS
 }
 

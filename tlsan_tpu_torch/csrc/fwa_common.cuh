@@ -17,12 +17,21 @@
 // per-thread arrays (slower, and quick to compile).  ONE says S <= 32, so
 // that a lane's only step stays in registers; beyond 32 steps the passes
 // re-read x (from L2) and recompute the maps.
+//
+// Dropout is a compile-time variant (DROP): the keep flags of both dense
+// maps' inputs come from device memory as two masks laid out as x ([B, S,
+// D] bytes, 1 = keep), and `forward_step_drop` computes x_in = x / keep
+// where kept (else 0), m1 = relu(x_in · W1 + b1), m1_in = m1 / keep where
+// kept and m2 = m1_in · W2 + b2, as the plain version does.  The weighted
+// sum over time reads the unmasked x.  The variant without dropout is the
+// code before it, untouched.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace fwa {
 
@@ -113,6 +122,76 @@ __device__ inline void forward_step(const float (&x)[DH], const float* sw, int d
   }
 }
 
+// The keep masks of dropout at one unit: `k1` (x's) and `k2` (m1's) point
+// at the unit's (b, h) entries, step t `D` bytes further; `keep` = 1 − rate.
+struct Drop {
+  const std::uint8_t* k1;
+  const std::uint8_t* k2;
+  float keep;
+};
+
+// The dh keep flags at p as bits (bit j = feature j kept); at DH = 8 one
+// 8-byte load (the rows are 8-byte aligned there).
+template <int DH>
+__device__ inline unsigned load_keep(const std::uint8_t* __restrict__ p, int dh) {
+  if constexpr (DH == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const unsigned lo = (v.x & 1u) | (v.x >> 7 & 2u) | (v.x >> 14 & 4u) | (v.x >> 21 & 8u);
+    const unsigned hi = (v.y & 1u) | (v.y >> 7 & 2u) | (v.y >> 14 & 4u) | (v.y >> 21 & 8u);
+    return lo | hi << 4;
+  } else {
+    unsigned bits = 0;
+    for (int j = 0; j < dh; ++j) bits |= (p[j] ? 1u : 0u) << j;
+    return bits;
+  }
+}
+
+// forward_step under dropout at step t (the masks' offset `off`): m1 holds
+// m1_in, the dropped map1 that map2 reads (m1_in > 0 exactly where z1 > 0
+// and the flag keeps it).  Divides by keep, as the plain version does.
+template <int DH>
+__device__ inline void forward_step_drop(const float (&x)[DH], const float* sw, int dh,
+                                         bool in_len, const Drop& drop, long long off,
+                                         float (&m1)[DH], float (&m2)[DH]) {
+  const int n = features<DH>(dh);
+  const float* w1 = sw;
+  const float* w2 = sw + n * n;
+  const float* b1 = sw + 2 * n * n;
+  const float* b2 = b1 + n;
+  const unsigned k1 = load_keep<DH>(drop.k1 + off, n);
+  const unsigned k2 = load_keep<DH>(drop.k2 + off, n);
+  float xin[DH];
+#pragma unroll
+  for (int k = 0; k < n; ++k) xin[k] = k1 >> k & 1u ? x[k] / drop.keep : 0.0f;
+#pragma unroll
+  for (int e = 0; e < n; ++e) {
+    float z = b1[e];
+#pragma unroll
+    for (int k = 0; k < n; ++k) z = fmaf(xin[k], w1[k * n + e], z);
+    m1[e] = k2 >> e & 1u ? fmaxf(z, 0.0f) / drop.keep : 0.0f;
+  }
+  const float mask = in_len ? 0.0f : kVeryNegative;
+#pragma unroll
+  for (int e = 0; e < n; ++e) {
+    float z = b2[e];
+#pragma unroll
+    for (int k = 0; k < n; ++k) z = fmaf(m1[k], w2[k * n + e], z);
+    m2[e] = z + mask;
+  }
+}
+
+// forward_step, or forward_step_drop at step t under DROP.
+template <int DH, bool DROP>
+__device__ inline void maps(const float (&x)[DH], const float* sw, int dh, bool in_len,
+                            const Drop& drop, long long off, float (&m1)[DH],
+                            float (&m2)[DH]) {
+  if constexpr (DROP) {
+    forward_step_drop<DH>(x, sw, dh, in_len, drop, off, m1, m2);
+  } else {
+    forward_step<DH>(x, sw, dh, in_len, m1, m2);
+  }
+}
+
 // The feature whose total lane `lane` holds after reduce8, and a lane that
 // holds feature j's.
 __device__ inline int feature8(int lane) {
@@ -162,24 +241,24 @@ __device__ inline void warp_allreduce(float (&v)[DH], int dh, int lane, Op op) {
 // The softmax statistics of a unit over all S steps, each lane's steps
 // t = lane, lane + 32, ... recomputed from x: the max of m2 and the sum of
 // exp(m2 − max), per feature, on every lane.
-template <int DH>
+template <int DH, bool DROP>
 __device__ inline void softmax_stats(const float* __restrict__ xb, const float* sw,
                                      int dh, int S, int D, int len, int lane,
-                                     float (&mx)[DH], float (&sm)[DH]) {
+                                     const Drop& drop, float (&mx)[DH], float (&sm)[DH]) {
   const int n = features<DH>(dh);
   float x[DH], m1[DH], m2[DH];
 #pragma unroll
   for (int j = 0; j < n; ++j) mx[j] = -INFINITY, sm[j] = 0.0f;
   for (int t = lane; t < S; t += kWarp) {
     load_row<DH>(xb + static_cast<long long>(t) * D, dh, x);
-    forward_step<DH>(x, sw, dh, t < len, m1, m2);
+    maps<DH, DROP>(x, sw, dh, t < len, drop, static_cast<long long>(t) * D, m1, m2);
 #pragma unroll
     for (int j = 0; j < n; ++j) mx[j] = fmaxf(mx[j], m2[j]);
   }
   warp_allreduce<DH>(mx, dh, lane, Max());
   for (int t = lane; t < S; t += kWarp) {
     load_row<DH>(xb + static_cast<long long>(t) * D, dh, x);
-    forward_step<DH>(x, sw, dh, t < len, m1, m2);
+    maps<DH, DROP>(x, sw, dh, t < len, drop, static_cast<long long>(t) * D, m1, m2);
 #pragma unroll
     for (int j = 0; j < n; ++j) sm[j] += expf(m2[j] - mx[j]);
   }

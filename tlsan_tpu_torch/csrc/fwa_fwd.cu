@@ -40,6 +40,14 @@
 // lift of the head maps is not carried over: 8×8 maps are below any
 // tensor-core tile, and TF32 is off by contract.
 //
+// Dropout (train time) is the DROP variant: two keep masks laid out as x
+// (bytes [B, S, D], or [R, B, S, D]; 1 = keep) for the inputs of the two
+// dense maps, and keep = 1 − rate, as fwa_common.cuh's forward_step_drop
+// applies them; the weighted sum reads the unmasked x.  Each lane reads its
+// step's dh flags of each mask (8 bytes at dh = 8), so the masks add 2·B·S·D
+// bytes to the bytes it moves.  Null mask pointers select the variant
+// without dropout, whose code is that before the masks.
+//
 // Exactness: expf (not __expf), IEEE division, no fast-math, and the mask is
 // the additive −1e30 of the reference, so a row of length 0 gets a uniform
 // softmax over all S and returns the mean of x, as in the JAX package.  The
@@ -55,17 +63,20 @@ namespace {
 
 using namespace fwa;
 
-template <int DH, bool ONE>
+template <int DH, bool ONE, bool DROP>
 __global__ void __launch_bounds__(kMaxThreads)
 fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
                const float* __restrict__ w1, const float* __restrict__ b1,
                const float* __restrict__ w2, const float* __restrict__ b2,
-               float* __restrict__ out, int units, int S, int D, int H, int dh) {
+               float* __restrict__ out, int units, int S, int D, int H, int dh,
+               const std::uint8_t* __restrict__ k1, const std::uint8_t* __restrict__ k2,
+               float keep) {
   extern __shared__ float sw[];
   const int n = features<DH>(dh);
   {  // replica blockIdx.y's rows, lengths, weights and outputs
     const long long r = blockIdx.y, rows = units / H;
     x += r * rows * S * D;
+    if constexpr (DROP) k1 += r * rows * S * D, k2 += r * rows * S * D;
     lengths += r * rows;
     out += r * rows * D;
     w1 += r * dh * dh;
@@ -79,6 +90,11 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   const int b = unit / H;
   const int h = unit - b * H;
   const float* xb = x + static_cast<long long>(b) * S * D + h * n;
+  Drop drop{};
+  if constexpr (DROP) {
+    const long long base = static_cast<long long>(b) * S * D + h * n;
+    drop = Drop{k1 + base, k2 + base, keep};
+  }
   // the unit's loads go out before the weights' barrier, so that the two
   // trips to device memory overlap
   int len = 0;
@@ -94,7 +110,7 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   if constexpr (ONE) {
     // S <= 32: lane t's step stays in registers through all three phases
     if (in) {
-      forward_step<DH>(xv, sw, n, lane < len, m1, m2);
+      maps<DH, DROP>(xv, sw, n, lane < len, drop, static_cast<long long>(lane) * D, m1, m2);
     } else {
 #pragma unroll
       for (int j = 0; j < n; ++j) xv[j] = 0.0f, m2[j] = -INFINITY;
@@ -108,12 +124,12 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
 #pragma unroll
     for (int j = 0; j < n; ++j) acc[j] = m2[j] / sm[j] * xv[j];
   } else {
-    softmax_stats<DH>(xb, sw, n, S, D, len, lane, mx, sm);
+    softmax_stats<DH, DROP>(xb, sw, n, S, D, len, lane, drop, mx, sm);
 #pragma unroll
     for (int j = 0; j < n; ++j) acc[j] = 0.0f;
     for (int t = lane; t < S; t += kWarp) {
       load_row<DH>(xb + static_cast<long long>(t) * D, n, xv);
-      forward_step<DH>(xv, sw, n, t < len, m1, m2);
+      maps<DH, DROP>(xv, sw, n, t < len, drop, static_cast<long long>(t) * D, m1, m2);
 #pragma unroll
       for (int j = 0; j < n; ++j) acc[j] = fmaf(expf(m2[j] - mx[j]) / sm[j], xv[j], acc[j]);
     }
@@ -131,14 +147,27 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
 
 __global__ void fwa_empty_kernel() {}
 
-template <int DH, bool ONE>
+template <int DH, bool ONE, bool DROP>
 int launch(const float* x, const int* lengths, const float* w1, const float* b1,
            const float* w2, const float* b2, float* out, int units, int S, int D,
            int H, int dh, int grid, int replicas, int threads, int smem,
+           const std::uint8_t* k1, const std::uint8_t* k2, float keep,
            cudaStream_t stream) {
-  fwa_fwd_kernel<DH, ONE><<<dim3(grid, replicas), threads, smem, stream>>>(
-      x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh);
+  fwa_fwd_kernel<DH, ONE, DROP><<<dim3(grid, replicas), threads, smem, stream>>>(
+      x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, k1, k2, keep);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH, bool DROP>
+int launch_steps(bool one, const float* x, const int* lengths, const float* w1,
+                 const float* b1, const float* w2, const float* b2, float* out, int units,
+                 int S, int D, int H, int dh, int grid, int replicas, int threads, int smem,
+                 const std::uint8_t* k1, const std::uint8_t* k2, float keep,
+                 cudaStream_t stream) {
+#define FWA_FWD_ARGS \
+  x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, replicas, threads, smem, k1, k2, keep, stream
+  return one ? launch<DH, true, DROP>(FWA_FWD_ARGS) : launch<DH, false, DROP>(FWA_FWD_ARGS);
+#undef FWA_FWD_ARGS
 }
 
 }  // namespace
@@ -150,18 +179,26 @@ extern "C" {
 // of a replica's B·H units, `smem` bytes of weights); the tensors hold
 // `replicas` replicas one after the other.  Returns cudaGetLastError() (0 =
 // launched).  The caller has checked shapes, types, devices, contiguity
-// and dh <= 32.
+// and dh <= 32.  `k1` and `k2` are dropout's keep masks (bytes laid out
+// as x) and `keep` = 1 − rate; null masks run the variant without dropout.
 int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
                    const float* b1, const float* w2, const float* b2, float* out,
                    int units, int S, int D, int H, int dh, int grid, int replicas,
-                   int threads, int smem, void* stream) {
+                   int threads, int smem, const std::uint8_t* k1,
+                   const std::uint8_t* k2, float keep, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool exact = dh == 8 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  const bool drop = k1 != nullptr;
+  const bool exact = dh == 8 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+                     (!drop || (reinterpret_cast<std::uintptr_t>(k1) % 8 == 0 &&
+                                reinterpret_cast<std::uintptr_t>(k2) % 8 == 0));
   const bool one = S <= kWarp;
 #define FWA_FWD_ARGS \
-  x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, replicas, threads, smem, s
-  if (exact) return one ? launch<8, true>(FWA_FWD_ARGS) : launch<8, false>(FWA_FWD_ARGS);
-  return one ? launch<kMaxDh, true>(FWA_FWD_ARGS) : launch<kMaxDh, false>(FWA_FWD_ARGS);
+  one, x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, grid, replicas, threads, smem, \
+      k1, k2, keep, s
+  if (drop) {
+    return exact ? launch_steps<8, true>(FWA_FWD_ARGS) : launch_steps<kMaxDh, true>(FWA_FWD_ARGS);
+  }
+  return exact ? launch_steps<8, false>(FWA_FWD_ARGS) : launch_steps<kMaxDh, false>(FWA_FWD_ARGS);
 #undef FWA_FWD_ARGS
 }
 

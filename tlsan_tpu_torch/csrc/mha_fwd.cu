@@ -66,6 +66,16 @@
 // replica r's output is bit for bit a launch's on its slice alone wherever
 // launch_plan picks the same cluster size for R·B rows as for B.
 //
+// Dropout (train time) is the DROP variant: a keep mask on the attention
+// probabilities after the query mask ([B, H, Tq, Tk] bytes, or R·B rows;
+// 1 = keep) and keep = 1 − rate, as the plain version applies it
+// (ops/multihead_attention.py::multihead_attention_reference).  The softmax's
+// sum takes every key; the weighted sum of V takes the kept ones, and the
+// output is divided by keep: o = Σ_kept e·v / Σ e / keep.  A lane reads the
+// flag of each of its scores from device memory, B·H·Tq·Tk bytes in all; the
+// shared-memory layout does not change.  A null mask selects the variant
+// without dropout, whose code is that before the mask.
+//
 // dh = 8 (the reference's 64 / 8) is specialised with the head's q, scores
 // and sums in registers; any other dh <= 32 runs a generic variant with
 // plain loops.  D <= 256 and a multiple of 4, Tk <= 256 (a group of 32
@@ -85,6 +95,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -120,8 +132,10 @@ struct Params {
   const float* gamma;
   const float* beta;
   float* out;
+  const std::uint8_t* keep_mask;  // dropout's keep flags, or null
   int Tq, Tk, D, H, dh, cs, group, rows;
   float inv_scale;
+  float keep;
 };
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
@@ -369,11 +383,12 @@ __device__ __forceinline__ const float* head_q(const float* qrow, float* q) {
 // and V (rows ld apart); the head outputs overwrite Qs.  Query row t of
 // this CTA is row q0 + t of the batch row.  A unit is kUnitRows query rows
 // of one head, so that each K and V row a lane loads serves them all, and
-// their reductions overlap; a lane holds kPerLane scores of each.
-template <int DH>
+// their reductions overlap; a lane holds kPerLane scores of each.  Under
+// DROP, `km` holds the batch row's keep flags [H, Tq, Tk].
+template <int DH, bool DROP>
 __device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
                             const float* Vs, int nq, int q0, int q_live,
-                            int k_live, int lane, int warp) {
+                            int k_live, int lane, int warp, const std::uint8_t* km) {
   const int H = p.H, n = DH ? DH : p.dh, g = p.group, Tk = p.Tk;
   const int ld = p.D + kPad;
   const int sub = lane & (g - 1);
@@ -390,6 +405,14 @@ __device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
     for (int r = 0; r < R; ++r)
       q[r] = head_q<DH>(Qs + min(t0 + r, nq - 1) * ld + h * n, qreg[r]);
     float s[R][KPL], m[R];
+    // DROP: bit r·KPL + i keeps score s[r][i]; flags read with the scores,
+    // so that only these bits stay live through the weighted sum
+    unsigned kept = 0;
+    int flags[R];
+    if constexpr (DROP) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) flags[r] = (h * p.Tq + q0 + min(t0 + r, nq - 1)) * Tk;
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) m[r] = -INFINITY;
 #pragma unroll
@@ -402,6 +425,12 @@ __device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
       } else {
 #pragma unroll
         for (int r = 0; r < R; ++r) s[r][i] = k < Tk ? kKeyMask : -INFINITY;
+      }
+      if constexpr (DROP) {
+        if (k < Tk) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) kept |= (__ldg(km + flags[r] + k) ? 1u : 0u) << (r * KPL + i);
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) m[r] = fmaxf(m[r], s[r][i]);
@@ -422,14 +451,23 @@ __device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
         for (int r = 0; r < R; ++r) {
           const float e = expf(s[r][i] - m[r]);
           sum[r] += e;
-          axpy<DH>(e, vr, acc[r], n);
+          if constexpr (DROP) {
+            axpy<DH>(kept >> (r * KPL + i) & 1u ? e : 0.0f, vr, acc[r], n);
+          } else {
+            axpy<DH>(e, vr, acc[r], n);
+          }
         }
       }
     }
     group_finish<DH>(sum, acc, n, g, lane, [&](int r, int j, float a, float total) {
       const int t = t0 + r;
-      if (mine < units && t < nq)  // query-mask zeroing at t >= q_len
-        Qs[t * ld + h * n + j] = q0 + t < q_live ? a / total : 0.0f;
+      if (mine < units && t < nq) {  // query-mask zeroing at t >= q_len
+        if constexpr (DROP) {
+          Qs[t * ld + h * n + j] = q0 + t < q_live ? a / total / p.keep : 0.0f;
+        } else {
+          Qs[t * ld + h * n + j] = q0 + t < q_live ? a / total : 0.0f;
+        }
+      }
     });
   }
 }
@@ -437,12 +475,14 @@ __device__ void attend_rows(const Params& p, float* Qs, const float* Ks,
 // Tq = 1: this CTA's nk keys (local rows of Ks, Vs; key k0 + i) against
 // the one query row Qs; `red` holds [H] local maxima, [H] partial sums and
 // [D] partial soft·V sums, `sc` [H, nk_max] the scores.  Leaves CTA 0's
-// head outputs in Qs.
-template <int DH>
+// head outputs in Qs.  Under DROP, `km` holds the batch row's keep flags
+// [H, 1, Tk].
+template <int DH, bool DROP>
 __device__ void attend_split(const Params& p, cg::cluster_group& cluster,
                              float* Qs, const float* Ks, const float* Vs,
                              float* red, float* sc, int nk, int nk_max, int k0,
-                             int q_live, int k_live, int rank, int lane, int warp) {
+                             int q_live, int k_live, int rank, int lane, int warp,
+                             const std::uint8_t* km) {
   const int H = p.H, n = DH ? DH : p.dh, g = p.group, D = p.D;
   const int ld = D + kPad;
   const int sub = lane & (g - 1);
@@ -482,7 +522,12 @@ __device__ void attend_split(const Params& p, cg::cluster_group& cluster,
       if (k < nk) {
         const float e = expf(sc[h * nk_max + k] - m);
         sum[0] += e;
-        axpy<DH>(e, HeadRow<DH>(Vs + k * ld + h * n), acc[0], n);
+        if constexpr (DROP) {
+          axpy<DH>(__ldg(km + static_cast<long long>(h) * p.Tk + k0 + k) ? e : 0.0f,
+                   HeadRow<DH>(Vs + k * ld + h * n), acc[0], n);
+        } else {
+          axpy<DH>(e, HeadRow<DH>(Vs + k * ld + h * n), acc[0], n);
+        }
       }
     }
     group_finish<DH>(sum, acc, n, g, lane, [&](int, int j, float a, float total) {
@@ -502,7 +547,11 @@ __device__ void attend_split(const Params& p, cg::cluster_group& cluster,
         sum += rr[H + h];
         acc += rr[2 * H + c];
       }
-      Qs[c] = 0 < q_live ? acc / sum : 0.0f;
+      if constexpr (DROP) {
+        Qs[c] = 0 < q_live ? acc / sum / p.keep : 0.0f;
+      } else {
+        Qs[c] = 0 < q_live ? acc / sum : 0.0f;
+      }
     }
   }
   cluster_sync();  // CTA 0 has read the peers' partials; they may exit
@@ -556,7 +605,7 @@ __device__ void layer_norm_rows(const float* o, int ld, const float* x,
   }
 }
 
-template <int DH>
+template <int DH, bool DROP>
 __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -567,6 +616,9 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   // the replica's offsets into the weights and into the vectors
   const long long wo = static_cast<long long>(b / p.rows) * D * D;
   const int vo = b / p.rows * D;
+  // the batch row's dropout keep flags [H, Tq, Tk]
+  const std::uint8_t* km = nullptr;
+  if constexpr (DROP) km = p.keep_mask + static_cast<long long>(b) * H * p.Tq * p.Tk;
   const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   // this CTA's rows: the r-th slice of the keys and, for Tq > 1, of the
   // queries; for Tq = 1 every CTA projects the one query row
@@ -654,8 +706,8 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 
   if (split) {
     __syncthreads();
-    attend_split<DH>(p, cluster, Qs, Ko, Vo, red, sc, nk, nk_max, k0, q_live,
-                     k_live, rank, lane, warp);
+    attend_split<DH, DROP>(p, cluster, Qs, Ko, Vo, red, sc, nk, nk_max, k0, q_live,
+                           k_live, rank, lane, warp, km);
     if (rank == 0 && warp == 0)
       layer_norm_rows(Qs, ld, qin, gamma, beta, p.out + static_cast<long long>(b) * D, 1, D,
                       lane);
@@ -697,7 +749,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   cluster_arrive();  // done reading the peers; waited for before exiting
   __syncthreads();
 
-  attend_rows<DH>(p, Qs, Kf, Vf, nq, q0, q_live, k_live, lane, warp);
+  attend_rows<DH, DROP>(p, Qs, Kf, Vf, nq, q0, q_live, k_live, lane, warp, km);
   __syncthreads();
   float* ob = p.out + (static_cast<long long>(b) * p.Tq + q0) * D;
   for (int t = warp * kLnRows; t < nq; t += kWarps * kLnRows)
@@ -706,7 +758,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   cluster_wait();
 }
 
-template <int DH>
+template <int DH, bool DROP>
 int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   // the dynamic shared memory each device's variant is opted in to
   static int opted[kMaxDevices];
@@ -715,7 +767,7 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > opted[device]) {
-    err = cudaFuncSetAttribute(mha_fwd_kernel<DH>,
+    err = cudaFuncSetAttribute(mha_fwd_kernel<DH, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
@@ -732,7 +784,7 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, mha_fwd_kernel<DH>, p);
+  err = cudaLaunchKernelEx(&config, mha_fwd_kernel<DH, DROP>, p);
   // read (and clear) the launch's error either way, so that a refused
   // launch is not reported again by a later one
   const cudaError_t last = cudaGetLastError();
@@ -747,7 +799,9 @@ extern "C" {
 // ops/cuda/mha.py::launch_plan: `grid` = B·cs CTAs of `threads` threads in
 // clusters of `cs`, `group` lanes a (query row, head), `smem` bytes of
 // dynamic shared memory; the B batch rows are B / `rows` replicas of `rows`
-// rows, each with its own weights.  Returns the launch's CUDA error (0 = launched); a
+// rows, each with its own weights; `keep_mask` holds dropout's keep flags
+// ([B, H, Tq, Tk] bytes) and `keep` = 1 − rate, a null mask runs the variant
+// without dropout.  Returns the launch's CUDA error (0 = launched); a
 // refused cluster launch (cudaErrorClusterOutOfResources among others) is
 // returned, never retried with another cluster size.  The caller has
 // checked shapes, types, devices, contiguity, 16-byte alignment and the
@@ -758,15 +812,18 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
                    const float* bv, const float* gamma, const float* beta,
                    float* out, int Tq, int Tk, int D, int H, int dh, int cs,
                    int group, int rows, int grid, int threads, int smem,
-                   void* stream) {
+                   const std::uint8_t* keep_mask, float keep, void* stream) {
   if (threads != kThreads || dh > kMaxDh || D != dh * H || D % 4 != 0 ||
       Tk > kWarp * kPerLane || group < 1 || group > kWarp || rows < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma,
-                 beta, out, Tq, Tk, D, H, dh, cs, group, rows,
-                 1.0f / sqrtf(static_cast<float>(dh))};
+                 beta, out, keep_mask, Tq, Tk, D, H, dh, cs, group, rows,
+                 1.0f / sqrtf(static_cast<float>(dh)), keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dh == 8 ? launch<8>(p, grid, smem, s) : launch<0>(p, grid, smem, s);
+  if (keep_mask != nullptr) {
+    return dh == 8 ? launch<8, true>(p, grid, smem, s) : launch<0, true>(p, grid, smem, s);
+  }
+  return dh == 8 ? launch<8, false>(p, grid, smem, s) : launch<0, false>(p, grid, smem, s);
 }
 
 // The clusters of `cs` CTAs with `smem` bytes each that the current device
@@ -775,10 +832,10 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
 int mha_fwd_active_clusters(int cs, int smem, int* clusters) {
   // raise the opt-in only: launch() assumes it never falls
   cudaFuncAttributes attrs;
-  cudaError_t err = cudaFuncGetAttributes(&attrs, mha_fwd_kernel<8>);
+  cudaError_t err = cudaFuncGetAttributes(&attrs, mha_fwd_kernel<8, false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > attrs.maxDynamicSharedSizeBytes) {
-    err = cudaFuncSetAttribute(mha_fwd_kernel<8>,
+    err = cudaFuncSetAttribute(mha_fwd_kernel<8, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -794,7 +851,7 @@ int mha_fwd_active_clusters(int cs, int smem, int* clusters) {
   config.attrs = attr;
   config.numAttrs = 1;
   return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      clusters, reinterpret_cast<const void*>(mha_fwd_kernel<8>), &config));
+      clusters, reinterpret_cast<const void*>(mha_fwd_kernel<8, false>), &config));
 }
 
 const char* mha_error_string(int err) {

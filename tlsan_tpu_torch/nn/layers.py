@@ -1,11 +1,18 @@
 """Shared layers, ported from tlsan_tpu/nn/layers.py: layer norm, dropout,
 dense, the TF-1.8 LSTM as a loop over time, the valid-prefix reversal and
 the per-row time gather; and the one-hot of the time buckets that ATRank
-and CNN share."""
+and CNN share.
+
+Dropout's keep masks come from a "source": a ``torch.Generator`` (each
+draw one ``torch.rand``), or an object with ``draw(shape, keep, device)``
+that stands in for one — `RowShardMasks` (a mesh rank's rows of the
+global batch's masks), `GivenMasks` (masks drawn beforehand, for the
+replica fan-out) or `RecordedShapes` (the draws' shapes).  The models and
+the attention dispatchers take either where they take a generator."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -19,18 +26,88 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return gamma * (x - mean) / torch.sqrt(var + eps) + beta
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+class RowShardMasks:
+    """A mask source for one dp rank of a mesh: every rank draws the
+    GLOBAL batch's mask from its generator (the same seed on every rank, so
+    the same draws) and keeps its own rows, [d·b, (d+1)·b) of the leading
+    batch axis, as it keeps its rows of the batch
+    (parallel/multihost.py::local_batch_slice).  So a dp run sees, row for
+    row, the masks that one process sees, as the JAX mesh draws one key
+    over the global batch."""
+
+    def __init__(self, generator: torch.Generator, shards: int, index: int):
+        self.generator, self.shards, self.index = generator, shards, index
+
+    def draw(self, shape, keep: float, device) -> torch.Tensor:
+        b = shape[0]
+        full = draw_keep(self.generator, (b * self.shards,) + tuple(shape[1:]),
+                         keep, device)
+        return full[self.index * b:(self.index + 1) * b]
+
+
+class GivenMasks:
+    """A mask source that hands out masks drawn beforehand, in order (the
+    replica fan-out draws each replica's outside ``torch.func.vmap``, where
+    explicit generators do not run); each must have the shape asked for."""
+
+    def __init__(self, masks: Sequence[torch.Tensor]):
+        self.masks = list(masks)
+
+    def draw(self, shape, keep: float, device) -> torch.Tensor:
+        if not self.masks:
+            raise RuntimeError(f"no dropout mask left for a draw of {tuple(shape)}")
+        mask = self.masks.pop(0)
+        if tuple(mask.shape) != tuple(shape):
+            raise RuntimeError(f"the next dropout mask is {tuple(mask.shape)}, "
+                               f"a draw of {tuple(shape)} asked for")
+        return mask
+
+
+class RecordedShapes:
+    """A mask source that keeps everything (all-true masks) and records the
+    shape of each draw, in order: what a forward draws, found without
+    drawing (the fan-out's shapes per batch shape)."""
+
+    def __init__(self):
+        self.shapes = []
+
+    def draw(self, shape, keep: float, device) -> torch.Tensor:
+        self.shapes.append(tuple(shape))
+        return torch.ones(tuple(shape), dtype=torch.bool, device=device)
+
+
+def draw_keep(source, shape, keep: float, device) -> torch.Tensor:
+    """The keep flags (bool, `shape`) of one dropout draw: from a
+    ``torch.Generator`` one ``torch.rand`` of f32 uniforms kept below
+    `keep`, on the generator's device `device`; from a mask source (above)
+    what its `draw` gives."""
+    if isinstance(source, torch.Generator):
+        u = torch.rand(tuple(shape), generator=source, dtype=torch.float32,
+                       device=device)
+        return u < keep
+    return source.draw(tuple(shape), keep, device)
+
+
+def apply_keep(x: torch.Tensor, keep_mask: torch.Tensor,
+               rate: float) -> torch.Tensor:
+    """Inverted dropout by a given mask: x / keep where kept, else 0, with
+    keep = 1 − rate (a division, as tf.nn.dropout divides)."""
+    keep = 1.0 - rate
+    return torch.where(keep_mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, generator=None,
+            keep_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Inverted dropout (≡ tf.nn.dropout at train time): keep each element
     with probability 1 − rate and scale it by 1 / (1 − rate).  The mask is
-    drawn from `generator`, which lives on x's device.  No-op when rate is 0
-    or there is no generator (eval)."""
-    if rate <= 0.0 or generator is None:
+    `keep_mask` when given, else drawn from `generator` (a
+    ``torch.Generator`` on x's device, or a mask source above).  No-op when
+    rate is 0 or there is neither (eval)."""
+    if rate <= 0.0 or (generator is None and keep_mask is None):
         return x
-    keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, dtype=torch.float32,
-                   device=x.device)
-    return torch.where(u < keep, x / keep, torch.zeros_like(x))
+    if keep_mask is None:
+        keep_mask = draw_keep(generator, x.shape, 1.0 - rate, x.device)
+    return apply_keep(x, keep_mask, rate)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,

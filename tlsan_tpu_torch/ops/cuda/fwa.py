@@ -22,6 +22,13 @@ launch forward and one K2 launch backward for all R replicas.  A CUDA
 tensor under vmap launches the replica kernels or raises; nothing loops
 over the replicas.
 
+Dropout (train time) is a variant of both kernels: the keep masks of the
+two dense maps' inputs, bool [B, S, H, dh] each (with the replica axis
+[R, B, S, H, dh]), drawn by the dispatcher (ops/feature_attention.py) with
+the same generator calls as the plain version, and keep = 1 − rate.
+`FWAFunction` saves them for K2, and its vmap rule moves their replica
+axis first.  Without masks the kernels run the variant without dropout.
+
 Both kernels run one warp per (batch row, head) unit; `launch_plan` gives
 their geometry (pure Python, so the CPU tests hold it).  They take any
 S >= 1 and heads of up to `MAX_HEAD_WIDTH` features.  K2 sums its weight
@@ -59,6 +66,7 @@ bwd_launches = 0
 
 _F32 = torch.float32
 _I32 = torch.int32
+_BOOL = torch.bool
 # K2's cross-block scratch per device index: (slots f32, tickets i32, all 0)
 _scratch: dict = {}
 
@@ -126,7 +134,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.fwa_fwd_launch.argtypes is None:
         lib.fwa_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_fwd_launch.restype = ctypes.c_int
         lib.fwa_empty_launch.argtypes = [ctypes.c_void_p]
         lib.fwa_empty_launch.restype = ctypes.c_int
@@ -139,17 +148,20 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     if lib.fwa_bwd_launch.argtypes is None:
         lib.fwa_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
+            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_bwd_launch.restype = ctypes.c_int
         lib.fwa_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fwa_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
+def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None,
+                  k1=None, k2=None, keep=1.0):
     """Checks shared by both kernels, one pass over the tensors; returns
     (lead, B, S, D, dh), `lead` () for one replica or (R,) for a replica
-    axis that every tensor leads with."""
+    axis that every tensor leads with.  The dropout masks come both or
+    neither, with 0 < keep <= 1."""
     if x.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, x is on {x.device}")
     if x.dim() not in (3, 4):
@@ -173,6 +185,13 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
             ("w2", w2, _F32, wshape), ("b2", b2, _F32, bshape)]
     if g is not None:
         todo.append(("g", g, _F32, lead + (B, D)))
+    if (k1 is None) != (k2 is None):
+        raise ValueError(f"{fn}: the dropout masks k1 and k2 come together")
+    if k1 is not None:
+        if not 0.0 < keep <= 1.0:
+            raise ValueError(f"{fn}: keep must lie in (0, 1], got {keep}")
+        mshape = lead + (B, S, num_heads, dh)
+        todo += [("k1", k1, _BOOL, mshape), ("k2", k2, _BOOL, mshape)]
     for name, t, dtype, shape in todo:
         if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
                 or not t.is_contiguous()):
@@ -180,17 +199,25 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None):
     return lead, B, S, D, dh
 
 
+def _ptr(t) -> int:
+    """A tensor's address, or null for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                b2: torch.Tensor) -> torch.Tensor:
+                b2: torch.Tensor, k1=None, k2=None,
+                keep: float = 1.0) -> torch.Tensor:
     """K1.  x f32 [B, S, D], lengths i32 [B], w1/w2 f32 [dh, dh], b1/b2 f32
     [dh] (dh = D / num_heads <= 32), all contiguous on one CUDA device →
     out f32 [B, D]; or every tensor with a leading replica axis R (x [R,
-    B, S, D], ..., out [R, B, D]), R replicas in one launch.  Records no
+    B, S, D], ..., out [R, B, D]), R replicas in one launch.  Dropout:
+    `k1` and `k2`, bool [B, S, num_heads, dh] (R first with the replica
+    axis), keep x's and map1's entries, each divided by `keep`.  Records no
     gradient: `FWAFunction` does."""
     global launches
     lead, B, S, D, dh = _check_inputs("fwa_forward", x, lengths, num_heads,
-                                      w1, b1, w2, b2)
+                                      w1, b1, w2, b2, None, k1, k2, keep)
     out = x.new_empty(lead + (B, D))
     if B == 0 or math.prod(lead) == 0:
         return out
@@ -199,7 +226,8 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
         x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
-        num_heads, dh, plan.grid, plan.replicas, plan.threads, plan.smem, stream))
+        num_heads, dh, plan.grid, plan.replicas, plan.threads, plan.smem,
+        _ptr(k1), _ptr(k2), keep, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_fwd launch failed: {lib.fwa_error_string(err).decode()}")
@@ -223,16 +251,18 @@ def _bwd_scratch(x: torch.Tensor, plan: Plan):
 
 def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                 b2: torch.Tensor, g: torch.Tensor):
+                 b2: torch.Tensor, g: torch.Tensor, k1=None, k2=None,
+                 keep: float = 1.0):
     """K2.  The inputs of `fwa_forward` plus g = dL/dout f32 [B, D], all
     contiguous on one CUDA device → (dx [B, S, D], dw1, db1, dw2, db2); or
     every tensor with a leading replica axis R, each replica's gradients
-    its own ([R, B, S, D], [R, dh, dh], ...), in one launch.  The weight
-    gradients are summed without atomics, so two calls on the same inputs
-    agree bit for bit."""
+    its own ([R, B, S, D], [R, dh, dh], ...), in one launch; with the
+    forward's dropout masks and keep, the gradients of the dropped forward.
+    The weight gradients are summed without atomics, so two calls on the
+    same inputs agree bit for bit."""
     global bwd_launches
     lead, B, S, D, dh = _check_inputs("fwa_backward", x, lengths, num_heads,
-                                      w1, b1, w2, b2, g)
+                                      w1, b1, w2, b2, g, k1, k2, keep)
     # the kernel writes every entry; an empty batch gives zero gradients
     new = x.new_empty if B else x.new_zeros
     dx = x.new_empty(lead + (B, S, D))
@@ -249,7 +279,7 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
         dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh,
         plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
-        plan.smem, stream))
+        plan.smem, _ptr(k1), _ptr(k2), keep, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_bwd launch failed: {lib.fwa_bwd_error_string(err).decode()}")
@@ -257,36 +287,46 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     return dx, dw1, db1, dw2, db2
 
 
+def _keep(drop):
+    """(k1, k2, rate) → (k1, k2, keep), keep = 1 − rate as the plain
+    version computes it; nothing stays nothing."""
+    return (*drop[:2], 1.0 - drop[2]) if drop else ()
+
+
 class FWAFunction(torch.autograd.Function):
     """Feature-wise attention with K1 forward and K2 backward.  Like the
-    JAX custom_vjp, it saves only the inputs (x, lengths and the weights)
-    and recomputes the maps in the backward.  Arguments are those of
-    `fwa_forward`, with or without the replica axis; lengths and num_heads
-    get no gradient.  Under ``torch.func.vmap`` its vmap rule applies it
-    to the replica axis."""
+    JAX custom_vjp, it saves only the inputs (x, lengths, the weights and
+    the dropout masks) and recomputes the maps in the backward.  Arguments
+    are those of `fwa_forward`, with or without the replica axis, but the
+    dropout rate in place of keep (x, lengths, num_heads, w1, b1, w2, b2,
+    then k1, k2, rate under dropout); lengths, num_heads and the masks get
+    no gradient.  Under ``torch.func.vmap`` its vmap rule applies it to the
+    replica axis."""
 
     @staticmethod
-    def forward(x, lengths, num_heads, w1, b1, w2, b2):
-        return fwa_forward(x, lengths, num_heads, w1, b1, w2, b2)
+    def forward(x, lengths, num_heads, w1, b1, w2, b2, *drop):
+        # drop: (k1, k2, rate) under dropout, else nothing
+        return fwa_forward(x, lengths, num_heads, w1, b1, w2, b2, *_keep(drop))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, lengths, num_heads, w1, b1, w2, b2 = inputs
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(x, lengths, w1, b1, w2, b2)
+        x, lengths, num_heads, w1, b1, w2, b2, *drop = inputs
+        ctx.num_heads, ctx.rate = num_heads, drop[2:]
+        ctx.save_for_backward(x, lengths, w1, b1, w2, b2, *drop[:2])
 
     @staticmethod
     def backward(ctx, g):
-        x, lengths, w1, b1, w2, b2 = ctx.saved_tensors
+        x, lengths, w1, b1, w2, b2, *masks = ctx.saved_tensors
         # g arrives from `out + u_emb` and the loss, possibly expanded
         dx, dw1, db1, dw2, db2 = fwa_backward(
-            x, lengths, ctx.num_heads, w1, b1, w2, b2, g.contiguous())
-        return dx, None, None, dw1, db1, dw2, db2
+            x, lengths, ctx.num_heads, w1, b1, w2, b2, g.contiguous(),
+            *_keep(masks + list(ctx.rate)))
+        return (dx, None, None, dw1, db1, dw2, db2) + (None,) * (3 if masks else 0)
 
     @staticmethod
-    def vmap(info, in_dims, x, lengths, num_heads, w1, b1, w2, b2):
+    def vmap(info, in_dims, x, lengths, num_heads, w1, b1, w2, b2, *drop):
         R = info.batch_size
-        dims = in_dims[:2] + in_dims[3:]
-        x, lengths, w1, b1, w2, b2 = (
-            replica_first(t, d, R) for t, d in zip((x, lengths, w1, b1, w2, b2), dims))
-        return FWAFunction.apply(x, lengths, num_heads, w1, b1, w2, b2), 0
+        tensors = (x, lengths, w1, b1, w2, b2, *drop[:2])
+        dims = in_dims[:2] + in_dims[3:3 + len(tensors) - 2]
+        x, lengths, *rest = (replica_first(t, d, R) for t, d in zip(tensors, dims))
+        return FWAFunction.apply(x, lengths, num_heads, *rest, *drop[2:]), 0

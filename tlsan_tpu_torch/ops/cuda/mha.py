@@ -21,6 +21,14 @@ heads of up to
 (at D = 64: Tq and Tk up to 256, and past it for Tq); anything else raises
 ValueError naming the limit.
 
+Dropout (train time) is a variant of K3: a keep mask on the attention
+probabilities after the query mask, bool [B, H, Tq, Tk] (with the replica
+axis [R, B, H, Tq, Tk]), drawn by the dispatcher
+(ops/multihead_attention.py) with the same generator call as the plain
+version, and keep = 1 − rate.  `MHAFunction` saves it, and its backward's
+plain recompute applies it.  The launch plan does not change: the kernel
+reads the mask from device memory.
+
 K3 takes a leading replica axis of weights: R parameter sets, each with
 its own rows (queries [R, B, Tq, D], ..., wq [R, D, D], bq [R, D]), in one
 launch whatever R is; the R·B rows share one launch plan.  Under
@@ -77,6 +85,7 @@ launches = 0
 
 _F32 = torch.float32
 _I32 = torch.int32
+_BOOL = torch.bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +178,8 @@ def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.mha_fwd_launch.argtypes is None:
         lib.mha_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         lib.mha_fwd_launch.restype = ctypes.c_int
         lib.mha_fwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
@@ -179,11 +189,12 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(fn: str, queries, keys, q_len, k_len, weights):
+def _check_inputs(fn: str, queries, keys, q_len, k_len, weights, num_heads,
+                  keep_mask=None, keep=1.0):
     """One pass over the tensors: device, dtype, shape, contiguity and the
-    16-byte alignment of the float rows the kernel reads as float4.
-    Returns (lead, B, Tq, Tk, D), `lead` () for one replica or (R,) for a
-    replica axis that every tensor leads with."""
+    16-byte alignment of the float rows the kernel reads as float4, and
+    the dropout mask's.  Returns (lead, B, Tq, Tk, D), `lead` () for one
+    replica or (R,) for a replica axis that every tensor leads with."""
     if queries.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, queries is on {queries.device}")
     if queries.dim() not in (3, 4) or keys.dim() != queries.dim():
@@ -199,6 +210,10 @@ def _check_inputs(fn: str, queries, keys, q_len, k_len, weights):
             ("q_len", q_len, _I32, lead + (B,)), ("k_len", k_len, _I32, lead + (B,))]
     todo += [(name, w, _F32, lead + ((D, D) if name.startswith("w") else (D,)))
              for name, w in zip(WEIGHTS, weights)]
+    if keep_mask is not None:
+        if not 0.0 < keep <= 1.0:
+            raise ValueError(f"{fn}: keep must lie in (0, 1], got {keep}")
+        todo.append(("keep_mask", keep_mask, _BOOL, lead + (B, num_heads, Tq, Tk)))
     for name, t, dtype, shape in todo:
         if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
                 or not t.is_contiguous()):
@@ -210,18 +225,20 @@ def _check_inputs(fn: str, queries, keys, q_len, k_len, weights):
 
 def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
                 k_len: torch.Tensor, num_heads: int, wq, bq, wk, bk, wv, bv,
-                ln_gamma, ln_beta) -> torch.Tensor:
+                ln_gamma, ln_beta, keep_mask=None, keep: float = 1.0) -> torch.Tensor:
     """K3.  queries f32 [B, Tq, D], keys f32 [B, Tk, D] (the same tensor
     for self-attention), q_len and k_len i32 [B], wq/wk/wv f32 [D, D],
     bq/bk/bv/ln_gamma/ln_beta f32 [D], all contiguous on one CUDA device →
     out f32 [B, Tq, D]; or every tensor with a leading replica axis R
     (queries [R, B, Tq, D], ..., wq [R, D, D], out [R, B, Tq, D]), R
-    replicas in one launch of R·B rows.  Records no gradient:
+    replicas in one launch of R·B rows.  Dropout: `keep_mask`, bool [B,
+    num_heads, Tq, Tk] (R first with the replica axis), keeps the attention
+    probabilities it flags, each divided by `keep`.  Records no gradient:
     `MHAFunction` does."""
     global launches
     weights = (wq, bq, wk, bk, wv, bv, ln_gamma, ln_beta)
     lead, B, Tq, Tk, D = _check_inputs("mha_forward", queries, keys, q_len, k_len,
-                                       weights)
+                                       weights, num_heads, keep_mask, keep)
     out = queries.new_empty(lead + (B, Tq, D))
     rows = math.prod(lead) * B  # R·B
     if rows == 0:
@@ -233,7 +250,8 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     err = launch(queries.get_device(), lambda stream: lib.mha_fwd_launch(
         queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
         *(t.data_ptr() for t in weights), out.data_ptr(), Tq, Tk, D, num_heads,
-        plan.dh, plan.cs, plan.group, B, plan.grid, plan.threads, plan.smem, stream))
+        plan.dh, plan.cs, plan.group, B, plan.grid, plan.threads, plan.smem,
+        None if keep_mask is None else keep_mask.data_ptr(), keep, stream))
     if err != 0:
         raise RuntimeError(
             f"mha_fwd launch failed (cluster of {plan.cs}, {plan.smem} bytes of "
@@ -245,21 +263,27 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
 class MHAFunction(torch.autograd.Function):
     """Multi-head attention with K3 forward.  Like the JAX custom_vjp, it
     saves only the inputs and recomputes in the backward, through the
-    plain version under autograd.  Arguments are those of `mha_forward`;
-    q_len, k_len and num_heads get no gradient; with or without the
-    replica axis.  For self-attention (queries is keys) the two gradients
-    are summed by autograd.  Under ``torch.func.vmap`` its vmap rule
-    applies it to the replica axis."""
+    plain version under autograd (with the forward's dropout mask).
+    Arguments are those of `mha_forward`: the eight weights, then, under
+    dropout, the keep mask and the rate (keep = 1 − rate); q_len, k_len,
+    num_heads and the mask get no gradient; with or without the replica
+    axis.  For self-attention (queries is keys) the two gradients are
+    summed by autograd.  Under ``torch.func.vmap`` its vmap rule applies it
+    to the replica axis."""
 
     @staticmethod
-    def forward(queries, keys, q_len, k_len, num_heads, *weights):
-        return mha_forward(queries, keys, q_len, k_len, num_heads, *weights)
+    def forward(queries, keys, q_len, k_len, num_heads, *rest):
+        weights, drop = rest[:len(WEIGHTS)], rest[len(WEIGHTS):]
+        if drop:  # (keep_mask, rate)
+            drop = (drop[0], 1.0 - drop[1])
+        return mha_forward(queries, keys, q_len, k_len, num_heads, *weights, *drop)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        queries, keys, q_len, k_len, num_heads, *weights = inputs
-        ctx.num_heads = num_heads
-        ctx.save_for_backward(queries, keys, q_len, k_len, *weights)
+        queries, keys, q_len, k_len, num_heads, *rest = inputs
+        weights, drop = rest[:len(WEIGHTS)], rest[len(WEIGHTS):]
+        ctx.num_heads, ctx.rate = num_heads, drop[1] if drop else 0.0
+        ctx.save_for_backward(queries, keys, q_len, k_len, *weights, *drop[:1])
 
     @staticmethod
     def backward(ctx, g):
@@ -269,21 +293,24 @@ class MHAFunction(torch.autograd.Function):
         )
 
         def plain(q, k, ql, kl, *ws):
-            return multihead_attention_reference(q, ql, k, kl, ctx.num_heads,
-                                                 dict(zip(WEIGHTS, ws)))[0]
+            mask = ws[len(WEIGHTS)] if len(ws) > len(WEIGHTS) else None
+            return multihead_attention_reference(
+                q, ql, k, kl, ctx.num_heads, dict(zip(WEIGHTS, ws)), ctx.rate,
+                keep_mask=mask)[0]
 
-        queries, keys, q_len, k_len, *weights = ctx.saved_tensors
+        queries, keys, q_len, k_len, *rest = ctx.saved_tensors
+        weights, mask = rest[:len(WEIGHTS)], rest[len(WEIGHTS):]
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True)
                       for t in (queries, keys, *weights)]
             # the replica axis, where there is one, under vmap
             fn = torch.func.vmap(plain) if queries.dim() == 4 else plain
             grads = torch.autograd.grad(
-                fn(leaves[0], leaves[1], q_len, k_len, *leaves[2:]), leaves, g)
-        return (grads[0], grads[1], None, None, None, *grads[2:])
+                fn(leaves[0], leaves[1], q_len, k_len, *leaves[2:], *mask), leaves, g)
+        return (grads[0], grads[1], None, None, None, *grads[2:]) + (None, None) * len(mask)
 
     @staticmethod
-    def vmap(info, in_dims, queries, keys, q_len, k_len, num_heads, *weights):
+    def vmap(info, in_dims, queries, keys, q_len, k_len, num_heads, *rest):
         R = info.batch_size
         # self-attention passes one tensor as queries and keys: the kernel
         # (and its plan) read that from the pointers, so it stays one tensor
@@ -292,7 +319,9 @@ class MHAFunction(torch.autograd.Function):
                 and queries.data_ptr() == keys.data_ptr())
         queries = replica_first(queries, in_dims[0], R)
         keys = queries if same else replica_first(keys, in_dims[1], R)
-        q_len, k_len, *weights = (
-            replica_first(t, d, R) for t, d in zip((q_len, k_len, *weights),
+        tensors = rest[:len(WEIGHTS) + 1]  # the weights and the mask
+        q_len, k_len, *tensors = (
+            replica_first(t, d, R) for t, d in zip((q_len, k_len, *tensors),
                                               in_dims[2:4] + in_dims[5:]))
-        return MHAFunction.apply(queries, keys, q_len, k_len, num_heads, *weights), 0
+        return MHAFunction.apply(queries, keys, q_len, k_len, num_heads, *tensors,
+                                 *rest[len(WEIGHTS) + 1:]), 0

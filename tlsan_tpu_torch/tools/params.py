@@ -57,6 +57,14 @@ def _checked(tree: Dict[str, Any], model: nn.Module,
             for name, arr in flat.items()}
 
 
+def state_from_tree(tree: Dict[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """`model`'s state dict holding the values of the JAX tree `tree` (or
+    flax's state dict of it, lists as maps keyed "0", "1", ...): f32 CPU
+    tensors by parameter name; raises on a missing leaf, an extra one or a
+    wrong shape."""
+    return _checked(tree, model)
+
+
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
                       device) -> nn.Module:
     """A `get_model(cfg.model)` model on `device` holding the values of the

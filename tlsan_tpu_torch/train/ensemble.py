@@ -16,6 +16,8 @@ Semantics per replica r:
     (``init_params(torch.Generator().manual_seed(seed_r))``, on the CPU);
   - its own epoch shuffle stream (``epoch_index(..., seed=seed_r)``);
   - its optimizer slots, and optax's global-norm clip over its own leaves;
+  - its dropout masks from its own generator at seed_r + 1, drawn in the
+    Trainer's order (the JAX fan-out's per-replica key, seed_r + 1);
   - an optional lr_scale_r on the update after the clip and the schedule:
     the exact per-replica learning rate for SGD, whose update is linear in
     lr (the reference protocol is SGD everywhere, TLSAN/train.py:44);
@@ -26,10 +28,15 @@ the replicas share no parameter, so each replica's slice of a ``.grad`` is
 its own gradient.  No checkpoints or metric files: this is the sweep
 harness, not the production Trainer; it returns per-replica curves and
 bests.  It composes with bf16 (``tc.compute_dtype``; K1–K3 run in f32
-between casts, as in the Trainer) and with ``gather_bwd('onehot')``.  It is
-single-device (a mesh raises), and dropout raises: the kernels draw no
-masks (ROADMAP.md item 25), and explicit generators do not run under
-``vmap``.  It runs on CUDA unless the caller passes ``device="cpu"``.
+between casts, as in the Trainer), with ``gather_bwd('onehot')`` and with
+dropout.  Explicit generators do not run under ``vmap``, so each step's
+masks are drawn before it, replica by replica from the replica's
+generator, in the shapes and order its forward draws them (recorded once
+per batch shape by a forward that keeps everything, `_draw_shapes`), and
+go into the vmap as batched inputs that the forward takes in order
+(nn/layers.py `GivenMasks`): replica r sees exactly the masks a Trainer
+at seed_r sees.  It is single-device (a mesh raises).  It runs on CUDA
+unless the caller passes ``device="cpu"``.
 
     python -m tlsan_tpu_torch.train.ensemble --model tlsan \\
         --dataset Digital_Music --data_dir Data --seeds 1 2 3 4 [--device cpu]
@@ -45,6 +52,7 @@ import torch
 
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index
+from tlsan_tpu_torch.nn.layers import GivenMasks, RecordedShapes, draw_keep
 from tlsan_tpu_torch.serve.recommender import resolve_device
 from tlsan_tpu_torch.train.evaluate import device_data, make_replica_auc_fn
 from tlsan_tpu_torch.train.sparse import call_with
@@ -67,11 +75,6 @@ class ReplicaFanout:
             raise ValueError(
                 "per-replica lr_scales are exact only for SGD (linear in "
                 f"lr), not {tc.optimizer}; use a shared LR for other optimizers")
-        if cfg.dropout > 0.0:
-            raise ValueError(
-                f"the fan-out runs no dropout (rate {cfg.dropout}): the CUDA "
-                "kernels draw no masks (ROADMAP.md item 25), and explicit "
-                "torch.Generators do not run under torch.func.vmap")
         self.bf16 = wants_bf16(tc)  # raises on a dtype it does not know
         self.device = resolve_device(device)
         # float32 matrix products in full f32 (TF32 off), as the Trainer
@@ -111,20 +114,57 @@ class ReplicaFanout:
         self._test_data, _ = device_data(test_batches, tc.test_batch_size,
                                          self.device)
         self._auc = make_replica_auc_fn(self.model, self.cate_list)
+        # dropout: each replica's generator (the Trainer's seed rule) and
+        # the shapes a forward draws, by batch shape; a train batch's are
+        # recorded here, so that its forward's launches precede the run
+        self._gens, self._shapes = [], {}
+        if cfg.dropout > 0.0:
+            self._gens = [torch.Generator(device=self.device).manual_seed(s + 1)
+                          for s in self.seeds]
+            B = tc.train_batch_size
+            if self.n_train >= B:
+                self._draw_shapes({k: v[:B] for k, v in self.data.items()})
 
     # ------------------------------------------------------------------
 
+    def _draw_shapes(self, rows: Dict[str, torch.Tensor]) -> List[tuple]:
+        """The shapes, in order, of the dropout draws of a forward on one
+        replica's `rows` ([B, ...] fields): recorded once per batch shape
+        by replica 0's forward with masks that keep everything."""
+        key = tuple((k, tuple(v.shape)) for k, v in sorted(rows.items()))
+        if key not in self._shapes:
+            rec = RecordedShapes()
+            with torch.no_grad():
+                call_with(self.model, "loss",
+                          {n: p[0] for n, p in self.params.items()}, rows,
+                          self.cate_list, rec)
+            self._shapes[key] = rec.shapes
+        return self._shapes[key]
+
+    def _draw_masks(self, batch: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """A step's dropout masks, [R, ...] each in draw order: replica
+        r's drawn from its own generator as its Trainer draws them."""
+        shapes = self._draw_shapes({k: v[0] for k, v in batch.items()})
+        keep = 1.0 - self.cfg.dropout
+        per_replica = [[draw_keep(g, s, keep, self.device) for s in shapes]
+                       for g in self._gens]
+        return [torch.stack(masks) for masks in zip(*per_replica)]
+
     def _replica_losses(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """[R] losses of the replicas, each on its own rows of `batch`
-        ([R, B, ...] fields); under bf16 on cast copies of the parameters
-        and the batch's float fields."""
+        ([R, B, ...] fields), with its own dropout masks; under bf16 on
+        cast copies of the parameters and the batch's float fields."""
 
-        def loss(params, rows):
+        def loss(params, rows, masks=None):
             if self.bf16:
                 params, rows = bf16_cast(params), bf16_cast(rows)
-            return call_with(self.model, "loss", params, rows, self.cate_list)
+            source = None if masks is None else GivenMasks(masks)
+            return call_with(self.model, "loss", params, rows, self.cate_list,
+                             source)
 
-        return torch.func.vmap(loss)(self.params, batch)
+        if not self._gens:
+            return torch.func.vmap(loss)(self.params, batch)
+        return torch.func.vmap(loss)(self.params, batch, self._draw_masks(batch))
 
     def _fan_chunk(self, idx: torch.Tensor) -> torch.Tensor:
         """K optimizer steps of every replica on the [R, K, B] index chunk

@@ -59,6 +59,7 @@ from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index
 from tlsan_tpu_torch.models import base
 from tlsan_tpu_torch.nn.embedding import mesh_context
+from tlsan_tpu_torch.nn.layers import RowShardMasks
 from tlsan_tpu_torch.parallel import api
 from tlsan_tpu_torch.parallel.mesh import (
     all_reduce,
@@ -160,7 +161,7 @@ class Trainer:
         saved = None
         latest = ckpt.latest_checkpoint(tc.model_dir)
         if latest is not None:
-            self.step, _, saved = ckpt.restore(latest, self.model)
+            self.step, _, saved = ckpt.restore(latest, self.model, tc.optimizer)
             if self.is_chief:
                 print(f"restored from {latest} at step {self.step}", flush=True)
         self._sharded = []
@@ -180,10 +181,14 @@ class Trainer:
                 self.model, tc, self.train_data, self.opt, self.mesh,
                 api.vocab_rows(api.counts(cfg)))
 
-        self._dropout_gen = None
+        # dropout's masks: from one generator at seed + 1; a mesh rank
+        # draws the global batch's and keeps its rows (nn/layers.py)
+        self._dropout_gen = self._masks = None
         if cfg.dropout > 0.0:
             self._dropout_gen = torch.Generator(
                 device=self.device).manual_seed(tc.seed + 1)
+            self._masks = (self._dropout_gen if self.mesh is None else
+                           RowShardMasks(self._dropout_gen, tc.dp, self.mesh.d))
         self.evaluator = Evaluator(cfg, self.cate_list, test_batches,
                                    tc.test_batch_size, self.device, self.mesh)
         self.writer = MetricWriter(tc.model_dir) if self.is_chief else _NullWriter()
@@ -228,7 +233,7 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         for p in self.params:
             p.grad = None
-        loss = self._forward("loss", batch, self._dropout_gen)
+        loss = self._forward("loss", batch, self._masks)
         loss.backward()
         self.opt_state = self.opt.step(self.params, self.opt_state,
                                        self.mesh, self._sharded)
@@ -250,7 +255,7 @@ class Trainer:
             gxs = {k: self.train_data[k][idx] for k in self._sparse.keys}
             losses, self.opt_state = self._sparse.chunk(
                 self.model, gxs, xs, self.cate_list, self.opt_state,
-                self._dropout_gen)
+                self._masks)
             return losses
         with mesh_context(self.mesh):
             return torch.stack([
