@@ -148,7 +148,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              and K2 counted exactly for the steps, evaluations and
              summaries; AUC must rise; latest and sidecar written); then
              serve.cli --k 50 --out for every test user from a cache hit,
-             its first 512 users as the CPU Recommender serves them; then
+             its first 512 users as the CPU Recommender serves them, and
+             `python -m tlsan_tpu_torch.bench.http` at its defaults (2,000
+             requests in POSTs of 128) on that model_dir; then
              on a Digital-Music-sized fixture (1,659 users, 1,583 items,
              53 categories, 28,852 reviews) train.cli --model atrank (K3
              exact), --model tlsan --dropout 0.1 and --model atrank
@@ -186,7 +188,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
              chunk; and `python -m tlsan_tpu_torch.train.ensemble` on the
              cli phase's Digital-Music file, 2 seeds, one epoch (one JSON
              line with the JAX fan-out's keys, K1/K2 exact);
-  11. summary per family one line of train examples/s, eval users/s, bulk
+  11. bench   the benchmark entry points (tlsan_tpu_torch/bench/) as
+             subprocesses from the repository's root, at reduced sizes:
+             bench.train on the tracked Digital_Music cache (--steps 400
+             --steps_per_call 200 --baseline_steps 20) in f32 and bf16,
+             exactly 2 K1 and 2 K2 launches a timed step and no plain FWA
+             on the card; bench.kernels --big_batch 2048 (each kernel
+             checked against its plain version before it is timed, 32
+             rows); bench.roofline --steps_per_call 50 (only its full
+             step's time and the idle share of a full chunk, in (0, 1),
+             are read: its stage deltas at this K are within the host's
+             noise); bench.http --reqs 256 on the migration fixture, a
+             check of the path.  Each JSON line's keys, metric name,
+             device (the card's nvidia-smi line) and positive finite
+             values;
+  12. summary per family one line of train examples/s, eval users/s, bulk
              users/s, HTTP p50/p99 and idle shares beside the card's name
              and power limit, and of the fan-out's readings; the whole
              run's wall time; one JSON line of per-kernel numbers (with the
@@ -219,6 +235,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -234,6 +251,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from tlsan_tpu_torch.bench.bounds import (
+    F32_FLOPS_PER_S,
+    HBM_BYTES_PER_S,
+    bound_ms,
+    card_line,
+    device_profile,
+    fwa_bound,
+    fwa_bwd_bound,
+    idle_share,
+    mha_bound,
+)
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data import cli as data_cli
 from tlsan_tpu_torch.data import native
@@ -274,11 +302,6 @@ BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
 MHA_GRAD_TOL = 1e-5  # MHAFunction vs autograd: tests/test_pallas_mha.py:46-47
 SCORE_TOL = 1e-4     # kernel path vs CPU plain path, after a 64-wide product
 HTTP_SCORE_TOL = 1.5e-4  # HTTP scores travel rounded to 4 decimals
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
 # Electronics after preprocessing (SURVEY.md dataset statistics)
 USERS, ITEMS, CATES = 39_991, 22_048, 673
 LS, TS, BATCH, K = 10, 24, 128, 50
@@ -456,9 +479,7 @@ def log(msg: str) -> None:
 
 
 def phase_card() -> str:
-    line = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    line = card_line()
     print(line, flush=True)  # as nvidia-smi gives it, on a line of its own
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -565,56 +586,18 @@ def _cuda_ms(fn, iters: int = 100, warmup: int = 20, repeats: int = 5) -> float:
     return float(np.median(runs))
 
 
-def _profile(fn):
-    """Run fn once under torch.profiler.  Returns (wall ms, {kernel name:
-    (launches, device µs)}) for the kernels (and copies) that ran on the
-    card.  The profiler's own cost inflates the wall time a little."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    # summed from the raw device events: key_averages() builds the whole
-    # host-and-device event tree first, some 30 s for a 70,000-launch chunk
-    kernels = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            count, us = kernels.get(e.name(), (0, 0.0))
-            kernels[e.name()] = (count + 1, us + 1e-3 * e.duration_ns())
-    return wall_ms, kernels
-
-
 def _device_ms(fn, kernel: str, calls: int = 50) -> str:
     """Device ms a call of fn (one launch) in the kernels whose names hold
     `kernel` (every variant of a template), over `calls` calls, from the
     profiler."""
-    _, prof = _profile(lambda: [fn() for _ in range(calls)])
+    _, prof = device_profile(lambda: [fn() for _ in range(calls)])
     us = [us for key, (_, us) in prof.items() if kernel in key]
     return f"{1e-3 * sum(us) / calls:.6f}" if us else "not measured (no device events)"
 
 
-def _bound(nbytes: float, flops: float):
-    """(bytes time, operations time) in ms, the least the H100 could take."""
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOPS_PER_S
-
-
-def _fwa_bound(B: int, S: int, d: int = D, h: int = H):
-    """Each input read once and the output written once over HBM, and
-    4·dh+9 f32 operations per (b, t, d) (two dh-wide maps, mask, max, exp,
-    sum, divide, weighted sum) at the f32 peak."""
-    dh = d // h
-    nbytes = 4 * (B * S * d + B + 2 * dh * dh + 2 * dh + B * d)
-    return _bound(nbytes, B * S * d * (4 * dh + 9))
-
-
 def _summed(main: dict, worst: float) -> dict:
-    bytes_ms, ops_ms = main.pop("bytes_ms"), main.pop("ops_ms")
-    return dict(main, max_abs_err=worst, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    ms, by = bound_ms((main.pop("bytes_ms"), main.pop("ops_ms")))
+    return dict(main, max_abs_err=worst, bound_ms=ms, bound_by=by)
 
 
 def _add(main: dict, kernel_ms, plain_ms, bytes_ms, ops_ms) -> None:
@@ -657,7 +640,7 @@ def phase_kernel(shapes=KERNEL_SHAPES, main_shapes=MAIN_SHAPES) -> dict:
         kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2))
         plain_ms = _cuda_ms(lambda: feature_wise_attention_reference(
             x, lengths, h, w1, b1, w2, b2))
-        bytes_ms, ops_ms = _fwa_bound(B, S, d, h)
+        bytes_ms, ops_ms = fwa_bound(B, S, d, h)
         device_ms = _device_ms(
             lambda: cuda_fwa.fwa_forward(x, lengths, h, w1, b1, w2, b2), "fwa_fwd_kernel")
         log(f"kernel {what}: max_abs_err={err:.3e} "
@@ -668,18 +651,6 @@ def phase_kernel(shapes=KERNEL_SHAPES, main_shapes=MAIN_SHAPES) -> dict:
         if (B, S, d, h) in map(_fwa_shape, main_shapes):
             _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
     return _summed(main, worst)
-
-
-def _fwa_bwd_bound(B: int, S: int, d: int = D, h: int = H):
-    """K2: x, g, lengths and the weights read once, dx and the weight
-    gradients written once, over HBM; and 12·dh+18 f32 operations per
-    (b, t, d), counted from csrc/fwa_bwd.cu (the recomputed forward's
-    4·dh+9, then dm1 and dx at 2·dh each, dW1 and dW2 at 2·dh each, and
-    the softmax backward, mask and bias sums), at the f32 peak."""
-    dh = d // h
-    weights = 2 * dh * dh + 2 * dh
-    nbytes = 4 * (2 * B * S * d + B * d + B + 2 * weights)
-    return _bound(nbytes, B * S * d * (12 * dh + 18))
 
 
 def _max_err(got, want, scale, what: str) -> float:
@@ -741,7 +712,7 @@ def phase_kernel_bwd(shapes=BWD_SHAPES, main_shapes=TRAIN_SHAPES) -> dict:
 
         kernel_ms = _cuda_ms(lambda: cuda_fwa.fwa_backward(*args))
         plain_ms = _cuda_ms(lambda: fwa_backward_reference(*args))
-        bytes_ms, ops_ms = _fwa_bwd_bound(B, S, d, h)
+        bytes_ms, ops_ms = fwa_bwd_bound(B, S, d, h)
         device_ms = _device_ms(lambda: cuda_fwa.fwa_backward(*args), "fwa_bwd_kernel")
         log(f"kernel {what}: max_abs_err={worst:.3e} "
             f"kernel_ms={kernel_ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
@@ -779,9 +750,9 @@ def phase_fwa_scale() -> None:
                        fwa_backward_error_scale(*args, g), f"fwa_bwd B={B} S={S}")
     for name, kernel, fn, (bytes_ms, ops_ms), e in (
             ("fwa_fwd", "fwa_fwd_kernel", lambda: cuda_fwa.fwa_forward(*args),
-             _fwa_bound(B, S), err),
+             fwa_bound(B, S), err),
             ("fwa_bwd", "fwa_bwd_kernel", lambda: cuda_fwa.fwa_backward(*args, g),
-             _fwa_bwd_bound(B, S), bwd_err)):
+             fwa_bwd_bound(B, S), bwd_err)):
         device_ms = _device_ms(fn, kernel)
         bound_ms = max(bytes_ms, ops_ms)
         share = (f"{bound_ms / float(device_ms):.3f}"
@@ -830,18 +801,6 @@ def _mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int,
         else:
             weights[name] = f32(0.1 * rng.normal(size=d))
     return queries, keys, q_len, k_len, weights
-
-
-def _mha_bound(B: int, Tq: int, Tk: int, self_attention: bool, d: int = D):
-    """K3 at width d: queries (and keys, when they differ), the lengths and
-    the weights read once and the output written once over HBM; and the
-    multiply-adds of the three projections, (Tq + 2·Tk)·d² a row, and of
-    the scores and the weighted sum, 2·Tq·Tk·d a row (for any number of
-    heads), at two operations each, at the f32 peak (TF32 is off)."""
-    inputs = B * Tq * d + (0 if self_attention else B * Tk * d)
-    nbytes = 4 * (inputs + 2 * B + 3 * d * d + 5 * d + B * Tq * d)
-    flops = 2 * B * ((Tq + 2 * Tk) * d * d + 2 * Tq * Tk * d)
-    return _bound(nbytes, flops)
 
 
 def _refused_cluster_raises() -> None:
@@ -937,7 +896,7 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
             kernel_ms = _cuda_ms(lambda: cuda_mha.mha_forward(*args))
             plain_ms = _cuda_ms(lambda: multihead_attention_reference(
                 q, ql, k, kl, h, w))
-            bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention, d)
+            bytes_ms, ops_ms = mha_bound(B, Tq, Tk, self_attention, d)
             device_ms = _device_ms(lambda: cuda_mha.mha_forward(*args), "mha_fwd_kernel")
             log(f"kernel {what}: cluster {plan.cs} group {plan.group} smem "
                 f"{plan.smem}: max_abs_err={err:.3e} kernel_ms={kernel_ms:.6f} "
@@ -1039,7 +998,7 @@ def phase_dropout() -> dict:
                 if not err <= KERNEL_TOL:
                     raise AssertionError(f"{what}: the dispatcher is {err:.3e} "
                                          "from the plain version on the same draws")
-                bytes_ms, ops_ms = _fwa_bound(B, S)
+                bytes_ms, ops_ms = fwa_bound(B, S)
                 ops_ms *= (4 * (D // H) + 11) / (4 * (D // H) + 9)  # x_in, m1_in
             else:
                 run = lambda: cuda_fwa.fwa_backward(*fwd, g, *masks, keep)  # noqa: E731
@@ -1064,7 +1023,7 @@ def phase_dropout() -> dict:
                                                  *masks, DROPOUT)
                 err = max(err, _max_err(torch.autograd.grad(out, leaves, g), auto, scale,
                                         what + " FWAFunction vs autograd"))
-                bytes_ms, ops_ms = _fwa_bwd_bound(B, S)
+                bytes_ms, ops_ms = fwa_bwd_bound(B, S)
                 ops_ms *= (12 * (D // H) + 23) / (12 * (D // H) + 18)
             bytes_ms += 1e3 * 2 * B * S * D / HBM_BYTES_PER_S  # the masks' bytes
             worst = max(worst, err)
@@ -1131,7 +1090,7 @@ def phase_dropout() -> dict:
                 raise AssertionError(f"{what}: MHAFunction gradient differs from "
                                      f"autograd by {float((a - b).abs().max()):.3e}")
         worst = max(worst, err)
-        bytes_ms, ops_ms = _mha_bound(B, Tq, Tk, self_attention)
+        bytes_ms, ops_ms = mha_bound(B, Tq, Tk, self_attention)
         bytes_ms += 1e3 * B * H * Tq * Tk / HBM_BYTES_PER_S  # the mask's bytes
         ops_ms += 1e3 * B * H * Tq * Tk / F32_FLOPS_PER_S  # its select
         kernel_ms, nodrop_ms = _cuda_ms(run), _cuda_ms(nodrop)
@@ -1460,8 +1419,9 @@ def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> float:
     """Logs the profiled call's device time by kernel; returns its idle
     share."""
     busy_ms = 1e-3 * sum(us for _, us in prof.values())
+    idle = idle_share(wall_ms, prof)
     log(f"{tag}: profiled {what}: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        f"{busy_ms:.3f} ms, idle share {idle:.3f}")
     for key, (cnt, us) in sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  {1e-3 * us:9.3f} ms {cnt:5d}x  {key[:110]}")
     # the port's kernels, every template variant summed, in or out of the top
@@ -1470,7 +1430,7 @@ def _log_profile(tag: str, what: str, wall_ms: float, prof: dict) -> float:
         if hits:
             log(f"  {kernel}: {1e-3 * sum(us for _, us in hits):.3f} ms in "
                 f"{sum(cnt for cnt, _ in hits)} launches")
-    return 1 - busy_ms / wall_ms
+    return idle
 
 
 def phase_path(tmp: str, fam: Family) -> dict:
@@ -1529,7 +1489,7 @@ def phase_path(tmp: str, fam: Family) -> dict:
             calls += 1
         window_s = time.perf_counter() - t0
         n = expect_launches(n, batches(calls * n_batches), "bulk recommend window")
-        wall_ms, prof = _profile(lambda: rec.recommend(bulk))
+        wall_ms, prof = device_profile(lambda: rec.recommend(bulk))
         expect_launches(n, batches(n_batches), "profiled bulk recommend")
         launches = launch_counts()  # the serving path ends here
     finally:
@@ -1636,7 +1596,7 @@ def phase_train(tmp: str, fam: Family) -> dict:
     torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
     n = expect_launches(n, work(steps=(done + 1) * fam.steps_per_call), "train window")
-    wall_ms, prof = _profile(lambda: trainer._train_chunk(chunks[0]))
+    wall_ms, prof = device_profile(lambda: trainer._train_chunk(chunks[0]))
     n = expect_launches(n, work(steps=fam.steps_per_call), "profiled chunk")
 
     # resume: a second Trainer on the same model_dir
@@ -1788,7 +1748,7 @@ def phase_ext(tmp: str, card: str) -> list:
             tr = sp[0]
             idx = torch.from_numpy(tr._epoch_index(1)[0][:EXT_PROFILE_STEPS]).cuda()
             n = launch_counts()
-            wall_ms, prof = _profile(lambda: tr._train_chunk(idx))
+            wall_ms, prof = device_profile(lambda: tr._train_chunk(idx))
             expect_launches(n, _times(TLSAN_FAMILY.per_step, EXT_PROFILE_STEPS),
                             "ext profiled sparse chunk")
             runs.append(_times(TLSAN_FAMILY.per_step, EXT_PROFILE_STEPS))
@@ -2439,6 +2399,11 @@ def phase_cli(tmp: str, card: str) -> list:
         f"prepare warm (cache hit) {metric['prepare_s']:.3f} s; the first "
         f"{CLI_CPU_CHECK_USERS} users as the CPU serves them (scores to "
         f"{SCORE_TOL}, as written to 4 decimals)")
+    # the HTTP benchmark at its defaults on this model, as a user runs it
+    # (a subprocess: its launches are not this process's)
+    line = json.loads(_bench("http", "--model_dir", model_dir, "--dataset",
+                             "Electronics", "--data_dir", data_dir)[-1])
+    check_http(line, card, ITEMS)
 
     # ATRank and the mesh on a Digital-Music-sized fixture
     data_dir = cli_data(tmp, "Digital_Music", card)
@@ -2898,8 +2863,8 @@ def phase_fanout_kernels() -> dict:
                     "fwa_bwd_kernel", lambda: cuda_fwa.fwa_backward(*args, g),
                     lambda: cuda_fwa.fwa_backward(*slices[0], g[0]),
                     lambda: [cuda_fwa.fwa_backward(*a, g[r]) for r, a in enumerate(slices)])
-                bf = [R * v for v in _fwa_bound(B, S, d, h)]
-                bb = [R * v for v in _fwa_bwd_bound(B, S, d, h)]
+                bf = [R * v for v in fwa_bound(B, S, d, h)]
+                bb = [R * v for v in fwa_bwd_bound(B, S, d, h)]
                 _add_replica(main_f, times_f, bf)
                 _add_replica(main_b, times_b, bb)
                 msg += (f"; K1 {times_f} bound {max(bf):.6f} ms; K2 {times_b} bound "
@@ -2973,7 +2938,7 @@ def phase_fanout_kernels() -> dict:
                         "mha_fwd_kernel", lambda: cuda_mha.mha_forward(*args),
                         lambda: cuda_mha.mha_forward(*slices[0]),
                         lambda: [cuda_mha.mha_forward(*a) for a in slices])
-                    bounds = [R * v for v in _mha_bound(B, Tq, Tk, self_attention, d)]
+                    bounds = [R * v for v in mha_bound(B, Tq, Tk, self_attention, d)]
                     _add_replica(main, times, bounds)
                     msg += f"; {times} bound {max(bounds):.6f} ms"
                 log(msg)
@@ -3098,7 +3063,7 @@ def _fanout_family(tmp: str, fam: Family, data, card: str) -> dict:
         torch.cuda.synchronize()
         rates[label] = R * K * TRAIN_B / (time.perf_counter() - t0)
     n = expect_launches(n, _times(fam.per_step, 6 * K), f"{tag}: timed chunks")
-    wall_ms, prof = _profile(lambda: fan._fan_chunk(chunks[2 % len(chunks)]))
+    wall_ms, prof = device_profile(lambda: fan._fan_chunk(chunks[2 % len(chunks)]))
     n = expect_launches(n, _times(fam.per_step, K), f"{tag}: profiled chunk")
     launches = launch_counts()  # the fan-out path ends here
     tr.close()
@@ -3215,6 +3180,119 @@ def phase_fanout(tmp: str, card: str):
     log(f"fanout: in {time.perf_counter() - t0:.1f} s")
     return rows, paths, readings
 
+# ------------------------------------------------------------------- bench
+
+# the benchmark entry points (tlsan_tpu_torch/bench/) at reduced sizes, run
+# from the repository's root on its tracked Digital_Music cache
+BENCH_TRAIN = ["--steps", "400", "--steps_per_call", "200", "--baseline_steps", "20"]
+BENCH_TIMEOUT_S = 300
+
+
+def _bench(module: str, *argv: str) -> list:
+    """`python -m tlsan_tpu_torch.bench.<module> argv` from the repository's
+    root; its stdout lines (it must exit 0 within BENCH_TIMEOUT_S)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"tlsan_tpu_torch.bench.{module}", *argv],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"bench.{module} {' '.join(argv)} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    for line in proc.stderr.splitlines():
+        log(f"  bench.{module}: {line}")
+    log(f"bench.{module} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s")
+    return proc.stdout.splitlines()
+
+
+def _positive(what: str, line: dict, keys) -> None:
+    for key in keys:
+        v = line[key]
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"{what}: {key} = {v!r}, not a positive number")
+
+
+def _keys(what: str, line: dict, want) -> None:
+    if set(line) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(line)}, expected {sorted(want)}")
+
+
+def phase_bench(card: str) -> None:
+    """The four entry points as a user runs them: bench.train in f32 and
+    bf16 (K1 2 and K2 2 a timed step, the plain version in none),
+    bench.kernels (every row checked against its plain version before its
+    timing), bench.roofline and bench.http on the migration fixture."""
+    steps = 3 * int(BENCH_TRAIN[1])
+    for dtype, suffix in (("f32", ""), ("bf16", "_bf16")):
+        what = f"bench.train {dtype}"
+        line = json.loads(_bench("train", *BENCH_TRAIN, "--compute_dtype", dtype)[-1])
+        _keys(what, line, ("metric", "value", "unit", "vs_baseline",
+                           "vs_reference_measured", "device", "launches"))
+        if line["metric"] != f"tlsan_train_examples_per_sec_Digital_Music_b32{suffix}":
+            raise AssertionError(f"{what}: metric {line['metric']}")
+        _positive(what, line, ("value", "vs_baseline"))
+        if (line["unit"], line["vs_reference_measured"], line["device"]) != (
+                "examples/s", None, card):
+            raise AssertionError(f"{what}: {line}")
+        want = {"fwa_fwd": 2 * steps, "fwa_bwd": 2 * steps, "fwa_plain": 0,
+                "steps": steps}
+        if line["launches"] != want:
+            raise AssertionError(f"{what}: launches {line['launches']}, expected {want}")
+        log(f"{what} ({card}): {line['value']} examples/s, vs_baseline "
+            f"{line['vs_baseline']}, launches {line['launches']}")
+
+    out = _bench("kernels", "--big_batch", "2048")
+    rows = [json.loads(r) for r in out if r.startswith("{")]
+    tags = [f"{op}.{d}.{v}" for op in ("fwa", "mha") for d in ("fwd", "bwd")
+            for v in ("cuda", "plain")]
+    if sorted({r["kernel"] for r in rows}) != sorted(tags) or len(rows) != 4 * 8:
+        raise AssertionError(f"bench.kernels: rows {[r['kernel'] for r in rows]}")
+    for r in rows:
+        what = f"bench.kernels {r['kernel']} B={r['B']}"
+        _positive(what, r, ("us", "raw_us", "gbps", "sol_frac", "bound_us"))
+        if r["device"] != card or r["bound_by"] not in ("bytes", "operations"):
+            raise AssertionError(f"{what}: {r}")
+    for r in out[out.index("") + 1:]:
+        log(f"  bench.kernels: {r}")
+
+    # at this K the stage deltas are within the host's noise: only the
+    # full step and the idle share are read
+    out = _bench("roofline", "--steps_per_call", "50")
+    line = json.loads(out[-1])
+    what = "bench.roofline"
+    _keys(what, line, ("metric", "full_us_per_step", "gather_us", "fwd_delta_us",
+                       "bwd_delta_us", "opt_delta_us", "sparse_us_per_step",
+                       "dense_bytes_mb", "minimal_bytes_mb", "full_pct_hbm_sol",
+                       "examples_per_s", "idle_share", "device"))
+    _positive(what, line, ("full_us_per_step", "idle_share"))
+    if (line["metric"], line["device"]) != ("roofline_Digital_Music_b32", card) \
+            or not line["idle_share"] < 1:
+        raise AssertionError(f"{what}: {line}")
+    log(f"{what} ({card}): full step {line['full_us_per_step']:.1f} µs, idle "
+        f"share {line['idle_share']:.3f}")
+
+    # the migration fixture's 30 items: a check of the path, not a size
+    check_http(json.loads(_bench(
+        "http", "--model_dir", str(MIGRATE / "model_dir"), "--dataset", "Tiny",
+        "--data_dir", str(MIGRATE / "Data"), "--reqs", "256")[-1]), card, 30)
+
+
+def check_http(line: dict, card: str, catalog: int) -> None:
+    """bench.http's last line: its keys, positive values, the defaults'
+    batch and k, the catalog of the model served and the card."""
+    what = "bench.http"
+    _keys(what, line, ("metric", "value", "unit", "p50_single_request_ms",
+                       "batch", "k", "catalog", "device"))
+    _positive(what, line, ("value", "p50_single_request_ms"))
+    if (line["metric"], line["unit"], line["batch"], line["k"], line["catalog"],
+            line["device"]) != ("serve_http_requests_per_sec", "requests/s",
+                                128, 10, catalog, card):
+        raise AssertionError(f"{what}: {line}")
+    log(f"{what} ({card}): {line['value']} requests/s, p50 "
+        f"{line['p50_single_request_ms']} ms, catalog {catalog}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3252,6 +3330,9 @@ def main() -> int:
         runs.extend(phase_cli(tmp, card))
         # the fan-out's command line reads the cli phase's Digital-Music file
         replica_rows, fanout_paths, fanout = phase_fanout(tmp, card)
+    t0 = time.perf_counter()
+    phase_bench(card)
+    log(f"bench: in {time.perf_counter() - t0:.1f} s")
     for name, n in numbers.items():
         log(f"family {name} ({card}): train {n['examples_per_s']:.1f} examples/s, "
             f"eval {n['eval_users_per_s']:.1f} users/s, bulk {n['users_per_s']:.1f} "

@@ -54,5 +54,7 @@ def test_port_imports_no_jax_pandas_or_reference_package():
                  "parallel.topk", "parallel.programs", "data.builders",
                  "data.native", "data.cache", "data.cli", "train.cli",
                  "serve.cli", "tools.snap_fixture", "train.ensemble",
-                 "train.msgpack", "tools.tf_import", "tools.tf_export"):
+                 "train.msgpack", "tools.tf_import", "tools.tf_export",
+                 "bench.data", "bench.bounds", "bench.train", "bench.kernels",
+                 "bench.roofline", "bench.http"):
         assert f"tlsan_tpu_torch.{name}" in report["imported"]
