@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card    the GPU's name and power limit, as nvidia-smi gives them;
   2. build   every CUDA kernel from the sources in tlsan_tpu_torch/csrc/,
-             one nvcc per source, all started together;
+             one nvcc per source, all started together (K3's and K3b's
+             dh = 8 variants without dropout must not spill);
   3. kernel  each kernel against its plain PyTorch version on the card
              (TF32 off), with lengths 0, 1 and the full length: K1
              (fwa_fwd) at the serving shapes B=128, S=10 and S=25, and
@@ -26,14 +27,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              MHAFunction's gradients against autograd of the plain version,
              also at the edges of its cluster-per-row mapping (B = 1 and
              200, heads of 16 and 32 features, T = 129 and 256, readouts
-             over 256 keys); a cluster the card refuses must raise; times
-             of each (device time from the profiler, per-call time from
-             CUDA events), and the card's bound; the build's report must
-             show no spill in K3's dh = 8 variant without dropout (the
-             dropout variant's report is logged);
+             over 256 keys); a cluster the card refuses must raise; K3b
+             (mha_bwd) at every one of those shapes against the plain
+             backward (multihead_attention_backward_reference), with and
+             without a dropout mask, twice for bitwise repeatability, and
+             MHAFunction's gradients (K3, then K3b) against autograd, all to
+             MHA_GRAD_TOL of each entry's terms' magnitudes; times of each (device time from the profiler,
+             per-call time from CUDA events; K3b's at the train step's B=32),
+             and the card's bound;
      dropout K1 and K2 at the train step's shapes (B=32, S=10 and 25)
-             and K3 at B=32, (96, 96) self-attention and (1, 96) readout,
-             with keep masks at rate 0.1 drawn on the card, against their
+             and K3 and K3b at B=32, (96, 96) self-attention and (1, 96)
+             readout, with keep masks at rate 0.1 drawn on the card, against their
              plain versions given the same masks (KERNEL_TOL; K2 to its
              error scale; FWAFunction and MHAFunction gradients against
              autograd), the dispatchers against the plain versions drawing
@@ -63,8 +67,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              every 100 steps, a save gate of 0 and one epoch.  Launches a
              train step, an eval batch (AUC and top-k) and a summary are
              counted exactly (TLSAN: K1 2 / 4 / 2 and K2 2 a step; ATRank:
-             K3 2 / 5 / 2 a block, its backward recomputing the plain
-             version); the loss must fall and the AUC end above 0.5 and the
+             K3 2 / 5 / 2 a block and K3b 2 a block a step, none in
+             evaluation or serving); the loss must fall and the AUC end above 0.5 and the
              initial one; a second Trainer must restore the step and
              schedule count and evaluate bit for bit as the last save did;
              20 steps from the same start must agree with the CPU plain
@@ -85,7 +89,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              for SGD at batch 32, Adam at batch 256 stays dense), with 100
              dense and 100 sparse steps there in f32 and in bf16.  K1/K2/K3
              counted exactly in every run; examples/s of each logged;
-  7. local   K1, K2 and K3 against their plain versions at the per-rank
+  7. local   K1, K2, K3 and K3b against their plain versions at the per-rank
              shapes of a dp=2 mesh (B=64 a request batch, B=16 a train
              step), with times and bounds: K4, the kernels per rank;
   8. mesh    every family on ONE dp=2 × mp=2 world of four ranks (a
@@ -143,7 +147,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
              Electronics counts (39,991 users, 22,048 items, 673
              categories, 561,100 reviews; filtered rows and an asin
              without meta on top); train.cli --model tlsan for one epoch
-             at the reference widths from a cold cache (the native builder
+             at the reference widths and batch 128 from a cold cache (the native builder
              must run; chunks of 500, evaluations every 1,000 steps; K1
              and K2 counted exactly for the steps, evaluations and
              summaries; AUC must rise; latest and sidecar written); then
@@ -163,17 +167,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
              prepare with the native builder byte for byte as the numpy
              builders give it.  One line a stage with its seconds;
   10. fanout  the replica fan-out (train/ensemble.py), R replicas in one
-             launch of each kernel: K1, K2 and K3 with a replica axis of
+             launch of each kernel: K1, K2, K3 and K3b with a replica axis of
              weights at R = 1, 3 and 8 (the train step's B=32, the AUC
              pass's B=128, B=37 and edges of their mappings) against their
              plain versions on each replica (KERNEL_TOL; K2 to its error
-             scale) and against single launches on each replica's slice,
-             bit for bit (K3 where the plan's cluster size is the same for
-             R·B rows as for B, else within KERNEL_TOL), bitwise
+             scale; K3b to MHA_GRAD_TOL) and against single launches on each
+             replica's slice, bit for bit (K3 where the plan's cluster size
+             is the same for R·B rows as for B, else within KERNEL_TOL),
+             bitwise
              repeatable, with per-call and device times of one replica
              launch, one single launch and R of them, and the bound at R;
-             FWAFunction and MHAFunction under torch.func.vmap (one launch,
-             gradients against autograd of the plain version under vmap).
+             FWAFunction and MHAFunction under torch.func.vmap (one launch
+             each way, gradients against autograd of the plain version under
+             vmap).
              Then TLSAN, ATRank and LSPM fan-outs of 8 seeds at the
              Electronics catalog on the train phase's planted rows: each
              replica's 20 steps against a Trainer at its seed
@@ -181,8 +187,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              evaluator on the same weights (within one test user), TLSAN
              lr_scales [1, 2] against Trainers at lr and 2·lr and a bf16
              fan-out of 2 seeds against bf16 Trainers, launches
-             exact (TLSAN K1 2 and K2 2 a step, ATRank K3 2 a block a
-             step, LSPM none, whatever R is; an AUC batch K1 2 or K3 3),
+             exact (TLSAN K1 2 and K2 2 a step, ATRank K3 2 and K3b 2 a
+             block a step, LSPM none, whatever R is; an AUC batch K1 2 or
+             K3 3),
              replica-examples/s of a 100-step chunk at R = 1 and R = 8
              beside the Trainer's, the idle share of one profiled R = 8
              chunk; and `python -m tlsan_tpu_torch.train.ensemble` on the
@@ -261,6 +268,7 @@ from tlsan_tpu_torch.bench.bounds import (
     fwa_bwd_bound,
     idle_share,
     mha_bound,
+    mha_bwd_bound,
 )
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data import cli as data_cli
@@ -278,7 +286,11 @@ from tlsan_tpu_torch.ops.feature_attention import (
     fwa_backward_error_scale,
     fwa_backward_reference,
 )
-from tlsan_tpu_torch.ops.multihead_attention import multihead_attention_reference
+from tlsan_tpu_torch.ops.multihead_attention import (
+    multihead_attention_backward_error_scale,
+    multihead_attention_backward_reference,
+    multihead_attention_reference,
+)
 from tlsan_tpu_torch.parallel import programs
 from tlsan_tpu_torch.parallel.multihost import run_local
 from tlsan_tpu_torch.serve import cli as serve_cli
@@ -299,7 +311,13 @@ KERNEL_TOL = 1e-5    # f32 parity, the bar of tests/test_pallas_{fwa,mha}.py
 # test (tests/test_pallas_fwa.py:58-61), rtol taken of the magnitude of the
 # terms each entry sums, since the sums run in another order (_max_err)
 BWD_RTOL, BWD_ATOL = 1e-5, 1e-6
-MHA_GRAD_TOL = 1e-5  # MHAFunction vs autograd: tests/test_pallas_mha.py:46-47
+# K3b against the plain backward and MHAFunction against autograd: the bar
+# of tests/test_pallas_mha.py:46-47, atol and rtol, the rtol taken of the
+# magnitude of the terms each entry sums (_mha_grad_err), as K2's is: an
+# f32 weight gradient of K3b, of the plain backward and of autograd each
+# miss the float64 gradient by a few ε of that magnitude, which a bar
+# relative to the value (allclose) does not allow where the terms cancel
+MHA_GRAD_TOL = 1e-5
 SCORE_TOL = 1e-4     # kernel path vs CPU plain path, after a 64-wide product
 HTTP_SCORE_TOL = 1.5e-4  # HTTP scores travel rounded to 4 decimals
 # Electronics after preprocessing (SURVEY.md dataset statistics)
@@ -399,6 +417,9 @@ LOCAL_MHA_TRAIN = [(MESH_TRAIN_B, T_ATRANK, T_ATRANK), (MESH_TRAIN_B, 1, T_ATRAN
 CLI_FIXTURES = {"Electronics": (USERS, ITEMS, CATES, 561_100),
                 "Digital_Music": (1_659, 1_583, 53, 28_852)}
 CLI_CPU_CHECK_USERS = 512
+# the Electronics epoch at batch 128: 2,375 steps where batch 32 took 9,500
+# (70-101 s of the run), still 500 a chunk and three evaluations
+CLI_ELECTRONICS_BATCH = 128
 CLI_MESH_EVAL_FREQ = 200
 CLI_MESH_TOL = 1e-4
 CLI_FAMILIES = ("tlsan", "atrank", "shan", "csan", "lspm", "paca", "cnn",
@@ -457,9 +478,13 @@ KERNELS = [{"name": "fwa_fwd", "route": "cuda",
             "replaces": "tlsan_tpu/ops/pallas/fwa.py:125"},
            {"name": "mha_fwd", "route": "cuda",
             "source": "tlsan_tpu_torch/csrc/mha_fwd.cu",
-            "replaces": "tlsan_tpu/ops/pallas/mha.py:47"}]
-# K4 has no source of its own: each rank runs K1/K2 (TLSAN) or K3 (ATRank)
-# on its rows; its numbers are those at the per-rank request-batch shapes
+            "replaces": "tlsan_tpu/ops/pallas/mha.py:47"},
+           {"name": "mha_bwd", "route": "cuda",
+            "source": "tlsan_tpu_torch/csrc/mha_bwd.cu",
+            "replaces": "tlsan_tpu/ops/pallas/mha.py:153"}]
+# K4 has no source of its own: each rank runs K1/K2 (TLSAN) or K3/K3b
+# (ATRank) on its rows; its numbers are those at the per-rank request-batch
+# shapes
 K4 = [{"name": "fwa_per_rank", "route": "cuda",
        "source": "tlsan_tpu_torch/csrc/fwa_fwd.cu",
        "replaces": "tlsan_tpu/ops/pallas/sharded.py:22",
@@ -467,7 +492,7 @@ K4 = [{"name": "fwa_per_rank", "route": "cuda",
       {"name": "mha_per_rank", "route": "cuda",
        "source": "tlsan_tpu_torch/csrc/mha_fwd.cu",
        "replaces": "tlsan_tpu/ops/pallas/sharded.py:37",
-       "kernels": ("mha_fwd",)}]
+       "kernels": ("mha_fwd", "mha_bwd")}]
 
 
 _T0 = time.perf_counter()
@@ -487,18 +512,21 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
-    """Build every kernel; K3's dh = 8 variant without dropout must not
-    spill."""
+    """Build every kernel; K3's and K3b's dh = 8 variants without dropout
+    must not spill."""
     t0 = time.perf_counter()
-    reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE])
+    reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE,
+                           cuda_mha.BWD_SOURCE])
     log(f"build: {sorted(reports) or 'all cached'} in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    if cuda_mha.SOURCE in reports:
-        lines = reports[cuda_mha.SOURCE].splitlines()
+    for name in (cuda_mha.SOURCE, cuda_mha.BWD_SOURCE):
+        if name not in reports:
+            continue
+        lines = reports[name].splitlines()
 
         def props(variant):
             return [lines[i + 1].strip() for i, line in enumerate(lines[:-1])
@@ -506,23 +534,22 @@ def phase_build() -> None:
 
         # the variant without dropout must not spill; the dropout variant's
         # report is logged (PERF.md: a few bytes, a speed matter)
-        plain = props("mha_fwd_kernelILi8ELb0E")
+        plain = props(f"{name}_kernelILi8ELb0E")
         if not plain or any("0 bytes spill stores, 0 bytes spill loads" not in p
                             for p in plain):
-            raise AssertionError(f"mha_fwd's dh = 8 variant spills: {plain}")
-        log(f"build: mha_fwd's dh = 8 dropout variant: {props('mha_fwd_kernelILi8ELb1E')}")
+            raise AssertionError(f"{name}'s dh = 8 variant spills: {plain}")
+        log(f"build: {name}'s dh = 8 dropout variant: {props(f'{name}_kernelILi8ELb1E')}")
 
 
 # ------------------------------------------------------------ launch counts
 
 
 def reset_launches() -> None:
-    cuda_fwa.launches = cuda_fwa.bwd_launches = cuda_mha.launches = 0
+    programs.reset_launches()
 
 
 def launch_counts() -> dict:
-    return {"fwa_fwd": cuda_fwa.launches, "fwa_bwd": cuda_fwa.bwd_launches,
-            "mha_fwd": cuda_mha.launches}
+    return programs.launch_counts()
 
 
 def expect_launches(before: dict, want: dict, what: str) -> dict:
@@ -839,16 +866,78 @@ def _active_clusters_match() -> None:
     log(f"kernel mha_fwd: active clusters as launch_plan assumes: {cuda_mha.ACTIVE_CLUSTERS}")
 
 
-def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
-    """K3 against its plain version, itself, and MHAFunction's gradients
-    against autograd, at every shape, self- and cross-attention; a refused
-    cluster launch must raise.  The returned times are per request batch:
-    the sum over the two main-path launches (self-attention and readout);
-    the other shapes are logged."""
+def _mha_grad_err(got, want, scale, what: str) -> float:
+    """Max abs error over gradient tuples (K3b's ten, or autograd's leaves);
+    raises where an entry is off by more than MHA_GRAD_TOL · (1 + the Σ of
+    its terms' magnitudes), multihead_attention_backward_error_scale."""
+    worst = 0.0
+    for i, (a, b, sc) in enumerate(zip(got, want, scale)):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: non-finite gradient {i}")
+        err = (a - b).abs()
+        if not bool((err <= MHA_GRAD_TOL * (1.0 + sc)).all()):
+            raise AssertionError(
+                f"{what}: gradient {i} off by {float(err.max()):.3e}, beyond "
+                f"{MHA_GRAD_TOL} · (1 + its terms' magnitudes)")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _mha_scale(q, ql, k, kl, h, w, g, self_attention: bool, rate=0.0, mask=None,
+               leaves: bool = False):
+    """K3b's error scales (multihead_attention_backward_error_scale); with
+    `leaves`, as autograd returns the leaves (queries[, keys], weights...):
+    self-attention's queries and keys summed."""
+    sc = multihead_attention_backward_error_scale(q, ql, k, kl, h, w, g, rate, mask)
+    if leaves and self_attention:
+        return (sc[0] + sc[1], *sc[2:])
+    return sc
+
+
+def _backward_launches(q, k, ql, kl, h, w, g, self_attention: bool) -> str:
+    """The device launches (kernels and copies, from the profiler) of one
+    MHAFunction backward, and of the route it replaced: the plain forward
+    recomputed and its autograd backward."""
+    counts = []
+    for fn in (cuda_mha.MHAFunction.apply, None):
+        x = q.clone().requires_grad_(True)
+        y = x if self_attention else k.clone().requires_grad_(True)
+        ws = [w[n].clone().requires_grad_(True) for n in cuda_mha.WEIGHTS]
+        leaves = [x, *ws] if self_attention else [x, y, *ws]
+
+        def plain():
+            return multihead_attention_reference(x, ql, y, kl, h,
+                                                 dict(zip(cuda_mha.WEIGHTS, ws)))[0]
+
+        if fn is None:  # the recompute runs inside the profiled backward
+            def work():
+                return torch.autograd.grad(plain(), leaves, g)
+        else:
+            out = fn(x, y, ql, kl, h, *ws)
+
+            def work():
+                return torch.autograd.grad(out, leaves, g)
+        _, prof = device_profile(work)
+        counts.append(sum(n for n, _ in prof.values()))
+    return (f"MHAFunction's backward {counts[0]} device launches (K3b and autograd's "
+            f"own), the plain recompute and its autograd {counts[1]}")
+
+
+def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
+                     bwd_main_shapes=MHA_TRAIN) -> tuple:
+    """K3 against its plain version and itself; K3b against the plain
+    backward, with and without a dropout mask, and itself; MHAFunction's
+    gradients (K3, then K3b) against autograd, at every shape, self- and
+    cross-attention; a refused cluster launch must raise.  Returns K3's
+    row and K3b's: K3's times per request batch (the sum over the two
+    main-path launches: self-attention and readout), K3b's per train step
+    (B = 32); the other shapes are logged, K3b's untimed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
+    worst_b, main_b = 0.0, {}
     mains = [_mha_shape(m) for m in main_shapes]
+    bwd_mains = [_mha_shape(m) for m in bwd_main_shapes]
     _active_clusters_match()
     for i, shape in enumerate(shapes):
         B, Tq, Tk, d, h = _mha_shape(shape)
@@ -872,9 +961,28 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
             if not err <= KERNEL_TOL:
                 raise AssertionError(f"{what}: max abs err {err:.3e}")
 
-            # MHAFunction's gradients (K3 forward, plain recompute backward)
+            # K3b against the plain backward, without and with a keep mask
             g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
                 size=(B, Tq, d)).astype(np.float32)).cuda()
+            bwd = what.replace("mha_fwd", "mha_bwd")
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 45 + i)
+            for mask in (None, torch.rand((B, h, Tq, Tk), generator=gen, device="cuda")
+                         < 1.0 - DROPOUT):
+                drop = () if mask is None else (mask, 1.0 - DROPOUT)
+                got_b = cuda_mha.mha_backward(*args, g, *drop)
+                again_b = cuda_mha.mha_backward(*args, g, *drop)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got_b, again_b)):
+                    raise AssertionError(f"{bwd}: two calls differ")
+                rate = 0.0 if mask is None else DROPOUT
+                want_b = multihead_attention_backward_reference(q, ql, k, kl, h, w, g, rate,
+                                                                mask)
+                worst_b = max(worst_b, _mha_grad_err(
+                    got_b, want_b, _mha_scale(q, ql, k, kl, h, w, g, False, rate, mask),
+                    bwd + ("" if mask is None else f" dropout {DROPOUT}")))
+
+            # MHAFunction's gradients (K3 forward, K3b backward) against
+            # autograd of the plain version
             grads = []
             for fn in (cuda_mha.MHAFunction.apply, None):
                 x = q.clone().requires_grad_(True)
@@ -887,11 +995,9 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
                     out = fn(x, y, ql, kl, h, *ws)
                 leaves = [x, *ws] if self_attention else [x, y, *ws]
                 grads.append(torch.autograd.grad(out, leaves, g))
-            for a, b in zip(*grads):
-                if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
-                    raise AssertionError(
-                        f"{what}: MHAFunction gradient differs from autograd by "
-                        f"{float((a - b).abs().max()):.3e}")
+            worst_b = max(worst_b, _mha_grad_err(
+                *grads, _mha_scale(q, ql, k, kl, h, w, g, self_attention, leaves=True),
+                f"{what}: MHAFunction vs autograd"))
 
             kernel_ms = _cuda_ms(lambda: cuda_mha.mha_forward(*args))
             plain_ms = _cuda_ms(lambda: multihead_attention_reference(
@@ -904,11 +1010,28 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN) -> dict:
                 f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
                 f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
                 f"bitwise repeatable; MHAFunction gradients match autograd")
+            bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h)
+            msg = (f"kernel {bwd}: grid {bplan.grid} smem {bplan.smem}: max_abs_err="
+                   f"{worst_b:.3e} (so far) with and without dropout; bitwise repeatable")
             # the main path: self-attention at Tq = Tk, the readout at Tq = 1
-            if (B, Tq, Tk, d, h) in mains and self_attention == (Tq == Tk):
+            is_main = self_attention == (Tq == Tk)
+            if (B, Tq, Tk, d, h) in mains and is_main:
                 _add(main, kernel_ms, plain_ms, bytes_ms, ops_ms)
+            if (B, Tq, Tk, d, h) in bwd_mains and is_main:
+                run = lambda: cuda_mha.mha_backward(*args, g)  # noqa: E731
+                b_ms = _cuda_ms(run)
+                b_plain = _cuda_ms(lambda: multihead_attention_backward_reference(
+                    q, ql, k, kl, h, w, g))
+                b_bytes, b_ops = mha_bwd_bound(B, Tq, Tk, self_attention, d)
+                b_dev = _device_ms(run, "mha_bwd_kernel")
+                _add(main_b, b_ms, b_plain, b_bytes, b_ops)
+                msg += (f"; kernel_ms={b_ms:.6f} device_ms={b_dev} plain_ms={b_plain:.6f} "
+                        f"bound_us={1e3 * max(b_bytes, b_ops):.4f} (bytes "
+                        f"{1e3 * b_bytes:.4f} us, operations {1e3 * b_ops:.4f} us); "
+                        + _backward_launches(q, k, ql, kl, h, w, g, self_attention))
+            log(msg)
     _refused_cluster_raises()
-    return _summed(main, worst)
+    return _summed(main, worst), _summed(main_b, worst_b)
 
 
 def _keep_share_ok(mask: torch.Tensor, keep: float, what: str) -> float:
@@ -944,10 +1067,11 @@ def _device_sum(a, b):
 
 def phase_dropout() -> dict:
     """Dropout on the card: K1 and K2 at the train step's shapes (B = 32,
-    S = 10 and 25) and K3 at B = 32, (96, 96) self-attention and (1, 96)
-    readout, rate DROPOUT, each with keep masks drawn on the card and
-    against its plain version given the same masks (KERNEL_TOL; K2 to its
-    error scale; MHAFunction's gradients to MHA_GRAD_TOL); the dispatchers
+    S = 10 and 25) and K3 and K3b at B = 32, (96, 96) self-attention and
+    (1, 96) readout, rate DROPOUT, each with keep masks drawn on the card and
+    against its plain version given the same masks (KERNEL_TOL; K2 and K3b,
+    and MHAFunction's gradients against autograd, to their error scales);
+    the dispatchers
     against the plain version drawing from a generator with the same state
     (the same masks, drawn the same way); bitwise repeatable; every mask's
     keep share within 5 binomial deviations of 1 − rate.  Per-call, device
@@ -1043,6 +1167,7 @@ def phase_dropout() -> dict:
         rows[kernel] = _drop_row(main, worst, plain_main)
 
     worst, main, plain_main = 0.0, {}, {}
+    worst_b, main_b, plain_main_b = 0.0, {}, {}
     for i, (B, Tq, Tk) in enumerate(MHA_TRAIN):
         self_attention = Tq == Tk
         q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, SEED + 80 + i)
@@ -1085,10 +1210,38 @@ def phase_dropout() -> dict:
                        keep_mask=mask)[0])
             grads.append(torch.autograd.grad(out, [x, *lw] if self_attention
                                              else [x, y, *lw], g))
-        for a, b in zip(*grads):
-            if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
-                raise AssertionError(f"{what}: MHAFunction gradient differs from "
-                                     f"autograd by {float((a - b).abs().max()):.3e}")
+        worst_b = max(worst_b, _mha_grad_err(
+            *grads, _mha_scale(q, ql, k, kl, H, w, g, self_attention, DROPOUT, mask,
+                               leaves=True), f"{what}: MHAFunction vs autograd"))
+        # K3b with the mask: against the plain backward, itself, unmasked
+        brun = lambda: cuda_mha.mha_backward(q, k, ql, kl, H, *ws, g, mask, keep)  # noqa: E731
+        bnodrop = lambda: cuda_mha.mha_backward(q, k, ql, kl, H, *ws, g)  # noqa: E731
+        bplain = lambda: multihead_attention_backward_reference(  # noqa: E731
+            q, ql, k, kl, H, w, g, DROPOUT, mask)
+        got_b, again_b = brun(), brun()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again_b)):
+            raise AssertionError(f"mha_bwd B={B} Tq={Tq} Tk={Tk} dropout: two calls differ")
+        b_err = _mha_grad_err(got_b, bplain(), _mha_scale(q, ql, k, kl, H, w, g, False,
+                                                           DROPOUT, mask),
+                              f"mha_bwd B={B} Tq={Tq} Tk={Tk} dropout")
+        worst_b = max(worst_b, b_err)
+        b_bytes, b_ops = mha_bwd_bound(B, Tq, Tk, self_attention)
+        b_bytes += 1e3 * B * H * Tq * Tk / HBM_BYTES_PER_S  # the mask's bytes
+        b_ops += 1e3 * 2 * B * H * Tq * Tk / F32_FLOPS_PER_S  # its selects in dV and dP
+        b_ms, b_nodrop = _cuda_ms(brun), _cuda_ms(bnodrop)
+        b_dev, b_nodrop_dev = _device_ms(brun, "mha_bwd_kernel"), _device_ms(bnodrop,
+                                                                             "mha_bwd_kernel")
+        b_plain = _cuda_ms(bplain)
+        log(f"dropout mha_bwd B={B} Tq={Tq} Tk={Tk} dropout {DROPOUT}: max_abs_err="
+            f"{b_err:.3e} kernel_ms={b_ms:.6f} device_ms={b_dev} plain_ms={b_plain:.6f} "
+            f"bound_us={1e3 * max(b_bytes, b_ops):.4f}; unmasked kernel_ms={b_nodrop:.6f} "
+            f"device_ms={b_nodrop_dev}; bitwise repeatable")
+        _add(main_b, b_ms, b_plain, b_bytes, b_ops)
+        main_b["device_ms"] = _device_sum(main_b.get("device_ms", "0"), b_dev)
+        plain_main_b["ms"] = plain_main_b.get("ms", 0.0) + b_nodrop
+        plain_main_b["device_ms"] = _device_sum(plain_main_b.get("device_ms", "0"),
+                                                b_nodrop_dev)
         worst = max(worst, err)
         bytes_ms, ops_ms = mha_bound(B, Tq, Tk, self_attention)
         bytes_ms += 1e3 * B * H * Tq * Tk / HBM_BYTES_PER_S  # the mask's bytes
@@ -1107,6 +1260,7 @@ def phase_dropout() -> dict:
         plain_main["ms"] = plain_main.get("ms", 0.0) + nodrop_ms
         plain_main["device_ms"] = _device_sum(plain_main.get("device_ms", "0"), nodrop_dev)
     rows["mha_fwd"] = _drop_row(main, worst, plain_main)
+    rows["mha_bwd"] = _drop_row(main_b, worst_b, plain_main_b)
     return rows
 
 
@@ -1278,9 +1432,10 @@ ATRANK_FAMILY = Family(
                 num_heads=H, num_blocks=ATRANK_BLOCKS),
     _atrank_requests, atrank_train_data, 500,  # p99 is the 5th slowest
     # self-attention + readout a forward; the AUC pass encodes once and
-    # reads out twice, the top-k pass once; the backward launches no K3
+    # reads out twice, the top-k pass once; the backward launches K3b once
+    # an attention, and serving and evaluation never
     per_batch={"mha_fwd": 2 * ATRANK_BLOCKS},
-    per_step={"mha_fwd": 2 * ATRANK_BLOCKS},
+    per_step={"mha_fwd": 2 * ATRANK_BLOCKS, "mha_bwd": 2 * ATRANK_BLOCKS},
     per_eval_batch={"mha_fwd": 5 * ATRANK_BLOCKS},
     per_summary={"mha_fwd": 2 * ATRANK_BLOCKS}, parity_lr=0.1)
 
@@ -1861,12 +2016,13 @@ def mesh_setup():
 
 
 def phase_kernel_local() -> dict:
-    """K4: K1, K2 and K3 against their plain versions at the per-rank
+    """K4: K1, K2, K3 and K3b against their plain versions at the per-rank
     shapes; the returned times are per local request batch (B=64)."""
     fwa = phase_kernel(LOCAL_FWA + LOCAL_FWA_TRAIN, LOCAL_FWA)
     bwd = phase_kernel_bwd(LOCAL_FWA_TRAIN, LOCAL_FWA_TRAIN)
-    mha = phase_kernel_mha(LOCAL_MHA + LOCAL_MHA_TRAIN, LOCAL_MHA)
+    mha, mha_bwd = phase_kernel_mha(LOCAL_MHA + LOCAL_MHA_TRAIN, LOCAL_MHA, LOCAL_MHA_TRAIN)
     fwa["max_abs_err"] = max(fwa["max_abs_err"], bwd["max_abs_err"])
+    mha["max_abs_err"] = max(mha["max_abs_err"], mha_bwd["max_abs_err"])
     return {"fwa_per_rank": fwa, "mha_per_rank": mha}
 
 
@@ -2161,7 +2317,7 @@ def phase_mesh_baselines(tmp: str, runs, ranks) -> None:
     parameter must agree within PARITY_TOL, the metrics within one test
     user, the served ids up to ties with scores within SCORE_TOL; no rank
     may launch K1, K2 or K3."""
-    none = {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0}
+    none = {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0, "mha_bwd": 0}
     for f, (fam, tc, train, test, cate_list, idx, requests) in enumerate(runs):
         tag = f"mesh {fam.name}"
         stepped = [r[2 * f] for r in ranks]
@@ -2355,7 +2511,8 @@ def phase_cli(tmp: str, card: str) -> list:
     model_dir = os.path.join(tmp, "tlsan_Electronics")
     t0 = time.perf_counter()
     head, evals, epoch, launches = _cli_train(
-        data_dir, model_dir, "Electronics", TLSAN_FAMILY, ["--eval_freq", "1000"])
+        data_dir, model_dir, "Electronics", TLSAN_FAMILY,
+        ["--eval_freq", "1000", "--train_batch_size", str(CLI_ELECTRONICS_BATCH)])
     runs.append(launches)
     if head["builder"] != "native" or head["steps_per_call"] != "500":
         raise AssertionError(f"train.cli header {head}: expected the native "
@@ -2812,12 +2969,13 @@ def _replica_row(main: dict, worst: float, tag: str) -> dict:
 
 
 def phase_fanout_kernels() -> dict:
-    """K1, K2 and K3 with a replica axis of weights at R = 1, 3 and 8:
+    """K1, K2, K3 and K3b with a replica axis of weights at R = 1, 3 and 8:
     against their plain versions on each replica, against single launches
-    on each replica's slice (bit for bit for K1 and K2, and for K3 where
-    the plan's cluster size is the same for R·B rows as for B), bitwise
-    repeatable; FWAFunction's and MHAFunction's vmap rules on the card (one
-    launch, gradients against autograd of the plain version under vmap);
+    on each replica's slice (bit for bit for K1, K2 and K3b, and for K3
+    where the plan's cluster size is the same for R·B rows as for B),
+    bitwise repeatable; FWAFunction's and MHAFunction's vmap rules on the
+    card (one launch each way, gradients against autograd of the plain
+    version under vmap);
     times and bounds at R = 8.  Returns each kernel's replica fields."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2895,6 +3053,7 @@ def phase_fanout_kernels() -> dict:
         "one K2 launch; its gradients match autograd of the plain version under vmap")
 
     worst, main = 0.0, {}
+    worst_k3b, main_k3b = 0.0, {}
     mha_main = [_mha_shape(m) for m in MHA_TRAIN]
     for i, shape in enumerate(FANOUT_MHA):
         B, Tq, Tk, d, h = _mha_shape(shape)
@@ -2927,10 +3086,32 @@ def phase_fanout_kernels() -> dict:
                         raise AssertionError(f"{what}: replica {r} max abs err {err:.3e}, "
                                              f"{single_err:.3e} from a single launch")
                     worst = max(worst, err)
+                # K3b: the replica launch is bit for bit R single launches
+                # (its grid depends on the rows a replica alone)
+                g = torch.from_numpy(np.random.default_rng(SEED + 250 + 10 * i + R).normal(
+                    size=(R, B, Tq, d)).astype(np.float32)).cuda()
+                bwd, bwd_again = cuda_mha.mha_backward(*args, g), cuda_mha.mha_backward(*args, g)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(bwd, bwd_again)):
+                    raise AssertionError(f"{what}: K3b's two calls differ")
+                for r in range(R):
+                    one = _slice(args, r)
+                    mine = [t[r] for t in bwd]
+                    if not all(torch.equal(a, b) for a, b in
+                               zip(cuda_mha.mha_backward(*one, g[r]), mine)):
+                        raise AssertionError(f"{what}: K3b replica {r} differs from a "
+                                             "single launch")
+                    fwd = (one[0], one[2], one[1], one[3], h,
+                           dict(zip(cuda_mha.WEIGHTS, one[5:])), g[r])
+                    worst_k3b = max(worst_k3b, _mha_grad_err(
+                        mine, multihead_attention_backward_reference(*fwd),
+                        multihead_attention_backward_error_scale(*fwd),
+                        f"{what} K3b replica {r}"))
                 msg = (f"kernel {what}: clusters of {cs_r} (a single launch {cs_1}); each "
                        f"replica within tolerance of the plain version and "
                        + ("bit for bit" if cs_r == cs_1 else f"{single_err:.3e} from")
-                       + " a single launch; bitwise repeatable")
+                       + " a single launch; K3b each replica within tolerance of the plain "
+                       "backward and bit for bit a single launch; bitwise repeatable")
                 if R == FANOUT_R and (B, Tq, Tk, d, h) in mha_main and \
                         self_attention == (Tq == Tk):
                     slices = [_slice(args, r) for r in range(R)]
@@ -2940,13 +3121,21 @@ def phase_fanout_kernels() -> dict:
                         lambda: [cuda_mha.mha_forward(*a) for a in slices])
                     bounds = [R * v for v in mha_bound(B, Tq, Tk, self_attention, d)]
                     _add_replica(main, times, bounds)
-                    msg += f"; {times} bound {max(bounds):.6f} ms"
+                    times_b = _replica_times(
+                        "mha_bwd_kernel", lambda: cuda_mha.mha_backward(*args, g),
+                        lambda: cuda_mha.mha_backward(*slices[0], g[0]),
+                        lambda: [cuda_mha.mha_backward(*a, g[r]) for r, a in enumerate(slices)])
+                    bounds_b = [R * v for v in mha_bwd_bound(B, Tq, Tk, self_attention, d)]
+                    _add_replica(main_k3b, times_b, bounds_b)
+                    msg += (f"; K3 {times} bound {max(bounds):.6f} ms; K3b {times_b} bound "
+                            f"{max(bounds_b):.6f} ms")
                 log(msg)
     rows["mha_fwd"] = _replica_row(main, worst, "mha_fwd")
+    rows["mha_bwd"] = _replica_row(main_k3b, worst_k3b, "mha_bwd")
 
     # MHAFunction's vmap rule on the card: self-attention stays one tensor,
-    # one K3 launch for R replicas, gradients as autograd of the plain
-    # version under vmap
+    # one K3 and one K3b launch for R replicas, gradients as autograd of the
+    # plain version under vmap
     B, Tq, Tk = MHA_TRAIN[0]
     q, _, ql, _, ws = _replica_mha_inputs(3, B, Tq, Tk, True, SEED + 290, D)
     g = torch.from_numpy(np.random.default_rng(SEED + 291).normal(
@@ -2965,13 +3154,11 @@ def phase_fanout_kernels() -> dict:
         out = torch.func.vmap(one)(leaves[0], ql, *leaves[1:])
         grads.append(torch.autograd.grad(out, leaves, g))
         if fn is not None:
-            expect_launches(n, {"mha_fwd": 1}, "MHAFunction under vmap")
-    for a, b in zip(*grads):
-        if not torch.allclose(a, b, rtol=MHA_GRAD_TOL, atol=MHA_GRAD_TOL):
-            raise AssertionError(f"MHAFunction under vmap: gradients differ from autograd "
-                                 f"by {float((a - b).abs().max()):.3e}")
+            expect_launches(n, {"mha_fwd": 1, "mha_bwd": 1}, "MHAFunction under vmap")
+    _mha_grad_err(*grads, _mha_scale(q, ql, q, ql, H, dict(zip(cuda_mha.WEIGHTS, ws)), g,
+                                     True, leaves=True), "MHAFunction under vmap")
     log("kernel mha_fwd: MHAFunction under vmap (3 replicas, self-attention) is one K3 "
-        "launch; its gradients match autograd of the plain version under vmap")
+        "and one K3b launch; its gradients match autograd of the plain version under vmap")
     return rows
 
 
@@ -3300,8 +3487,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card()
     phase_build()
-    kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd(),
-               "mha_fwd": phase_kernel_mha()}
+    kernels = {"fwa_fwd": phase_kernel(), "fwa_bwd": phase_kernel_bwd()}
+    kernels["mha_fwd"], kernels["mha_bwd"] = phase_kernel_mha()
     phase_fwa_scale()
     dropout_rows = phase_dropout()
     local = phase_kernel_local()

@@ -4,8 +4,8 @@ Trainers, on the CPU, for TLSAN and ATRank: one epoch of `_fan_chunk` from
 the same stacked init (SGD and Adam), lr_scales, the per-replica AUC, bf16,
 the errors it raises, the epoch index, `main`; and the pieces it brought:
 the replica launch plan of K1/K2, the vmap rules of FWAFunction and
-MHAFunction (the replica entry points swapped for the plain version under
-vmap, since the kernels run only on the card) and OneHotGather under vmap.
+MHAFunction (the replica entry points swapped for the plain versions,
+since the kernels run only on the card) and OneHotGather under vmap.
 Inputs are numpy-seeded; stacked parameters cross over through
 tools/params.py."""
 
@@ -38,7 +38,10 @@ from tlsan_tpu_torch.ops.feature_attention import (
     feature_wise_attention_reference,
     fwa_backward_reference,
 )
-from tlsan_tpu_torch.ops.multihead_attention import multihead_attention_reference
+from tlsan_tpu_torch.ops.multihead_attention import (
+    multihead_attention_backward_reference,
+    multihead_attention_reference,
+)
 from tlsan_tpu_torch.tools.params import (
     params_from_numpy,
     stacked_from_numpy,
@@ -456,11 +459,12 @@ def test_fwa_function_vmap_rule(monkeypatch, shared_lengths, batched_weights):
 
 @pytest.mark.parametrize("self_attention", [True, False])
 def test_mha_function_vmap_rule(monkeypatch, self_attention):
-    """MHAFunction under vmap calls the replica entry point once, with the
-    replica axis first; self-attention keeps queries and keys one tensor
-    (the kernel's plan reads that from the pointers); values and
-    gradients (the plain recompute under vmap) equal vmap of the plain
-    version under autograd, the weights unbatched in part."""
+    """MHAFunction under vmap calls the replica entry points once each (K3
+    forward, K3b backward), with the replica axis first; self-attention
+    keeps queries and keys one tensor (the kernel's plan reads that from
+    the pointers); values and gradients (the entry points swapped for the
+    plain forward and the plain backward) equal vmap of the plain version
+    under autograd, the weights unbatched in part."""
     calls = []
 
     def forward(queries, keys, q_len, k_len, num_heads, *weights):
@@ -471,7 +475,14 @@ def test_mha_function_vmap_rule(monkeypatch, self_attention):
                                                  dict(zip(mha.WEIGHTS, ws)))[0]
         return torch.func.vmap(one)(queries, keys, q_len, k_len, *weights)
 
+    def backward(queries, keys, q_len, k_len, num_heads, *rest):
+        calls.append(("bwd", tuple(queries.shape), queries.data_ptr() == keys.data_ptr()))
+        return multihead_attention_backward_reference(
+            queries, q_len, keys, k_len, num_heads, dict(zip(mha.WEIGHTS, rest[:-1])),
+            rest[-1])
+
     monkeypatch.setattr(mha, "mha_forward", forward)
+    monkeypatch.setattr(mha, "mha_backward", backward)
     rng = np.random.default_rng(1)
     R, B, Tq, D, H = 3, 4, 6, 16, 2
     Tk = Tq if self_attention else 9
@@ -499,7 +510,7 @@ def test_mha_function_vmap_rule(monkeypatch, self_attention):
     got, got_grads = run(lambda q, k, ql, kl, *w: mha.MHAFunction.apply(q, k, ql, kl, H, *w))
     want, want_grads = run(lambda q, k, ql, kl, *w: multihead_attention_reference(
         q, ql, k, kl, H, dict(zip(mha.WEIGHTS, w)))[0])
-    assert calls == [((R, B, Tq, D), self_attention)]
+    assert calls == [((R, B, Tq, D), self_attention), ("bwd", (R, B, Tq, D), self_attention)]
     np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(),
                                rtol=TOL, atol=TOL)
     for a, b in zip(got_grads, want_grads):

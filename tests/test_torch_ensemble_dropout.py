@@ -125,14 +125,17 @@ def test_kernel_functions_carry_the_masks_under_vmap(monkeypatch):
     fan-out's path on the card) hand the replica entry points the masks
     with the replica axis first and keep = 1 − rate; values and gradients
     equal vmap of the plain versions under autograd with the same masks
-    (the entry points swapped for the plain versions, as in
+    (the entry points, K3b's too, swapped for the plain versions, as in
     tests/test_torch_ensemble.py, since the kernels run only on the card)."""
     from tlsan_tpu_torch.ops.cuda import fwa, mha
     from tlsan_tpu_torch.ops.feature_attention import (
         feature_wise_attention_reference,
         fwa_backward_reference,
     )
-    from tlsan_tpu_torch.ops.multihead_attention import multihead_attention_reference
+    from tlsan_tpu_torch.ops.multihead_attention import (
+        multihead_attention_backward_reference,
+        multihead_attention_reference,
+    )
 
     rate = 0.5  # keep = 0.5 both ways exactly
     calls = []
@@ -185,7 +188,14 @@ def test_kernel_functions_carry_the_masks_under_vmap(monkeypatch):
             q, ql, k, kl, H, dict(zip(mha.WEIGHTS, w[:8])), 1 - rest[-1],
             keep_mask=w[8])[0])(q, k, ql, kl, *rest[:-1])
 
+    def mbwd(q, k, ql, kl, H, *rest):
+        mcalls.append(("bwd", tuple(rest[-2].shape), rest[-1]))
+        return multihead_attention_backward_reference(
+            q, ql, k, kl, H, dict(zip(mha.WEIGHTS, rest[:8])), rest[8], 1 - rest[-1],
+            rest[-2])
+
     monkeypatch.setattr(mha, "mha_forward", mfwd)
+    monkeypatch.setattr(mha, "mha_backward", mbwd)
     Tq = 5
     q = f32(R, B, Tq, D)
     qlen = torch.tensor(rng.integers(0, Tq + 1, (R, B)), dtype=torch.int32)
@@ -200,7 +210,7 @@ def test_kernel_functions_carry_the_masks_under_vmap(monkeypatch):
     got = mrun(lambda q, ql, m, *w: mha.MHAFunction.apply(q, q, ql, ql, H, *w, m, rate))
     want = mrun(lambda q, ql, m, *w: multihead_attention_reference(
         q, ql, q, ql, H, dict(zip(mha.WEIGHTS, w)), rate, keep_mask=m)[0])
-    assert mcalls == [((R, B, H, Tq, Tq), 0.5)]
+    assert mcalls == [((R, B, H, Tq, Tq), 0.5), ("bwd", (R, B, H, Tq, Tq), 0.5)]
     for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
         np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
                                    rtol=1e-5, atol=1e-5)

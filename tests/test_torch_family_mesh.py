@@ -119,7 +119,7 @@ def test_family_on_the_mesh_equals_one_process(world, name):
         assert (moved <= 4).all(), moved
         np.testing.assert_allclose(r["summary"]["l2"], float(l2), rtol=TOL)
         assert r["launches"]["chunk"] == r["launches"]["evaluate"] == {
-            "fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0}
+            "fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0, "mha_bwd": 0}
     assert ranks[0]["pad_max"] == 0.0
     mesh_state = ranks[0]["state"]
     assert mesh_state.keys() == state.keys()

@@ -114,9 +114,10 @@ def test_grads_match_jax_vjp(self_attention):
 
 
 def test_mha_function_backward_is_autograd_of_the_plain_version(monkeypatch):
-    """MHAFunction with its forward swapped for the plain version (the
-    kernel needs a card): its recomputing backward gives autograd's
-    gradients, the self-attention q and k terms summed."""
+    """MHAFunction with its K3 launch swapped for the plain forward and its
+    K3b launch for the plain backward (the kernels need a card): its
+    gradients are autograd's, the self-attention q and k terms summed by
+    autograd, and the backward hands K3b the saved inputs and g."""
     B, Tq = 6, 8
     q, _, q_len, _ = _inputs(B, Tq, Tq, seed=21)
     p = _params(4)
@@ -128,7 +129,15 @@ def test_mha_function_backward_is_autograd_of_the_plain_version(monkeypatch):
         return T.multihead_attention_reference(
             queries, ql, keys, kl, num_heads, dict(zip(names, w)))[0]
 
+    calls = []
+
+    def plain_backward(queries, keys, ql, kl, num_heads, *rest):
+        calls.append(queries.data_ptr() == keys.data_ptr())
+        return T.multihead_attention_backward_reference(
+            queries, ql, keys, kl, num_heads, dict(zip(names, rest[:8])), rest[8])
+
     monkeypatch.setattr(cuda_mha, "mha_forward", plain_forward)
+    monkeypatch.setattr(cuda_mha, "mha_backward", plain_backward)
     lens = torch.from_numpy(q_len)
     grads = []
     for use_fn in (True, False):
@@ -140,6 +149,7 @@ def test_mha_function_backward_is_autograd_of_the_plain_version(monkeypatch):
             out = plain_forward(x, x, lens, lens, H, *w)
         out.backward(g)
         grads.append([x.grad, *(t.grad for t in w)])
+    assert calls == [True]
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
 

@@ -105,7 +105,8 @@ def test_leg_on_the_mesh_equals_one_process(world, leg):
     for r in ranks:
         assert r["sparse"] == use_sparse
         np.testing.assert_allclose(r["losses"], losses, rtol=1e-2 if bf16 else 1e-3)
-        assert r["launches"]["chunk"] == {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0}
+        assert r["launches"]["chunk"] == {"fwa_fwd": 0, "fwa_bwd": 0, "mha_fwd": 0,
+                                          "mha_bwd": 0}
     assert ranks[0]["pad_max"] == 0.0
     mesh_state = ranks[0]["state"]
     assert mesh_state.keys() == state.keys()

@@ -117,13 +117,27 @@ def mha_bound(B: int, Tq: int, Tk: int, self_attention: bool,
     return bound(nbytes, _mha_flops(B, Tq, Tk, d))
 
 
+def mha_bwd_bound(B: int, Tq: int, Tk: int, self_attention: bool,
+                  d: int = D) -> Tuple[float, float]:
+    """K3b at width d: queries (and keys, when they differ), the lengths,
+    the weights and the output's gradient read once, the queries', the
+    keys' and the weights' gradients written once, over HBM; and three
+    times `_mha_flops` (the forward it recomputes, and two products for
+    each of the forward's) at the f32 peak."""
+    weights = 3 * d * d + 5 * d
+    inputs = 2 * B * Tq * d + (0 if self_attention else B * Tk * d)
+    nbytes = 4 * (inputs + 2 * B + weights + B * Tq * d + B * Tk * d + weights)
+    return bound(nbytes, 3 * _mha_flops(B, Tq, Tk, d))
+
+
 def mha_grad_bound(B: int, T: int, d: int = D) -> Tuple[float, float]:
-    """The gradient of self-attention's summed output with respect to its
-    queries (K3's forward, then the plain recompute's backward): the
-    queries, lengths, weights and the output's gradient read once and the
-    queries' gradient written once; three times the forward's operations
-    (a backward does two products for each of the forward's)."""
-    nbytes = 4 * (3 * B * T * d + 2 * B + 3 * d * d + 5 * d)
+    """The gradients of self-attention's summed output with respect to its
+    queries and its eight weights (K3's forward, then K3b): the queries,
+    lengths, weights and the output's gradient read once and the queries'
+    and the weights' gradients written once; three times the forward's
+    operations (a backward does two products for each of the forward's)."""
+    weights = 3 * d * d + 5 * d
+    nbytes = 4 * (3 * B * T * d + 2 * B + 2 * weights)
     return bound(nbytes, 3 * _mha_flops(B, T, T, d))
 
 

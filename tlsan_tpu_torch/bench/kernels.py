@@ -16,12 +16,15 @@ T=90, D=64, H=8 with B in {32, 512, 2048}.  Rows:
   fwa.bwd.plain  the same through autograd of the plain version
   mha.fwd.cuda   K3 (`ops/cuda/mha.py::mha_forward`, queries as keys)
   mha.fwd.plain  `multihead_attention_reference`
-  mha.bwd.cuda   the queries' gradient through `MHAFunction` (K3 forward,
-                 the plain recompute backward)
+  mha.bwd.cuda   the gradients of the summed output with respect to the
+                 queries and the eight weights through `MHAFunction` (K3
+                 forward, K3b backward)
   mha.bwd.plain  the same through autograd of the plain version
 
 Before any timing each kernel row's output is checked against its plain
-row's at bench_kernels.py's tolerances (FWA 2e-5, MHA 3e-5).  Timing keeps
+row's at bench_kernels.py's tolerances (FWA 2e-5, MHA 3e-5; the weights'
+gradients, sums over every row, to the tolerance times their largest
+entry).  Timing keeps
 bench_kernels.py's semantics: `REPS` (64) calls chained, each call's input made
 from the last one's output so that no two overlap, the chain alone timed
 the same way and subtracted, the best of 3 runs; on the card the runs are
@@ -178,14 +181,30 @@ def bench_mha(B, T, sol_gbps, device, label):
         p["b" + nm[1]] = torch.zeros(D, device=device)
     p["ln_gamma"], p["ln_beta"] = torch.ones(D, device=device), torch.zeros(D, device=device)
 
-    def plain_f(q):
-        return multihead_attention_reference(q, ql, q, ql, H, p)[0]
+    def plain_f(q, w=p):
+        return multihead_attention_reference(q, ql, q, ql, H, w)[0]
 
-    def cuda_f(q):  # MHAFunction on the card, the plain version on the CPU
-        return multihead_attention(q, ql, q, ql, H, p)
-    cuda_g, plain_g = grad_of(cuda_f), grad_of(plain_f)
+    def cuda_f(q, w=p):  # MHAFunction on the card, the plain version on the CPU
+        return multihead_attention(q, ql, q, ql, H, w)
+
+    def grads_of(f):
+        """c → the gradients of sum f(c) with respect to c and every weight,
+        all computed; the chain takes c's, or all of them with `every`."""
+        def grads(c, every=False):
+            c = c.detach().requires_grad_(True)
+            w = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            out = torch.autograd.grad(f(c, w).sum(), [c, *w.values()])
+            return out if every else out[0]
+        return grads
+
+    cuda_g, plain_g = grads_of(cuda_f), grads_of(plain_f)
     _check(f"mha.fwd B={B} T={T}", cuda_f(q), plain_f(q), MHA_TOL)
-    _check(f"mha.bwd B={B} T={T}", cuda_g(q), plain_g(q), MHA_TOL)
+    got, want = cuda_g(q, every=True), plain_g(q, every=True)
+    _check(f"mha.bwd B={B} T={T}", got[0], want[0], MHA_TOL)
+    for name, a, b in zip(p, got[1:], want[1:]):
+        np.testing.assert_allclose(
+            a.detach().cpu().numpy(), b.detach().cpu().numpy(), rtol=MHA_TOL,
+            atol=MHA_TOL * (1.0 + float(b.abs().max())), err_msg=f"mha.bwd B={B} T={T} {name}")
 
     bytes_fwd = 4 * (B * T * D * 2 + 3 * D * D)
 

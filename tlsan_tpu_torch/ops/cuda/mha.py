@@ -1,44 +1,46 @@
-"""PyTorch wrapper of the CUDA multi-head attention kernel.
+"""PyTorch wrappers of the CUDA multi-head attention kernels.
 
 K3 (``csrc/mha_fwd.cu``, `mha_forward`) replaces
-``tlsan_tpu/ops/pallas/mha.py::_mha_kernel``.  Its plain version is
-``ops/multihead_attention.py::multihead_attention_reference``.
-`MHAFunction` puts it under autograd as ``jax.custom_vjp`` puts
-``_mha_forward``: the forward is K3, and the backward recomputes the plain
-version and differentiates it, as ``_mha_bwd`` re-runs the jnp reference
-through ``jax.vjp`` (the JAX package has no backward kernel).  The wrapper
-checks what the kernel takes and raises on anything else; it never falls
-back to the plain version, nor to another cluster size when the card
-refuses a launch.  ``launches`` counts the kernel's launches in this
-process.
+``tlsan_tpu/ops/pallas/mha.py::_mha_kernel``; K3b (``csrc/mha_bwd.cu``,
+`mha_backward`) replaces ``_mha_bwd``, which is ``jax.vjp`` of the jnp
+reference (the JAX package has no backward kernel).  Their plain versions
+are ``ops/multihead_attention.py``'s ``multihead_attention_reference`` and
+``multihead_attention_backward_reference``.  `MHAFunction` ties them
+together for autograd, as ``jax.custom_vjp`` ties ``_mha_fwd`` and
+``_mha_bwd``: it saves only the inputs, and K3b recomputes the forward.
+The wrappers check what the kernels take and raise on anything else; they
+never fall back to the plain versions, nor to another cluster size when
+the card refuses a launch.  ``launches`` and ``bwd_launches`` count each
+kernel's launches in this process.
 
 A thread-block cluster of `launch_plan`'s cs CTAs shares each batch row
-(pure Python, so the CPU tests hold it): the largest cluster size whose B
-clusters the card runs at once, by `ACTIVE_CLUSTERS`.  The kernel takes
-heads of up to
-`MAX_HEAD_WIDTH` features, D up to `MAX_D` and a multiple of 4, up to
-`MAX_KEYS` keys, and as many query rows as one CTA's shared memory holds
-(at D = 64: Tq and Tk up to 256, and past it for Tq); anything else raises
-ValueError naming the limit.
+of K3 (pure Python, so the CPU tests hold it): the largest cluster size
+whose B clusters the card runs at once, by `ACTIVE_CLUSTERS`.  K3 takes
+heads of up to `MAX_HEAD_WIDTH` features, D up to `MAX_D` and a multiple
+of 4, up to `MAX_KEYS` keys, and as many query rows as one CTA's shared
+memory holds (at D = 64: Tq and Tk up to 256, and past it for Tq);
+anything else raises ValueError naming the limit.  K3b
+(`backward_plan`) takes every shape K3 takes: a fixed number of CTAs each
+take rows in order, with a row's workspace in shared memory where it fits
+and in device memory past it, and sum the weight gradients across CTAs
+through scratch memory that this module keeps per device and reuses, so
+K3b calls on one device run on one stream at a time.
 
-Dropout (train time) is a variant of K3: a keep mask on the attention
-probabilities after the query mask, bool [B, H, Tq, Tk] (with the replica
-axis [R, B, H, Tq, Tk]), drawn by the dispatcher
+Dropout (train time) is a variant of both kernels: a keep mask on the
+attention probabilities after the query mask, bool [B, H, Tq, Tk] (with
+the replica axis [R, B, H, Tq, Tk]), drawn by the dispatcher
 (ops/multihead_attention.py) with the same generator call as the plain
-version, and keep = 1 − rate.  `MHAFunction` saves it, and its backward's
-plain recompute applies it.  The launch plan does not change: the kernel
-reads the mask from device memory.
+version, and keep = 1 − rate.  `MHAFunction` saves it for K3b.  The launch
+plans do not change: the kernels read the mask from device memory.
 
-K3 takes a leading replica axis of weights: R parameter sets, each with
-its own rows (queries [R, B, Tq, D], ..., wq [R, D, D], bq [R, D]), in one
-launch whatever R is; the R·B rows share one launch plan.  Under
-``torch.func.vmap`` (the replica fan-out, train/ensemble.py)
-`MHAFunction`'s vmap rule moves the replica axis to the front, expands
-what is shared and applies `MHAFunction` itself to the replica axis: one
-K3 launch forward, and a backward that recomputes the plain version under
-vmap and differentiates it.  A CUDA tensor under
-vmap launches the replica kernel or raises; nothing loops over the
-replicas.
+Both kernels take a leading replica axis of weights: R parameter sets,
+each with its own rows (queries [R, B, Tq, D], ..., wq [R, D, D], bq [R,
+D]), in one launch whatever R is.  Under ``torch.func.vmap`` (the replica
+fan-out, train/ensemble.py) `MHAFunction`'s vmap rule moves the replica
+axis to the front, expands what is shared and applies `MHAFunction` itself
+to the replica axis: one K3 launch forward and one K3b launch backward for
+all R replicas.  A CUDA tensor under vmap launches the replica kernels or
+raises; nothing loops over the replicas.
 """
 
 from __future__ import annotations
@@ -59,6 +61,7 @@ from tlsan_tpu_torch.ops.cuda.common import (
 )
 
 SOURCE = "mha_fwd"
+BWD_SOURCE = "mha_bwd"
 # the weight arguments of `mha_forward`, in order, by their JAX names
 WEIGHTS = ("wq", "bq", "wk", "bk", "wv", "bv", "ln_gamma", "ln_beta")
 
@@ -81,11 +84,19 @@ SM_SMEM, CTA_RESERVED, CTAS_BY_REGISTERS = 233_472, 1_024, 2
 ACTIVE_CLUSTERS = {(1, 1): 132, (2, 1): 66, (4, 1): 30, (8, 1): 15,
                    (1, 2): 264, (2, 2): 132, (4, 2): 62, (8, 2): 30}
 
+# K3b: the CTAs the H100 holds at once (one an SM: some 170 registers a
+# thread), slots summed together at each level of its cross-CTA tree
+# (kGroup in csrc/mha_bwd.cu)
+SMS, BWD_GROUP = 132, 16
+
 launches = 0
+bwd_launches = 0
 
 _F32 = torch.float32
 _I32 = torch.int32
 _BOOL = torch.bool
+# K3b's scratch per device index: (slots f32, tickets i32 all 0, workspace f32)
+_scratch: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +185,68 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
     return Plan(dh, cs, B * cs, THREADS, group, smem[cs])
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """One K3b launch: `grid` × `replicas` CTAs of `threads` threads, each
+    taking the rows blockIdx.x, blockIdx.x + grid, ... of its replica; a
+    row's workspace of `per_row` floats in `smem` bytes of dynamic shared
+    memory, or (`smem` 0) in `work` floats of device memory a replica;
+    `slots` weight-gradient slots of `weights` floats and `tickets`
+    integers a replica (its cross-CTA tree)."""
+    dh: int
+    grid: int
+    replicas: int
+    threads: int
+    smem: int
+    per_row: int
+    weights: int
+    slots: int
+    tickets: int
+    work: int
+
+
+def _bwd_floats(Tq: int, Tk: int, D: int, num_heads: int) -> int:
+    """Floats of csrc/mha_bwd.cu's row workspace: Q, O, dy and g⊙ŷ [Tq,
+    D], K and V [Tk, D], and the max, sum and D of each (query row, head)
+    [Tq·H] each (rounded up to a multiple of 4)."""
+    return 4 * Tq * D + 2 * Tk * D + 3 * (-(-(Tq * num_heads) // 4) * 4)
+
+
+@functools.lru_cache(maxsize=512)
+def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
+                  replicas: int = 1) -> BwdPlan:
+    """The geometry of K3b for queries [B, Tq, D] and keys [B, Tk, D] in
+    `num_heads` heads, for each of `replicas` replicas: as many CTAs as the
+    card holds at once (`SMS`), at most B, so that the scratch does not
+    grow with B; the workspace in shared memory where it fits (64 bytes
+    kept for the static flag).  It depends on the shape alone, so two calls agree bit
+    for bit, and a replica's CTAs are those of its own launch.  Raises
+    ValueError for what the kernel refuses, which K3 refuses too."""
+    if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or replicas < 1 or D % num_heads:
+        raise ValueError(
+            f"K3b needs B, Tq, Tk, replicas >= 1 and D % num_heads == 0; got "
+            f"B={B}, Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}, "
+            f"replicas={replicas}")
+    dh = D // num_heads
+    if dh > MAX_HEAD_WIDTH:
+        raise ValueError(
+            f"K3b takes heads of at most {MAX_HEAD_WIDTH} features; got D={D}, "
+            f"num_heads={num_heads} (dh={dh})")
+    if D > MAX_D or D % 4:
+        raise ValueError(
+            f"K3b takes D of at most {MAX_D} and a multiple of 4; got D={D}")
+    per_row = _bwd_floats(Tq, Tk, D, num_heads)
+    smem = 4 * per_row if 4 * per_row <= SMEM_LIMIT - 64 else 0
+    grid = min(B, SMS)
+    slots, tickets, n = grid, 0, grid
+    while n > 1:  # the levels of the cross-CTA tree
+        n = -(-n // BWD_GROUP)
+        slots += n
+        tickets += n
+    return BwdPlan(dh, grid, replicas, THREADS, smem, per_row, 3 * D * D + 5 * D,
+                   slots, tickets, 0 if smem else grid * per_row)
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if lib.mha_fwd_launch.argtypes is None:
@@ -189,12 +262,25 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _bwd_library() -> ctypes.CDLL:
+    lib = build.load(BWD_SOURCE)
+    if lib.mha_bwd_launch.argtypes is None:
+        lib.mha_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 13
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.mha_bwd_launch.restype = ctypes.c_int
+        lib.mha_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.mha_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _check_inputs(fn: str, queries, keys, q_len, k_len, weights, num_heads,
-                  keep_mask=None, keep=1.0):
-    """One pass over the tensors: device, dtype, shape, contiguity and the
-    16-byte alignment of the float rows the kernel reads as float4, and
-    the dropout mask's.  Returns (lead, B, Tq, Tk, D), `lead` () for one
-    replica or (R,) for a replica axis that every tensor leads with."""
+                  keep_mask=None, keep=1.0, g=None):
+    """One pass over the tensors, the dropout mask and K3b's incoming
+    gradient `g` among them: device, dtype, shape, contiguity, and the
+    16-byte alignment of the float rows the kernels read as float4.
+    Returns (lead, B, Tq, Tk, D), `lead` () for one replica or (R,) for a
+    replica axis that every tensor leads with."""
     if queries.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, queries is on {queries.device}")
     if queries.dim() not in (3, 4) or keys.dim() != queries.dim():
@@ -214,11 +300,14 @@ def _check_inputs(fn: str, queries, keys, q_len, k_len, weights, num_heads,
         if not 0.0 < keep <= 1.0:
             raise ValueError(f"{fn}: keep must lie in (0, 1], got {keep}")
         todo.append(("keep_mask", keep_mask, _BOOL, lead + (B, num_heads, Tq, Tk)))
+    if g is not None:
+        todo.append(("g", g, _F32, lead + (B, Tq, D)))
     for name, t, dtype, shape in todo:
         if (t.get_device() != index or t.dtype is not dtype or t.shape != shape
                 or not t.is_contiguous()):
             check_tensor(fn, name, t, dtype, shape, queries.device)
-        if dtype is _F32 and t.data_ptr() % 16:
+        # K3b reads g a float at a time; every other float row goes as float4
+        if dtype is _F32 and name != "g" and t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
     return lead, B, Tq, Tk, D
 
@@ -260,16 +349,75 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     return out
 
 
+def _bwd_scratch(queries: torch.Tensor, plan: BwdPlan):
+    """queries' device's K3b scratch, grown to the plan's size: (slots,
+    tickets, workspace or None), a tree and a workspace a replica.  The
+    kernel leaves every ticket at 0 again."""
+    index = queries.get_device()
+    R = plan.replicas
+    need = (R * plan.slots * plan.weights, R * plan.tickets, R * plan.work)
+    have = list(_scratch.get(index, (None, None, None)))
+    for i, make in enumerate((queries.new_empty,
+                              lambda n: queries.new_zeros(n, dtype=_I32),
+                              queries.new_empty)):
+        if have[i] is None or have[i].numel() < need[i]:
+            have[i] = make(max(need[i], 1))
+    _scratch[index] = tuple(have)
+    return have[0], have[1], have[2] if plan.work else None
+
+
+def mha_backward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
+                 k_len: torch.Tensor, num_heads: int, wq, bq, wk, bk, wv, bv,
+                 ln_gamma, ln_beta, g: torch.Tensor, keep_mask=None,
+                 keep: float = 1.0):
+    """K3b.  The inputs of `mha_forward` plus g = dL/dout f32 [B, Tq, D],
+    all contiguous on one CUDA device → (d_queries [B, Tq, D], d_keys [B,
+    Tk, D], dwq, dbq, dwk, dbk, dwv, dbv, d_gamma, d_beta), the gradients of
+    K3's function; for self-attention (queries is keys) the caller adds
+    d_queries and d_keys.  With a leading replica axis R on every tensor,
+    each replica's gradients are its own, in one launch.  With the
+    forward's dropout mask and keep, the gradients of the dropped forward.
+    The weight gradients are summed without float atomics, so two calls on
+    the same inputs agree bit for bit."""
+    global bwd_launches
+    weights = (wq, bq, wk, bk, wv, bv, ln_gamma, ln_beta)
+    lead, B, Tq, Tk, D = _check_inputs("mha_backward", queries, keys, q_len, k_len,
+                                       weights, num_heads, keep_mask, keep, g)
+    R = math.prod(lead)
+    # the kernel writes every entry; an empty batch gives zero gradients
+    new = queries.new_empty if B and R else queries.new_zeros
+    d_queries, d_keys = new(lead + (B, Tq, D)), new(lead + (B, Tk, D))
+    grads = [new(lead + tuple(w.shape[len(lead):])) for w in weights]
+    if B == 0 or R == 0:
+        return (d_queries, d_keys, *grads)
+    plan = backward_plan(B, Tq, Tk, D, num_heads, R)
+    lib = _bwd_library()
+    slots, tickets, work = _bwd_scratch(queries, plan)
+    err = launch(queries.get_device(), lambda stream: lib.mha_bwd_launch(
+        queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+        *(t.data_ptr() for t in weights), g.data_ptr(),
+        None if keep_mask is None else keep_mask.data_ptr(),
+        d_queries.data_ptr(), d_keys.data_ptr(), *(t.data_ptr() for t in grads),
+        slots.data_ptr(), tickets.data_ptr(), None if work is None else work.data_ptr(),
+        Tq, Tk, D, num_heads, plan.dh, B, plan.grid, R, plan.slots, plan.tickets,
+        plan.per_row, plan.threads, plan.smem, keep, stream))
+    if err != 0:
+        raise RuntimeError(
+            f"mha_bwd launch failed ({plan.grid} x {R} CTAs, {plan.smem} bytes of "
+            f"shared memory a CTA): {lib.mha_bwd_error_string(err).decode()}")
+    bwd_launches += 1
+    return (d_queries, d_keys, *grads)
+
+
 class MHAFunction(torch.autograd.Function):
-    """Multi-head attention with K3 forward.  Like the JAX custom_vjp, it
-    saves only the inputs and recomputes in the backward, through the
-    plain version under autograd (with the forward's dropout mask).
-    Arguments are those of `mha_forward`: the eight weights, then, under
-    dropout, the keep mask and the rate (keep = 1 − rate); q_len, k_len,
-    num_heads and the mask get no gradient; with or without the replica
-    axis.  For self-attention (queries is keys) the two gradients are
-    summed by autograd.  Under ``torch.func.vmap`` its vmap rule applies it
-    to the replica axis."""
+    """Multi-head attention with K3 forward and K3b backward.  Like the JAX
+    custom_vjp, it saves only the inputs (and the dropout mask); K3b
+    recomputes the forward.  Arguments are those of `mha_forward`: the
+    eight weights, then, under dropout, the keep mask and the rate (keep =
+    1 − rate); q_len, k_len, num_heads and the mask get no gradient; with
+    or without the replica axis.  For self-attention (queries is keys)
+    autograd adds the two gradients K3b returns.  Under
+    ``torch.func.vmap`` its vmap rule applies it to the replica axis."""
 
     @staticmethod
     def forward(queries, keys, q_len, k_len, num_heads, *rest):
@@ -287,26 +435,12 @@ class MHAFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        # imported here: ops/multihead_attention.py imports this module
-        from tlsan_tpu_torch.ops.multihead_attention import (
-            multihead_attention_reference,
-        )
-
-        def plain(q, k, ql, kl, *ws):
-            mask = ws[len(WEIGHTS)] if len(ws) > len(WEIGHTS) else None
-            return multihead_attention_reference(
-                q, ql, k, kl, ctx.num_heads, dict(zip(WEIGHTS, ws)), ctx.rate,
-                keep_mask=mask)[0]
-
         queries, keys, q_len, k_len, *rest = ctx.saved_tensors
         weights, mask = rest[:len(WEIGHTS)], rest[len(WEIGHTS):]
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True)
-                      for t in (queries, keys, *weights)]
-            # the replica axis, where there is one, under vmap
-            fn = torch.func.vmap(plain) if queries.dim() == 4 else plain
-            grads = torch.autograd.grad(
-                fn(leaves[0], leaves[1], q_len, k_len, *leaves[2:], *mask), leaves, g)
+        drop = (mask[0], 1.0 - ctx.rate) if mask else ()
+        # g arrives from the feedforward's residual, possibly expanded
+        grads = mha_backward(queries, keys, q_len, k_len, ctx.num_heads, *weights,
+                             g.contiguous(), *drop)
         return (grads[0], grads[1], None, None, None, *grads[2:]) + (None, None) * len(mask)
 
     @staticmethod

@@ -14,13 +14,14 @@ Shapes: queries [B, Tq, D], keys [B, Tk, D] → [B, Tq, D].
 
 `multihead_attention` runs the plain version for a CPU tensor and, for a
 CUDA f32 tensor, `ops/cuda/mha.py::MHAFunction`: the CUDA kernel K3
-forward, the plain version recomputed under autograd backward.  A bf16
-tensor runs as f32 between two casts; any other dtype on CUDA raises.
-Train-time dropout (rate > 0 with a generator or a mask source,
-nn/layers.py) lands on the attention probabilities after the query mask:
-the dispatcher draws the keep mask first ([B, H, Tq, Tk], one
-``torch.rand``), then hands it to the plain version on the CPU or to K3
-(and the backward's plain recompute) on CUDA.
+forward and K3b backward.  A bf16 tensor runs as f32 between two casts;
+any other dtype on CUDA raises.  Train-time dropout (rate > 0 with a
+generator or a mask source, nn/layers.py) lands on the attention
+probabilities after the query mask: the dispatcher draws the keep mask
+first ([B, H, Tq, Tk], one ``torch.rand``), then hands it to the plain
+version on the CPU or to K3 and K3b on CUDA.
+`multihead_attention_backward_reference` is K3b's plain version, and
+`multihead_attention_backward_error_scale` the scale of its rounding.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Mapping, Optional
 
 import torch
 
-from tlsan_tpu_torch.nn.layers import dense, draw_keep, dropout, layer_norm
+from tlsan_tpu_torch.nn.layers import apply_keep, dense, draw_keep, dropout, layer_norm
 from tlsan_tpu_torch.nn.masks import sequence_mask
 from tlsan_tpu_torch.ops.cuda import mha
 
@@ -83,11 +84,138 @@ def multihead_attention_reference(queries, q_len, keys, k_len, num_heads: int,
     return layer_norm(out, p["ln_gamma"], p["ln_beta"]), soft
 
 
+def _backward_one(queries, q_len, keys, k_len, num_heads: int, p, g,
+                  dropout_rate: float, keep_mask, scale: bool = False):
+    """`multihead_attention_backward_reference` for one replica; with
+    `scale`, `multihead_attention_backward_error_scale`'s: the same algebra
+    on the magnitudes of its terms (every difference a sum)."""
+    mag = torch.abs if scale else (lambda t: t)
+    sign = 1.0 if scale else -1.0
+    B, Tq, D = queries.shape
+    Tk = keys.shape[1]
+    dh = D // num_heads
+    # the forward, as multihead_attention_reference computes it
+    Q = dense(queries, p["wq"], p["bq"], torch.relu)
+    K = dense(keys, p["wk"], p["bk"], torch.relu)
+    V = dense(keys, p["wv"], p["bv"], torch.relu)
+    Qh = Q.reshape(B, Tq, num_heads, dh)
+    Kh = K.reshape(B, Tk, num_heads, dh)
+    Vh = V.reshape(B, Tk, num_heads, dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", Qh, Kh) / (dh ** 0.5)
+    key_mask = sequence_mask(k_len, Tk)[:, None, None, :]
+    p0 = torch.softmax(torch.where(key_mask, scores, KEY_MASK_VALUE), dim=-1)
+    q_mask = sequence_mask(q_len, Tq).to(p0.dtype)[:, None, :, None]
+    soft = dropout(p0 * q_mask, dropout_rate, None, keep_mask)
+    y = torch.einsum("bhqk,bkhd->bqhd", soft, Vh).reshape(B, Tq, D) + queries
+    mean = torch.mean(y, dim=-1, keepdim=True)
+    centred = y - mean
+    denom = torch.sqrt(torch.mean(torch.square(centred), dim=-1, keepdim=True) + 1e-8)
+    y_hat = mag(centred / denom)
+    g = mag(g)
+
+    # LayerNorm: dγ, dβ, and dy through the normalisation
+    d_gamma = torch.sum(g * y_hat, dim=(0, 1))
+    d_beta = torch.sum(g, dim=(0, 1))
+    dy_hat = g * mag(p["ln_gamma"])
+    dy = (dy_hat + sign * torch.mean(dy_hat, dim=-1, keepdim=True)
+          + sign * y_hat * torch.mean(dy_hat * y_hat, dim=-1, keepdim=True)) / denom
+    dyh = dy.reshape(B, Tq, num_heads, dh)
+    # the weighted sum, then the dropout, the query mask and the softmax
+    dVh = torch.einsum("bhqk,bqhd->bkhd", soft, dyh)
+    dp0 = torch.einsum("bqhd,bkhd->bhqk", dyh, Vh) * q_mask
+    if keep_mask is not None and dropout_rate > 0.0:  # as `dropout` applies it
+        dp0 = apply_keep(dp0, keep_mask, dropout_rate)
+    ds = p0 * (dp0 + sign * torch.sum(dp0 * p0, dim=-1, keepdim=True))
+    ds = torch.where(key_mask, ds, 0.0) / (dh ** 0.5)
+    dQh = torch.einsum("bhqk,bkhd->bqhd", ds, Kh)
+    dKh = torch.einsum("bhqk,bqhd->bkhd", ds, Qh)
+    # the ReLU projections (relu's output is > 0 exactly where its input is)
+    dq_pre = dQh.reshape(B, Tq, D) * (Q > 0)
+    dk_pre = dKh.reshape(B, Tk, D) * (K > 0)
+    dv_pre = dVh.reshape(B, Tk, D) * (V > 0)
+    d_queries = dy + dq_pre @ mag(p["wq"]).T
+    d_keys = dk_pre @ mag(p["wk"]).T + dv_pre @ mag(p["wv"]).T
+
+    def weight(x, d_pre):
+        return torch.einsum("btd,bte->de", mag(x), d_pre), torch.sum(d_pre, dim=(0, 1))
+
+    return (d_queries, d_keys, *weight(queries, dq_pre), *weight(keys, dk_pre),
+            *weight(keys, dv_pre), d_gamma, d_beta)
+
+
+def _backward(queries, q_len, keys, k_len, num_heads, p, g, dropout_rate, keep_mask,
+              scale: bool):
+    """`_backward_one`, under vmap over a leading replica axis where the
+    tensors have one."""
+    if queries.dim() == 3:
+        return _backward_one(queries, q_len, keys, k_len, num_heads, p, g,
+                             dropout_rate, keep_mask, scale)
+    names = sorted(p)
+
+    def one(q, ql, k, kl, grad, mask, *ws):
+        return _backward_one(q, ql, k, kl, num_heads, dict(zip(names, ws)), grad,
+                             dropout_rate, mask, scale)
+
+    mask_dim = None if keep_mask is None else 0
+    return torch.func.vmap(one, in_dims=(0, 0, 0, 0, 0, mask_dim) + (0,) * len(names))(
+        queries, q_len, keys, k_len, g, keep_mask, *(p[n] for n in names))
+
+
+def multihead_attention_backward_reference(queries, q_len, keys, k_len,
+                                           num_heads: int,
+                                           p: Mapping[str, torch.Tensor], g,
+                                           dropout_rate: float = 0.0,
+                                           keep_mask: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K3b (csrc/mha_bwd.cu), in explicit algebra
+    (not autograd): the gradients (d_queries, d_keys, dwq, dbq, dwk, dbk,
+    dwv, dbv, d_gamma, d_beta) of `multihead_attention_reference`'s output
+    at (queries, keys, p) for the incoming gradient g = dL/dout [B, Tq, D];
+    with the forward's dropout `keep_mask` and rate, of the dropped
+    forward.  For self-attention (keys is queries) the caller adds
+    d_queries and d_keys.  With a replica axis every tensor leads with R
+    (queries [R, B, Tq, D], p's weights [R, D, D] and [R, D], the mask [R,
+    B, H, Tq, Tk]) and each replica's weight gradients are its own.  Per
+    row and head, with P₀ the softmax before the query mask:
+
+      dγ = Σ g⊙ŷ, dβ = Σ g, dy = (dŷ − mean dŷ − ŷ·mean(dŷ⊙ŷ)) / σ
+      (dŷ = g⊙γ; the residual sends dy to the queries);
+      dV = P′ᵀ·dy, with P′ the masked, dropped-out probabilities;
+      dP₀ = (dy·Vᵀ) ⊙ qmask ⊙ keep/kp;
+      dS = P₀ ⊙ (dP₀ − rowsum(dP₀⊙P₀)), zero at masked keys;
+      dQ = dS·K/√dh, dK = dSᵀ·Q/√dh; then the ReLU masks and the
+      projections' transposes, dW = xᵀ·dpre and db = Σ dpre over every row.
+
+    A row with k_len = 0 has a softmax uniform over every key, padding
+    included: its dV is not zero at padded keys, its dQ and dK from the
+    scores are.  It is K3b's oracle on the card and what the CPU tests
+    hold against jax.vjp."""
+    return _backward(queries, q_len, keys, k_len, num_heads, p, g, dropout_rate,
+                     keep_mask, scale=False)
+
+
+def multihead_attention_backward_error_scale(queries, q_len, keys, k_len,
+                                             num_heads: int,
+                                             p: Mapping[str, torch.Tensor], g,
+                                             dropout_rate: float = 0.0,
+                                             keep_mask: Optional[torch.Tensor] = None):
+    """For each gradient of `multihead_attention_backward_reference`, the
+    sum of the magnitudes of the terms it adds up, through the backward's
+    algebra (the forward's values, then every product of magnitudes and
+    every difference a sum): the scale of its f32 rounding error, which two
+    correct implementations that round in other places differ by (times a
+    few ε).  A weight gradient sums a product a row over the whole batch,
+    and where those terms cancel, its value is far below that scale: a bar
+    relative to the value would test noise (ops/feature_attention.py::
+    fwa_backward_error_scale is K2's)."""
+    return _backward(queries, q_len, keys, k_len, num_heads, p, g, dropout_rate,
+                     keep_mask, scale=True)
+
+
 def multihead_attention(queries, q_len, keys, k_len, num_heads: int,
                         p: Mapping[str, torch.Tensor],
                         dropout_rate: float = 0.0, generator=None):
     """The attention output [B, Tq, D]: the plain version on the CPU, K3
-    (`MHAFunction`) on a CUDA f32 tensor.  bf16 `queries` (mixed
+    and K3b (`MHAFunction`) on a CUDA f32 tensor.  bf16 `queries` (mixed
     precision) are cast to f32 with the keys and weights, run as f32 does,
     and the output is cast back: K3 keeps its f32 contract.  Dropout
     engages when `dropout_rate` > 0 and a generator (or a mask source,

@@ -40,13 +40,14 @@ from tlsan_tpu_torch.train.state import make_optimizer
 
 
 def reset_launches() -> None:
-    cuda_fwa.launches = cuda_fwa.bwd_launches = cuda_mha.launches = 0
+    cuda_fwa.launches = cuda_fwa.bwd_launches = 0
+    cuda_mha.launches = cuda_mha.bwd_launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    """This process's launches of K1, K2 and K3."""
+    """This process's launches of K1, K2, K3 and K3b."""
     return {"fwa_fwd": cuda_fwa.launches, "fwa_bwd": cuda_fwa.bwd_launches,
-            "mha_fwd": cuda_mha.launches}
+            "mha_fwd": cuda_mha.launches, "mha_bwd": cuda_mha.bwd_launches}
 
 
 def _sync(mesh: Mesh) -> None:
