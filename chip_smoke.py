@@ -7,8 +7,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card    the GPU's name and power limit, as nvidia-smi gives them;
   2. build   every CUDA kernel from the sources in tlsan_tpu_torch/csrc/,
-             one nvcc per source, all started together (K3's and K3b's
-             dh = 8 variants without dropout must not spill);
+             one nvcc per source, all started together (K3's dh = 8
+             variant without dropout and both of K3b's dh = 8 variants must
+             not spill; K3b's registers and spills logged per variant);
   3. kernel  each kernel against its plain PyTorch version on the card
              (TF32 off), with lengths 0, 1 and the full length: K1
              (fwa_fwd) at the serving shapes B=128, S=10 and S=25, and
@@ -27,8 +28,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
              MHAFunction's gradients against autograd of the plain version,
              also at the edges of its cluster-per-row mapping (B = 1 and
              200, heads of 16 and 32 features, T = 129 and 256, readouts
-             over 256 keys); a cluster the card refuses must raise; K3b
-             (mha_bwd) at every one of those shapes against the plain
+             over 256 keys); a cluster the card refuses must raise; the
+             table of clusters the card runs at once against the card, for
+             K3 and K3b; K3b (mha_bwd; its plan and layout logged and the
+             layout held against the kernel's) at every one of those
+             shapes against the plain
              backward (multihead_attention_backward_reference), with and
              without a dropout mask, twice for bitwise repeatability, and
              MHAFunction's gradients (K3, then K3b) against autograd, all to
@@ -245,6 +249,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -354,11 +359,18 @@ MHA_TRAIN = [(TRAIN_B, T_ATRANK, T_ATRANK), (TRAIN_B, 1, T_ATRANK)]
 # (B, Tq, Tk, D, H): one row (clusters of 8) and 200 rows (clusters of 1),
 # heads of 16 and 32 features, T past 128 (groups of 32 lanes), T = 256
 # (at B=200 the shared memory takes clusters of 4) and the readout over
-# 256 keys
+# 256 keys; heads of 12 and 15 features (K3b's generic variant in shared
+# memory, at clusters of 4 and, with padded head columns, of 1) and 600
+# query rows over 17 keys (K3b's layout in device memory, MHA_BWD_GLOBAL)
+MHA_BWD_GLOBAL = (3, 600, 17)
+# K3b's calls at the train step's shapes that must all equal the first: a
+# race between a cluster's CTAs shows as a call that differs
+MHA_BWD_REPEATS = 200
 MHA_EDGES = [(1, T_ATRANK, T_ATRANK), (1, 1, T_ATRANK), (200, T_ATRANK, T_ATRANK),
              (200, 1, T_ATRANK), (37, 17, 17, 64, 4), (37, 17, 17, 128, 4),
              (37, 129, 129), (4, 256, 256), (200, 256, 256), (37, 1, 256),
-             (9, 7, 250, 64, 4)]
+             (9, 7, 250, 64, 4), (37, 17, 17, 48, 4), (37, 17, 17, 60, 4),
+             MHA_BWD_GLOBAL]
 MHA_SHAPES = MHA_MAIN + MHA_TRAIN + [(37, 17, 17)] + MHA_EDGES
 TRAIN_ROWS, TEST_USERS, STEPS_PER_CALL = 9_600, 4_096, 100
 EMPTY_HISTORY_SHARE = 0.1  # rows with sl = 0
@@ -511,9 +523,25 @@ def phase_card() -> str:
     return line
 
 
+def _variants(report: str, name: str) -> dict:
+    """The ptxas report's (registers, spill stores, spill loads) of each
+    variant of `name`'s kernel, by its template arguments (DH, DROP); a
+    variant whose report does not parse is missing."""
+    lines, out = report.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(rf"{name}_kernelILi(\d+)ELb([01])E", line)
+        if m and "Function properties for" in line and i + 2 < len(lines):
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+            regs = re.search(r"Used (\d+) registers", lines[i + 2])
+            if spill and regs:
+                out[int(m.group(1)), int(m.group(2))] = (
+                    int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+    return out
+
+
 def phase_build() -> None:
-    """Build every kernel; K3's and K3b's dh = 8 variants without dropout
-    must not spill."""
+    """Build every kernel; K3's dh = 8 variant without dropout and both of
+    K3b's dh = 8 variants must not spill."""
     t0 = time.perf_counter()
     reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE,
                            cuda_mha.BWD_SOURCE])
@@ -523,22 +551,20 @@ def phase_build() -> None:
         for line in report.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    for name in (cuda_mha.SOURCE, cuda_mha.BWD_SOURCE):
+    # the dh = 8 variants must not spill: K3's without dropout, both of
+    # K3b's; K3's dropout variant's report is logged (PERF.md: a few bytes,
+    # a speed matter)
+    for name, drops in ((cuda_mha.SOURCE, (0,)), (cuda_mha.BWD_SOURCE, (0, 1))):
         if name not in reports:
             continue
-        lines = reports[name].splitlines()
-
-        def props(variant):
-            return [lines[i + 1].strip() for i, line in enumerate(lines[:-1])
-                    if "Function properties for" in line and variant in line]
-
-        # the variant without dropout must not spill; the dropout variant's
-        # report is logged (PERF.md: a few bytes, a speed matter)
-        plain = props(f"{name}_kernelILi8ELb0E")
-        if not plain or any("0 bytes spill stores, 0 bytes spill loads" not in p
-                            for p in plain):
-            raise AssertionError(f"{name}'s dh = 8 variant spills: {plain}")
-        log(f"build: {name}'s dh = 8 dropout variant: {props(f'{name}_kernelILi8ELb1E')}")
+        variants = _variants(reports[name], name)
+        for (dh, drop), (regs, stores, loads) in sorted(variants.items()):
+            log(f"build: {name} dh={dh or 'any'} dropout={bool(drop)}: {regs} registers, "
+                f"{stores} bytes spill stores, {loads} bytes spill loads")
+        for drop in drops:
+            if variants.get((8, drop), (0, 1, 1))[1:] != (0, 0):
+                raise AssertionError(f"{name}'s dh = 8 variant (dropout={bool(drop)}) "
+                                     f"spills: {variants.get((8, drop))}")
 
 
 # ------------------------------------------------------------ launch counts
@@ -851,19 +877,37 @@ def _refused_cluster_raises() -> None:
 
 
 def _active_clusters_match() -> None:
-    """launch_plan's table of the clusters the card runs at once
-    (cuda_mha.ACTIVE_CLUSTERS) against cudaOccupancyMaxActiveClusters on
-    this card, at one and at two CTAs an SM."""
-    lib, got = cuda_mha._library(), ctypes.c_int()
+    """launch_plan's and backward_plan's table of the clusters the card runs
+    at once (cuda_mha.ACTIVE_CLUSTERS) against cudaOccupancyMaxActiveClusters
+    on this card for K3 and for K3b, at one and at two CTAs an SM."""
+    got = ctypes.c_int()
     smem = {2: 60_000, 1: 150_000}  # bytes a CTA that leave 2 and 1 CTAs an SM
-    for (cs, per_sm), want in cuda_mha.ACTIVE_CLUSTERS.items():
-        assert cuda_mha.ctas_per_sm(smem[per_sm]) == per_sm
-        err = lib.mha_fwd_active_clusters(cs, smem[per_sm], ctypes.byref(got))
-        if err != 0 or got.value != want:
-            raise AssertionError(
-                f"mha_fwd: {got.value} clusters of {cs} at {per_sm} CTAs an SM run at "
-                f"once (error {err}); launch_plan assumes {want}")
-    log(f"kernel mha_fwd: active clusters as launch_plan assumes: {cuda_mha.ACTIVE_CLUSTERS}")
+    for name, fn in (("mha_fwd", cuda_mha._library().mha_fwd_active_clusters),
+                     ("mha_bwd", cuda_mha._bwd_library().mha_bwd_active_clusters)):
+        for (cs, per_sm), want in cuda_mha.ACTIVE_CLUSTERS.items():
+            assert cuda_mha.ctas_per_sm(smem[per_sm]) == per_sm
+            err = fn(cs, smem[per_sm], ctypes.byref(got))
+            if err != 0 or got.value != want:
+                raise AssertionError(
+                    f"{name}: {got.value} clusters of {cs} at {per_sm} CTAs an SM run at "
+                    f"once (error {err}); the plans assume {want}")
+    log(f"kernel mha_fwd, mha_bwd: active clusters as the plans assume: "
+        f"{cuda_mha.ACTIVE_CLUSTERS}")
+
+
+def _bwd_plan_line(B: int, Tq: int, Tk: int, d: int, h: int, self_attention: bool) -> str:
+    """K3b's plan at a shape, its layout held against the kernel's own
+    (make_layout in csrc/mha_bwd.cu, which refuses a launch whose layout
+    differs)."""
+    plan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
+    floats = cuda_mha._bwd_library().mha_bwd_layout_floats(
+        Tq, Tk, d, h, d // h, plan.cs, plan.qb, plan.xmode, int(plan.alias))
+    if floats != plan.per_cta:
+        raise AssertionError(f"mha_bwd B={B} Tq={Tq} Tk={Tk}: the kernel's layout is "
+                             f"{floats} floats, backward_plan's {plan.per_cta}")
+    where = ("x in the region", "device memory")[plan.xmode]
+    return (f"{plan.clusters} clusters of {plan.cs}, query blocks of {plan.qb}, {where}, "
+            f"smem {plan.smem}")
 
 
 def _mha_grad_err(got, want, scale, what: str) -> float:
@@ -928,14 +972,16 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
     """K3 against its plain version and itself; K3b against the plain
     backward, with and without a dropout mask, and itself; MHAFunction's
     gradients (K3, then K3b) against autograd, at every shape, self- and
-    cross-attention; a refused cluster launch must raise.  Returns K3's
-    row and K3b's: K3's times per request batch (the sum over the two
+    cross-attention; a refused cluster launch must raise.  K3b must have
+    run its layout in device memory (at MHA_BWD_GLOBAL) and its generic
+    variant in shared memory.  Returns K3's row and K3b's: K3's times per request batch (the sum over the two
     main-path launches: self-attention and readout), K3b's per train step
     (B = 32); the other shapes are logged, K3b's untimed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
     worst_b, main_b = 0.0, {}
+    placed = set()  # K3b's (xmode, a specialised head width) that ran
     mains = [_mha_shape(m) for m in main_shapes]
     bwd_mains = [_mha_shape(m) for m in bwd_main_shapes]
     _active_clusters_match()
@@ -965,6 +1011,10 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
             g = torch.from_numpy(np.random.default_rng(SEED + 40 + i).normal(
                 size=(B, Tq, d)).astype(np.float32)).cuda()
             bwd = what.replace("mha_fwd", "mha_bwd")
+            bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
+            if shape == MHA_BWD_GLOBAL and bplan.xmode != cuda_mha.X_GLOBAL:
+                raise AssertionError(f"{bwd}: planned in shared memory, not device memory")
+            placed.add((bplan.xmode, d // h in (8, 16, 32)))
             gen = torch.Generator(device="cuda").manual_seed(SEED + 45 + i)
             for mask in (None, torch.rand((B, h, Tq, Tk), generator=gen, device="cuda")
                          < 1.0 - DROPOUT):
@@ -1010,9 +1060,9 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
                 f"bound_us={1e3 * max(bytes_ms, ops_ms):.4f} "
                 f"(bytes {1e3 * bytes_ms:.4f} us, operations {1e3 * ops_ms:.4f} us); "
                 f"bitwise repeatable; MHAFunction gradients match autograd")
-            bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h)
-            msg = (f"kernel {bwd}: grid {bplan.grid} smem {bplan.smem}: max_abs_err="
-                   f"{worst_b:.3e} (so far) with and without dropout; bitwise repeatable")
+            msg = (f"kernel {bwd}: {_bwd_plan_line(B, Tq, Tk, d, h, self_attention)}: "
+                   f"max_abs_err={worst_b:.3e} (so far) with and without dropout; bitwise "
+                   f"repeatable")
             # the main path: self-attention at Tq = Tk, the readout at Tq = 1
             is_main = self_attention == (Tq == Tk)
             if (B, Tq, Tk, d, h) in mains and is_main:
@@ -1024,12 +1074,22 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
                     q, ql, k, kl, h, w, g))
                 b_bytes, b_ops = mha_bwd_bound(B, Tq, Tk, self_attention, d)
                 b_dev = _device_ms(run, "mha_bwd_kernel")
+                first = run()
+                for n in range(MHA_BWD_REPEATS):
+                    if not all(torch.equal(a, b) for a, b in zip(run(), first)):
+                        raise AssertionError(f"{bwd}: call {n + 2} of "
+                                             f"{MHA_BWD_REPEATS + 1} differs from the first")
                 _add(main_b, b_ms, b_plain, b_bytes, b_ops)
-                msg += (f"; kernel_ms={b_ms:.6f} device_ms={b_dev} plain_ms={b_plain:.6f} "
+                msg += (f"; {MHA_BWD_REPEATS + 1} calls equal; kernel_ms={b_ms:.6f} "
+                        f"device_ms={b_dev} plain_ms={b_plain:.6f} "
                         f"bound_us={1e3 * max(b_bytes, b_ops):.4f} (bytes "
                         f"{1e3 * b_bytes:.4f} us, operations {1e3 * b_ops:.4f} us); "
                         + _backward_launches(q, k, ql, kl, h, w, g, self_attention))
             log(msg)
+    if shapes is MHA_SHAPES:
+        for need in ((cuda_mha.X_GLOBAL, True), (cuda_mha.X_REGION, False)):
+            if need not in placed:
+                raise AssertionError(f"mha_bwd: no shape ran (xmode, dh in 8/16/32) = {need}")
     _refused_cluster_raises()
     return _summed(main, worst), _summed(main_b, worst_b)
 

@@ -9,6 +9,7 @@ autograd; and K3b's launch plan and scratch sizing, which must take every
 shape K3's plan takes.  Sizes are small (B <= 6, T in {1, 5, 9, 17}, D =
 16 or 32, 2 or 4 heads), inputs from a numpy seed."""
 
+import dataclasses
 import itertools
 
 import jax
@@ -300,21 +301,17 @@ def test_mha_function_backward_raises_off_the_card(monkeypatch):
         cuda_mha.mha_backward(x.detach(), x.detach(), ql, ql, 2, *_t(*(p[n] for n in W)), gt)
 
 
-def _levels(grid):
-    slots, tickets, n = grid, 0, grid
+def _levels(n):
+    slots, tickets = n, 0
     while n > 1:
         n = -(-n // cuda_mha.BWD_GROUP)
         slots, tickets = slots + n, tickets + n
     return slots, tickets
 
 
-@pytest.mark.parametrize("D", [16, 48, 64, 128, 256])
-def test_backward_plan_takes_every_shape_k3_takes(D):
-    """(d) Wherever K3's launch_plan accepts a shape, K3b's backward_plan
-    does: a grid of min(B, 132) CTAs, the row's workspace in shared memory
-    within the card's limit or else in device memory, and the scratch of
-    its cross-CTA tree, none of which grows with B past 132 rows."""
-    accepted = 0
+def _k3_shapes(D):
+    """Every (B, Tq, Tk, H, self_attention) of a grid that K3's launch_plan
+    accepts at width D."""
     for B, Tq, Tk, H, self_attention in itertools.product(
             (1, 37, 200, 5000), (1, 7, 96, 250, 256, 600), (1, 17, 96, 256),
             (1, 2, 4, 8, 16, 64), (False, True)):
@@ -324,23 +321,75 @@ def test_backward_plan_takes_every_shape_k3_takes(D):
             cuda_mha.launch_plan(B, Tq, Tk, D, H, self_attention)
         except ValueError:
             continue
+        yield B, Tq, Tk, H, self_attention
+
+
+@pytest.mark.parametrize("D", [16, 48, 64, 128, 256])
+def test_backward_plan_takes_every_shape_k3_takes(D):
+    """(d) Wherever K3's launch_plan accepts a shape, K3b's backward_plan
+    does, for R = 1 and 8: a cluster size of 1, 2, 4 or 8 that divides the
+    heads, with each CTA's columns on 16-byte boundaries; a layout that fits
+    a CTA's shared memory (232,448 bytes less the static flag) and the
+    clusters the card runs at once at its CTAs an SM, or else one CTA a row
+    with the layout in device memory; query blocks of 1 .. Tq rows; slots of
+    a rank's columns and the scratch of its cross-cluster tree.  None of it
+    grows with B past one wave: B = 5000 and B = 50,000 get one plan."""
+    accepted = 0
+    limit = SMEM_LIMIT - cuda_mha.STATIC_SMEM
+    for B, Tq, Tk, H, self_attention in _k3_shapes(D):
         accepted += 1
         for R in (1, 8):
-            plan = cuda_mha.backward_plan(B, Tq, Tk, D, H, R)
-            assert plan.grid == min(B, cuda_mha.SMS) and plan.replicas == R
-            assert plan.dh == D // H and plan.threads == cuda_mha.THREADS
-            assert plan.per_row == cuda_mha._bwd_floats(Tq, Tk, D, H)
+            plan = cuda_mha.backward_plan(B, Tq, Tk, D, H, R, self_attention)
+            cs = plan.cs
+            assert cs in cuda_mha.CLUSTER_SIZES and H % cs == 0 and (D // cs) % 4 == 0
+            assert plan.replicas == R and plan.dh == D // H
+            assert plan.threads == cuda_mha.THREADS and 1 <= plan.qb <= Tq
+            assert plan.alias == (self_attention and Tq == Tk)
+            assert plan.per_cta == cuda_mha._bwd_layout(Tq, Tk, D, H, cs, plan.qb, plan.xmode,
+                                                        plan.alias)
             if plan.smem:
-                assert plan.smem == 4 * plan.per_row <= SMEM_LIMIT - 64 and plan.work == 0
-            else:
-                assert 4 * plan.per_row > SMEM_LIMIT - 64
-                assert plan.work == plan.grid * plan.per_row
-            assert plan.weights == 3 * D * D + 5 * D
-            assert (plan.slots, plan.tickets) == _levels(plan.grid)
+                assert plan.smem == 4 * plan.per_cta <= limit and plan.work == 0
+                assert plan.xmode == cuda_mha.X_REGION
+                active = cuda_mha.ACTIVE_CLUSTERS[cs, cuda_mha.ctas_per_sm(plan.smem)]
+                assert plan.clusters == min(B, active)
+            else:  # nothing fits shared memory at any cluster size or block
+                assert cs == 1 and plan.xmode == cuda_mha.X_GLOBAL
+                assert plan.clusters == min(B, cuda_mha.SMS)
+                assert plan.work == plan.clusters * plan.per_cta
+                for c in cuda_mha.CLUSTER_SIZES:
+                    if H % c == 0 and (D // c) % 4 == 0:
+                        assert 4 * cuda_mha._bwd_layout(
+                            Tq, Tk, D, H, c, 1, cuda_mha.X_REGION, plan.alias) > limit
+            assert plan.grid == plan.clusters * cs <= 2 * cuda_mha.SMS
+            assert plan.weights == 3 * D * (D // cs) + 5 * (D // cs)
+            assert (plan.slots, plan.tickets) == _levels(plan.clusters)
+            if B == 5000:
+                assert cuda_mha.backward_plan(50_000, Tq, Tk, D, H, R, self_attention) == \
+                    dataclasses.replace(plan)
     assert accepted > 0
-    # the main-path shapes keep their workspace in shared memory
-    for Tq in (96, 1):
-        assert cuda_mha.backward_plan(32, Tq, 96, 64, 8).smem > 0
+    # the main-path shapes: a cluster of several CTAs a row, all in shared memory
+    for Tq, self_attention in ((96, True), (1, False)):
+        plan = cuda_mha.backward_plan(32, Tq, 96, 64, 8, 1, self_attention)
+        assert plan.cs > 1 and plan.smem > 0 and plan.clusters == 32
+
+
+def test_backward_plan_is_a_pure_function_of_the_shape():
+    """The plan depends on the shape alone, not on what was planned before:
+    two calls (and a call after the cache is cleared, the shapes taken in
+    another order) give one plan; a replica launch's geometry is that of a
+    single launch at the same shape, so replica r's gradients are bit for
+    bit those of a launch on its slice."""
+    shapes = [(32, 96, 96, 64, 8, True), (32, 1, 96, 64, 8, False), (2048, 96, 96, 64, 8, True),
+              (37, 17, 17, 128, 4, True), (4, 600, 256, 256, 8, False), (9, 7, 250, 64, 4, False)]
+    first = [cuda_mha.backward_plan(B, Tq, Tk, D, H, 1, sa) for B, Tq, Tk, D, H, sa in shapes]
+    cuda_mha.backward_plan.cache_clear()
+    again = [cuda_mha.backward_plan(B, Tq, Tk, D, H, 1, sa)
+             for B, Tq, Tk, D, H, sa in reversed(shapes)][::-1]
+    assert first == again
+    for plan, (B, Tq, Tk, D, H, sa) in zip(first, shapes):
+        for R in (2, 8):
+            replica = cuda_mha.backward_plan(B, Tq, Tk, D, H, R, sa)
+            assert dataclasses.replace(replica, replicas=1) == plan
 
 
 def test_backward_plan_refuses_what_k3_refuses():
@@ -357,17 +406,18 @@ def test_backward_plan_refuses_what_k3_refuses():
 
 
 def test_backward_scratch_grows_and_is_reused(monkeypatch):
-    """K3b's scratch per device: slots for every replica's tree, tickets at
-    0, the workspace only for a plan past the shared memory; a larger plan
-    grows it, a smaller one reuses it."""
+    """K3b's scratch per device: slots for every replica's and rank's tree,
+    tickets at 0, the workspace only for a plan past the shared memory; a
+    larger plan grows it, a smaller one reuses it."""
     monkeypatch.setattr(cuda_mha, "_scratch", {})
     x = torch.empty(1)
-    small = cuda_mha.backward_plan(32, 96, 96, 64, 8, 2)
+    small = cuda_mha.backward_plan(32, 96, 96, 64, 8, 2, True)
+    trees = 2 * small.cs
     slots, tickets, work = cuda_mha._bwd_scratch(x, small)
-    assert slots.numel() == 2 * small.slots * small.weights and work is None
-    assert tickets.numel() == 2 * small.tickets and torch.count_nonzero(tickets) == 0
-    big = cuda_mha.backward_plan(4, 256, 256, 64, 8)
-    assert big.work > 0
+    assert slots.numel() == trees * small.slots * small.weights and work is None
+    assert tickets.numel() == trees * small.tickets and torch.count_nonzero(tickets) == 0
+    big = cuda_mha.backward_plan(4, 600, 256, 256, 8)
+    assert big.work > 0 and big.smem == 0
     slots2, tickets2, work2 = cuda_mha._bwd_scratch(x, big)
     assert work2.numel() == big.work and slots2.numel() >= big.slots * big.weights
     again = cuda_mha._bwd_scratch(x, small)

@@ -20,75 +20,120 @@
 // multihead_attention_backward_reference.  For self-attention (queries is
 // keys) d_queries and d_keys are written apart and autograd adds them.
 //
-// What bounds it on the H100: operations.  A row recomputes the forward,
-// (Tq + 2·Tk)·D² + 2·Tq·Tk·D multiply-adds, and does twice that backward:
-// at B = 32, D = 64, Tq = Tk = 96 some 0.45 GFLOP (6.7 µs at the 67 TFLOP/s
-// f32 peak outside the tensor cores; TF32 stays off) against 1.6 MB of
-// inputs and gradients (0.5 µs at 3.35 TB/s).  At the training shapes the
-// batch is small (32 rows), so a row's chain of dependent steps sets the
-// time; this first design keeps every step simple.
+// What bounds it on the H100: operations, in f32 on the CUDA cores.  TF32
+// is off by contract (docs/design.md, Numerics), so the tensor cores are
+// not used and the ceiling is the 67 TFLOP/s f32 FMA rate.  A row
+// recomputes the forward, (Tq + 2·Tk)·D² + 2·Tq·Tk·D multiply-adds, and
+// does twice that backward: at B = 32, D = 64, Tq = Tk = 96 some 0.45
+// GFLOP (6.7 µs at the f32 peak) against 1.6 MB of inputs and gradients
+// (0.5 µs at 3.35 TB/s).  At the training batch (32 rows) one CTA a row
+// would leave 100 of 132 SMs idle, so the design spreads a row over
+// several SMs, computes each score (and each dP) once, keeps the
+// probabilities in shared memory, and gives the products register tiles
+// or lane groups with independent accumulators.
 //
-// Design.  A fixed number of CTAs (ops/cuda/mha.py::backward_plan: one an
-// SM, 132, or the batch where it is smaller; a thread takes some 170
-// registers) each take the batch rows blockIdx.x, blockIdx.x + gridDim.x,
-// ... in order.  A row's intermediates (Q, K, V, the head outputs O, dy,
-// g⊙ŷ and the softmax's per-(row, head) max, sum and D) live in a
-// workspace: the CTA's shared memory when they fit (at D = 64, Tq = Tk =
-// 96: 157 KB), else a slice of device memory that the CTA alone uses (L1
-// and L2 hold it).  The steps of a row, each
-// after a barrier:
-//   1. the projections Q, K, V (a thread a tile of 4 rows × 4 columns, K
-//      and V together), weights read through the read-only cache;
-//   2. the forward per (query row, head), one thread each: the scores
-//      twice (their max, then exp, sum and the weighted V), O and the
-//      max and sum kept;
-//   3. LayerNorm's backward per query row, one warp each: dy and g⊙ŷ;
-//   4. D = dy·O per (query row, head), and the row's dγ and dβ per column;
-//   5. dQ per (query row, head) from recomputed scores, into O's place;
-//   6. dK and dV per (key row, head), summing over the query rows in order,
-//      written over K and V;
-//   7. d_queries and d_keys (4 × 4 tiles of dpre times the weights'
-//      transposes), and the row's weight gradients (4 × 4 tiles summing
-//      xᵀ·dpre over the rows in order) added to the CTA's slot.
+// Design.
+//   A thread-block cluster of cs CTAs (1, 2, 4 or 8; ops/cuda/mha.py::
+//   backward_plan: the largest whose clusters hold the batch in one wave)
+//   takes a batch row; CTA c owns heads c·H/cs .. (c+1)·H/cs − 1, i.e. the
+//   columns of those heads in every projection.  256 threads, at most 128
+//   registers each, so that two CTAs fit an SM.  Each CTA
+//     1. projects its own columns, Q_c = relu(xq·Wq[:, c] + bq[c]) and K_c,
+//        V_c likewise (4 × 4 register tiles over the full D-wide x rows,
+//        a tile's rows a quarter of the rows apart);
+//     2. for each block of qb query rows (the plan sizes qb so that the
+//        block's probabilities fit in shared memory with everything else),
+//        a group of lanes a (row, own head), the keys strided over the
+//        group as in K3's readout: the scores once, into shared memory;
+//        their max, expf and sum folded over the group by shuffles; P₀
+//        written over them and kept (under dropout a dropped P₀ is stored
+//        negative: its sign is the keep flag); O = P′·V, folded likewise.
+//        The readout's single query row so runs on 32 lanes a head;
+//     3. LayerNorm's backward over the block's rows: its per-row sums
+//        couple the heads, so each CTA sums its own columns, centred at
+//        their own mean (Σy, Σ(y − mean_c)², Σdŷ, Σdŷ·(y − mean_c)), the
+//        cluster exchanges these once through distributed shared memory,
+//        and each CTA combines them in rank order (Chan's parallel
+//        variance); dy on the own columns; then D = dy·O per row and head,
+//        dγ and dβ per column, beside dV += P′ᵀ·dy (4 keys × 4 columns
+//        register tiles, the rows split over a group of lanes);
+//     4. dS = P₀ ⊙ (dP₀ − D) over P and dQ = dS·K in one group pass as in
+//        2, then dK += dSᵀ·Q as in dV's tiles; dK and dV accumulate across
+//        blocks in the CTA's own memory;
+//     5. after the last block: the ReLU masks, then the weight gradients of
+//        its columns, dW[:, c] = xᵀ·dpre and db, added to its slot; then
+//        its partial input gradients dQpre_c·Wq[:, c]ᵀ and dKpre_c·Wk[:,
+//        c]ᵀ + dVpre_c·Wv[:, c]ᵀ, [T, D] each, which the cluster exchanges
+//        through distributed shared memory: CTA c adds the peers' partials
+//        of its own D/cs output columns in rank order (plus dy for the
+//        queries) and writes them.
+//   A CTA's column slices of Wq, Wk and Wv (3·D·D/cs floats), the biases
+//   and γ go into shared memory once a launch, by cp.async, and stay; the
+//   layout's offsets come from constant memory (computed on the host).
+//   The grid is persistent and of fixed size: cluster i takes the rows i,
+//   i + clusters, ... of its replica, so the scratch does not grow with B.
+//   The own columns of the next row's xq and g are prefetched by cp.async
+//   while the current row finishes.  A row's x rows (xq and xk, one copy
+//   for self-attention) are loaded by cp.async into the block region for
+//   the projections and reloaded there for the weight gradients.  The
+//   keep mask is read where P₀ is stored.  Shapes whose buffers do not fit
+//   one CTA's shared memory run at cs = 1 with the same layout in a slice
+//   of device memory that the CTA alone uses (x read where it lies; the
+//   generic variant), so every shape K3 takes runs.  Every row of a CTA's
+//   own-column arrays is padded by 4 floats, so lanes reading consecutive
+//   rows as float4 hit distinct banks; a head's columns are padded to a
+//   multiple of 4 (zeros) for a width that is not one.
 //
-// The weight gradients (3·D² + 5·D floats a replica) are summed in a fixed
-// order, without float atomics, so that two calls agree bit for bit: over
-// a CTA's rows in row order, into the CTA's slot in device memory; then
-// over the CTAs by a tree of groups of kGroup slots (csrc/fwa_bwd.cu's):
-// each CTA takes a ticket (an atomic integer increment after a
-// __threadfence); the last CTA of a group sums the group's slots in slot
-// order into one slot of the next level and resets the group's ticket,
-// until one group is left, whose last CTA writes the gradients.  The
-// tickets start at 0 and are 0 again when the launch ends.  The scratch
-// depends on the grid, not on B.
+// Cluster barriers: every exchange is a barrier.cluster arrive (release)
+// and wait (acquire) on both sides.  LayerNorm's exchange buffer is double
+// buffered by the query block's parity: a CTA writes a block's sums only
+// after the barrier of the block before, which no peer passes before it
+// has read the sums of the block before that, in the other buffer.  The
+// input gradients' exchange of a row ends in one more barrier, so no CTA
+// overwrites its region (nor its exchange buffer at the next row's first
+// block) or leaves while a peer still reads them.
+//
+// The weight gradients are summed in a fixed order, without float atomics,
+// so that two calls agree bit for bit: over a CTA's rows in row order, into
+// its slot in device memory (one slot per CTA: the columns of its rank);
+// then, for each rank, over the clusters by a tree of groups of kGroup
+// slots (csrc/fwa_bwd.cu's): each CTA takes a ticket (an atomic integer
+// increment after a __threadfence) after all of its rows; the last CTA of
+// a group sums the group's slots in slot order into one slot of the next
+// level and resets the group's ticket, until one group is left, whose last
+// CTA writes its rank's columns of the gradients.  The tickets start at 0
+// and are 0 again when the launch ends.
 //
 // Replicas.  A replica axis of weights (every tensor [R·B, ...] or [R,
 // ...]) is the grid's y axis: CTAs (·, r) take replica r's rows with its
-// weights, into its own slots, tickets and workspace, with the grid of one
-// replica's launch, so replica r's gradients are bit for bit those of a
-// launch on its slice alone.
+// weights, into its own slots, tickets and workspace, with the geometry of
+// one replica's launch, so replica r's gradients are bit for bit those of
+// a launch on its slice alone.
 //
 // Dropout (train time) is the DROP variant: the forward's keep mask ([B, H,
-// Tq, Tk] bytes) and keep = 1 − rate, read where a probability is used; a
-// null mask selects the variant without dropout, whose code is that before
-// the mask.
+// Tq, Tk] bytes) and keep = 1 − rate, read once, where P₀ is stored; a null
+// mask selects the variant without dropout.
 //
-// dh = 8, 16 and 32 are specialised with a head's rows in registers; any
-// other dh <= 32 runs a generic variant.  D <= 256 and a multiple of 4; Tq
-// and Tk are bounded by nothing but memory (the workspace moves to device
-// memory past the shared memory).
+// dh = 8, 16 and 32 are specialised (a head's columns as float4s, loops
+// unrolled); any other dh <= 32 runs a generic variant.  D <= 256 and a
+// multiple of 4; Tq and Tk are bounded by nothing but memory.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math.  The
 // scores are q·k scaled by 1/√dh (the reference divides by √dh: the two
 // differ in the last bit); the key mask is the reference's finite −2³²+1,
 // so a row with k_len = 0 has a softmax uniform over all Tk keys and a
 // non-zero dV at every key, and dS = 0 at masked keys.  Query rows at
-// t >= q_len pass dy to the queries through the residual alone.
+// t >= q_len pass dy to the queries through the residual alone.  The
+// LayerNorm sums and the input gradients are summed per CTA and then over
+// the ranks, an order of f32 sums other than the plain version's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -96,14 +141,72 @@ constexpr float kKeyMask = -4294967296.0f;  // -(2^32) + 1 rounded to f32
 constexpr float kLnEps = 1e-8f;
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxDh = 32;
-constexpr int kMaxLnPerLane = 8;  // D <= 256 = 32 lanes x 8
-constexpr int kRows = 4;          // rows of a thread's tile
+constexpr int kMaxD = 256;
+constexpr int kPad = 4;  // floats after each row of a shared array
+constexpr int kMaxCs = 8;  // the largest cluster
 // slots summed together at each level of the cross-CTA tree;
 // ops/cuda/mha.py::backward_plan sizes the scratch with the same number
 constexpr int kGroup = 16;
 constexpr int kMaxDevices = 64;
+// where a row's x rows live (ops/cuda/mha.py's X_REGION, X_GLOBAL): the
+// block region, reloaded for the weight gradients; device memory, read
+// where they lie (the device-memory workspace)
+constexpr int kXRegion = 0, kXGlobal = 1;
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+
+// A CTA's arrays, offsets in floats (ops/cuda/mha.py::_bwd_layout mirrors
+// it): the column slices of the weights [3][D][ldc], the biases and γ; Q,
+// O (then dQ, then dQpre), dy, and the own columns of xq and g [Tq4][ldc];
+// K, V, dK and dV [Tk4][ldc]; the
+// block's D per (row, head), its rows' mean and σ, and the exchange of
+// LayerNorm's sums [2][qb][4] (by the block's parity); dγ and dβ of the
+// row; the region (the block's P, x, the partial input gradients).
+struct Layout {
+  int hc, dhp, Dcp, Dc, ldc, ldx, ldp, Tq4, Tk4, xrows, region;
+  int w, bias, q, o, dy, xr, gs, k, v, dk, dv, drow, rowst, ex, dgb, reg, total;
+};
+
+inline Layout make_layout(int Tq, int Tk, int D, int H, int dh, int cs,
+                                              int qb, int xmode, int alias) {
+  Layout L;
+  L.hc = H / cs;
+  L.dhp = round4(dh);
+  L.Dcp = L.hc * L.dhp;
+  L.Dc = L.hc * dh;
+  L.ldc = L.Dcp + kPad;
+  L.ldx = D + kPad;
+  L.Tq4 = round4(Tq);
+  L.Tk4 = round4(Tk);
+  L.ldp = L.Tk4 + kPad;
+  L.xrows = Tq + (alias ? 0 : Tk);
+  int off = 0;
+  L.w = off, off += 3 * D * L.ldc;
+  L.bias = off, off += 4 * L.Dcp;
+  L.q = off, off += L.Tq4 * L.ldc;
+  L.o = off, off += L.Tq4 * L.ldc;
+  L.dy = off, off += L.Tq4 * L.ldc;
+  L.xr = off, off += L.Tq4 * L.ldc;
+  L.gs = off, off += L.Tq4 * L.ldc;
+  L.k = off, off += L.Tk4 * L.ldc;
+  L.v = off, off += L.Tk4 * L.ldc;
+  L.dk = off, off += L.Tk4 * L.ldc;
+  L.dv = off, off += L.Tk4 * L.ldc;
+  L.drow = off, off += round4(qb * L.hc);
+  L.rowst = off, off += round4(2 * qb);
+  L.ex = off, off += 2 * 4 * qb;
+  L.dgb = off, off += round4(2 * L.Dc);
+  const int maxT = Tq > Tk ? Tq : Tk;
+  int region = L.hc * qb * L.ldp;
+  region = region > maxT * L.ldx ? region : maxT * L.ldx;
+  if (xmode == kXRegion) region = region > L.xrows * L.ldx ? region : L.xrows * L.ldx;
+  L.reg = off;
+  L.region = region;
+  off += region;
+  L.total = off;
+  return L;
+}
 
 struct Params {
   const float* queries;
@@ -117,7 +220,6 @@ struct Params {
   const float* wv;
   const float* bv;
   const float* gamma;
-  const float* beta;
   const float* g;
   const std::uint8_t* keep_mask;  // dropout's keep flags, or null
   float* dq;
@@ -132,14 +234,14 @@ struct Params {
   float* dbeta;
   float* slots;
   unsigned* tickets;
-  float* work;  // the workspace in device memory, or null when in shared memory
+  float* work;  // the workspace in device memory, or null for shared memory
   int Tq, Tk, D, H, dh, rows;  // rows: the batch rows a replica
-  int replica_slots, replica_tickets, per_row;
+  int cs, clusters, qb, xmode, alias;
+  int tree_slots, tree_tickets;
   float inv_scale;
   float keep;
+  Layout L;  // computed on the host: offsets the kernel reads from constant memory
 };
-
-__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -157,468 +259,828 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+// acc[i][j] += a[i]·b[j] over the four components, in order
+__device__ __forceinline__ void dot4_tile(float (&acc)[4][4], const float4 (&a)[4],
+                                          const float4 (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float s = acc[i][j];
+      s = fmaf(a[i].x, b[j].x, s);
+      s = fmaf(a[i].y, b[j].y, s);
+      s = fmaf(a[i].z, b[j].z, s);
+      s = fmaf(a[i].w, b[j].w, s);
+      acc[i][j] = s;
+    }
+}
+
+__device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+}
+
+// Folds a tile over the G lanes of a group (G a power of two <= 32,
+// aligned in the warp): every lane ends with the group's sum, in a fixed
+// order.  Every lane of the warp calls it.
+__device__ __forceinline__ void group_sum(float (&acc)[4][4], int G) {
+  for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] += __shfl_xor_sync(0xffffffffu, acc[i][j], off);
+}
+
+__device__ __forceinline__ float group_fold_sum(float v, int G) {
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// A head's slice of a row, n features, into registers (a[0 .. n)).
-template <int DH>
-__device__ __forceinline__ void load_head(const float* src, float* a, int n) {
-#pragma unroll
-  for (int j = 0; j < (DH ? DH : n); ++j) a[j] = src[j];
+__device__ __forceinline__ float group_fold_max(float v, int G) {
+  for (int off = G / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
 }
 
+// The largest power of two G <= min(32, cap) with tiles·G <= threads (at
+// least 1): the groups' shuffles fold lanes a power of two apart.
+__device__ __forceinline__ int group_size(int tiles, int threads, int cap = kWarp) {
+  int G = 1;
+  while (G < kWarp && 2 * G <= cap && tiles * G * 2 <= threads) G *= 2;
+  return G;
+}
+
+// The cluster's barrier: arrive (release) after this CTA's last write of
+// shared memory a peer reads, wait (acquire) before reading the peers'.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// 16 bytes from device memory into the layout: by cp.async into shared
+// memory, by a plain copy into the device-memory workspace.
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool async) {
+  if (async) {
+    cp_async16(dst, src);
+  } else {
+    st4(dst, ldg4(src));
+  }
+}
+
+// A row's x rows (xq's Tq, then xk's Tk unless they alias) into X, rows
+// ldx apart, by cp.async; the caller commits and waits.
+__device__ __forceinline__ void load_x(const float* xq, const float* xk, int Tq, int Tk, int D,
+                                       bool alias, float* X, int ldx) {
+  const int D4 = D / 4;
+  const int n = (Tq + (alias ? 0 : Tk)) * D4;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int row = i / D4, c = i % D4 * 4;
+    const float* src = row < Tq ? xq + row * D + c : xk + (row - Tq) * D + c;
+    cp_async16(X + row * ldx + c, src);
+  }
+}
+
+// The own columns of a row's xq and g (device memory, rows D apart, from
+// column c0) into XR and GS (rows ldc apart, padded columns): by cp.async
+// into shared memory (g 4 bytes at a time: it need not be 16-byte
+// aligned), by plain copies into the device-memory workspace; padding is
+// never read.
 template <int DH>
-__device__ __forceinline__ float dot(const float* a, const float* b, int n) {
+__device__ __forceinline__ void load_own(const float* xq, const float* g, int Tq, int D, int c0,
+                                         int Dc, int dh, int dhp, int ldc, float* XR, float* GS,
+                                         bool async) {
+  for (int i = threadIdx.x; i < Tq * Dc; i += kThreads) {
+    const int t = i / Dc, c = i % Dc;
+    const int pc = DH ? c : c / dh * dhp + c % dh;
+    if (async) {
+      cp_async4(GS + t * ldc + pc, g + t * D + c0 + c);
+      if (DH != 0 && c % 4 == 0) cp_async16(XR + t * ldc + pc, xq + t * D + c0 + c);
+      if (DH == 0) cp_async4(XR + t * ldc + pc, xq + t * D + c0 + c);
+    } else {
+      GS[t * ldc + pc] = __ldg(g + t * D + c0 + c);
+      XR[t * ldc + pc] = __ldg(xq + t * D + c0 + c);
+    }
+  }
+}
+
+// The own column of padded column pc (heads of dhp columns, dh of them
+// real), or -1 for padding.
+template <int DH>
+__device__ __forceinline__ int true_col(int pc, int dh, int dhp) {
+  if constexpr (DH != 0) {
+    return pc;
+  } else {
+    const int f = pc % dhp;
+    return f < dh ? pc / dhp * dh + f : -1;
+  }
+}
+
+// 1. Rows rq + i·nr (i < 4; nr = round4(T) / 4) of x [T, D] (rows ldx
+// apart) times a column slice w [D][ldc], columns c .. c+3: relu(x·w + b)
+// into o, rows ldc apart; rows from T up to round4(T) get 0.
+__device__ __forceinline__ void project_tile(const float* x, int ldx, int T, int D, int rq,
+                                             int nr, int c, const float* w, const float* bias,
+                                             float* o, int ldc) {
+  float acc[4][4];
+  zero_tile(acc);
+  const float* xr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xr[i] = x + min(rq + i * nr, T - 1) * ldx;
+  for (int k = 0; k < D; k += 4) {
+    float4 xv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xv[i] = ld4(xr[i] + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 wv = ld4(w + (k + kk) * ldc + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float xs = comp(xv[i], kk);
+        acc[i][0] = fmaf(xs, wv.x, acc[i][0]);
+        acc[i][1] = fmaf(xs, wv.y, acc[i][1]);
+        acc[i][2] = fmaf(xs, wv.z, acc[i][2]);
+        acc[i][3] = fmaf(xs, wv.w, acc[i][3]);
+      }
+    }
+  }
+  const float4 bv = ld4(bias + c);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool live = rq + i * nr < T;
+    st4(o + (rq + i * nr) * ldc + c,
+        make_float4(live ? fmaxf(acc[i][0] + bv.x, 0.0f) : 0.0f,
+                    live ? fmaxf(acc[i][1] + bv.y, 0.0f) : 0.0f,
+                    live ? fmaxf(acc[i][2] + bv.z, 0.0f) : 0.0f,
+                    live ? fmaxf(acc[i][3] + bv.w, 0.0f) : 0.0f));
+  }
+}
+
+// A head's dhp features of a row (n4 float4s) into a[0 .. NR), the rest 0.
+template <int NR>
+__device__ __forceinline__ void load_head(const float* src, float (&a)[NR], int n4) {
+#pragma unroll
+  for (int f4 = 0; f4 < NR / 4; ++f4) {
+    const float4 v = f4 < n4 ? ld4(src + 4 * f4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    a[4 * f4] = v.x, a[4 * f4 + 1] = v.y, a[4 * f4 + 2] = v.z, a[4 * f4 + 3] = v.w;
+  }
+}
+
+// a · b over a head's features (b in shared memory), in feature order
+template <int NR>
+__device__ __forceinline__ float dot_head(const float (&a)[NR], const float* b, int n4) {
   float s = 0.0f;
 #pragma unroll
-  for (int j = 0; j < (DH ? DH : n); ++j) s = fmaf(a[j], b[j], s);
+  for (int f4 = 0; f4 < NR / 4; ++f4) {
+    if (f4 < n4) {
+      const float4 v = ld4(b + 4 * f4);
+      s = fmaf(a[4 * f4], v.x, s);
+      s = fmaf(a[4 * f4 + 1], v.y, s);
+      s = fmaf(a[4 * f4 + 2], v.z, s);
+      s = fmaf(a[4 * f4 + 3], v.w, s);
+    }
+  }
   return s;
 }
 
-// acc += e · v
-template <int DH>
-__device__ __forceinline__ void axpy(float e, const float* v, float* acc, int n) {
+// acc += e · v over a head's features
+template <int NR>
+__device__ __forceinline__ void axpy_head(float e, const float* v, float (&acc)[NR], int n4) {
 #pragma unroll
-  for (int j = 0; j < (DH ? DH : n); ++j) acc[j] = fmaf(e, v[j], acc[j]);
-}
-
-// 1. Rows r0 .. r0+3 (below R) of x [R, D] (device memory) times NM weight
-// matrices w_m [D, D] (device memory), columns c .. c+3: o_m = relu(x·w_m +
-// b_m) into the workspace, rows D apart.
-template <int NM>
-__device__ __forceinline__ void project_tile(const float* x, int R, int D, int r0, int c,
-                                             const float* w0, const float* b0, float* o0,
-                                             const float* w1, const float* b1, float* o1) {
-  const float* w[2] = {w0, w1};
-  const float* bias[2] = {b0, b1};
-  float* o[2] = {o0, o1};
-  float acc[NM][kRows][4];
-#pragma unroll
-  for (int m = 0; m < NM; ++m)
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
-  for (int k = 0; k < D; k += 4) {
-    float4 xv[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) xv[i] = ldg4(x + min(r0 + i, R - 1) * D + k);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int m = 0; m < NM; ++m) {
-        const float4 wv = ldg4(w[m] + (k + kk) * D + c);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const float xs = comp(xv[i], kk);
-          acc[m][i][0] = fmaf(xs, wv.x, acc[m][i][0]);
-          acc[m][i][1] = fmaf(xs, wv.y, acc[m][i][1]);
-          acc[m][i][2] = fmaf(xs, wv.z, acc[m][i][2]);
-          acc[m][i][3] = fmaf(xs, wv.w, acc[m][i][3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    const float4 bv = ldg4(bias[m] + c);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (r0 + i < R) {
-        st4(o[m] + (r0 + i) * D + c,
-            make_float4(fmaxf(acc[m][i][0] + bv.x, 0.0f), fmaxf(acc[m][i][1] + bv.y, 0.0f),
-                        fmaxf(acc[m][i][2] + bv.z, 0.0f), fmaxf(acc[m][i][3] + bv.w, 0.0f)));
-      }
+  for (int f4 = 0; f4 < NR / 4; ++f4) {
+    if (f4 < n4) {
+      const float4 w = ld4(v + 4 * f4);
+      acc[4 * f4] = fmaf(e, w.x, acc[4 * f4]);
+      acc[4 * f4 + 1] = fmaf(e, w.y, acc[4 * f4 + 1]);
+      acc[4 * f4 + 2] = fmaf(e, w.z, acc[4 * f4 + 2]);
+      acc[4 * f4 + 3] = fmaf(e, w.w, acc[4 * f4 + 3]);
     }
   }
 }
 
-// 7a. Rows r0 .. r0+3 (below R) of Σ_m dpre_m · w_mᵀ (dpre_m [R, D] in the
-// workspace, w_m [D, D] in device memory), columns a .. a+3, plus `add`
-// (rows D apart, or null), into out (device memory).
-template <int NM>
-__device__ __forceinline__ void input_grad_tile(const float* d0, const float* w0,
-                                                const float* d1, const float* w1,
-                                                const float* add, float* out, int R, int D,
-                                                int r0, int a) {
-  const float* dp[2] = {d0, d1};
-  const float* w[2] = {w0, w1};
-  float acc[kRows][4];
+// Folds a head's sums over the G lanes of a group (every lane of the warp
+// calls it; n4 is the same for the whole warp).
+template <int NR>
+__device__ __forceinline__ void fold_head(float (&acc)[NR], int n4, int G) {
+  for (int off = G / 2; off > 0; off >>= 1)
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+    for (int f4 = 0; f4 < NR / 4; ++f4)
+      if (f4 < n4)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    for (int c = 0; c < D; c += 4) {
-      float4 dv[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) dv[i] = ld4(dp[m] + min(r0 + i, R - 1) * D + c);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 wv = ldg4(w[m] + (a + j) * D + c);  // w[a + j][c .. c+3]
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          float s = acc[i][j];
-          s = fmaf(dv[i].x, wv.x, s);
-          s = fmaf(dv[i].y, wv.y, s);
-          s = fmaf(dv[i].z, wv.z, s);
-          s = fmaf(dv[i].w, wv.w, s);
-          acc[i][j] = s;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    if (r0 + i < R) {
-      float4 y = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      if (add != nullptr) {
-        const float4 e = ld4(add + (r0 + i) * D + a);
-        y.x = e.x + y.x, y.y = e.y + y.y, y.z = e.z + y.z, y.w = e.w + y.w;
-      }
-      st4(out + (r0 + i) * D + a, y);
-    }
-  }
+        for (int j = 0; j < 4; ++j)
+          acc[4 * f4 + j] += __shfl_xor_sync(0xffffffffu, acc[4 * f4 + j], off);
 }
 
-// 7b. Rows a .. a+3, columns c .. c+3 of Σ_t x[t]ᵀ · dpre_m[t] over the R
-// rows in order (x [R, D] in device memory, dpre_m in the workspace), and
-// for a = 0 the columns' Σ_t dpre_m[t]; added to the slot's entries (`wslot_m`
-// the matrix, `bslot_m` the bias), or written for the CTA's first row.
-template <int NM>
-__device__ __forceinline__ void weight_grad_tile(const float* x, const float* d0,
-                                                 const float* d1, float* wslot0,
-                                                 float* wslot1, float* bslot0, float* bslot1,
-                                                 int R, int D, int a, int c, bool first) {
-  const float* dp[2] = {d0, d1};
-  float* ws[2] = {wslot0, wslot1};
-  float* bs[2] = {bslot0, bslot1};
-  float acc[NM][4][4], bacc[NM][4];
+// acc · mul into dst, a head's features
+template <int NR>
+__device__ __forceinline__ void store_head(float* dst, const float (&acc)[NR], float mul,
+                                           int n4) {
 #pragma unroll
-  for (int m = 0; m < NM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bacc[m][j] = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][i][j] = 0.0f;
-    }
-  for (int t = 0; t < R; ++t) {
-    const float4 xv = ldg4(x + t * D + a);
-#pragma unroll
-    for (int m = 0; m < NM; ++m) {
-      const float4 dv = ld4(dp[m] + t * D + c);
+  for (int f4 = 0; f4 < NR / 4; ++f4)
+    if (f4 < n4)
+      st4(dst + 4 * f4, make_float4(acc[4 * f4] * mul, acc[4 * f4 + 1] * mul,
+                                    acc[4 * f4 + 2] * mul, acc[4 * f4 + 3] * mul));
+}
+
+// A probability as the products read it: P′·kp (the dropped ones, stored
+// negative, read as 0) or dS as stored.
+template <bool DROP, bool PROB>
+__device__ __forceinline__ float4 decode(float4 v) {
+  if constexpr (DROP && PROB) {
+    v.x = fmaxf(v.x, 0.0f), v.y = fmaxf(v.y, 0.0f), v.z = fmaxf(v.z, 0.0f), v.w = fmaxf(v.w, 0.0f);
+  }
+  return v;
+}
+
+// 3b and 4b. out[k][hoff + f] (+)= mul · Σ_t A_h[t][k]·B[t0 + t][hoff + f]
+// over the block's nb rows, for every key k < Tk4 and own head: dV = P′ᵀ·dy
+// (mul 1/keep under dropout) or dK = dSᵀ·Q.  Tiles of 4 keys × 4 columns;
+// the rows split over a group of G lanes.  The block at t0 = 0 writes, the
+// others add.  Run by threads [base, base + n).
+template <bool DROP, bool PROB>
+__device__ __forceinline__ void keys_times_rows(const float* P, int ldp, int qb, const float* B,
+                                                int ldc, float* out, int t0, int nb, int Tk4,
+                                                int hc, int dhp, float mul, int base,
+                                                int n) {
+  if (threadIdx.x < base || threadIdx.x >= base + n) return;  // whole warps
+  const int nk = Tk4 / 4, nf = dhp / 4;
+  const int tiles = hc * nk * nf;
+  const int G = group_size(tiles, n);
+  const int me = threadIdx.x - base;
+  for (int u0 = 0; u0 < tiles * G; u0 += n) {
+    const int u = u0 + me;
+    const bool valid = u < tiles * G;
+    const int tile = (valid ? u : tiles * G - 1) / G, part = u % G;
+    const int kq = tile % nk, rest = tile / nk, fq = rest % nf, hl = rest / nf;
+    const int hoff = hl * dhp + 4 * fq;
+    const float* A = P + hl * qb * ldp + 4 * kq;
+    float acc[4][4];
+    zero_tile(acc);
+#pragma unroll 2
+    for (int t = part; t < nb; t += G) {
+      const float4 a = decode<DROP, PROB>(ld4(A + t * ldp));
+      const float4 bv = ld4(B + (t0 + t) * ldc + hoff);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float xs = comp(xv, i);
-        acc[m][i][0] = fmaf(xs, dv.x, acc[m][i][0]);
-        acc[m][i][1] = fmaf(xs, dv.y, acc[m][i][1]);
-        acc[m][i][2] = fmaf(xs, dv.z, acc[m][i][2]);
-        acc[m][i][3] = fmaf(xs, dv.w, acc[m][i][3]);
+        const float as = comp(a, i);
+        acc[i][0] = fmaf(as, bv.x, acc[i][0]);
+        acc[i][1] = fmaf(as, bv.y, acc[i][1]);
+        acc[i][2] = fmaf(as, bv.z, acc[i][2]);
+        acc[i][3] = fmaf(as, bv.w, acc[i][3]);
       }
-      bacc[m][0] += dv.x, bacc[m][1] += dv.y, bacc[m][2] += dv.z, bacc[m][3] += dv.w;
+    }
+    group_sum(acc, G);
+    if (valid && part == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float* e = out + (4 * kq + i) * ldc + hoff;
+        float4 v = make_float4(acc[i][0] * mul, acc[i][1] * mul, acc[i][2] * mul,
+                               acc[i][3] * mul);
+        if (t0 != 0) {
+          const float4 o = ld4(e);
+          v.x = o.x + v.x, v.y = o.y + v.y, v.z = o.z + v.z, v.w = o.w + v.w;
+        }
+        st4(e, v);
+      }
+    }
+  }
+}
+
+// 5a. Rows a .. a+3 of xᵀ·dpre, padded columns c .. c+3, summed over the T
+// rows (x rows ldx apart, dpre rows ldc apart; the rows split over a group
+// of G lanes), and for a = 0 the columns' Σ_t dpre: added to the slot's
+// own-column entries (`ws` [D][Dc] the matrix, `bs` [Dc] the bias), or
+// written at the CTA's first row.
+template <int DH>
+__device__ __forceinline__ void weight_grad_tile(const float* x, int ldx, const float* dpre,
+                                                 int ldc, int T, int a, int c, int part, int G,
+                                                 bool valid, float* ws, float* bs, int Dc,
+                                                 int dh, int dhp, bool first) {
+  float acc[4][4], bacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  zero_tile(acc);
+#pragma unroll 4
+  for (int t = part; t < T; t += G) {
+    const float4 xv = ld4(x + t * ldx + a);
+    const float4 dv = ld4(dpre + t * ldc + c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float xs = comp(xv, i);
+      acc[i][0] = fmaf(xs, dv.x, acc[i][0]);
+      acc[i][1] = fmaf(xs, dv.y, acc[i][1]);
+      acc[i][2] = fmaf(xs, dv.z, acc[i][2]);
+      acc[i][3] = fmaf(xs, dv.w, acc[i][3]);
+    }
+    bacc[0] += dv.x, bacc[1] += dv.y, bacc[2] += dv.z, bacc[3] += dv.w;
+  }
+  group_sum(acc, G);
+  for (int off = G / 2; off > 0; off >>= 1)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bacc[j] += __shfl_xor_sync(0xffffffffu, bacc[j], off);
+  if (!valid || part != 0) return;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cc = true_col<DH>(c + j, dh, dhp);
+    if (cc < 0) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* e = ws + (a + i) * Dc + cc;
+      *e = first ? acc[i][j] : *e + acc[i][j];
+    }
+    if (a == 0) bs[cc] = first ? bacc[j] : bs[cc] + bacc[j];
+  }
+}
+
+// 5b. Rows t .. t+3 (below T) of Σ_m dpre_m·w_mᵀ (dpre_m [T][ldc], w_m the
+// column slice [D][ldc]; NM = 1 or 2 matrices), output columns aq + j·nA4,
+// into out (rows ldx apart): the CTA's partial input gradients.
+template <int NM>
+__device__ __forceinline__ void partial_tile(const float* d0, const float* w0, const float* d1,
+                                             const float* w1, int ldc, int Dcp, int T, int t,
+                                             int aq, int nA4, float* out, int ldx) {
+  const float* dp[2] = {d0, d1};
+  const float* w[2] = {w0, w1};
+  float acc[4][4];
+  zero_tile(acc);
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    for (int j = 0; j < Dcp; j += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld4(dp[m] + min(t + i, T - 1) * ldc + j);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) b[jj] = ld4(w[m] + (aq + jj * nA4) * ldc + j);
+      dot4_tile(acc, a, b);
     }
   }
 #pragma unroll
-  for (int m = 0; m < NM; ++m) {
+  for (int i = 0; i < 4; ++i) {
+    if (t + i < T) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* e = ws[m] + (a + i) * D + c;
-      float4 v = make_float4(acc[m][i][0], acc[m][i][1], acc[m][i][2], acc[m][i][3]);
-      if (!first) {
-        const float4 o = ld4(e);
-        v.x = o.x + v.x, v.y = o.y + v.y, v.z = o.z + v.z, v.w = o.w + v.w;
-      }
-      st4(e, v);
-    }
-    if (a == 0) {
-      float* e = bs[m] + c;
-      float4 v = make_float4(bacc[m][0], bacc[m][1], bacc[m][2], bacc[m][3]);
-      if (!first) {
-        const float4 o = ld4(e);
-        v.x = o.x + v.x, v.y = o.y + v.y, v.z = o.z + v.z, v.w = o.w + v.w;
-      }
-      st4(e, v);
+      for (int jj = 0; jj < 4; ++jj) out[(t + i) * ldx + aq + jj * nA4] = acc[i][jj];
     }
   }
 }
 
 template <int DH, bool DROP>
-__global__ void __launch_bounds__(kThreads, 1) mha_bwd_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   __shared__ bool last;
-  constexpr int NR = DH ? DH : kMaxDh;  // register arrays of a head's features
-  const int Tq = p.Tq, Tk = p.Tk, D = p.D, H = p.H;
-  const int n = DH ? DH : p.dh;
-  const int D4 = D / 4;
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int r = blockIdx.y;  // the replica
+  cg::cluster_group cluster = cg::this_cluster();
+  const Layout& L = p.L;  // constant memory: no registers held
+  const int cs = p.cs;
+  const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int cid = blockIdx.x / cs;  // the cluster
+  const int r = blockIdx.y;         // the replica
+  const int tid = threadIdx.x;
+  const int Tq = p.Tq, Tk = p.Tk, D = p.D, H = p.H, qb = p.qb;
+  const int dh = DH ? DH : p.dh;
+  // the specialised variants run from shared memory alone; the generic one
+  // also from the device-memory workspace
+  const bool smem = DH != 0 || p.work == nullptr;
+  const bool alias = p.alias != 0;
   const float inv_scale = p.inv_scale;
+  constexpr int NR = DH ? DH : kMaxDh;  // registers of a head's features
+  const int n4 = L.dhp / 4;
 
-  // the row's workspace, as ops/cuda/mha.py::_bwd_floats counts it: Q [Tq,
-  // D], K and V [Tk, D], O (then dQpre) [Tq, D], dy [Tq, D], g⊙ŷ [Tq, D],
-  // then the max, sum and D of each (query row, head) [Tq·H] each
-  float* ws = p.work == nullptr
-                  ? reinterpret_cast<float*>(smem4)
-                  : p.work + (static_cast<long long>(r) * gridDim.x + blockIdx.x) * p.per_row;
-  float* Qw = ws;
-  float* Kw = Qw + Tq * D;
-  float* Vw = Kw + Tk * D;
-  float* Ow = Vw + Tk * D;
-  float* DYw = Ow + Tq * D;
-  float* GYw = DYw + Tq * D;
-  const int th = round4(Tq * H);
-  float* Mw = GYw + Tq * D;
-  float* Lw = Mw + th;
-  float* Dw = Lw + th;
+  float* base = smem ? reinterpret_cast<float*>(smem4)
+                     : p.work + (static_cast<long long>(r) * gridDim.x + blockIdx.x) * L.total;
+  float* Ws = base + L.w;  // [3][D][ldc]: wq, wk, wv
+  float* Bs = base + L.bias;  // [4][Dcp]: bq, bk, bv, γ
+  const float* gam = Bs + 3 * L.Dcp;
+  float* Qs = base + L.q;
+  float* Os = base + L.o;
+  float* DYs = base + L.dy;
+  float* XR = base + L.xr;  // the own columns of xq
+  float* GS = base + L.gs;  // the own columns of g
+  float* Ks = base + L.k;
+  float* Vs = base + L.v;
+  float* DKs = base + L.dk;
+  float* DVs = base + L.dv;
+  float* Drow = base + L.drow;  // [hc][qb]
+  float* mean_s = base + L.rowst;
+  float* sigma_s = mean_s + qb;
+  float* ex2 = base + L.ex;  // [2][qb][4]: LayerNorm's sums the cluster exchanges
+  float* dgb = base + L.dgb;   // [2][Dc]: the row's dγ, dβ
+  float* region = base + L.reg;
+  float* X = region;  // the x rows, unless they lie in device memory
 
-  // the replica's weights, and its gradients' slots
+  // the replica's weights, and the slot of this CTA (its rank's columns)
   const long long wo = static_cast<long long>(r) * D * D;
   const int vo = r * D;
-  const float* wq = p.wq + wo;
-  const float* wk = p.wk + wo;
-  const float* wv = p.wv + wo;
-  const float* bq = p.bq + vo;
-  const float* bk = p.bk + vo;
-  const float* bv = p.bv + vo;
-  const float* gamma = p.gamma + vo;
-  const int P = 3 * D * D + 5 * D;
-  float* slots = p.slots + static_cast<long long>(r) * p.replica_slots * P;
-  float* slot = slots + static_cast<long long>(blockIdx.x) * P;
-  float* sw = slot;                // dWq | dWk | dWv
-  float* sb = slot + 3 * D * D;    // dbq | dbk | dbv | dγ | dβ
+  const int c0 = rank * L.Dc;  // the first own column
+  const int Pc = 3 * D * L.Dc + 5 * L.Dc;
+  const int tree = r * cs + rank;
 
-  for (int j = blockIdx.x; j < p.rows; j += gridDim.x) {
-    const bool first = j == static_cast<int>(blockIdx.x);
+  // the column slices of wq, wk, wv and the biases, once a launch
+  {
+    const int nc4 = L.Dcp / 4;
+    for (int i = tid; i < 3 * D * nc4; i += kThreads) {
+      const int m = i / (D * nc4), e = i % (D * nc4), k = e / nc4, j = e % nc4 * 4;
+      const float* w = (m == 0 ? p.wq : m == 1 ? p.wk : p.wv) + wo + k * D + c0;
+      float* dst = Ws + (m * D + k) * L.ldc + j;
+      if constexpr (DH != 0) {
+        copy16(dst, w + j, smem);
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int cc = true_col<DH>(j + jj, dh, L.dhp);
+          dst[jj] = cc < 0 ? 0.0f : __ldg(w + cc);
+        }
+      }
+    }
+    for (int i = tid; i < 4 * L.Dcp; i += kThreads) {
+      const int m = i / L.Dcp, cc = true_col<DH>(i % L.Dcp, dh, L.dhp);
+      const float* b = (m == 0 ? p.bq : m == 1 ? p.bk : m == 2 ? p.bv : p.gamma) + vo + c0;
+      Bs[i] = cc < 0 ? 0.0f : __ldg(b + cc);
+    }
+  }
+
+  for (int j = cid; j < p.rows; j += p.clusters) {
+    const bool first = j == cid;
     const long long b = static_cast<long long>(r) * p.rows + j;
-    const float* xq = p.queries + b * Tq * D;
-    const float* xk = p.keys + b * Tk * D;
-    const float* gb = p.g + b * Tq * D;
-    const std::uint8_t* km = nullptr;
-    if constexpr (DROP) km = p.keep_mask + b * H * Tq * Tk;
     const int q_live = max(0, min(p.q_len[b], Tq));
     const int k_live = max(0, min(p.k_len[b], Tk));
 
-    // 1. the projections
+    // this row's x rows, and its own columns of xq and g (prefetched at the
+    // previous row's end)
+    if (first)
+      load_own<DH>(p.queries + b * Tq * D, p.g + b * Tq * D, Tq, D, c0, L.Dc, dh, L.dhp, L.ldc,
+                   XR, GS, smem);
+    if (p.xmode != kXGlobal) {
+      load_x(p.queries + b * Tq * D, p.keys + b * Tk * D, Tq, Tk, D, alias, X, L.ldx);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+
+    // 1. the projections of the own columns, a tile of Q, K or V a job: 4
+    // rows strided by a quarter of the rows (consecutive lanes, consecutive
+    // rows) × 4 columns
     {
-      const int qjobs = (Tq + kRows - 1) / kRows * D4;
-      const int kjobs = (Tk + kRows - 1) / kRows * D4;
-      for (int jb = tid; jb < qjobs + kjobs; jb += kThreads) {
-        if (jb < qjobs) {
-          project_tile<1>(xq, Tq, D, jb / D4 * kRows, jb % D4 * 4, wq, bq, Qw, nullptr,
-                          nullptr, nullptr);
+      const bool glob = p.xmode == kXGlobal;
+      const int ldx = glob ? D : L.ldx;
+      const int nc4 = L.Dcp / 4, nq = L.Tq4 / 4, nk = L.Tk4 / 4;
+      const int qj = nq * nc4, kj = nk * nc4;
+      for (int jb = tid; jb < qj + 2 * kj; jb += kThreads) {
+        if (jb < qj) {
+          project_tile(glob ? p.queries + b * Tq * D : X, ldx, Tq, D, jb % nq, nq,
+                       jb / nq * 4, Ws, Bs, Qs, L.ldc);
         } else {
-          const int jk = jb - qjobs;
-          project_tile<2>(xk, Tk, D, jk / D4 * kRows, jk % D4 * 4, wk, bk, Kw, wv, bv, Vw);
+          const int m = (jb - qj) / kj + 1, v = (jb - qj) % kj;
+          const float* xk = glob ? p.keys + b * Tk * D : alias ? X : X + Tq * L.ldx;
+          project_tile(xk, ldx, Tk, D, v % nk, nk, v / nk * 4, Ws + m * D * L.ldc,
+                       Bs + m * L.Dcp, m == 1 ? Ks : Vs, L.ldc);
         }
       }
     }
     __syncthreads();
 
-    // 2. the forward per (query row, head): O, and the softmax's max and sum
-    for (int i = tid; i < Tq * H; i += kThreads) {
-      const int t = i / H, h = i - t * H;
-      float* orow = Ow + t * D + h * n;
-      if (t >= q_live) {  // query-masked: O = 0, and no later step reads M, L
-        for (int f = 0; f < n; ++f) orow[f] = 0.0f;
-        Mw[i] = 0.0f, Lw[i] = 1.0f;
-        continue;
-      }
-      float q[NR];
-      load_head<DH>(Qw + t * D + h * n, q, n);
-      float m = -INFINITY;
-      for (int k = 0; k < Tk; ++k) {
-        const float s = k < k_live ? dot<DH>(q, Kw + k * D + h * n, n) * inv_scale : kKeyMask;
-        m = fmaxf(m, s);
-      }
-      float l = 0.0f, acc[NR];
+    for (int t0 = 0; t0 < Tq; t0 += qb) {
+      const int nb = min(qb, Tq - t0);
+      float* ex = ex2 + ((t0 / qb) & 1) * 4 * qb;  // this block's exchange buffer
+
+      // 2. each own head's scores, softmax and output for the block's rows,
+      // a group of G lanes a (row, head), the keys strided over the group:
+      // the scores once, into the region ([hc][qb][ldp]); their max, expf
+      // and sum; P₀ over them (0 at padded keys and query-masked rows; under
+      // dropout a dropped P₀ stored negative, its sign the keep flag), and O
+      // = P′·V over the rows' O.  Every lane runs its group's shuffles
+      // (groups lie whole in a warp); lanes past the last group write nothing.
+      {
+        const int tasks = L.hc * nb;
+        const int G = group_size(tasks, kThreads);
+        for (int u0 = 0; u0 < tasks * G; u0 += kThreads) {
+          const int u = u0 + tid;
+          const bool valid = u < tasks * G;
+          const int task = (valid ? u : tasks * G - 1) / G, part = u % G;
+          const int hl = task / nb, t = task % nb, tg = t0 + t, hoff = hl * L.dhp;
+          float* S = region + (hl * qb + t) * L.ldp;
+          float a[NR];
+          load_head<NR>(Qs + tg * L.ldc + hoff, a, n4);
+          float m = -INFINITY;
+#pragma unroll 4
+          for (int k = part; k < Tk; k += G) {
+            const float sc =
+                k < k_live ? dot_head<NR>(a, Ks + k * L.ldc + hoff, n4) * inv_scale : kKeyMask;
+            if (valid) S[k] = sc;
+            m = fmaxf(m, sc);
+          }
+          m = group_fold_max(m, G);
+          float l = 0.0f;
+#pragma unroll 4
+          for (int k = part; k < Tk; k += G) {
+            const float e = expf(S[k] - m);
+            if (valid) S[k] = e;
+            l += e;
+          }
+          l = group_fold_sum(l, G);
+          const bool live = tg < q_live;
+          const std::uint8_t* kr = nullptr;
+          if constexpr (DROP)
+            kr = p.keep_mask + ((b * H + rank * L.hc + hl) * Tq + tg) * static_cast<long long>(Tk);
 #pragma unroll
-      for (int f = 0; f < NR; ++f) acc[f] = 0.0f;
-      const std::uint8_t* kr = nullptr;
-      if constexpr (DROP) kr = km + (static_cast<long long>(h) * Tq + t) * Tk;
-      for (int k = 0; k < Tk; ++k) {
-        const float s = k < k_live ? dot<DH>(q, Kw + k * D + h * n, n) * inv_scale : kKeyMask;
-        const float e = expf(s - m);
-        l += e;
-        if constexpr (DROP) {
-          if (__ldg(kr + k)) axpy<DH>(e, Vw + k * D + h * n, acc, n);
+          for (int f = 0; f < NR; ++f) a[f] = 0.0f;  // now O's sums
+#pragma unroll 2
+          for (int k = part; k < L.Tk4; k += G) {
+            float v = 0.0f;
+            if (live && k < Tk) {
+              v = S[k] / l;
+              bool kept = true;
+              if constexpr (DROP) kept = __ldg(kr + k) != 0;
+              if (kept) axpy_head<NR>(v, Vs + k * L.ldc + hoff, a, n4);
+              if (!kept) v = -v;
+            }
+            if (valid) S[k] = v;
+          }
+          fold_head<NR>(a, n4, G);
+          if (valid && part == 0)
+            store_head<NR>(Os + tg * L.ldc + hoff, a, DROP ? 1.0f / p.keep : 1.0f, n4);
+        }
+      }
+      __syncthreads();
+
+      // 3. LayerNorm's backward over the block's rows, a group of G lanes a
+      // row: each CTA sums its own columns, centred at their own mean (Σy,
+      // M2, Σdŷ, Σdŷ·(y − own mean)); one exchange; each CTA combines the
+      // cluster's sums in rank order (Chan's parallel variance: M2 = Σ_c M2_c
+      // + Dc·(mean_c − mean)²), then writes dy on its own columns
+      {
+        const int G = group_size(nb, kThreads, L.Dcp / 4);
+        const float dc = static_cast<float>(L.Dc);
+        for (int u0 = 0; u0 < nb * G; u0 += kThreads) {
+          const int u = u0 + tid;
+          const bool valid = u < nb * G;
+          const int t = (valid ? u : nb * G - 1) / G, part = u % G, tg = t0 + t;
+          const float* orow = Os + tg * L.ldc;
+          const float* xrow = XR + tg * L.ldc;
+          const float* grow = GS + tg * L.ldc;
+          float sy = 0.0f, sd = 0.0f;
+          for (int pc = part; pc < L.Dcp; pc += G) {
+            if (true_col<DH>(pc, dh, L.dhp) < 0) continue;
+            sy += orow[pc] + xrow[pc];
+            sd += grow[pc] * gam[pc];
+          }
+          sy = group_fold_sum(sy, G), sd = group_fold_sum(sd, G);
+          const float mc = sy / dc;
+          float m2 = 0.0f, sdy = 0.0f;
+          for (int pc = part; pc < L.Dcp; pc += G) {
+            if (true_col<DH>(pc, dh, L.dhp) < 0) continue;
+            const float d = orow[pc] + xrow[pc] - mc;
+            m2 = fmaf(d, d, m2);
+            sdy = fmaf(grow[pc] * gam[pc], d, sdy);
+          }
+          m2 = group_fold_sum(m2, G), sdy = group_fold_sum(sdy, G);
+          if (valid && part == 0) st4(ex + 4 * t, make_float4(sy, m2, sd, sdy));
+        }
+      }
+      if (cs > 1) cluster_sync(); else __syncthreads();
+      {
+        const int G = group_size(nb, kThreads, L.Dcp / 4);
+        const float dc = static_cast<float>(L.Dc);
+        for (int u = tid; u < nb * G; u += kThreads) {
+          const int t = u / G, part = u % G, tg = t0 + t;
+          float sy = 0.0f, sd = 0.0f;
+          for (int rr = 0; rr < cs; ++rr) {
+            const float4 e = ld4((cs > 1 ? cluster.map_shared_rank(ex, rr) : ex) + 4 * t);
+            sy += e.x, sd += e.z;
+          }
+          const float mean = sy / D, m1 = sd / D;
+          float m2 = 0.0f, sdy = 0.0f;
+          for (int rr = 0; rr < cs; ++rr) {
+            const float4 e = ld4((cs > 1 ? cluster.map_shared_rank(ex, rr) : ex) + 4 * t);
+            const float dm = e.x / dc - mean;
+            m2 += e.y + dc * dm * dm;
+            sdy += e.w + dm * e.z;
+          }
+          const float sigma = sqrtf(m2 / D + kLnEps);
+          const float mdy = sdy / sigma / D;  // mean(dŷ⊙ŷ)
+          const float* orow = Os + tg * L.ldc;
+          const float* xrow = XR + tg * L.ldc;
+          const float* grow = GS + tg * L.ldc;
+          for (int pc = part; pc < L.Dcp; pc += G) {
+            float v = 0.0f;
+            if (true_col<DH>(pc, dh, L.dhp) >= 0) {
+              const float yh = (orow[pc] + xrow[pc] - mean) / sigma;
+              v = (grow[pc] * gam[pc] - m1 - yh * mdy) / sigma;
+            }
+            DYs[tg * L.ldc + pc] = v;
+          }
+          if (part == 0) mean_s[t] = mean, sigma_s[t] = sigma;
+        }
+      }
+      __syncthreads();
+
+      // 3b. dV += P′ᵀ·dy on half the threads, beside 3a on the other half
+      keys_times_rows<DROP, true>(region, L.ldp, qb, DYs, L.ldc, DVs, t0, nb, L.Tk4, L.hc,
+                                  L.dhp, DROP ? 1.0f / p.keep : 1.0f, 0, kThreads / 2);
+      // 3a. D = dy·O per (row, head); the block's dγ and dβ per own column
+      for (int i = tid - kThreads / 2; tid >= kThreads / 2 && i < L.hc * nb + L.Dc;
+           i += kThreads / 2) {
+        if (i < L.hc * nb) {
+          const int hl = i / nb, t = i % nb;
+          const float* dyr = DYs + (t0 + t) * L.ldc + hl * L.dhp;
+          const float* orow = Os + (t0 + t) * L.ldc + hl * L.dhp;
+          float d = 0.0f;
+#pragma unroll
+          for (int f = 0; f < (DH ? DH : L.dhp); ++f) d = fmaf(dyr[f], orow[f], d);
+          Drow[hl * qb + t] = d;
         } else {
-          axpy<DH>(e, Vw + k * D + h * n, acc, n);
+          const int c = i - L.hc * nb;
+          const int pc = DH ? c : c / dh * L.dhp + c % dh;
+          float sg = 0.0f, sbeta = 0.0f;
+          for (int t = 0; t < nb; ++t) {
+            const int tg = t0 + t;
+            const float gv = GS[tg * L.ldc + pc];
+            const float yh = (Os[tg * L.ldc + pc] + XR[tg * L.ldc + pc] - mean_s[t]) / sigma_s[t];
+            sg = fmaf(gv, yh, sg);
+            sbeta += gv;
+          }
+          dgb[c] = t0 == 0 ? sg : dgb[c] + sg;
+          dgb[L.Dc + c] = t0 == 0 ? sbeta : dgb[L.Dc + c] + sbeta;
         }
       }
-#pragma unroll
-      for (int f = 0; f < (DH ? DH : n); ++f) {
-        if constexpr (DROP) {
-          orow[f] = acc[f] / l / p.keep;
-        } else {
-          orow[f] = acc[f] / l;
-        }
-      }
-      Mw[i] = m, Lw[i] = l;
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // 3. LayerNorm's backward per query row, a warp each: dy and g⊙ŷ
-    for (int t = warp; t < Tq; t += kWarps) {
-      float y[kMaxLnPerLane], gv[kMaxLnPerLane], sum = 0.0f;
+      // 4a. dS = P₀ ⊙ (dP₀ − D) over P (zero at masked keys) and dQ = dS·K/√dh
+      // over the rows' O, a group of G lanes a (row, head) as in 2
+      {
+        const int tasks = L.hc * nb;
+        const int G = group_size(tasks, kThreads);
+        for (int u0 = 0; u0 < tasks * G; u0 += kThreads) {
+          const int u = u0 + tid;
+          const bool valid = u < tasks * G;
+          const int task = (valid ? u : tasks * G - 1) / G, part = u % G;
+          const int hl = task / nb, t = task % nb, tg = t0 + t, hoff = hl * L.dhp;
+          float* S = region + (hl * qb + t) * L.ldp;
+          const bool live = tg < q_live;
+          const float dd = Drow[hl * qb + t];
+          float dy[NR], dq[NR];
+          load_head<NR>(DYs + tg * L.ldc + hoff, dy, n4);
 #pragma unroll
-      for (int i = 0; i < kMaxLnPerLane; ++i) {
-        const int c = lane + kWarp * i;
-        y[i] = c < D ? Ow[t * D + c] + __ldg(xq + t * D + c) : 0.0f;
-        gv[i] = c < D ? __ldg(gb + t * D + c) : 0.0f;
-        sum += y[i];
-      }
-      const float mean = warp_sum(sum) / D;
-      float sq = 0.0f;
-#pragma unroll
-      for (int i = 0; i < kMaxLnPerLane; ++i) {
-        y[i] = lane + kWarp * i < D ? y[i] - mean : 0.0f;
-        sq = fmaf(y[i], y[i], sq);
-      }
-      const float denom = sqrtf(warp_sum(sq) / D + kLnEps);
-      float s1 = 0.0f, s2 = 0.0f, dyh[kMaxLnPerLane];
-#pragma unroll
-      for (int i = 0; i < kMaxLnPerLane; ++i) {
-        const int c = lane + kWarp * i;
-        y[i] = y[i] / denom;  // ŷ
-        dyh[i] = c < D ? gv[i] * __ldg(gamma + c) : 0.0f;
-        s1 += dyh[i];
-        s2 = fmaf(dyh[i], y[i], s2);
-      }
-      const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
-#pragma unroll
-      for (int i = 0; i < kMaxLnPerLane; ++i) {
-        const int c = lane + kWarp * i;
-        if (c < D) {
-          DYw[t * D + c] = (dyh[i] - m1 - y[i] * m2) / denom;
-          GYw[t * D + c] = gv[i] * y[i];
+          for (int f = 0; f < NR; ++f) dq[f] = 0.0f;
+#pragma unroll 2
+          for (int k = part; k < L.Tk4; k += G) {
+            float ds = 0.0f;
+            if (live && k < k_live) {
+              const float v = S[k];
+              float dp = dot_head<NR>(dy, Vs + k * L.ldc + hoff, n4);
+              if constexpr (DROP) dp = v > 0.0f ? dp / p.keep : 0.0f;
+              ds = (DROP ? fabsf(v) : v) * (dp - dd);
+              axpy_head<NR>(ds, Ks + k * L.ldc + hoff, dq, n4);
+            }
+            if (valid) S[k] = ds;
+          }
+          fold_head<NR>(dq, n4, G);
+          if (valid && part == 0) store_head<NR>(Os + tg * L.ldc + hoff, dq, inv_scale, n4);
         }
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // 4. D = dy·O per (query row, head); the row's dγ and dβ per column
-    for (int i = tid; i < Tq * H + D; i += kThreads) {
-      if (i < Tq * H) {
-        const int t = i / H, h = i - t * H;
-        Dw[i] = dot<DH>(DYw + t * D + h * n, Ow + t * D + h * n, n);
-      } else {
-        const int c = i - Tq * H;
-        float sg = 0.0f, sbeta = 0.0f;
-        for (int t = 0; t < Tq; ++t) {
-          sg += GYw[t * D + c];
-          sbeta += __ldg(gb + t * D + c);
-        }
-        float* e = sb + 3 * D + c;
-        e[0] = first ? sg : e[0] + sg;
-        e[D] = first ? sbeta : e[D] + sbeta;
-      }
+      // 4b. dK += dSᵀ·Q
+      keys_times_rows<DROP, false>(region, L.ldp, qb, Qs, L.ldc, DKs, t0, nb, L.Tk4, L.hc,
+                                   L.dhp, 1.0f, 0, kThreads);
+      __syncthreads();
     }
-    __syncthreads();
 
-    // 5. dQ per (query row, head) from the recomputed scores; dQpre over O
-    for (int i = tid; i < Tq * H; i += kThreads) {
-      const int t = i / H, h = i - t * H;
-      float* orow = Ow + t * D + h * n;
-      float q[NR], dy[NR], acc[NR];
-      load_head<DH>(Qw + t * D + h * n, q, n);
-#pragma unroll
-      for (int f = 0; f < NR; ++f) acc[f] = 0.0f;
-      if (t < q_live) {
-        load_head<DH>(DYw + t * D + h * n, dy, n);
-        const float m = Mw[i], l = Lw[i], dd = Dw[i];
-        const std::uint8_t* kr = nullptr;
-        if constexpr (DROP) kr = km + (static_cast<long long>(h) * Tq + t) * Tk;
-        for (int k = 0; k < k_live; ++k) {  // dS = 0 at masked keys
-          const float* krow = Kw + k * D + h * n;
-          const float pr = expf(dot<DH>(q, krow, n) * inv_scale - m) / l;
-          float dp = dot<DH>(dy, Vw + k * D + h * n, n);
-          if constexpr (DROP) dp = __ldg(kr + k) ? dp / p.keep : 0.0f;
-          axpy<DH>(pr * (dp - dd), krow, acc, n);
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < (DH ? DH : n); ++f) orow[f] = q[f] > 0.0f ? acc[f] * inv_scale : 0.0f;
+    // 5. the region is free: reload x (region mode) while the ReLU masks
+    // run; the next row's own columns of xq and g
+    if (p.xmode == kXRegion)
+      load_x(p.queries + b * Tq * D, p.keys + b * Tk * D, Tq, Tk, D, alias, X, L.ldx);
+    if (j + p.clusters < p.rows) {
+      const long long bn = b + p.clusters;
+      load_own<DH>(p.queries + bn * Tq * D, p.g + bn * Tq * D, Tq, D, c0, L.Dc, dh, L.dhp,
+                   L.ldc, XR, GS, smem);
     }
-    __syncthreads();
-
-    // 6. dK and dV per (key row, head), over the live query rows in order;
-    // dKpre and dVpre over K and V
-    for (int i = tid; i < Tk * H; i += kThreads) {
-      const int k = i / H, h = i - k * H;
-      float* krow = Kw + k * D + h * n;
-      float* vrow = Vw + k * D + h * n;
-      float kv[NR], vv[NR], dkacc[NR], dvacc[NR];
-      load_head<DH>(krow, kv, n);
-      load_head<DH>(vrow, vv, n);
-#pragma unroll
-      for (int f = 0; f < NR; ++f) dkacc[f] = 0.0f, dvacc[f] = 0.0f;
-      const bool valid = k < k_live;
-      for (int t = 0; t < q_live; ++t) {  // rows at t >= q_len: P′ = 0, dS = 0
-        const int u = t * H + h;
-        const float* qrow = Qw + t * D + h * n;
-        const float* dyrow = DYw + t * D + h * n;
-        const float s = valid ? dot<DH>(qrow, kv, n) * inv_scale : kKeyMask;
-        const float pr = expf(s - Mw[u]) / Lw[u];
-        bool kept = true;
-        if constexpr (DROP) kept = __ldg(km + (static_cast<long long>(h) * Tq + t) * Tk + k) != 0;
-        if constexpr (DROP) {
-          if (kept) axpy<DH>(pr / p.keep, dyrow, dvacc, n);
-        } else {
-          axpy<DH>(pr, dyrow, dvacc, n);
-        }
-        if (valid) {
-          float dp = dot<DH>(dyrow, vv, n);
-          if constexpr (DROP) dp = kept ? dp / p.keep : 0.0f;
-          axpy<DH>(pr * (dp - Dw[u]), qrow, dkacc, n);
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < (DH ? DH : n); ++f) {
-        krow[f] = kv[f] > 0.0f ? dkacc[f] * inv_scale : 0.0f;
-        vrow[f] = vv[f] > 0.0f ? dvacc[f] : 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // 7. d_queries, d_keys and the row's weight gradients
     {
-      const int ja = (Tq + kRows - 1) / kRows * D4;
-      const int jb = (Tk + kRows - 1) / kRows * D4;
-      const int jc = D4 * D4;
-      for (int jj = tid; jj < ja + jb + 2 * jc; jj += kThreads) {
-        if (jj < ja) {
-          input_grad_tile<1>(Ow, wq, nullptr, nullptr, DYw, p.dq + b * Tq * D, Tq, D,
-                             jj / D4 * kRows, jj % D4 * 4);
-        } else if (jj < ja + jb) {
-          const int u = jj - ja;
-          input_grad_tile<2>(Kw, wk, Vw, wv, nullptr, p.dk + b * Tk * D, Tk, D,
-                             u / D4 * kRows, u % D4 * 4);
-        } else if (jj < ja + jb + jc) {
-          const int u = jj - ja - jb;
-          weight_grad_tile<1>(xq, Ow, nullptr, sw, nullptr, sb, nullptr, Tq, D, u / D4 * 4,
-                              u % D4 * 4, first);
+      const int nc4 = L.Dcp / 4;
+      const int qn = Tq * nc4, kn = Tk * nc4;
+      for (int i = tid; i < qn + kn; i += kThreads) {
+        if (i < qn) {
+          const int e = i / nc4 * L.ldc + i % nc4 * 4;
+          const float4 q = ld4(Qs + e);
+          float4 d = ld4(Os + e);
+          d.x = q.x > 0.0f ? d.x : 0.0f, d.y = q.y > 0.0f ? d.y : 0.0f;
+          d.z = q.z > 0.0f ? d.z : 0.0f, d.w = q.w > 0.0f ? d.w : 0.0f;
+          st4(Os + e, d);
         } else {
-          const int u = jj - ja - jb - jc;
-          weight_grad_tile<2>(xk, Kw, Vw, sw + D * D, sw + 2 * D * D, sb + D, sb + 2 * D, Tk,
-                              D, u / D4 * 4, u % D4 * 4, first);
+          const int u = i - qn, e = u / nc4 * L.ldc + u % nc4 * 4;
+          const float4 kv = ld4(Ks + e), vv = ld4(Vs + e);
+          float4 dk = ld4(DKs + e), dv = ld4(DVs + e);
+          dk.x = kv.x > 0.0f ? dk.x * inv_scale : 0.0f, dk.y = kv.y > 0.0f ? dk.y * inv_scale : 0.0f;
+          dk.z = kv.z > 0.0f ? dk.z * inv_scale : 0.0f, dk.w = kv.w > 0.0f ? dk.w * inv_scale : 0.0f;
+          dv.x = vv.x > 0.0f ? dv.x : 0.0f, dv.y = vv.y > 0.0f ? dv.y : 0.0f;
+          dv.z = vv.z > 0.0f ? dv.z : 0.0f, dv.w = vv.w > 0.0f ? dv.w : 0.0f;
+          st4(DKs + e, dk);
+          st4(DVs + e, dv);
         }
       }
     }
-    __syncthreads();  // the workspace is free for the next row
+    if (p.xmode == kXRegion) cp_async_wait_all();
+    __syncthreads();
+
+    // 5a. the weight gradients of the own columns, into the slot: a tile
+    // of dWq, dWk or dWv a job (the rows split over a group where there are
+    // few jobs); the row's dγ and dβ
+    {
+      float* slot = p.slots + (static_cast<long long>(tree) * p.tree_slots + cid) * Pc;
+      const int nc4 = L.Dcp / 4, D4 = D / 4;
+      const int wt = D4 * nc4;
+      const int G = group_size(3 * wt, kThreads);
+      for (int u0 = 0; u0 < 3 * wt * G; u0 += kThreads) {
+        const int u = u0 + tid;
+        const bool valid = u < 3 * wt * G;
+        const int job = (valid ? u : 3 * wt * G - 1) / G, part = u % G;
+        const int m = job / wt, e = job % wt, a = e / nc4 * 4, c = e % nc4 * 4;
+        const bool glob = p.xmode == kXGlobal;
+        const float* x = glob ? (m == 0 ? p.queries + b * Tq * D : p.keys + b * Tk * D)
+                              : (m == 0 || alias ? X : X + Tq * L.ldx);
+        weight_grad_tile<DH>(x, glob ? D : L.ldx, m == 0 ? Os : m == 1 ? DKs : DVs, L.ldc,
+                             m == 0 ? Tq : Tk, a, c, part, G, valid, slot + m * D * L.Dc,
+                             slot + 3 * D * L.Dc + m * L.Dc, L.Dc, dh, L.dhp, first);
+      }
+      for (int c = tid; c < 2 * L.Dc; c += kThreads) {
+        float* e = slot + 3 * D * L.Dc + 3 * L.Dc + c;
+        *e = first ? dgb[c] : *e + dgb[c];
+      }
+    }
+    __syncthreads();
+
+    // 5b. the partial input gradients [T][D] into the region, then each
+    // CTA adds the cluster's partials of its own columns in rank order: the
+    // queries' and the keys' at once where the region holds both
+    const bool both = (Tq + Tk) * L.ldx <= L.region;
+    for (int pass = 0; pass < (both ? 1 : 2); ++pass) {
+      const bool do_q = pass == 0, do_k = both || pass == 1;
+      const int koff = both ? Tq : 0;  // the keys' first region row
+      const int nA4 = D / 4;
+      const int qj = do_q ? (Tq + 3) / 4 * nA4 : 0, kj = do_k ? (Tk + 3) / 4 * nA4 : 0;
+      for (int jb = tid; jb < qj + kj; jb += kThreads) {
+        if (jb < qj) {
+          partial_tile<1>(Os, Ws, nullptr, nullptr, L.ldc, L.Dcp, Tq, jb / nA4 * 4, jb % nA4, nA4,
+                          region, L.ldx);
+        } else {
+          const int u = jb - qj;
+          partial_tile<2>(DKs, Ws + D * L.ldc, DVs, Ws + 2 * D * L.ldc, L.ldc, L.Dcp, Tk, u / nA4 * 4,
+                          u % nA4, nA4, region + koff * L.ldx, L.ldx);
+        }
+      }
+      if (cs > 1) cluster_sync(); else __syncthreads();
+      const int dc4 = L.Dc / 4;
+      const int qn = do_q ? Tq * dc4 : 0, kn = do_k ? Tk * dc4 : 0;
+      for (int i = tid; i < qn + kn; i += kThreads) {
+        const bool isq = i < qn;
+        const int u = isq ? i : i - qn, t = u / dc4, c = u % dc4 * 4;
+        const int row = isq ? t : koff + t;
+        float4 v[kMaxCs];
+#pragma unroll
+        for (int rr = 0; rr < kMaxCs; ++rr)
+          if (rr < cs)
+            v[rr] = ld4((cs > 1 ? cluster.map_shared_rank(region, rr) : region) + row * L.ldx +
+                        c0 + c);
+        float4 s = v[0];
+#pragma unroll
+        for (int rr = 1; rr < kMaxCs; ++rr)
+          if (rr < cs) s.x += v[rr].x, s.y += v[rr].y, s.z += v[rr].z, s.w += v[rr].w;
+        if (isq) {
+          float dyv[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int cc = c + jj;
+            dyv[jj] = DYs[t * L.ldc + (DH ? cc : cc / dh * L.dhp + cc % dh)];
+          }
+          s.x = dyv[0] + s.x, s.y = dyv[1] + s.y, s.z = dyv[2] + s.z, s.w = dyv[3] + s.w;
+          st4(p.dq + (b * Tq + t) * D + c0 + c, s);
+        } else {
+          st4(p.dk + (b * Tk + t) * D + c0 + c, s);
+        }
+      }
+      // the peers have read this CTA's partials before anything overwrites them
+      if (cs > 1) cluster_sync(); else __syncthreads();
+    }
   }
 
-  // up the tree: the last CTA of each group of kGroup slots sums them, in
-  // slot order, into one slot of the next level
-  unsigned* tickets = p.tickets + static_cast<long long>(r) * p.replica_tickets;
-  float* level = slots;
-  int count = gridDim.x, idx = blockIdx.x;
+  // up the rank's tree: the last CTA of each group of kGroup slots sums
+  // them, in slot order, into one slot of the next level
+  unsigned* tickets = p.tickets + static_cast<long long>(tree) * p.tree_tickets;
+  float* level = p.slots + static_cast<long long>(tree) * p.tree_slots * Pc;
+  int count = p.clusters, idx = cid;
   while (count > 1) {
     const int group = idx / kGroup;
-    const int first = group * kGroup;
-    const int members = min(kGroup, count - first);
+    const int firsts = group * kGroup;
+    const int members = min(kGroup, count - firsts);
     __threadfence();
     __syncthreads();
     if (tid == 0) {
@@ -628,39 +1090,36 @@ __global__ void __launch_bounds__(kThreads, 1) mha_bwd_kernel(const Params p) {
     __syncthreads();
     if (!last) return;
     __threadfence();
-    float* next = level + static_cast<long long>(count) * P;
-    const float* src = level + static_cast<long long>(first) * P;
-    for (int i = tid * 4; i < P; i += kThreads * 4) {
-      float4 acc = __ldcg(reinterpret_cast<const float4*>(src + i));
-      for (int s = 1; s < members; ++s) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(src + static_cast<long long>(s) * P + i));
-        acc.x += v.x, acc.y += v.y, acc.z += v.z, acc.w += v.w;
-      }
-      st4(next + static_cast<long long>(group) * P + i, acc);
+    float* next = level + static_cast<long long>(count) * Pc;
+    const float* src = level + static_cast<long long>(firsts) * Pc;
+    for (int i = tid; i < Pc; i += kThreads) {
+      float acc = __ldcg(src + i);
+      for (int s = 1; s < members; ++s) acc += __ldcg(src + static_cast<long long>(s) * Pc + i);
+      next[static_cast<long long>(group) * Pc + i] = acc;
     }
     tickets += (count + kGroup - 1) / kGroup;
     count = (count + kGroup - 1) / kGroup;
     idx = group;
     level = next;
   }
-  // one CTA is left, with the total in slot 0 of `level`
+  // one CTA of the rank is left, with the total in slot 0 of `level`
   __threadfence();
   __syncthreads();
-  for (int i = tid; i < P; i += kThreads) {
+  for (int i = tid; i < Pc; i += kThreads) {
     const float v = __ldcg(level + i);
-    if (i < 3 * D * D) {
-      const int m = i / (D * D), e = i - m * D * D;
-      (m == 0 ? p.dwq : m == 1 ? p.dwk : p.dwv)[wo + e] = v;
+    if (i < 3 * D * L.Dc) {
+      const int m = i / (D * L.Dc), e = i - m * D * L.Dc, k = e / L.Dc, c = e - k * L.Dc;
+      (m == 0 ? p.dwq : m == 1 ? p.dwk : p.dwv)[wo + k * D + c0 + c] = v;
     } else {
-      const int m = (i - 3 * D * D) / D, c = i - 3 * D * D - m * D;
+      const int m = (i - 3 * D * L.Dc) / L.Dc, c = i - 3 * D * L.Dc - m * L.Dc;
       float* dst = m == 0 ? p.dbq : m == 1 ? p.dbk : m == 2 ? p.dbv : m == 3 ? p.dgamma : p.dbeta;
-      dst[vo + c] = v;
+      dst[vo + c0 + c] = v;
     }
   }
 }
 
 template <int DH, bool DROP>
-int launch(const Params& p, int grid, int replicas, int smem, cudaStream_t stream) {
+int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   // the dynamic shared memory each device's variant is opted in to
   static int opted[kMaxDevices];
   int device = 0;
@@ -673,21 +1132,39 @@ int launch(const Params& p, int grid, int replicas, int smem, cudaStream_t strea
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
   }
-  mha_bwd_kernel<DH, DROP><<<dim3(grid, replicas), kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.clusters * p.cs, replicas);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, mha_bwd_kernel<DH, DROP>, p);
+  // read (and clear) the launch's error either way, so that a refused
+  // launch is not reported again by a later one
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 template <bool DROP>
-int launch_heads(const Params& p, int grid, int replicas, int smem, cudaStream_t stream) {
+int launch_heads(const Params& p, int replicas, int smem, cudaStream_t stream) {
+  // the specialised variants assume shared memory; the workspace in device
+  // memory runs the generic one
+  if (p.work != nullptr) return launch<0, DROP>(p, replicas, smem, stream);
   switch (p.dh) {
     case 8:
-      return launch<8, DROP>(p, grid, replicas, smem, stream);
+      return launch<8, DROP>(p, replicas, smem, stream);
     case 16:
-      return launch<16, DROP>(p, grid, replicas, smem, stream);
+      return launch<16, DROP>(p, replicas, smem, stream);
     case 32:
-      return launch<32, DROP>(p, grid, replicas, smem, stream);
+      return launch<32, DROP>(p, replicas, smem, stream);
     default:
-      return launch<0, DROP>(p, grid, replicas, smem, stream);
+      return launch<0, DROP>(p, replicas, smem, stream);
   }
 }
 
@@ -696,35 +1173,86 @@ int launch_heads(const Params& p, int grid, int replicas, int smem, cudaStream_t
 extern "C" {
 
 // Launches K3b on `stream` with the geometry of
-// ops/cuda/mha.py::backward_plan: grid × replicas CTAs of `threads` threads,
-// each taking the rows blockIdx.x, blockIdx.x + grid, ... of its replica's
-// `rows`; `smem` bytes of dynamic shared memory hold a row's workspace, or,
-// with `work` not null, `per_row` floats of `work` a CTA do.  `slots` and
-// `tickets` are the plan's scratch (tickets all 0), `replica_slots` slots of
-// 3·D² + 5·D floats and `replica_tickets` tickets a replica.  `keep_mask`
-// holds dropout's keep flags ([rows·replicas, H, Tq, Tk] bytes) and `keep`
-// = 1 − rate; a null mask runs the variant without dropout.  Returns the
-// launch's CUDA error (0 = launched).  The caller has checked shapes,
-// types, devices, contiguity, 16-byte alignment and the limits.
+// ops/cuda/mha.py::backward_plan: `clusters` clusters of `cs` CTAs of
+// `threads` threads for each of `replicas` replicas (grid y), cluster i
+// taking the rows i, i + clusters, ... of its replica's `rows`; query
+// blocks of `qb` rows; `xmode` and `alias` as the plan's; `smem` bytes of
+// dynamic shared memory hold a CTA's layout of `per_cta` floats or, with
+// `work` not null, `per_cta` floats of `work` a CTA do (then cs is 1).
+// `slots` and `tickets` are the plan's scratch (tickets all 0): per
+// replica and rank, `tree_slots` slots of 3·D·D/cs + 5·D/cs floats and
+// `tree_tickets` tickets.  `keep_mask` holds dropout's keep flags
+// ([rows·replicas, H, Tq, Tk] bytes) and `keep` = 1 − rate; a null mask
+// runs the variant without dropout.  Returns the launch's CUDA error (0 =
+// launched); a refused cluster launch is returned, never retried with
+// another geometry.  The caller has checked shapes, types, devices,
+// contiguity, 16-byte alignment and the limits.
 int mha_bwd_launch(const float* queries, const float* keys, const int* q_len,
                    const int* k_len, const float* wq, const float* bq, const float* wk,
                    const float* bk, const float* wv, const float* bv, const float* gamma,
-                   const float* beta, const float* g, const std::uint8_t* keep_mask,
-                   float* dq, float* dk, float* dwq, float* dbq, float* dwk, float* dbk,
-                   float* dwv, float* dbv, float* dgamma, float* dbeta, float* slots,
-                   unsigned* tickets, float* work, int Tq, int Tk, int D, int H, int dh,
-                   int rows, int grid, int replicas, int replica_slots, int replica_tickets,
-                   int per_row, int threads, int smem, float keep, void* stream) {
+                   const float* /*beta: the backward does not read it*/, const float* g,
+                   const std::uint8_t* keep_mask, float* dq, float* dk,
+                   float* dwq, float* dbq, float* dwk, float* dbk, float* dwv, float* dbv,
+                   float* dgamma, float* dbeta, float* slots, unsigned* tickets, float* work,
+                   int Tq, int Tk, int D, int H, int dh, int rows, int cs, int clusters,
+                   int replicas, int qb, int xmode, int alias, int tree_slots,
+                   int tree_tickets, int per_cta, int threads, int smem, float keep,
+                   void* stream) {
   if (threads != kThreads || dh < 1 || dh > kMaxDh || D != dh * H || D % 4 != 0 ||
-      D > kWarp * kMaxLnPerLane || rows < 1 || grid < 1 || grid > rows || replicas < 1)
+      D > kMaxD || rows < 1 || clusters < 1 || clusters > rows || replicas < 1 ||
+      (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 || (D / cs) % 4 != 0 ||
+      qb < 1 || qb > Tq || xmode < kXRegion || xmode > kXGlobal ||
+      (xmode == kXGlobal) != (work != nullptr) || (work != nullptr && cs != 1) ||
+      (alias && (Tq != Tk || queries != keys)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, beta, g,
-                 keep_mask, dq, dk, dwq, dbq, dwk, dbk, dwv, dbv, dgamma, dbeta, slots,
-                 tickets, work, Tq, Tk, D, H, dh, rows, replica_slots, replica_tickets,
-                 per_row, 1.0f / sqrtf(static_cast<float>(dh)), keep};
+  const Layout L = make_layout(Tq, Tk, D, H, dh, cs, qb, xmode, alias);
+  if (L.total != per_cta || (work == nullptr && 4 * per_cta > smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, g, keep_mask,
+                 dq, dk, dwq, dbq, dwk, dbk, dwv, dbv, dgamma, dbeta, slots, tickets, work,
+                 Tq, Tk, D, H, dh, rows, cs, clusters, qb, xmode, alias, tree_slots,
+                 tree_tickets, 1.0f / sqrtf(static_cast<float>(dh)), keep, L};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (keep_mask != nullptr) return launch_heads<true>(p, grid, replicas, smem, s);
-  return launch_heads<false>(p, grid, replicas, smem, s);
+  if (keep_mask != nullptr) return launch_heads<true>(p, replicas, smem, s);
+  return launch_heads<false>(p, replicas, smem, s);
+}
+
+// The floats of a CTA's layout (ops/cuda/mha.py::_bwd_layout is checked
+// against it on the card).
+int mha_bwd_layout_floats(int Tq, int Tk, int D, int H, int dh, int cs, int qb, int xmode,
+                          int alias) {
+  return make_layout(Tq, Tk, D, H, dh, cs, qb, xmode, alias).total;
+}
+
+// The clusters of `cs` CTAs with `smem` bytes each that the current device
+// runs at once (cudaOccupancyMaxActiveClusters), into *clusters; returns
+// the CUDA error.  ops/cuda/mha.py's ACTIVE_CLUSTERS is checked against it.
+int mha_bwd_active_clusters(int cs, int smem, int* clusters) {
+  // raise the opt-in only: launch() assumes it never falls
+  cudaFuncAttributes attrs;
+  cudaError_t err = cudaFuncGetAttributes(&attrs, mha_bwd_kernel<8, false>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > attrs.maxDynamicSharedSizeBytes) {
+    err = cudaFuncSetAttribute(mha_bwd_kernel<8, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // so that no later launch reports it
+      return static_cast<int>(err);
+    }
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cs);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(mha_bwd_kernel<8, false>), &config));
 }
 
 const char* mha_bwd_error_string(int err) {

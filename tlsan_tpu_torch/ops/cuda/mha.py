@@ -20,11 +20,13 @@ heads of up to `MAX_HEAD_WIDTH` features, D up to `MAX_D` and a multiple
 of 4, up to `MAX_KEYS` keys, and as many query rows as one CTA's shared
 memory holds (at D = 64: Tq and Tk up to 256, and past it for Tq);
 anything else raises ValueError naming the limit.  K3b
-(`backward_plan`) takes every shape K3 takes: a fixed number of CTAs each
-take rows in order, with a row's workspace in shared memory where it fits
-and in device memory past it, and sum the weight gradients across CTAs
-through scratch memory that this module keeps per device and reuses, so
-K3b calls on one device run on one stream at a time.
+(`backward_plan`) takes every shape K3 takes: a cluster of cs CTAs a row,
+split by heads, as many clusters as the card holds at once (at most B),
+each taking rows in order; a CTA's arrays in shared memory where they fit
+at some cluster size and in device memory past it (one CTA a row then);
+the weight gradients summed across clusters through scratch memory that
+this module keeps per device and reuses, so K3b calls on one device run on
+one stream at a time.
 
 Dropout (train time) is a variant of both kernels: a keep mask on the
 attention probabilities after the query mask, bool [B, H, Tq, Tk] (with
@@ -84,10 +86,15 @@ SM_SMEM, CTA_RESERVED, CTAS_BY_REGISTERS = 233_472, 1_024, 2
 ACTIVE_CLUSTERS = {(1, 1): 132, (2, 1): 66, (4, 1): 30, (8, 1): 15,
                    (1, 2): 264, (2, 2): 132, (4, 2): 62, (8, 2): 30}
 
-# K3b: the CTAs the H100 holds at once (one an SM: some 170 registers a
-# thread), slots summed together at each level of its cross-CTA tree
-# (kGroup in csrc/mha_bwd.cu)
+# K3b: the CTAs of its device-memory fallback (one an SM), slots summed
+# together at each level of its cross-CTA tree (kGroup in csrc/mha_bwd.cu)
 SMS, BWD_GROUP = 132, 16
+# where K3b keeps a row's x rows (kXRegion, kXGlobal in csrc/mha_bwd.cu):
+# in the region that holds the query block's probabilities, reloaded there
+# for the weight gradients; in device memory, read where they lie (the plan
+# of last resort, whose layout lies in device memory too)
+X_REGION, X_GLOBAL = 0, 1
+STATIC_SMEM = 64  # bytes K3b keeps for its static flag
 
 launches = 0
 bwd_launches = 0
@@ -187,41 +194,91 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
-    """One K3b launch: `grid` × `replicas` CTAs of `threads` threads, each
-    taking the rows blockIdx.x, blockIdx.x + grid, ... of its replica; a
-    row's workspace of `per_row` floats in `smem` bytes of dynamic shared
-    memory, or (`smem` 0) in `work` floats of device memory a replica;
-    `slots` weight-gradient slots of `weights` floats and `tickets`
-    integers a replica (its cross-CTA tree)."""
+    """One K3b launch: `clusters` clusters of `cs` CTAs (`grid` = clusters ·
+    cs) of `threads` threads for each of `replicas` replicas, cluster i
+    taking the rows i, i + clusters, ... of its replica; CTA c of a cluster
+    owns heads c·H/cs .. (c+1)·H/cs − 1.  Query blocks of `qb` rows; the x
+    rows where `xmode` says (X_REGION or X_GLOBAL), one copy for
+    both when `alias` (self-attention).  A CTA's layout of `per_cta` floats
+    lies in `smem` bytes of dynamic shared memory or, with `smem` 0, in
+    `work` floats of device memory a replica.  Per replica and rank a tree
+    of `slots` weight-gradient slots of `weights` floats (the rank's
+    columns) and `tickets` integers."""
     dh: int
+    cs: int
+    clusters: int
     grid: int
     replicas: int
     threads: int
+    qb: int
+    xmode: int
+    alias: bool
     smem: int
-    per_row: int
+    per_cta: int
     weights: int
     slots: int
     tickets: int
     work: int
 
 
-def _bwd_floats(Tq: int, Tk: int, D: int, num_heads: int) -> int:
-    """Floats of csrc/mha_bwd.cu's row workspace: Q, O, dy and g⊙ŷ [Tq,
-    D], K and V [Tk, D], and the max, sum and D of each (query row, head)
-    [Tq·H] each (rounded up to a multiple of 4)."""
-    return 4 * Tq * D + 2 * Tk * D + 3 * (-(-(Tq * num_heads) // 4) * 4)
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _bwd_layout(Tq: int, Tk: int, D: int, num_heads: int, cs: int, qb: int, xmode: int,
+                alias: bool) -> int:
+    """Floats of a K3b CTA's layout (make_layout in csrc/mha_bwd.cu): the
+    column slices of the three weights, the biases and γ; Q, O, dy and the
+    own columns of xq and g; K, V, dK and dV (the own heads' columns, each
+    padded to a multiple of 4, rows 4 floats longer); the query block's
+    statistics and LayerNorm's exchange (two buffers, by the block's
+    parity); dγ and dβ; the region, which holds the block's probabilities,
+    the x rows (X_REGION) and the partial input gradients in turn."""
+    hc, dhp = num_heads // cs, _r4(D // num_heads)
+    dcp, dc = hc * dhp, hc * (D // num_heads)
+    ldc, ldx, ldp = dcp + PAD, D + PAD, _r4(Tk) + PAD
+    xrows = Tq + (0 if alias else Tk)
+    floats = (3 * D * ldc + 4 * dcp + 5 * _r4(Tq) * ldc + 4 * _r4(Tk) * ldc
+              + _r4(qb * hc) + _r4(2 * qb) + 2 * 4 * qb + _r4(2 * dc))
+    region = max(hc * qb * ldp, max(Tq, Tk) * ldx)
+    if xmode == X_REGION:
+        region = max(region, xrows * ldx)
+    return floats + region
+
+
+def _query_blocks(Tq: int):
+    """Query-block sizes to try, largest first: Tq split into 1 .. 8 equal
+    blocks, then 32, 16, ... rows."""
+    sizes = {-(-Tq // n) for n in range(1, 9)} | {q for q in (32, 16, 8, 4, 2, 1) if q <= Tq}
+    return sorted(sizes, reverse=True)
+
+
+def _tree(n: int):
+    """(slots, tickets) of a cross-CTA tree over n slots."""
+    slots, tickets = n, 0
+    while n > 1:
+        n = -(-n // BWD_GROUP)
+        slots += n
+        tickets += n
+    return slots, tickets
 
 
 @functools.lru_cache(maxsize=512)
 def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
-                  replicas: int = 1) -> BwdPlan:
+                  replicas: int = 1, self_attention: bool = False) -> BwdPlan:
     """The geometry of K3b for queries [B, Tq, D] and keys [B, Tk, D] in
-    `num_heads` heads, for each of `replicas` replicas: as many CTAs as the
-    card holds at once (`SMS`), at most B, so that the scratch does not
-    grow with B; the workspace in shared memory where it fits (64 bytes
-    kept for the static flag).  It depends on the shape alone, so two calls agree bit
-    for bit, and a replica's CTAs are those of its own launch.  Raises
-    ValueError for what the kernel refuses, which K3 refuses too."""
+    `num_heads` heads (`self_attention`: keys is queries, one copy of x),
+    for each of `replicas` replicas.  Among the cluster sizes that divide
+    the heads (with columns on 16-byte boundaries) and the query blocks
+    whose layout fits a CTA's shared memory: the largest cluster whose
+    clusters hold the B rows in one wave (ACTIVE_CLUSTERS at the CTAs an SM
+    holds), else the one with the most CTAs resident; then the fewest query
+    blocks.  The grid is that
+    wave, at most B clusters, so the scratch does not grow with B.  Where
+    nothing fits, one CTA a row (132 at most) with its layout in device
+    memory.  It depends on the shape alone, so two calls agree bit for bit,
+    and a replica's CTAs are those of its own launch.  Raises ValueError for
+    what the kernel refuses, which K3 refuses too."""
     if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or replicas < 1 or D % num_heads:
         raise ValueError(
             f"K3b needs B, Tq, Tk, replicas >= 1 and D % num_heads == 0; got "
@@ -235,16 +292,32 @@ def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
     if D > MAX_D or D % 4:
         raise ValueError(
             f"K3b takes D of at most {MAX_D} and a multiple of 4; got D={D}")
-    per_row = _bwd_floats(Tq, Tk, D, num_heads)
-    smem = 4 * per_row if 4 * per_row <= SMEM_LIMIT - 64 else 0
-    grid = min(B, SMS)
-    slots, tickets, n = grid, 0, grid
-    while n > 1:  # the levels of the cross-CTA tree
-        n = -(-n // BWD_GROUP)
-        slots += n
-        tickets += n
-    return BwdPlan(dh, grid, replicas, THREADS, smem, per_row, 3 * D * D + 5 * D,
-                   slots, tickets, 0 if smem else grid * per_row)
+    alias = bool(self_attention) and Tq == Tk
+    best = None
+    for cs in CLUSTER_SIZES:
+        if num_heads % cs or (D // cs) % 4:
+            continue
+        for qb in _query_blocks(Tq):
+            floats = _bwd_layout(Tq, Tk, D, num_heads, cs, qb, X_REGION, alias)
+            if 4 * floats > SMEM_LIMIT - STATIC_SMEM:
+                continue
+            active = ACTIVE_CLUSTERS[cs, ctas_per_sm(4 * floats)]
+            wave = B <= active
+            key = (wave, cs if wave else cs * active, qb)
+            if best is None or key > best[0]:
+                best = key, cs, qb, floats, active
+    if best is None:
+        cs, xmode, qb = 1, X_GLOBAL, min(Tq, 64)
+        floats = _bwd_layout(Tq, Tk, D, num_heads, cs, qb, xmode, alias)
+        clusters, smem = min(B, SMS), 0
+    else:
+        _, cs, qb, floats, active = best
+        xmode, clusters, smem = X_REGION, min(B, active), 4 * floats
+    slots, tickets = _tree(clusters)
+    dc = D // cs
+    return BwdPlan(dh, cs, clusters, clusters * cs, replicas, THREADS, qb, xmode, alias,
+                   smem, floats, 3 * D * dc + 5 * dc, slots, tickets,
+                   0 if smem else clusters * floats)
 
 
 def _library() -> ctypes.CDLL:
@@ -266,9 +339,14 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     if lib.mha_bwd_launch.argtypes is None:
         lib.mha_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 13
+            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 17
             + [ctypes.c_float, ctypes.c_void_p])
         lib.mha_bwd_launch.restype = ctypes.c_int
+        lib.mha_bwd_layout_floats.argtypes = [ctypes.c_int] * 9
+        lib.mha_bwd_layout_floats.restype = ctypes.c_int
+        lib.mha_bwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_void_p]
+        lib.mha_bwd_active_clusters.restype = ctypes.c_int
         lib.mha_bwd_error_string.argtypes = [ctypes.c_int]
         lib.mha_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -351,11 +429,12 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
 
 def _bwd_scratch(queries: torch.Tensor, plan: BwdPlan):
     """queries' device's K3b scratch, grown to the plan's size: (slots,
-    tickets, workspace or None), a tree and a workspace a replica.  The
-    kernel leaves every ticket at 0 again."""
+    tickets, workspace or None), a tree a replica and rank and a workspace
+    a replica.  The kernel leaves every ticket at 0 again."""
     index = queries.get_device()
-    R = plan.replicas
-    need = (R * plan.slots * plan.weights, R * plan.tickets, R * plan.work)
+    trees = plan.replicas * plan.cs
+    need = (trees * plan.slots * plan.weights, trees * plan.tickets,
+            plan.replicas * plan.work)
     have = list(_scratch.get(index, (None, None, None)))
     for i, make in enumerate((queries.new_empty,
                               lambda n: queries.new_zeros(n, dtype=_I32),
@@ -390,7 +469,8 @@ def mha_backward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     grads = [new(lead + tuple(w.shape[len(lead):])) for w in weights]
     if B == 0 or R == 0:
         return (d_queries, d_keys, *grads)
-    plan = backward_plan(B, Tq, Tk, D, num_heads, R)
+    # one copy of x when queries and keys are one tensor, as for self-attention
+    plan = backward_plan(B, Tq, Tk, D, num_heads, R, queries.data_ptr() == keys.data_ptr())
     lib = _bwd_library()
     slots, tickets, work = _bwd_scratch(queries, plan)
     err = launch(queries.get_device(), lambda stream: lib.mha_bwd_launch(
@@ -399,12 +479,14 @@ def mha_backward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
         None if keep_mask is None else keep_mask.data_ptr(),
         d_queries.data_ptr(), d_keys.data_ptr(), *(t.data_ptr() for t in grads),
         slots.data_ptr(), tickets.data_ptr(), None if work is None else work.data_ptr(),
-        Tq, Tk, D, num_heads, plan.dh, B, plan.grid, R, plan.slots, plan.tickets,
-        plan.per_row, plan.threads, plan.smem, keep, stream))
+        Tq, Tk, D, num_heads, plan.dh, B, plan.cs, plan.clusters, R, plan.qb, plan.xmode,
+        int(plan.alias), plan.slots, plan.tickets, plan.per_cta, plan.threads, plan.smem,
+        keep, stream))
     if err != 0:
         raise RuntimeError(
-            f"mha_bwd launch failed ({plan.grid} x {R} CTAs, {plan.smem} bytes of "
-            f"shared memory a CTA): {lib.mha_bwd_error_string(err).decode()}")
+            f"mha_bwd launch failed ({plan.clusters} x {R} clusters of {plan.cs}, "
+            f"{plan.smem} bytes of shared memory a CTA): "
+            f"{lib.mha_bwd_error_string(err).decode()}")
     bwd_launches += 1
     return (d_queries, d_keys, *grads)
 

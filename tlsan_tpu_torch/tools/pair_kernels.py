@@ -1,17 +1,21 @@
 """Time the kernels of two checkouts in turns on one card: other, this,
 this, other.
 
-    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT [--kernels fwa|mha|all]
+    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT [--kernels fwa|mha|mha_bwd|all]
 
 Each turn is a fresh process in one checkout: it builds that checkout's
 kernels and runs its ``chip_smoke.py`` kernel phases at the main-path shapes,
 with one per-call timing for both checkouts (the median of 5 runs of 100
 calls between CUDA events): ``fwa`` (the default) K1 at B=128, 64 and 16
 with S=10 and 25 and K2 at B=32 and 16; ``mha`` K3 at B=128, 32, 64 and 16
-with (Tq, Tk) = (96, 96) and (1, 96), self- and cross-attention; ``all``
-both.  Its ``kernel fwa_*`` or ``kernel mha_*`` lines are printed with the
-checkout's tag.  Two versions are compared only within one such call: the
-card, its power limit and its host then stay the same.
+with (Tq, Tk) = (96, 96) and (1, 96), self- and cross-attention;
+``mha_bwd`` K3b alone, per-call and device time (the profiler's, a launch)
+at B=32 for the (96, 96) self-attention and the (1, 96) readout and at
+B=512 and 2048 for (96, 96), the inputs those of ``chip_smoke.py``'s
+kernel phase; ``all`` K1, K2 and K3.  Its ``kernel fwa_*`` or ``kernel
+mha_*`` lines are printed with the checkout's tag.  Two versions are
+compared only within one such call: the card, its power limit and its host
+then stay the same.
 """
 
 from __future__ import annotations
@@ -55,13 +59,28 @@ c.phase_kernel_bwd(c.TRAIN_SHAPES + c.LOCAL_FWA_TRAIN, c.TRAIN_SHAPES)
     "mha": """
 c.phase_kernel_mha(c.MHA_MAIN + c.MHA_TRAIN + c.LOCAL_MHA + c.LOCAL_MHA_TRAIN, c.MHA_MAIN)
 """,
+    # K3b alone, through the wrapper both checkouts have
+    "mha_bwd": """
+from tlsan_tpu_torch.ops.cuda import mha as cm
+for B, Tq, Tk, sa in ((32, 96, 96, True), (32, 1, 96, False), (512, 96, 96, True),
+                      (2048, 96, 96, True)):
+    q, k, ql, kl, w = c._mha_inputs(B, Tq, Tk, sa, c.SEED + 30)
+    g = torch.from_numpy(np.random.default_rng(c.SEED + 40).normal(
+        size=(B, Tq, c.D)).astype(np.float32)).cuda()
+    args = (q, k, ql, kl, c.H, *(w[n] for n in cm.WEIGHTS), g)
+    run = lambda: cm.mha_backward(*args)
+    ms = per_call_ms(run)
+    dev = c._device_ms(run, "mha_bwd_kernel")
+    print(f"kernel mha_bwd B={B} Tq={Tq} Tk={Tk} {'self' if sa else 'cross'}: "
+          f"kernel_ms={ms:.6f} device_ms={dev}", flush=True)
+""",
 }
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", help="root of the other checkout")
-    parser.add_argument("--kernels", choices=("fwa", "mha", "all"), default="fwa",
+    parser.add_argument("--kernels", choices=("fwa", "mha", "mha_bwd", "all"), default="fwa",
                         help="which kernels to time (default: fwa, K1 and K2)")
     args = parser.parse_args(argv)
     kinds = ("fwa", "mha") if args.kernels == "all" else (args.kernels,)
