@@ -49,6 +49,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
              mask's keep share within 5 binomial deviations; per-call,
              device and plain times of the masked kernels and their bound
              (the masks' bytes added) beside the unmasked kernels';
+     widths  the wide variants, at shapes of the width grid (every D <= 512,
+             a multiple of 4, with any H dividing it): K1 and K2 at heads
+             of 64 to 512 features and B=32, 128, S=10, 25 and past a
+             chunk of steps; K3 and K3b at heads of 64 features, D=256 and
+             512 at (96, 96), (128, 128), (1, 96) and (1, 256), K3 in
+             shared memory and in device memory; each against its plain
+             version with and without dropout masks (K1 and K3 to
+             KERNEL_TOL, or KERNEL_TOL · (1 + the output's magnitude) at
+             heads of 128 features and more and D past 256; K2 and K3b to
+             their error scales), at R=2 against single launches bit for
+             bit, FWAFunction and MHAFunction against autograd, 201 calls
+             equal at one train shape, per-call, device and plain times at
+             two shapes a kernel beside the bound.  After the families'
+             phases, five configurations at the Electronics catalog
+             (ATRank num_heads=1; hidden_units=256 and 512 in 8 heads with
+             item and category embeddings of half that; TLSAN num_heads=1;
+             TLSAN hidden_units=128 in one head, its item, category and
+             user embeddings 64 wide): one chunk of 100 steps
+             of batch 32, a bulk recommend of 4,000 users (launches exact,
+             512 users as the CPU serves them), 20 steps against the CPU
+             (PARITY_TOL; lr 0.1 for TLSAN, 0.01 for ATRank); in the cli
+             phase train.cli --model atrank --num_heads 1 for one epoch at
+             batch 128 on the Digital-Music fixture, K3 and K3b counted
+             exactly;
   4. path    per family (TLSAN, ATRank, then the seven baselines below)
              at the reference widths (TLSAN and ATRank: D=64, H=8, 32-wide
              embeddings, one block; TLSAN Ls=10, Ts=24; ATRank T=96) and the Electronics catalog (39,991 users, 22,048 items,
@@ -217,9 +241,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              users/s, HTTP p50/p99 and idle shares beside the card's name
              and power limit, and of the fan-out's readings; the whole
              run's wall time; one JSON line of per-kernel numbers (with the
-             fanout phase's replica fields and the dropout phase's masked
-             fields and the dropout paths' launches); then the device line
-             last.
+             fanout phase's replica fields, the dropout phase's masked
+             fields and the dropout paths' launches, and the widths phase's
+             wide_* fields); then the device line last.
 
 The seven baselines (SHAN, PACA, BPR-MF, LSPM, CNN, Bi-LSTM, CSAN) run
 phases 4 and 5 after TLSAN and ATRank, at the reference widths of their
@@ -525,23 +549,33 @@ def phase_card() -> str:
 
 def _variants(report: str, name: str) -> dict:
     """The ptxas report's (registers, spill stores, spill loads) of each
-    variant of `name`'s kernel, by its template arguments (DH, DROP); a
+    variant of `name`'s kernel, by its template arguments ((DH, DROP) for
+    K3 and K3b, (DH, ONE, DROP) for K1 and K2), and of its wide variant (a
+    kernel `name`_wide_kernel, or K3b's WIDE argument) as ("wide", DROP); a
     variant whose report does not parse is missing."""
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
-        m = re.search(rf"{name}_kernelILi(\d+)ELb([01])E", line)
-        if m and "Function properties for" in line and i + 2 < len(lines):
-            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
-            regs = re.search(r"Used (\d+) registers", lines[i + 2])
-            if spill and regs:
-                out[int(m.group(1)), int(m.group(2))] = (
-                    int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
+        m = re.search(rf"{name}_kernelI((?:L[ib]\d+E)+)E", line)
+        w = re.search(rf"{name}_wide_kernelILb([01])E", line)
+        if not (m or w) or "Function properties for" not in line or i + 2 >= len(lines):
+            continue
+        if w:
+            key = ("wide", int(w.group(1)))
+        else:
+            key = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1)))
+            if name == cuda_mha.BWD_SOURCE:  # (DH, DROP, WIDE)
+                key = ("wide", key[1]) if key[2] else key[:2]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+        regs = re.search(r"Used (\d+) registers", lines[i + 2])
+        if spill and regs:
+            out[key] = (int(regs.group(1)), int(spill.group(1)), int(spill.group(2)))
     return out
 
 
 def phase_build() -> None:
     """Build every kernel; K3's dh = 8 variant without dropout and both of
-    K3b's dh = 8 variants must not spill."""
+    K3b's dh = 8 variants must not spill.  Every variant's registers and
+    spills are logged, the wide variants' among them, which must exist."""
     t0 = time.perf_counter()
     reports = build.build([cuda_fwa.SOURCE, cuda_fwa.BWD_SOURCE, cuda_mha.SOURCE,
                            cuda_mha.BWD_SOURCE])
@@ -554,13 +588,18 @@ def phase_build() -> None:
     # the dh = 8 variants must not spill: K3's without dropout, both of
     # K3b's; K3's dropout variant's report is logged (PERF.md: a few bytes,
     # a speed matter)
-    for name, drops in ((cuda_mha.SOURCE, (0,)), (cuda_mha.BWD_SOURCE, (0, 1))):
+    for name, drops in ((cuda_fwa.SOURCE, ()), (cuda_fwa.BWD_SOURCE, ()),
+                        (cuda_mha.SOURCE, (0,)), (cuda_mha.BWD_SOURCE, (0, 1))):
         if name not in reports:
             continue
         variants = _variants(reports[name], name)
-        for (dh, drop), (regs, stores, loads) in sorted(variants.items()):
-            log(f"build: {name} dh={dh or 'any'} dropout={bool(drop)}: {regs} registers, "
-                f"{stores} bytes spill stores, {loads} bytes spill loads")
+        for key, (regs, stores, loads) in sorted(variants.items(), key=str):
+            log(f"build: {name} variant {key} (dh or 'wide', ..., dropout): {regs} "
+                f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
+        for drop in (0, 1):
+            if ("wide", drop) not in variants:
+                raise AssertionError(f"{name}: no report of its wide variant "
+                                     f"(dropout={bool(drop)})")
         for drop in drops:
             if variants.get((8, drop), (0, 1, 1))[1:] != (0, 0):
                 raise AssertionError(f"{name}'s dh = 8 variant (dropout={bool(drop)}) "
@@ -938,6 +977,25 @@ def _mha_scale(q, ql, k, kl, h, w, g, self_attention: bool, rate=0.0, mask=None,
     return sc
 
 
+def _mha_function_err(q, k, ql, kl, h, w, g, self_attention: bool, what: str) -> float:
+    """MHAFunction's gradients (K3 forward, K3b backward) against autograd
+    of the plain version, held by `_mha_grad_err`."""
+    grads = []
+    for fn in (cuda_mha.MHAFunction.apply, None):
+        x = q.clone().requires_grad_(True)
+        y = x if self_attention else k.clone().requires_grad_(True)
+        ws = [w[n].clone().requires_grad_(True) for n in cuda_mha.WEIGHTS]
+        if fn is None:
+            out, _ = multihead_attention_reference(
+                x, ql, y, kl, h, dict(zip(cuda_mha.WEIGHTS, ws)))
+        else:
+            out = fn(x, y, ql, kl, h, *ws)
+        leaves = [x, *ws] if self_attention else [x, y, *ws]
+        grads.append(torch.autograd.grad(out, leaves, g))
+    return _mha_grad_err(*grads, _mha_scale(q, ql, k, kl, h, w, g, self_attention, leaves=True),
+                         f"{what}: MHAFunction vs autograd")
+
+
 def _backward_launches(q, k, ql, kl, h, w, g, self_attention: bool) -> str:
     """The device launches (kernels and copies, from the profiler) of one
     MHAFunction backward, and of the route it replaced: the plain forward
@@ -1033,21 +1091,8 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
 
             # MHAFunction's gradients (K3 forward, K3b backward) against
             # autograd of the plain version
-            grads = []
-            for fn in (cuda_mha.MHAFunction.apply, None):
-                x = q.clone().requires_grad_(True)
-                y = x if self_attention else k.clone().requires_grad_(True)
-                ws = [w[n].clone().requires_grad_(True) for n in cuda_mha.WEIGHTS]
-                if fn is None:
-                    out, _ = multihead_attention_reference(
-                        x, ql, y, kl, h, dict(zip(cuda_mha.WEIGHTS, ws)))
-                else:
-                    out = fn(x, y, ql, kl, h, *ws)
-                leaves = [x, *ws] if self_attention else [x, y, *ws]
-                grads.append(torch.autograd.grad(out, leaves, g))
-            worst_b = max(worst_b, _mha_grad_err(
-                *grads, _mha_scale(q, ql, k, kl, h, w, g, self_attention, leaves=True),
-                f"{what}: MHAFunction vs autograd"))
+            worst_b = max(worst_b, _mha_function_err(q, k, ql, kl, h, w, g, self_attention,
+                                                     what))
 
             kernel_ms = _cuda_ms(lambda: cuda_mha.mha_forward(*args))
             plain_ms = _cuda_ms(lambda: multihead_attention_reference(
@@ -1839,31 +1884,39 @@ def phase_train(tmp: str, fam: Family) -> dict:
         f"the last save's bit for bit; launches {launches}")
 
     # the same start trained on the CPU through the plain versions
-    parity = dataclasses.replace(tc, tb_histograms=False)
-    idx = trainer._epoch_index(0)[0][:fam.parity_steps]
-    out = {}
-    for device in ("cuda", "cpu"):
-        tr = Trainer(fam.model, cfg, dataclasses.replace(
-            parity, model_dir=os.path.join(tmp, f"parity_{device}")),
-            cate_list, train, test, device=device)
-        losses_d = tr._train_chunk(torch.from_numpy(idx).to(device))
-        out[device] = (losses_d.cpu(), {k: v.detach().cpu() for k, v in
-                                        tr.model.state_dict().items()})
-        tr.close()
-    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
-    worst = float((lg - lc).abs().max())
-    if not torch.allclose(lg, lc, rtol=PARITY_TOL, atol=PARITY_TOL):
-        raise AssertionError(f"parity: losses differ by {worst:.3e}: {lg} vs {lc}")
-    for name in pg:
-        diff = float((pg[name] - pc[name]).abs().max())
-        worst = max(worst, diff)
-        if not torch.allclose(pg[name], pc[name], rtol=PARITY_TOL, atol=PARITY_TOL):
-            raise AssertionError(f"parity: {name} differs by {diff:.3e}")
+    worst = _cpu_parity(tmp, fam, cfg, dataclasses.replace(tc, tb_histograms=False),
+                        (cate_list, train, test),
+                        trainer._epoch_index(0)[0][:fam.parity_steps], "parity")
     log(f"{tag}: {fam.parity_steps} steps on the card (kernels) and on the CPU "
         f"(plain) agree: max abs diff {worst:.3e} over losses and every "
         f"parameter (rtol = atol = {PARITY_TOL})")
     return {"launches": launches, "examples_per_s": examples_per_s,
             "eval_users_per_s": eval_users_per_s, "train_idle_share": idle}
+
+
+def _cpu_parity(tmp: str, fam: Family, cfg, tc, data, idx, tag: str) -> float:
+    """The steps of the index chunk `idx` from one start on the card and on
+    the CPU (the plain versions), by Trainers of `tc` on `data` (cate_list,
+    train, test): losses and every parameter within PARITY_TOL.  Returns
+    the largest difference."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        tr = Trainer(fam.model, cfg, dataclasses.replace(
+            tc, model_dir=os.path.join(tmp, f"parity_{device}")), *data, device=device)
+        losses = tr._train_chunk(torch.as_tensor(idx).to(device))
+        out[device] = (losses.cpu(), {k: v.detach().cpu() for k, v in
+                                      tr.model.state_dict().items()})
+        tr.close()
+    (lg, pg), (lc, pc) = out["cuda"], out["cpu"]
+    worst = float((lg - lc).abs().max())
+    if not torch.allclose(lg, lc, rtol=PARITY_TOL, atol=PARITY_TOL):
+        raise AssertionError(f"{tag}: losses differ by {worst:.3e}: {lg} vs {lc}")
+    for name in pg:
+        diff = float((pg[name] - pc[name]).abs().max())
+        worst = max(worst, diff)
+        if not torch.allclose(pg[name], pc[name], rtol=PARITY_TOL, atol=PARITY_TOL):
+            raise AssertionError(f"{tag}: {name} differs by {diff:.3e}")
+    return worst
 
 
 # ---------------------------------------------------------------------- ext
@@ -3540,6 +3593,373 @@ def check_http(line: dict, card: str, catalog: int) -> None:
         f"{line['p50_single_request_ms']} ms, catalog {catalog}")
 
 
+# ------------------------------------------------------------------- widths
+#
+# The wide variants: K1/K2 at heads of 33 to 512 features, K3/K3b past
+# 32-feature heads, past D = 256 and past one CTA's shared memory.  Shapes
+# (B, S, D, H) and (B, Tq, Tk, D, H) of the grid every D <= 512 with any H
+# dividing it: the train and serving batches (32, 128), both towers' S (10,
+# 25), S past one chunk of steps, the ATRank blocks (96, 96) and (1, 96),
+# (128, 128) and the readout over 256 keys; D = 512 in one head (K3 and K3b
+# in device memory) and in 512 heads of one feature.  The weights are
+# scaled by the fan-in (std 0.3·√(8/dh) for the head maps, 0.2·√(64/D) for
+# the projections, the reference widths' own at dh = 8 and D = 64), as a
+# model's initialisation scales them, so that every width sees scores of
+# the same spread.
+WIDTHS_FWA = [(32, 10, 64, 1), (32, 25, 64, 1), (128, 10, 128, 1), (128, 25, 128, 2),
+              (32, 25, 512, 1), (37, 40, 64, 1), (4, 301, 96, 2), (37, 33, 512, 1),
+              (32, 10, 512, 512)]
+WIDTHS_MHA = [(32, 96, 96, 64, 1), (32, 1, 96, 64, 1), (128, 96, 96, 64, 1),
+              (32, 128, 128, 128, 2), (32, 1, 256, 128, 2), (128, 96, 96, 256, 8),
+              (32, 96, 96, 256, 8), (32, 96, 96, 512, 8), (32, 1, 96, 512, 8),
+              (8, 128, 128, 512, 1), (32, 1, 256, 512, 1), (8, 128, 128, 512, 512),
+              (9, 7, 250, 256, 4)]
+# the shapes whose times go to the kernels line and PERF.md (two a kernel)
+WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2)],
+                "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2)],
+                "mha_fwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)],
+                "mha_bwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)]}
+WIDTHS_REPEATS = 200  # calls at one train shape that must all equal the first
+WIDTHS_R = 2          # the replica axis
+
+
+def _wide_tol(dh: int, d: int, want: torch.Tensor) -> float:
+    """K1's and K3's bar: KERNEL_TOL, or KERNEL_TOL · (1 + the output's
+    magnitude) for heads of 128 features and more and for D past 256,
+    whose dot products and LayerNorm sums add 128 to 512 rounded terms (at
+    D = 512 in heads of one feature the plain version and K3 part by
+    1.4e-5 on outputs of magnitude 4)."""
+    long = dh >= 128 or d > 256
+    return KERNEL_TOL * (1.0 + float(want.abs().max())) if long else KERNEL_TOL
+
+
+def _widths_fwa_inputs(B: int, S: int, d: int, h: int, seed: int):
+    x, lengths, w1, b1, w2, b2 = _fwa_inputs(B, S, seed, d, h)
+    fan = math.sqrt(8.0 / (d // h))
+    return x, lengths, w1 * fan, b1, w2 * fan, b2
+
+
+def _widths_mha_inputs(B: int, Tq: int, Tk: int, self_attention: bool, seed: int, d: int):
+    q, k, ql, kl, w = _mha_inputs(B, Tq, Tk, self_attention, seed, d)
+    fan = math.sqrt(64.0 / d)
+    return q, k, ql, kl, {n: t * fan if n.startswith("w") else t for n, t in w.items()}
+
+
+def _same(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _repeat_equal(fn, what: str) -> None:
+    first = fn()
+    for n in range(WIDTHS_REPEATS):
+        if not _same(fn(), first):
+            raise AssertionError(f"{what}: call {n + 2} of {WIDTHS_REPEATS + 1} differs "
+                                 "from the first")
+
+
+def _widths_time(row: dict, name: str, fn, plain, bounds, kernel: str) -> str:
+    """Per-call ms (CUDA events, fewer calls than the main shapes': a wide
+    call takes up to milliseconds), device ms and the plain version's,
+    added to `row`; returns the log's words."""
+    ms = _cuda_ms(fn, iters=10, warmup=3, repeats=3)
+    plain_ms = _cuda_ms(plain, iters=10, warmup=3, repeats=3)
+    device_ms = _device_ms(fn, kernel, calls=10)
+    _add(row, ms, plain_ms, *bounds)
+    return (f"kernel_ms={ms:.6f} device_ms={device_ms} plain_ms={plain_ms:.6f} "
+            f"bound_us={1e3 * max(bounds):.4f} (bytes {1e3 * bounds[0]:.4f} us, "
+            f"operations {1e3 * bounds[1]:.4f} us)")
+
+
+def phase_widths_fwa() -> tuple:
+    """K1 and K2 at WIDTHS_FWA against their plain versions, with and
+    without dropout masks, at R = WIDTHS_R against single launches (bit for
+    bit) and the plain version, bitwise repeatable; FWAFunction against
+    autograd.  Returns the two kernels' rows of the wide variant."""
+    rows = {"fwa_fwd": {}, "fwa_bwd": {}}
+    worst = {"fwa_fwd": 0.0, "fwa_bwd": 0.0}
+    variants = set()
+    for i, (B, S, d, h) in enumerate(WIDTHS_FWA):
+        dh = d // h
+        x, lengths, w1, b1, w2, b2 = _widths_fwa_inputs(B, S, d, h, SEED + 200 + i)
+        g = torch.from_numpy(np.random.default_rng(SEED + 300 + i).normal(
+            size=(B, d)).astype(np.float32)).cuda()
+        fargs = (x, lengths, h, w1, b1, w2, b2)
+        what = _fwa_tag("fwa_fwd", B, S, d, h)
+        plan, bplan = cuda_fwa.launch_plan(B, S, d, h), cuda_fwa.launch_plan(B, S, d, h, True)
+        variants.add(bool(plan.chunk))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 400 + i)
+        shape = (B, S, h, dh)
+        masks = tuple(torch.rand(shape, generator=gen, device="cuda") < 1.0 - DROPOUT
+                      for _ in range(2))
+        for drop in ((), masks):
+            rate = DROPOUT if drop else 0.0
+            kd = (*drop, 1.0 - DROPOUT) if drop else ()
+            tag = what + (f" dropout {DROPOUT}" if drop else "")
+            got = cuda_fwa.fwa_forward(*fargs, *kd)
+            want = feature_wise_attention_reference(*fargs, dropout_rate=rate,
+                                                    keep_masks=drop or None)
+            torch.cuda.synchronize()
+            if not torch.equal(got, cuda_fwa.fwa_forward(*fargs, *kd)):
+                raise AssertionError(f"{tag}: two calls differ")
+            err, bar = float((got - want).abs().max()), _wide_tol(dh, d, want)
+            if not err <= bar:
+                raise AssertionError(f"{tag}: max abs err {err:.3e} above {bar:.3e}")
+            worst["fwa_fwd"] = max(worst["fwa_fwd"], err)
+            got_b = cuda_fwa.fwa_backward(*fargs, g, *kd)
+            if not _same(got_b, cuda_fwa.fwa_backward(*fargs, g, *kd)):
+                raise AssertionError(f"{tag.replace('fwa_fwd', 'fwa_bwd')}: two calls differ")
+            worst["fwa_bwd"] = max(worst["fwa_bwd"], _max_err(
+                got_b, fwa_backward_reference(*fargs, g, drop or None, rate),
+                fwa_backward_error_scale(*fargs, g, drop or None, rate),
+                tag.replace("fwa_fwd", "fwa_bwd")))
+        # FWAFunction (K1, then K2) against autograd of the plain version
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        auto = torch.autograd.grad(feature_wise_attention_reference(
+            leaves[0], lengths, h, *leaves[1:]), leaves, g)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        fn = torch.autograd.grad(cuda_fwa.FWAFunction.apply(leaves[0], lengths, h, *leaves[1:]),
+                                 leaves, g)
+        worst["fwa_bwd"] = max(worst["fwa_bwd"], _max_err(
+            fn, auto, fwa_backward_error_scale(*fargs, g), what + " FWAFunction vs autograd"))
+        # the replica axis: R launches' worth in one, each replica bit for
+        # bit its single launch
+        (rx, rl, _, *rw), rg = _replica_fwa_inputs(WIDTHS_R, (B, S, d, h), SEED + 500 + i)
+        fan = math.sqrt(8.0 / dh)
+        rw = [rw[0] * fan, rw[1], rw[2] * fan, rw[3]]
+        rargs = (rx, rl, h, *rw)
+        rep, rep_b = cuda_fwa.fwa_forward(*rargs), cuda_fwa.fwa_backward(*rargs, rg)
+        for r in range(WIDTHS_R):
+            one = _slice(rargs, r)
+            if not torch.equal(rep[r], cuda_fwa.fwa_forward(*one)):
+                raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} differs from its launch")
+            if not _same([t[r] for t in rep_b], cuda_fwa.fwa_backward(*one, rg[r])):
+                raise AssertionError(f"{what} R={WIDTHS_R}: replica {r}'s K2 differs")
+            err = float((rep[r] - feature_wise_attention_reference(*one)).abs().max())
+            if not err <= _wide_tol(dh, d, rep[r]):
+                raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} off by {err:.3e}")
+        mapping = f"wide, chunks of {plan.chunk}" if plan.chunk else "warp a unit"
+        msg = (f"widths {what}: plan {mapping} (K2 grid {bplan.grid}, smem {bplan.smem}): "
+               f"plain, dropout, R={WIDTHS_R} "
+               f"and FWAFunction agree; max abs err K1 {worst['fwa_fwd']:.3e} K2 "
+               f"{worst['fwa_bwd']:.3e} (so far)")
+        if (B, S, d, h) in WIDTHS_TIMED["fwa_fwd"]:
+            _repeat_equal(lambda: (cuda_fwa.fwa_forward(*fargs),), what)
+            _repeat_equal(lambda: cuda_fwa.fwa_backward(*fargs, g), what + " K2")
+            msg += (f"; {WIDTHS_REPEATS + 1} calls of each equal; K1 "
+                    + _widths_time(rows["fwa_fwd"], "fwa_fwd",
+                                   lambda: cuda_fwa.fwa_forward(*fargs),
+                                   lambda: feature_wise_attention_reference(*fargs),
+                                   fwa_bound(B, S, d, h), "fwa_fwd_wide_kernel")
+                    + "; K2 "
+                    + _widths_time(rows["fwa_bwd"], "fwa_bwd",
+                                   lambda: cuda_fwa.fwa_backward(*fargs, g),
+                                   lambda: fwa_backward_reference(*fargs, g),
+                                   fwa_bwd_bound(B, S, d, h), "fwa_bwd_wide_kernel"))
+        log(msg)
+    if variants != {True, False}:
+        raise AssertionError(f"widths: the FWA shapes ran the variants {variants}")
+    return {k: _summed(rows[k], worst[k]) for k in rows}
+
+
+def phase_widths_mha() -> tuple:
+    """K3 and K3b at WIDTHS_MHA, self- and cross-attention, as
+    phase_widths_fwa holds K1 and K2; MHAFunction against autograd.  K3
+    must have run its wide variant in shared memory and in device memory.
+    Returns the two kernels' rows of the wide variant."""
+    rows = {"mha_fwd": {}, "mha_bwd": {}}
+    worst = {"mha_fwd": 0.0, "mha_bwd": 0.0}
+    placed = set()
+    for i, (B, Tq, Tk, d, h) in enumerate(WIDTHS_MHA):
+        for self_attention in ([True, False] if Tq == Tk else [False]):
+            plan = cuda_mha.launch_plan(B, Tq, Tk, d, h, self_attention)
+            bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
+            placed.add((plan.wide, bool(plan.work)))
+            q, k, ql, kl, w = _widths_mha_inputs(B, Tq, Tk, self_attention, SEED + 600 + i, d)
+            args = (q, k, ql, kl, h, *(w[n] for n in cuda_mha.WEIGHTS))
+            g = torch.from_numpy(np.random.default_rng(SEED + 700 + i).normal(
+                size=(B, Tq, d)).astype(np.float32)).cuda()
+            what = (f"mha_fwd B={B} Tq={Tq} Tk={Tk} D={d} H={h} "
+                    f"{'self' if self_attention else 'cross'}")
+            bwd = what.replace("mha_fwd", "mha_bwd")
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 800 + i)
+            for mask in (None, torch.rand((B, h, Tq, Tk), generator=gen, device="cuda")
+                         < 1.0 - DROPOUT):
+                drop = () if mask is None else (mask, 1.0 - DROPOUT)
+                rate = 0.0 if mask is None else DROPOUT
+                tag = "" if mask is None else f" dropout {DROPOUT}"
+                got = cuda_mha.mha_forward(*args, *drop)
+                want, _ = multihead_attention_reference(q, ql, k, kl, h, w, rate,
+                                                        keep_mask=mask)
+                torch.cuda.synchronize()
+                if not torch.equal(got, cuda_mha.mha_forward(*args, *drop)):
+                    raise AssertionError(f"{what}{tag}: two calls differ")
+                err, bar = float((got - want).abs().max()), _wide_tol(d // h, d, want)
+                if not bool(torch.isfinite(got).all()) or not err <= bar:
+                    raise AssertionError(f"{what}{tag}: max abs err {err:.3e} above {bar:.3e}")
+                worst["mha_fwd"] = max(worst["mha_fwd"], err)
+                got_b = cuda_mha.mha_backward(*args, g, *drop)
+                if not _same(got_b, cuda_mha.mha_backward(*args, g, *drop)):
+                    raise AssertionError(f"{bwd}{tag}: two calls differ")
+                worst["mha_bwd"] = max(worst["mha_bwd"], _mha_grad_err(
+                    got_b, multihead_attention_backward_reference(q, ql, k, kl, h, w, g, rate,
+                                                                  mask),
+                    _mha_scale(q, ql, k, kl, h, w, g, False, rate, mask), bwd + tag))
+            worst["mha_bwd"] = max(worst["mha_bwd"], _mha_function_err(
+                q, k, ql, kl, h, w, g, self_attention, what))
+            # the replica axis
+            rq, rk, rql, rkl, rws = _replica_mha_inputs(WIDTHS_R, B, Tq, Tk, self_attention,
+                                                        SEED + 900 + i, d)
+            fan = math.sqrt(64.0 / d)
+            rws = [t * fan if n.startswith("w") else t for n, t in zip(cuda_mha.WEIGHTS, rws)]
+            rargs = (rq, rk, rql, rkl, h, *rws)
+            rg = torch.from_numpy(np.random.default_rng(SEED + 950 + i).normal(
+                size=(WIDTHS_R, B, Tq, d)).astype(np.float32)).cuda()
+            rep, rep_b = cuda_mha.mha_forward(*rargs), cuda_mha.mha_backward(*rargs, rg)
+            for r in range(WIDTHS_R):
+                one = _slice(rargs, r)
+                single = cuda_mha.mha_forward(*one)
+                same_cs = (cuda_mha.launch_plan(WIDTHS_R * B, Tq, Tk, d, h, self_attention).cs
+                           == cuda_mha.launch_plan(B, Tq, Tk, d, h, self_attention).cs)
+                if same_cs and not torch.equal(rep[r], single):
+                    raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} differs")
+                if not float((rep[r] - single).abs().max()) <= _wide_tol(d // h, d, single):
+                    raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} off its launch")
+                if not _same([t[r] for t in rep_b], cuda_mha.mha_backward(*one, rg[r])):
+                    raise AssertionError(f"{bwd} R={WIDTHS_R}: replica {r} differs")
+            where = "device memory" if plan.work else "shared memory"
+            msg = (f"widths {what}: K3 {'wide' if plan.wide else 'row-split'} cluster "
+                   f"{plan.cs} ({where}, smem {plan.smem}); K3b "
+                   f"{_bwd_plan_line(B, Tq, Tk, d, h, self_attention)}: plain, dropout, "
+                   f"R={WIDTHS_R} and MHAFunction agree; max abs err K3 "
+                   f"{worst['mha_fwd']:.3e} K3b {worst['mha_bwd']:.3e} (so far)")
+            if (B, Tq, Tk, d, h) in WIDTHS_TIMED["mha_fwd"] and self_attention == (Tq == Tk):
+                _repeat_equal(lambda: (cuda_mha.mha_forward(*args),), what)
+                _repeat_equal(lambda: cuda_mha.mha_backward(*args, g), bwd)
+                msg += (f"; {WIDTHS_REPEATS + 1} calls of each equal; K3 "
+                        + _widths_time(rows["mha_fwd"], "mha_fwd",
+                                       lambda: cuda_mha.mha_forward(*args),
+                                       lambda: multihead_attention_reference(q, ql, k, kl, h, w),
+                                       mha_bound(B, Tq, Tk, self_attention, d),
+                                       "mha_fwd_wide_kernel")
+                        + "; K3b "
+                        + _widths_time(rows["mha_bwd"], "mha_bwd",
+                                       lambda: cuda_mha.mha_backward(*args, g),
+                                       lambda: multihead_attention_backward_reference(
+                                           q, ql, k, kl, h, w, g),
+                                       mha_bwd_bound(B, Tq, Tk, self_attention, d),
+                                       "mha_bwd_kernel"))
+            log(msg)
+    for need in ((True, False), (True, True)):
+        if need not in placed:
+            raise AssertionError(f"widths: K3's wide variant never ran with work={need[1]}")
+    return {k: _summed(rows[k], worst[k]) for k in rows}
+
+
+# the five configurations of the widths phase, at the Electronics catalog:
+# (family, ModelConfig fields over the reference's)
+WIDTHS_CONFIGS = [("atrank", dict(num_heads=1)),
+                  ("atrank", dict(itemid_embedding_size=128, cateid_embedding_size=128,
+                         hidden_units=256, num_heads=8)),
+                  ("atrank", dict(itemid_embedding_size=256, cateid_embedding_size=256,
+                         hidden_units=512, num_heads=8)),
+                  ("tlsan", dict(num_heads=1)),
+                  ("tlsan", dict(itemid_embedding_size=64, cateid_embedding_size=64,
+                                 userid_embedding_size=64, hidden_units=128,
+                                 num_heads=1))]
+WIDTHS_PARITY_LR = {"tlsan": 0.1, "atrank": 0.01}  # the ReLU-kink rule (ROADMAP §3)
+WIDTHS_CPU_CHECK_USERS = 512
+
+
+def phase_widths_models(card: str) -> list:
+    """The five WIDTHS_CONFIGS on the card at the Electronics catalog, from
+    the seed: Trainer takes a warm-up step and one chunk of STEPS_PER_CALL
+    steps of batch 32 on the train phase's planted rows (examples/s of the
+    chunk; finite losses; launches exact: no plain version runs on the
+    card), the model is saved and served by
+    Recommender.from_model_dir to BULK_USERS featurized users in bulk
+    (launches exact; the first WIDTHS_CPU_CHECK_USERS as the CPU serves
+    the same save), and PARITY_STEPS steps from the same start agree with
+    the CPU plain path within PARITY_TOL at WIDTHS_PARITY_LR.  Returns the
+    launches of each configuration's path."""
+    runs = []
+    for name, over in WIDTHS_CONFIGS:
+        fam = TLSAN_FAMILY if name == "tlsan" else ATRANK_FAMILY
+        cfg = dataclasses.replace(fam.cfg, **over)
+        tag = f"widths {name} {over}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            train, test, cate_list = fam.train_data(np.random.default_rng(SEED + 1), USERS,
+                                                    ITEMS, fam.train_rows, fam.test_users)
+            tc = TrainConfig(model_dir=os.path.join(tmp, "train"), max_epochs=1,
+                             steps_per_call=STEPS_PER_CALL, best_after_step=0,
+                             save_auc_gate=0.0, seed=SEED, tb_histograms=False)
+            reset_launches()  # the configuration's path starts here
+            trainer = Trainer(fam.model, cfg, tc, cate_list, train, test, device="cuda")
+            idx = torch.from_numpy(trainer._epoch_index(0)[0]).cuda()
+            trainer._train_chunk(idx[:1])  # a warm-up step
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses = trainer._train_chunk(idx)
+            torch.cuda.synchronize()
+            rate = STEPS_PER_CALL * TRAIN_B / (time.perf_counter() - t1)
+            losses = losses.cpu()
+            n = expect_launches(_plus(), _times(fam.per_step, 1 + STEPS_PER_CALL),
+                                f"{tag}: a chunk")
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"{tag}: non-finite losses {losses}")
+            checkpoint.save(tmp, name, STEPS_PER_CALL, trainer.model, None, cfg, best=True)
+            trainer.close()
+            bulk = featurize_many(name, cfg, fam.requests(np.random.default_rng(SEED),
+                                                          BULK_USERS), cate_list=cate_list)
+            rec = Recommender.from_model_dir(tmp, cate_list, device="cuda",
+                                             batch_size=BATCH, k=K)
+            ids, scores = rec.recommend(bulk)
+            n = expect_launches(n, _times(fam.per_batch, -(-BULK_USERS // BATCH)),
+                                f"{tag}: bulk recommend")
+            runs.append(n)
+            if ids.shape != (BULK_USERS, K) or not np.isfinite(scores).all():
+                raise AssertionError(f"{tag}: bulk shape {ids.shape} or non-finite scores")
+            m = WIDTHS_CPU_CHECK_USERS
+            cpu_rec = Recommender.from_model_dir(tmp, cate_list, device="cpu",
+                                                 batch_size=BATCH, k=K)
+            want_ids, want_scores = cpu_rec.recommend({k: v[:m] for k, v in bulk.items()})
+            assert_topk_match(want_ids, want_scores, ids[:m], scores[:m], SCORE_TOL)
+            # PARITY_STEPS steps on the card and on the CPU from one start
+            worst = _cpu_parity(tmp, fam, cfg, dataclasses.replace(
+                tc, learning_rate=WIDTHS_PARITY_LR[name]), (cate_list, train, test),
+                idx[:PARITY_STEPS].cpu(), f"{tag}: parity")
+        d, h = cfg.hidden_units, cfg.num_heads
+        plans = (f"K1 {cuda_fwa.launch_plan(TRAIN_B, LS, d, h)}" if name == "tlsan" else
+                 f"K3 {cuda_mha.launch_plan(TRAIN_B, T_ATRANK, T_ATRANK, d, h, True)}")
+        log(f"{tag} ({card}): {STEPS_PER_CALL} steps at {rate:.1f} train examples/s "
+            f"(host clock, one chunk after a warm-up step), losses "
+            f"{float(losses[:10].mean()):.6f} → {float(losses[-10:].mean()):.6f} (means of "
+            f"the first and last 10); {BULK_USERS} users served, the first {m} as the CPU "
+            f"serves them; {PARITY_STEPS} steps at lr {WIDTHS_PARITY_LR[name]} within "
+            f"{worst:.3e} of the CPU; launches {n}; in {time.perf_counter() - t0:.1f} s; "
+            f"{plans}")
+    return runs
+
+
+def phase_widths_cli(tmp: str, card: str) -> dict:
+    """`train.cli --model atrank --num_heads 1` for one epoch at batch 128
+    (a quarter of batch 32's steps, as the cli phase's dropout run) on the
+    cli phase's Digital-Music category file, K3 and K3b counted exactly
+    (the wide variants: heads of 64 features)."""
+    os.environ["TLSAN_DATA_CACHE"] = os.path.join(tmp, "cache")
+    try:
+        t0 = time.perf_counter()
+        head, evals, _, launches = _cli_train(
+            os.path.join(tmp, "Data"), os.path.join(tmp, "atrank_heads_1"), "Digital_Music",
+            ATRANK_FAMILY, ["--num_heads", "1", "--train_batch_size", "128"])
+    finally:
+        del os.environ["TLSAN_DATA_CACHE"]
+    log(f"widths cli train atrank --num_heads 1 Digital_Music ({card}): {head['train']} "
+        f"rows, {evals[-1]['step']} steps in {time.perf_counter() - t0:.3f} s; AUC "
+        f"{[round(r['auc'], 6) for r in evals]}; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3551,6 +3971,9 @@ def main() -> int:
     kernels["mha_fwd"], kernels["mha_bwd"] = phase_kernel_mha()
     phase_fwa_scale()
     dropout_rows = phase_dropout()
+    t0 = time.perf_counter()
+    widths_rows = {**phase_widths_fwa(), **phase_widths_mha()}
+    log(f"widths: the wide variants in {time.perf_counter() - t0:.1f} s")
     local = phase_kernel_local()
     runs, meshed, numbers = [], [], {}
     for fam in (TLSAN_FAMILY, ATRANK_FAMILY, *BASELINES):
@@ -3561,6 +3984,9 @@ def main() -> int:
             runs.append(out.pop("launches"))
             numbers.setdefault(fam.name, {}).update(out)
         log(f"{fam.name}: path and train in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    widths_runs = phase_widths_models(card)
+    log(f"widths: the five configurations in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         runs.extend(phase_ext(tmp, card))
@@ -3575,6 +4001,8 @@ def main() -> int:
         runs.append(phase_migrate(tmp, card))
     with tempfile.TemporaryDirectory() as tmp:
         runs.extend(phase_cli(tmp, card))
+        # the widths phase's command line reads the cli phase's Digital-Music file
+        widths_runs.append(phase_widths_cli(tmp, card))
         # the fan-out's command line reads the cli phase's Digital-Music file
         replica_rows, fanout_paths, fanout = phase_fanout(tmp, card)
     t0 = time.perf_counter()
@@ -3600,7 +4028,13 @@ def main() -> int:
     # are the fanout phase's: times at R = 8 on the train-step shapes
     # (B=32), summed over the step's two launches, and the launches of the
     # fan-out paths (K4: none, the fan-out runs on one device)
-    launches, mesh_launches = _plus(*runs), _plus(*meshed)
+    launches, mesh_launches = _plus(*runs, *widths_runs), _plus(*meshed)
+    # the widths fields: the wide variants at two grid shapes each
+    # (WIDTHS_TIMED, summed), their worst error over WIDTHS_FWA and
+    # WIDTHS_MHA, and the launches of the widths phase's paths
+    wide_launches = _plus(*widths_runs)
+    no_wide = dict.fromkeys(("wide_shapes", "wide_ms", "wide_plain_ms", "wide_bound_ms",
+                             "wide_bound_by", "wide_max_abs_err"))
     fanout_launches = _plus(*fanout_paths)
     no_replicas = dict.fromkeys(next(iter(replica_rows.values())))
     # the dropout fields: the masked kernels at the train step's shapes (per
@@ -3615,16 +4049,23 @@ def main() -> int:
                     plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
                     bound_by=k["bound_by"], library_ms=None, **replica)
 
+    def wide(name):
+        w = widths_rows[name]
+        return {"wide_shapes": [list(t) for t in WIDTHS_TIMED[name]], "wide_ms": w["ms"],
+                "wide_plain_ms": w["plain_ms"], "wide_bound_ms": w["bound_ms"],
+                "wide_bound_by": w["bound_by"], "wide_max_abs_err": w["max_abs_err"],
+                "wide_launches": wide_launches[name]}
+
     line = [row(meta, kernels[meta["name"]], launches[meta["name"]],
                 dict(replica_rows[meta["name"]],
                      replica_launches=fanout_launches[meta["name"]],
                      **dropout_rows[meta["name"]],
-                     dropout_launches=dropout_launches[meta["name"]]))
+                     dropout_launches=dropout_launches[meta["name"]], **wide(meta["name"])))
             for meta in KERNELS]
     line += [row(meta, local[meta["name"]],
                  sum(mesh_launches[k] for k in meta["kernels"]),
                  dict(no_replicas, replica_launches=0, **no_dropout,
-                      dropout_launches=0)) for meta in K4]
+                      dropout_launches=0, **no_wide, wide_launches=0)) for meta in K4]
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

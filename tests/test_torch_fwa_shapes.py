@@ -114,11 +114,27 @@ def test_launch_plan_fits_the_card_at_every_s(backward):
     assert one.grid == 1 and one.tickets == 0
 
 
-@pytest.mark.parametrize("D,H", [(96, 2), (128, 2), (64, 1)])
-def test_launch_plan_refuses_heads_above_the_limit(D, H):
+@pytest.mark.parametrize("D,H,limit", [
+    (96, 2, None), (128, 2, None), (64, 1, None),  # dh 48 and 64: the wide variant
+    (1024, 1, "at most 512 features"), (1032, 2, "at most 512 features"),
+    (64, 6, "D % num_heads"),
+])
+def test_launch_plan_refuses_heads_above_the_limit(D, H, limit):
+    """Heads past the warp-a-unit variants' 32 features take the wide
+    variant, one block a unit, within a block's shared memory; past 512
+    features (and where the heads do not divide D) the plan refuses."""
     for backward in (False, True):
-        with pytest.raises(ValueError, match="at most 32 features"):
-            cuda_fwa.launch_plan(4, 10, D, H, backward)
+        if limit is not None:
+            with pytest.raises(ValueError, match=limit):
+                cuda_fwa.launch_plan(4, 10, D, H, backward)
+            continue
+        plan = cuda_fwa.launch_plan(4, 10, D, H, backward)
+        assert plan.dh == D // H > cuda_fwa.MAX_HEAD_WIDTH
+        assert plan.chunk == 10 and plan.threads == cuda_fwa.WIDE_THREADS
+        assert 0 < plan.smem <= cuda_fwa.SMEM_LIMIT - 64
+        assert plan.grid == (min(4 * H, cuda_fwa.WIDE_BLOCKS) if backward else 4 * H)
+    with pytest.raises(ValueError, match="B, S, replicas >= 1"):
+        cuda_fwa.launch_plan(0, 10, 64, 1)
 
 
 def test_widest_head_fits_shared_memory():

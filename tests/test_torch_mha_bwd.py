@@ -393,10 +393,22 @@ def test_backward_plan_is_a_pure_function_of_the_shape():
 
 
 def test_backward_plan_refuses_what_k3_refuses():
-    for shape, match in (((4, 5, 5, 64, 1), "heads of at most"),
+    """K3b refuses what K3 refuses (D past 512 or not a multiple of 4, no
+    rows); heads of 64 features and D = 512, which both refused before
+    their wide variants, now take a plan: in shared memory within a CTA's
+    limit, or in device memory one CTA a row."""
+    for shape, match in (((4, 5, 5, 64, 1), None),
                          ((4, 5, 5, 66, 6), "multiple of 4"),
-                         ((4, 5, 5, 512, 16), "D of at most"),
+                         ((4, 5, 5, 512, 16), None),
+                         ((4, 5, 5, 1024, 16), "D of at most 512"),
                          ((0, 5, 5, 64, 8), "B, Tq, Tk")):
+        if match is None:
+            plan = cuda_mha.backward_plan(*shape)
+            assert cuda_mha.launch_plan(*shape).smem <= SMEM_LIMIT
+            assert plan.dh == shape[3] // shape[4]
+            assert plan.smem <= SMEM_LIMIT - cuda_mha.STATIC_SMEM
+            assert (plan.smem == 0) == (plan.work > 0)
+            continue
         with pytest.raises(ValueError, match=match):
             cuda_mha.backward_plan(*shape)
         with pytest.raises(ValueError):

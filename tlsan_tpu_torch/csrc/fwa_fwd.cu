@@ -36,9 +36,10 @@
 // tile goes through shared memory.  For S > 32 each lane takes steps t,
 // t + 32, ...: three passes (max, sum, weighted sum) re-read x and
 // recompute the maps.  dh = 8 is specialised; any other dh <= 32 runs a
-// generic variant with plain loops.  The TPU kernel's block-diagonal [D, D]
-// lift of the head maps is not carried over: 8×8 maps are below any
-// tensor-core tile, and TF32 is off by contract.
+// generic variant with plain loops; heads of 33 to 512 features run the
+// wide variant (fwa_wide.cuh: a block a unit).  The TPU kernel's
+// block-diagonal [D, D] lift of the head maps is not carried over: 8×8
+// maps are below any tensor-core tile, and TF32 is off by contract.
 //
 // Dropout (train time) is the DROP variant: two keep masks laid out as x
 // (bytes [B, S, D], or [R, B, S, D]; 1 = keep) for the inputs of the two
@@ -58,6 +59,7 @@
 #include <cstdint>
 
 #include "fwa_common.cuh"
+#include "fwa_wide.cuh"
 
 namespace {
 
@@ -145,6 +147,70 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   }
 }
 
+// The wide variant (fwa_wide.cuh): heads of 33 to 512 features, one block
+// of kWideThreads threads a (row, head) unit, the steps in chunks of C.
+// Pass 0 takes the max of m2 per feature, pass 1 the sum of exp(m2 − max),
+// pass 2 out = Σ_t exp(m2 − max) / sum · x, each over the steps in order;
+// with S <= C the chunk's maps are computed once for all three.
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads)
+fwa_fwd_wide_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
+                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ w2, const float* __restrict__ b2,
+                    float* __restrict__ out, int units, int S, int D, int H, int dh, int C,
+                    const std::uint8_t* __restrict__ k1, const std::uint8_t* __restrict__ k2,
+                    float keep) {
+  extern __shared__ float smem[];
+  {  // replica blockIdx.y's rows, lengths, weights and outputs
+    const long long r = blockIdx.y, rows = units / H;
+    x += r * rows * S * D;
+    if constexpr (DROP) k1 += r * rows * S * D, k2 += r * rows * S * D;
+    lengths += r * rows;
+    out += r * rows * D;
+    w1 += r * dh * dh;
+    w2 += r * dh * dh;
+    b1 += r * dh;
+    b2 += r * dh;
+  }
+  const int unit = blockIdx.x;
+  const int b = unit / H;
+  const int h = unit - b * H;
+  const long long base = static_cast<long long>(b) * S * D + static_cast<long long>(h) * dh;
+  const float* xb = x + base;
+  const std::uint8_t* kb1 = DROP ? k1 + base : nullptr;
+  const std::uint8_t* kb2 = DROP ? k2 + base : nullptr;
+  const int len = lengths[b];
+  float* X = smem;          // [C][dh] x
+  float* A = X + C * dh;    // [C][dh] m2 (x_in before it under dropout)
+  float* M1 = A + C * dh;   // [C][dh] m1
+  float* mx = M1 + C * dh;  // [dh] each, owned by the thread of the feature
+  float* sm = mx + dh;
+  float* acc = sm + dh;
+  for (int e = threadIdx.x; e < dh; e += blockDim.x) mx[e] = -INFINITY, sm[e] = 0.0f, acc[e] = 0.0f;
+  const bool one = S <= C;
+  for (int pass = 0; pass < 3; ++pass) {
+    for (int t0 = 0; t0 < S; t0 += C) {
+      const int nt = min(C, S - t0);
+      if (!one || pass == 0) {
+        __syncthreads();  // the chunk's arrays are free
+        wide_maps<DROP>(xb, t0, nt, D, dh, len, w1, b1, w2, b2, kb1, kb2, keep, X, A, M1);
+      }
+      if (pass < 2) {
+        wide_stats(pass, A, nt, dh, mx, sm);
+      } else {
+        for (int e = threadIdx.x; e < dh; e += blockDim.x) {
+          float a = acc[e];
+          const float m = mx[e], s = sm[e];
+          for (int t = 0; t < nt; ++t) a = fmaf(expf(A[t * dh + e] - m) / s, X[t * dh + e], a);
+          acc[e] = a;
+        }
+      }
+    }
+  }
+  float* ob = out + static_cast<long long>(b) * D + static_cast<long long>(h) * dh;
+  for (int e = threadIdx.x; e < dh; e += blockDim.x) ob[e] = acc[e];
+}
+
 __global__ void fwa_empty_kernel() {}
 
 template <int DH, bool ONE, bool DROP>
@@ -200,6 +266,34 @@ int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
   }
   return exact ? launch_steps<8, false>(FWA_FWD_ARGS) : launch_steps<kMaxDh, false>(FWA_FWD_ARGS);
 #undef FWA_FWD_ARGS
+}
+
+// Launches K1's wide variant (heads of 33 to kWideMaxDh features) on
+// `stream` with the geometry of ops/cuda/fwa.py::launch_plan: grid ×
+// replicas blocks of `threads` = kWideThreads threads, one block a unit of a
+// replica's B·H units, steps in chunks of `chunk`, `smem` bytes of dynamic
+// shared memory.  Otherwise as fwa_fwd_launch.
+int fwa_fwd_wide_launch(const float* x, const int* lengths, const float* w1,
+                        const float* b1, const float* w2, const float* b2, float* out,
+                        int units, int S, int D, int H, int dh, int chunk, int grid,
+                        int replicas, int threads, int smem, const std::uint8_t* k1,
+                        const std::uint8_t* k2, float keep, void* stream) {
+  static int opted[2][kWideMaxDevices];
+  if (threads != kWideThreads || dh <= kMaxDh || dh > kWideMaxDh || chunk < 1 || grid != units)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool drop = k1 != nullptr;
+  const int err = drop ? opt_in(fwa_fwd_wide_kernel<true>, smem, opted[1])
+                       : opt_in(fwa_fwd_wide_kernel<false>, smem, opted[0]);
+  if (err != 0) return err;
+  if (drop) {
+    fwa_fwd_wide_kernel<true><<<dim3(grid, replicas), threads, smem, s>>>(
+        x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, chunk, k1, k2, keep);
+  } else {
+    fwa_fwd_wide_kernel<false><<<dim3(grid, replicas), threads, smem, s>>>(
+        x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, chunk, k1, k2, keep);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One launch of an empty kernel: the floor of any launch's device time.

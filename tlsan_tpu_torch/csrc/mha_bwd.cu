@@ -115,8 +115,13 @@
 // mask selects the variant without dropout.
 //
 // dh = 8, 16 and 32 are specialised (a head's columns as float4s, loops
-// unrolled); any other dh <= 32 runs a generic variant.  D <= 256 and a
-// multiple of 4; Tq and Tk are bounded by nothing but memory.
+// unrolled); any other dh <= 32 at D <= 256 runs a generic variant.  The
+// wide variant (WIDE) takes heads of any width and D up to 512 (a multiple
+// of 4): it is the generic one but for the two passes that hold a head's
+// features in registers (2 and 4a), which read a dot product's operands
+// from the layout and sum O = P′·V and dQ = dS·K 32 features at a time, so
+// no register array grows with dh.  Tq and Tk are bounded by nothing but
+// memory.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math.  The
 // scores are q·k scaled by 1/√dh (the reference divides by √dh: the two
@@ -143,6 +148,8 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kMaxDh = 32;
 constexpr int kMaxD = 256;
+constexpr int kWideMaxD = 512;  // the wide variant's
+constexpr int kWideChunk = 32;  // its features summed at once
 constexpr int kPad = 4;  // floats after each row of a shared array
 constexpr int kMaxCs = 8;  // the largest cluster
 // slots summed together at each level of the cross-CTA tree;
@@ -472,6 +479,19 @@ __device__ __forceinline__ void axpy_head(float e, const float* v, float (&acc)[
   }
 }
 
+// a · b over a head's features, both in the layout, in feature order
+__device__ __forceinline__ float dot_rows(const float* a, const float* b, int n4) {
+  float s = 0.0f;
+  for (int f4 = 0; f4 < n4; ++f4) {
+    const float4 u = ld4(a + 4 * f4), v = ld4(b + 4 * f4);
+    s = fmaf(u.x, v.x, s);
+    s = fmaf(u.y, v.y, s);
+    s = fmaf(u.z, v.z, s);
+    s = fmaf(u.w, v.w, s);
+  }
+  return s;
+}
+
 // Folds a head's sums over the G lanes of a group (every lane of the warp
 // calls it; n4 is the same for the whole warp).
 template <int NR>
@@ -494,6 +514,32 @@ __device__ __forceinline__ void store_head(float* dst, const float (&acc)[NR], f
     if (f4 < n4)
       st4(dst + 4 * f4, make_float4(acc[4 * f4] * mul, acc[4 * f4 + 1] * mul,
                                     acc[4 * f4 + 2] * mul, acc[4 * f4 + 3] * mul));
+}
+
+// The wide variant's weighted sums: dst[f] = mul · Σ_k w(S[k]) · M[k][f]
+// over the keys k = part, part + G, ... < T folded over the group, for
+// the head's features (n4 float4s) kWideChunk at a time; S holds this
+// lane's own entries (the ones it wrote), M's rows are ldc apart.  Under
+// PROB and DROP a weight is P′ (a dropped probability, stored negative,
+// counts 0).  Every lane of the warp calls it; the group's first lane
+// writes.
+template <bool DROP, bool PROB>
+__device__ __forceinline__ void wide_weighted(const float* S, const float* M, int ldc, int T,
+                                              int part, int G, int n4, bool write, float* dst,
+                                              float mul) {
+  for (int f0 = 0; f0 < n4; f0 += kWideChunk / 4) {
+    const int c4 = min(kWideChunk / 4, n4 - f0);
+    float a[kWideChunk];
+#pragma unroll
+    for (int f = 0; f < kWideChunk; ++f) a[f] = 0.0f;
+    for (int k = part; k < T; k += G) {
+      float w = S[k];
+      if constexpr (DROP && PROB) w = fmaxf(w, 0.0f);
+      axpy_head<kWideChunk>(w, M + k * ldc + 4 * f0, a, c4);
+    }
+    fold_head<kWideChunk>(a, c4, G);
+    if (write) store_head<kWideChunk>(dst + 4 * f0, a, mul, c4);
+  }
 }
 
 // A probability as the products read it: P′·kp (the dropped ones, stored
@@ -635,7 +681,7 @@ __device__ __forceinline__ void partial_tile(const float* d0, const float* w0, c
   }
 }
 
-template <int DH, bool DROP>
+template <int DH, bool DROP, bool WIDE = false>
 __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   __shared__ bool last;
@@ -768,6 +814,40 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           const int task = (valid ? u : tasks * G - 1) / G, part = u % G;
           const int hl = task / nb, t = task % nb, tg = t0 + t, hoff = hl * L.dhp;
           float* S = region + (hl * qb + t) * L.ldp;
+          if constexpr (WIDE) {
+            const float* qrow = Qs + tg * L.ldc + hoff;
+            float m = -INFINITY;
+            for (int k = part; k < Tk; k += G) {
+              const float sc =
+                  k < k_live ? dot_rows(qrow, Ks + k * L.ldc + hoff, n4) * inv_scale : kKeyMask;
+              if (valid) S[k] = sc;
+              m = fmaxf(m, sc);
+            }
+            m = group_fold_max(m, G);
+            float l = 0.0f;
+            for (int k = part; k < Tk; k += G) {
+              const float e = expf(S[k] - m);
+              if (valid) S[k] = e;
+              l += e;
+            }
+            l = group_fold_sum(l, G);
+            const bool live = tg < q_live;
+            const std::uint8_t* kr = nullptr;
+            if constexpr (DROP)
+              kr = p.keep_mask + ((b * H + rank * L.hc + hl) * Tq + tg) * static_cast<long long>(Tk);
+            for (int k = part; k < L.Tk4; k += G) {
+              float v = 0.0f;
+              if (live && k < Tk) {
+                v = S[k] / l;
+                if constexpr (DROP)
+                  if (__ldg(kr + k) == 0) v = -v;
+              }
+              if (valid) S[k] = v;
+            }
+            wide_weighted<DROP, true>(S, Vs + hoff, L.ldc, Tk, part, G, n4, valid && part == 0,
+                                      Os + tg * L.ldc + hoff, DROP ? 1.0f / p.keep : 1.0f);
+            continue;
+          }
           float a[NR];
           load_head<NR>(Qs + tg * L.ldc + hoff, a, n4);
           float m = -INFINITY;
@@ -927,6 +1007,22 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           float* S = region + (hl * qb + t) * L.ldp;
           const bool live = tg < q_live;
           const float dd = Drow[hl * qb + t];
+          if constexpr (WIDE) {
+            const float* dyrow = DYs + tg * L.ldc + hoff;
+            for (int k = part; k < L.Tk4; k += G) {
+              float ds = 0.0f;
+              if (live && k < k_live) {
+                const float v = S[k];
+                float dp = dot_rows(dyrow, Vs + k * L.ldc + hoff, n4);
+                if constexpr (DROP) dp = v > 0.0f ? dp / p.keep : 0.0f;
+                ds = (DROP ? fabsf(v) : v) * (dp - dd);
+              }
+              if (valid) S[k] = ds;
+            }
+            wide_weighted<DROP, false>(S, Ks + hoff, L.ldc, Tk, part, G, n4, valid && part == 0,
+                                       Os + tg * L.ldc + hoff, inv_scale);
+            continue;
+          }
           float dy[NR], dq[NR];
           load_head<NR>(DYs + tg * L.ldc + hoff, dy, n4);
 #pragma unroll
@@ -1118,7 +1214,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
   }
 }
 
-template <int DH, bool DROP>
+template <int DH, bool DROP, bool WIDE = false>
 int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   // the dynamic shared memory each device's variant is opted in to
   static int opted[kMaxDevices];
@@ -1127,7 +1223,7 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > opted[device]) {
-    err = cudaFuncSetAttribute(mha_bwd_kernel<DH, DROP>,
+    err = cudaFuncSetAttribute(mha_bwd_kernel<DH, DROP, WIDE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
@@ -1144,7 +1240,7 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, mha_bwd_kernel<DH, DROP>, p);
+  err = cudaLaunchKernelEx(&config, mha_bwd_kernel<DH, DROP, WIDE>, p);
   // read (and clear) the launch's error either way, so that a refused
   // launch is not reported again by a later one
   const cudaError_t last = cudaGetLastError();
@@ -1153,6 +1249,8 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
 
 template <bool DROP>
 int launch_heads(const Params& p, int replicas, int smem, cudaStream_t stream) {
+  // heads past kMaxDh features or D past kMaxD run the wide variant
+  if (p.dh > kMaxDh || p.D > kMaxD) return launch<0, DROP, true>(p, replicas, smem, stream);
   // the specialised variants assume shared memory; the workspace in device
   // memory runs the generic one
   if (p.work != nullptr) return launch<0, DROP>(p, replicas, smem, stream);
@@ -1198,8 +1296,8 @@ int mha_bwd_launch(const float* queries, const float* keys, const int* q_len,
                    int replicas, int qb, int xmode, int alias, int tree_slots,
                    int tree_tickets, int per_cta, int threads, int smem, float keep,
                    void* stream) {
-  if (threads != kThreads || dh < 1 || dh > kMaxDh || D != dh * H || D % 4 != 0 ||
-      D > kMaxD || rows < 1 || clusters < 1 || clusters > rows || replicas < 1 ||
+  if (threads != kThreads || dh < 1 || D != dh * H || D % 4 != 0 ||
+      D > kWideMaxD || rows < 1 || clusters < 1 || clusters > rows || replicas < 1 ||
       (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 || (D / cs) % 4 != 0 ||
       qb < 1 || qb > Tq || xmode < kXRegion || xmode > kXGlobal ||
       (xmode == kXGlobal) != (work != nullptr) || (work != nullptr && cs != 1) ||

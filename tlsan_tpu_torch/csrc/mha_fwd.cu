@@ -80,7 +80,9 @@
 // and sums in registers; any other dh <= 32 runs a generic variant with
 // plain loops.  D <= 256 and a multiple of 4, Tk <= 256 (a group of 32
 // lanes holds 8 scores each); Tq and Tk are otherwise bounded by the
-// shared memory of one CTA (232,448 bytes): at D = 64 both reach 256.
+// shared memory of one CTA (232,448 bytes): at D = 64 both reach 256.  The
+// wide variant (below) takes every other shape with D <= 512, a multiple
+// of 4, and Tk <= 256.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math;
 // the scores are q·k with q scaled once by 1/√dh, as the Pallas kernel
@@ -758,6 +760,293 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
   cluster_wait();
 }
 
+// ------------------------------------------------------------ wide variant
+//
+// The wide variant takes what the variants above refuse: heads of more
+// than 32 features (up to 512: D = 512 in one head), D from 260 to 512,
+// and rows whose full copies of K and V do not fit one CTA's shared memory
+// (at D = 256, (96, 96) self-attention).  Its design is K3b's
+// (csrc/mha_bwd.cu): a cluster of cs CTAs takes a batch row, CTA c owning
+// heads c·H/cs .. (c+1)·H/cs − 1, i.e. Dc = D/cs columns of each
+// projection, so that a CTA holds only its columns of Q, K and V
+// ((Tq + 2·Tk)·(Dc + 4) floats).  The layout lies in shared memory where it
+// fits, else in a slice of device memory that the CTA alone uses
+// (ops/cuda/mha.py::launch_plan decides; the code is the same).  The grid
+// is persistent: cluster i takes the rows i, i + clusters, ...  For each
+// row a CTA
+//   1. projects its columns, Q = relu(q·Wq[:, c] + bq[c]) / √dh and K, V
+//      likewise, a thread a tile of 4 rows × 4 columns (K and V together),
+//      x and W read as float4s from device memory (the L1 and L2 caches
+//      hold them; W is 3 MB at D = 512, above any CTA's shared memory);
+//   2. takes each (query row, own head) on one warp: lane l scores the keys
+//      l, l + 32, ... (at most 8 a lane: Tk <= 256) over the head's dh
+//      features in order, keeps them in registers, takes the max, exp and
+//      sum by butterflies, and writes the probabilities (0 where dropped)
+//      to the warp's slice of shared memory; then lane l sums features l,
+//      l + 32, ... of P·V over the keys in order, so no register array
+//      grows with dh.  The output overwrites the row's Q in place;
+//   3. LayerNorm couples the heads: per block of kWideLnRows rows each CTA
+//      sums its columns of y = o + q, the cluster exchanges the sums
+//      through distributed shared memory and every CTA adds them in rank
+//      order, then likewise Σ (y − mean)²; each CTA writes its columns.
+// Every sum runs in a fixed order and the cluster size depends on (D, H)
+// alone, so two calls agree bit for bit and a replica's rows are those of a
+// launch on its slice.  Exactness as above: expf, IEEE division and sqrtf,
+// Q scaled by 1/√dh once, the finite key mask, query rows at t >= q_len
+// zeroed before the residual.
+
+constexpr int kWideLnRows = 64;   // rows of a LayerNorm exchange
+constexpr int kWideMaxD = 512;
+
+struct WideParams {
+  const float* queries;
+  const float* keys;
+  const int* q_len;
+  const int* k_len;
+  const float* wq;
+  const float* bq;
+  const float* wk;
+  const float* bk;
+  const float* wv;
+  const float* bv;
+  const float* gamma;
+  const float* beta;
+  float* out;
+  const std::uint8_t* keep_mask;  // dropout's keep flags, or null
+  float* work;  // the arrays' slices in device memory, or null for shared memory
+  int Tq, Tk, D, H, dh, cs, clusters, rows, total, ldc, arrays, tk4;
+  float inv_scale;
+  float keep;
+};
+
+// Rows r0 .. r0+3 (below R) of x (device memory, rows D apart) times NM
+// column slices of the weights (columns c0 + c .. +3, rows D apart):
+// relu(x·w + b) · scale into o (rows ldc apart, columns c .. c+3).
+template <int NM>
+__device__ __forceinline__ void wide_project(const float* __restrict__ x, int R, int D,
+                                             int r0, int c0, int c, float scale,
+                                             const float* __restrict__ w0,
+                                             const float* __restrict__ b0, float* o0,
+                                             const float* __restrict__ w1,
+                                             const float* __restrict__ b1, float* o1,
+                                             int ldc) {
+  const float* w[2] = {w0, w1};
+  const float* bias[2] = {b0, b1};
+  float* o[2] = {o0, o1};
+  float acc[NM][kRows][4];
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
+  const float* xr[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) xr[i] = x + static_cast<long long>(min(r0 + i, R - 1)) * D;
+  for (int k = 0; k < D; k += 4) {
+    float4 xv[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) xv[i] = ldg4(xr[i] + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float4 wv[NM];
+#pragma unroll
+      for (int m = 0; m < NM; ++m) wv[m] = ldg4(w[m] + static_cast<long long>(k + kk) * D + c0 + c);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float xs = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+#pragma unroll
+        for (int m = 0; m < NM; ++m) {
+          acc[m][i][0] = fmaf(xs, wv[m].x, acc[m][i][0]);
+          acc[m][i][1] = fmaf(xs, wv[m].y, acc[m][i][1]);
+          acc[m][i][2] = fmaf(xs, wv[m].z, acc[m][i][2]);
+          acc[m][i][3] = fmaf(xs, wv[m].w, acc[m][i][3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    const float4 bv = ldg4(bias[m] + c0 + c);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      if (r0 + i < R) {
+        st4(o[m] + (r0 + i) * ldc + c,
+            make_float4(fmaxf(acc[m][i][0] + bv.x, 0.0f) * scale,
+                        fmaxf(acc[m][i][1] + bv.y, 0.0f) * scale,
+                        fmaxf(acc[m][i][2] + bv.z, 0.0f) * scale,
+                        fmaxf(acc[m][i][3] + bv.w, 0.0f) * scale));
+      }
+    }
+  }
+}
+
+// The cluster's sums of v[t] over the ranks, in rank order (v in shared
+// memory at the same offset in every CTA).
+__device__ __forceinline__ float rank_sum(cg::cluster_group& cluster, float* v, int t,
+                                          int cs) {
+  if (cs == 1) return v[t];
+  float s = 0.0f;
+  for (int r = 0; r < cs; ++r) s += cluster.map_shared_rank(v, r)[t];
+  return s;
+}
+
+__device__ __forceinline__ void wide_cluster_sync(int cs) {
+  if (cs > 1) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_constant__ WideParams p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = p.cs, D = p.D, H = p.H, dh = p.dh, Tq = p.Tq, Tk = p.Tk, ldc = p.ldc;
+  const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int cid = blockIdx.x / cs;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int hc = H / cs, Dc = D / cs, c0 = rank * Dc;
+  // shared memory (ops/cuda/mha.py::_wide_plan): the warps' probabilities
+  // [kWarps][tk4], LayerNorm's exchange (row sums, squares) and means
+  // [kWideLnRows] each; then, unless they lie in device memory, the arrays
+  // Q [Tq][ldc] (the head outputs over it), K and V [Tk][ldc]
+  float* probs = smem;
+  float* exs = probs + kWarps * p.tk4;
+  float* exq = exs + kWideLnRows;
+  float* means = exq + kWideLnRows;
+  float* arrays = p.work != nullptr ? p.work + static_cast<long long>(blockIdx.x) * p.arrays
+                                    : means + kWideLnRows;
+  float* Qs = arrays;
+  float* Ks = Qs + Tq * ldc;
+  float* Vs = Ks + Tk * ldc;
+  float* P = probs + warp * p.tk4;
+
+  for (int b = cid; b < p.total; b += p.clusters) {
+    const int rep = b / p.rows;  // the replica whose weights the row takes
+    const long long wo = static_cast<long long>(rep) * D * D;
+    const int vo = rep * D;
+    const float* xq = p.queries + static_cast<long long>(b) * Tq * D;
+    const float* xk = p.keys + static_cast<long long>(b) * Tk * D;
+    const int q_live = p.q_len[b], k_live = p.k_len[b];
+    __syncthreads();  // the previous row's arrays are used up
+
+    // 1. the projections of the own columns
+    {
+      const int nc4 = Dc / 4;
+      const int qj = (Tq + kRows - 1) / kRows * nc4, kj = (Tk + kRows - 1) / kRows * nc4;
+      for (int j = tid; j < qj + kj; j += kThreads) {
+        if (j < qj) {
+          wide_project<1>(xq, Tq, D, j / nc4 * kRows, c0, j % nc4 * 4, p.inv_scale,
+                          p.wq + wo, p.bq + vo, Qs, nullptr, nullptr, nullptr, ldc);
+        } else {
+          const int jk = j - qj;
+          wide_project<2>(xk, Tk, D, jk / nc4 * kRows, c0, jk % nc4 * 4, 1.0f, p.wk + wo,
+                          p.bk + vo, Ks, p.wv + wo, p.bv + vo, Vs, ldc);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 2. each (query row, own head) on one warp
+    for (int task = warp; task < Tq * hc; task += kWarps) {
+      const int t = task / hc, hl = task - t * hc, h = rank * hc + hl;
+      const float* q = Qs + t * ldc + hl * dh;
+      float s[kPerLane], m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int k = lane + kWarp * i;
+        float v = -INFINITY;
+        if (k < Tk) {
+          v = kKeyMask;
+          if (k < k_live) {
+            const float* kr = Ks + k * ldc + hl * dh;
+            float d = 0.0f;
+            for (int f = 0; f < dh; ++f) d = fmaf(q[f], kr[f], d);
+            v = d;
+          }
+        }
+        s[i] = v;
+        m = fmaxf(m, v);
+      }
+      for (int off = kWarp / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      float sum = 0.0f;
+      const std::uint8_t* km = nullptr;
+      if constexpr (DROP)
+        km = p.keep_mask + ((static_cast<long long>(b) * H + h) * Tq + t) * Tk;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int k = lane + kWarp * i;
+        if (k < Tk) {
+          const float e = expf(s[i] - m);
+          sum += e;
+          float w = e;
+          if constexpr (DROP) w = __ldg(km + k) ? e : 0.0f;
+          P[k] = w;
+        }
+      }
+      for (int off = kWarp / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      __syncwarp();
+      float* o = Qs + t * ldc + hl * dh;  // this head's q is used up
+      for (int f = lane; f < dh; f += kWarp) {
+        float a = 0.0f;
+        for (int k = 0; k < Tk; ++k) a = fmaf(P[k], Vs[k * ldc + hl * dh + f], a);
+        float v = 0.0f;
+        if (t < q_live) v = DROP ? a / sum / p.keep : a / sum;
+        o[f] = v;
+      }
+      __syncwarp();  // P is free for the warp's next task
+    }
+    __syncthreads();
+
+    // 3. LayerNorm of y = o + q over all D columns, kWideLnRows rows at a
+    // time: the cluster's row sums, then its sums of squares about the
+    // mean.  The two barriers order every exchange: a CTA writes the next
+    // block's row sums only after the second barrier, which no peer passes
+    // before it has read them, and the squares only after the next first.
+    float* ob = p.out + static_cast<long long>(b) * Tq * D;
+    for (int r0 = 0; r0 < Tq; r0 += kWideLnRows) {
+      const int nr = min(kWideLnRows, Tq - r0);
+      for (int r = warp; r < nr; r += kWarps) {
+        const float* orow = Qs + (r0 + r) * ldc;
+        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
+        float sy = 0.0f;
+        for (int c = lane; c < Dc; c += kWarp) sy += orow[c] + __ldg(xrow + c);
+        for (int off = kWarp / 2; off > 0; off >>= 1) sy += __shfl_xor_sync(0xffffffffu, sy, off);
+        if (lane == 0) exs[r] = sy;
+      }
+      wide_cluster_sync(cs);
+      for (int r = warp; r < nr; r += kWarps) {
+        const float mean = rank_sum(cluster, exs, r, cs) / D;
+        const float* orow = Qs + (r0 + r) * ldc;
+        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
+        float sq = 0.0f;
+        for (int c = lane; c < Dc; c += kWarp) {
+          const float y = orow[c] + __ldg(xrow + c) - mean;
+          sq = fmaf(y, y, sq);
+        }
+        for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        if (lane == 0) exq[r] = sq, means[r] = mean;
+      }
+      wide_cluster_sync(cs);
+      for (int r = warp; r < nr; r += kWarps) {
+        const float mean = means[r];
+        const float denom = sqrtf(rank_sum(cluster, exq, r, cs) / D + kLnEps);
+        const float* orow = Qs + (r0 + r) * ldc;
+        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
+        float* orow_out = ob + static_cast<long long>(r0 + r) * D + c0;
+        for (int c = lane; c < Dc; c += kWarp) {
+          const float y = orow[c] + __ldg(xrow + c) - mean;
+          orow_out[c] = __ldg(p.gamma + vo + c0 + c) * y / denom + __ldg(p.beta + vo + c0 + c);
+        }
+      }
+    }
+  }
+  wide_cluster_sync(cs);  // no CTA leaves while a peer reads its sums
+}
+
 template <int DH, bool DROP>
 int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   // the dynamic shared memory each device's variant is opted in to
@@ -787,6 +1076,36 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   err = cudaLaunchKernelEx(&config, mha_fwd_kernel<DH, DROP>, p);
   // read (and clear) the launch's error either way, so that a refused
   // launch is not reported again by a later one
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <bool DROP>
+int launch_wide(const WideParams& p, int smem, cudaStream_t stream) {
+  static int opted[kMaxDevices];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > opted[device]) {
+    err = cudaFuncSetAttribute(mha_fwd_wide_kernel<DROP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted[device] = smem;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(p.clusters * p.cs);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, mha_fwd_wide_kernel<DROP>, p);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -824,6 +1143,39 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
     return dh == 8 ? launch<8, true>(p, grid, smem, s) : launch<0, true>(p, grid, smem, s);
   }
   return dh == 8 ? launch<8, false>(p, grid, smem, s) : launch<0, false>(p, grid, smem, s);
+}
+
+// Launches K3's wide variant on `stream` with the geometry of
+// ops/cuda/mha.py::launch_plan: `clusters` clusters of `cs` CTAs of
+// `threads` threads, cluster i taking the rows i, i + clusters, ... of the
+// `total` batch rows (`rows` a replica, each replica with its own weights);
+// CTA c of a cluster owns heads c·H/cs .. (c+1)·H/cs − 1; `smem` bytes of
+// dynamic shared memory; the arrays, `arrays` floats a CTA, in shared
+// memory or, with `work` not null, in `work` (clusters·cs·arrays floats).
+// `keep_mask` and `keep` as mha_fwd_launch's.  Returns the launch's CUDA
+// error (0 = launched).  The caller has checked shapes, types, devices,
+// contiguity, 16-byte alignment and the limits.
+int mha_fwd_wide_launch(const float* queries, const float* keys, const int* q_len,
+                        const int* k_len, const float* wq, const float* bq,
+                        const float* wk, const float* bk, const float* wv,
+                        const float* bv, const float* gamma, const float* beta,
+                        float* out, float* work, int Tq, int Tk, int D, int H, int dh,
+                        int cs, int clusters, int rows, int total, int arrays, int threads,
+                        int smem, const std::uint8_t* keep_mask, float keep, void* stream) {
+  if (threads != kThreads || dh < 1 || D != dh * H || D % 4 != 0 || D > kWideMaxD ||
+      Tk > kWarp * kPerLane || (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 ||
+      (D / cs) % 4 != 0 || clusters < 1 || rows < 1 || total < rows || total % rows != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ldc = D / cs + kPad, tk4 = round4(Tk);
+  const int fixed = kWarps * tk4 + 3 * kWideLnRows;
+  if (arrays != (Tq + 2 * Tk) * ldc ||
+      4 * (fixed + (work != nullptr ? 0 : arrays)) > smem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WideParams p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, beta, out,
+                     keep_mask, work, Tq, Tk, D, H, dh, cs, clusters, rows, total, ldc,
+                     arrays, tk4, 1.0f / sqrtf(static_cast<float>(dh)), keep};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return keep_mask != nullptr ? launch_wide<true>(p, smem, s) : launch_wide<false>(p, smem, s);
 }
 
 // The clusters of `cs` CTAs with `smem` bytes each that the current device

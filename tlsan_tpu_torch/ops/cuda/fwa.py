@@ -29,11 +29,13 @@ the same generator calls as the plain version, and keep = 1 − rate.
 `FWAFunction` saves them for K2, and its vmap rule moves their replica
 axis first.  Without masks the kernels run the variant without dropout.
 
-Both kernels run one warp per (batch row, head) unit; `launch_plan` gives
-their geometry (pure Python, so the CPU tests hold it).  They take any
-S >= 1 and heads of up to `MAX_HEAD_WIDTH` features.  K2 sums its weight
-gradients across blocks through scratch memory that this module keeps per
-device and reuses, so K2 calls on one device run on one stream at a time.
+Both kernels run one warp per (batch row, head) unit for heads of up to
+`MAX_HEAD_WIDTH` features, and a wide variant (csrc/fwa_wide.cuh: one block
+a unit, the steps in chunks that fit shared memory) for heads of up to
+`WIDE_MAX_HEAD`; `launch_plan` gives their geometry (pure Python, so the
+CPU tests hold it).  They take any S >= 1.  K2 sums its weight gradients
+across blocks through scratch memory that this module keeps per device and
+reuses, so K2 calls on one device run on one stream at a time.
 """
 
 from __future__ import annotations
@@ -60,6 +62,11 @@ WARP = 32
 MAX_HEAD_WIDTH = 32        # kMaxDh in csrc/fwa_common.cuh
 FWD_WARPS, BWD_WARPS = 4, 8  # warps (units) a block
 GROUP = 128                # kGroup in csrc/fwa_bwd.cu: slots summed together
+# the wide variants (csrc/fwa_wide.cuh): kWideMaxDh, kWideThreads, the steps
+# a chunk at most, kWideGroup in csrc/fwa_bwd.cu; K2's blocks at most (two
+# an SM) and the floats its slots may take a replica, which bound its grid
+WIDE_MAX_HEAD, WIDE_THREADS, WIDE_CHUNK, WIDE_GROUP = 512, 256, 32, 4
+WIDE_BLOCKS, WIDE_SLOT_FLOATS = 264, 1 << 24
 
 launches = 0
 bwd_launches = 0
@@ -76,7 +83,9 @@ class Plan:
     """One launch: `grid` × `replicas` blocks of `threads` threads
     (`warps` units a block, `units` = B·H a replica), `smem` bytes of
     dynamic shared memory; for K2 also `slots` scratch floats and
-    `tickets` scratch integers a replica (its cross-block tree)."""
+    `tickets` scratch integers a replica (its cross-block tree).  The wide
+    variant (`chunk` > 0) runs one unit a block at a time, the steps
+    `chunk` at once."""
     dh: int
     units: int
     warps: int
@@ -86,6 +95,40 @@ class Plan:
     slots: int = 0
     tickets: int = 0
     replicas: int = 1
+    chunk: int = 0
+
+
+def _tree(n: int, group: int):
+    """(slots, tickets) of a cross-block tree over n slots in groups."""
+    slots, tickets = n, 0
+    while n > 1:  # the levels of the tree
+        n = -(-n // group)
+        slots += n
+        tickets += n
+    return slots, tickets
+
+
+def _wide_plan(B: int, S: int, dh: int, num_heads: int, backward: bool,
+               replicas: int) -> Plan:
+    """The wide variant's geometry: one block of WIDE_THREADS a unit (K2:
+    at most WIDE_BLOCKS blocks, fewer where the slots would pass
+    WIDE_SLOT_FLOATS), and the most steps a chunk (up to WIDE_CHUNK and S)
+    whose arrays fit shared memory: x, m2, m1 and three per-feature
+    statistics; K2 also dm2, dz1 and a fourth (g)."""
+    units = B * num_heads
+    arrays, stats = (5, 4) if backward else (3, 3)
+    room = (SMEM_LIMIT - 64) // 4 - stats * dh
+    chunk = min(S, WIDE_CHUNK, room // (arrays * dh))
+    smem = 4 * (arrays * chunk * dh + stats * dh)
+    warps = WIDE_THREADS // WARP
+    if not backward:
+        return Plan(dh, units, warps, units, WIDE_THREADS, smem, replicas=replicas,
+                    chunk=chunk)
+    weights = 2 * dh * dh + 2 * dh
+    grid = min(units, WIDE_BLOCKS, max(1, WIDE_SLOT_FLOATS // weights))
+    slots, tickets = _tree(grid, WIDE_GROUP)
+    return Plan(dh, units, warps, grid, WIDE_THREADS, smem, slots * weights, tickets,
+                replicas, chunk)
 
 
 @functools.lru_cache(maxsize=512)
@@ -101,11 +144,13 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
             f"D % num_heads == 0; got B={B}, S={S}, D={D}, "
             f"num_heads={num_heads}, replicas={replicas}")
     dh = D // num_heads
-    if dh > MAX_HEAD_WIDTH:
+    if dh > WIDE_MAX_HEAD:
         raise ValueError(
             f"feature-wise attention kernels take heads of at most "
-            f"{MAX_HEAD_WIDTH} features; got D={D}, num_heads={num_heads} "
+            f"{WIDE_MAX_HEAD} features; got D={D}, num_heads={num_heads} "
             f"(dh={dh})")
+    if dh > MAX_HEAD_WIDTH:
+        return _wide_plan(B, S, dh, num_heads, backward, replicas)
     units = B * num_heads
     weights = 2 * dh * dh + 2 * dh
     if not backward:
@@ -120,11 +165,7 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
     while warps > 1 and 4 * (weights + warps * per_warp) > SMEM_LIMIT - 64:
         warps //= 2
     grid = -(-units // warps)
-    slots, tickets, n = grid, 0, grid
-    while n > 1:  # the levels of the cross-block tree
-        n = -(-n // GROUP)
-        slots += n
-        tickets += n
+    slots, tickets = _tree(grid, GROUP)
     return Plan(dh, units, warps, grid, WARP * warps,
                 4 * (weights + warps * per_warp), slots * weights, tickets,
                 replicas)
@@ -137,6 +178,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_fwd_launch.restype = ctypes.c_int
+        lib.fwa_fwd_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        lib.fwa_fwd_wide_launch.restype = ctypes.c_int
         lib.fwa_empty_launch.argtypes = [ctypes.c_void_p]
         lib.fwa_empty_launch.restype = ctypes.c_int
         lib.fwa_error_string.argtypes = [ctypes.c_int]
@@ -151,6 +196,10 @@ def _bwd_library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11
             + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_bwd_launch.restype = ctypes.c_int
+        lib.fwa_bwd_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
+            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
+        lib.fwa_bwd_wide_launch.restype = ctypes.c_int
         lib.fwa_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fwa_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -174,9 +223,9 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None,
             f"{fn}: needs S >= 1 and D % num_heads == 0; "
             f"got S={S}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    if dh > MAX_HEAD_WIDTH:
+    if dh > WIDE_MAX_HEAD:
         raise ValueError(
-            f"{fn}: the kernel takes heads of at most {MAX_HEAD_WIDTH} "
+            f"{fn}: the kernels take heads of at most {WIDE_MAX_HEAD} "
             f"features; got D={D}, num_heads={num_heads} (dh={dh})")
     index = x.get_device()
     wshape, bshape = lead + (dh, dh), lead + (dh,)
@@ -209,7 +258,7 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 b2: torch.Tensor, k1=None, k2=None,
                 keep: float = 1.0) -> torch.Tensor:
     """K1.  x f32 [B, S, D], lengths i32 [B], w1/w2 f32 [dh, dh], b1/b2 f32
-    [dh] (dh = D / num_heads <= 32), all contiguous on one CUDA device →
+    [dh] (dh = D / num_heads <= 512), all contiguous on one CUDA device →
     out f32 [B, D]; or every tensor with a leading replica axis R (x [R,
     B, S, D], ..., out [R, B, D]), R replicas in one launch.  Dropout:
     `k1` and `k2`, bool [B, S, num_heads, dh] (R first with the replica
@@ -223,11 +272,15 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         return out
     plan = launch_plan(B, S, D, num_heads, replicas=math.prod(lead))
     lib = _library()
-    err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
-        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
-        num_heads, dh, plan.grid, plan.replicas, plan.threads, plan.smem,
-        _ptr(k1), _ptr(k2), keep, stream))
+    args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
+            num_heads, dh)
+    tail = (plan.grid, plan.replicas, plan.threads, plan.smem, _ptr(k1), _ptr(k2), keep)
+    if plan.chunk:
+        err = launch(x.get_device(), lambda stream: lib.fwa_fwd_wide_launch(
+            *args, plan.chunk, *tail, stream))
+    else:
+        err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(*args, *tail, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_fwd launch failed: {lib.fwa_error_string(err).decode()}")
@@ -273,13 +326,17 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
     plan = launch_plan(B, S, D, num_heads, True, math.prod(lead))
     lib = _bwd_library()
     slots, tickets = _bwd_scratch(x, plan)
-    err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
-        x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-        dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh,
-        plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
-        plan.smem, _ptr(k1), _ptr(k2), keep, stream))
+    args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh)
+    tail = (plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
+            plan.smem, _ptr(k1), _ptr(k2), keep)
+    if plan.chunk:
+        err = launch(x.get_device(), lambda stream: lib.fwa_bwd_wide_launch(
+            *args, plan.chunk, *tail, stream))
+    else:
+        err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(*args, *tail, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_bwd launch failed: {lib.fwa_bwd_error_string(err).decode()}")

@@ -15,11 +15,14 @@ kernel's launches in this process.
 
 A thread-block cluster of `launch_plan`'s cs CTAs shares each batch row
 of K3 (pure Python, so the CPU tests hold it): the largest cluster size
-whose B clusters the card runs at once, by `ACTIVE_CLUSTERS`.  K3 takes
-heads of up to `MAX_HEAD_WIDTH` features, D up to `MAX_D` and a multiple
-of 4, up to `MAX_KEYS` keys, and as many query rows as one CTA's shared
-memory holds (at D = 64: Tq and Tk up to 256, and past it for Tq);
-anything else raises ValueError naming the limit.  K3b
+whose B clusters the card runs at once, by `ACTIVE_CLUSTERS`.  K3's
+row-split variants take heads of up to `MAX_HEAD_WIDTH` features, D up to
+`MAX_D` and as many query rows as one CTA's shared memory holds (at D =
+64: Tq and Tk up to 256, and past it for Tq); its wide variant takes the
+rest (a cluster a row split by heads, the arrays in shared memory where
+they fit and in device memory past it): D up to `WIDE_MAX_D` and a
+multiple of 4, any head width, up to `MAX_KEYS` keys; anything else
+raises ValueError naming the limit.  K3b
 (`backward_plan`) takes every shape K3 takes: a cluster of cs CTAs a row,
 split by heads, as many clusters as the card holds at once (at most B),
 each taking rows in order; a CTA's arrays in shared memory where they fit
@@ -75,6 +78,9 @@ W_CHUNK = 12_288              # kWChunk: floats of weights staged at once
 MAX_HEAD_WIDTH = 32           # kMaxDh
 MAX_D = 256                   # kMaxLnPerLane · 32: LayerNorm's lanes
 MAX_KEYS = 32 * PER_LANE      # a group of a warp's lanes
+# the wide variants of K3 and K3b (kWideMaxD in csrc/mha_fwd.cu and
+# csrc/mha_bwd.cu) and K3's rows of a LayerNorm exchange (kWideLnRows)
+WIDE_MAX_D, WIDE_LN_ROWS = 512, 64
 # an SM holds two CTAs by registers (128 a thread, __launch_bounds__(256,
 # 2)) and as many as fit its 233,472 bytes of shared memory, 1,024 of them
 # reserved a CTA
@@ -104,6 +110,8 @@ _I32 = torch.int32
 _BOOL = torch.bool
 # K3b's scratch per device index: (slots f32, tickets i32 all 0, workspace f32)
 _scratch: dict = {}
+# the workspace of K3's wide variant per device index (f32)
+_fwd_scratch: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,13 +119,21 @@ class Plan:
     """One launch: `grid` = B·`cs` CTAs of `threads` threads in clusters of
     `cs`, one cluster a batch row; `group` lanes take a (query row, head)
     (for Tq = 1, a head over the CTA's keys); `smem` bytes of dynamic
-    shared memory a CTA."""
+    shared memory a CTA.  The wide variant (`wide`): `clusters` clusters
+    (`grid` = clusters·cs), cluster i taking the rows i, i + clusters, ...;
+    CTA c owning heads c·H/cs .. (c+1)·H/cs − 1; a warp a (query row,
+    head); its Q, K and V columns, `arrays` floats a CTA, in shared memory
+    or, with `work` > 0, in `work` floats of device memory."""
     dh: int
     cs: int
     grid: int
     threads: int
     group: int
     smem: int
+    wide: bool = False
+    clusters: int = 0
+    arrays: int = 0
+    work: int = 0
 
 
 def _weight_chunk(D: int) -> int:
@@ -150,6 +166,23 @@ def ctas_per_sm(smem: int) -> int:
     return min(CTAS_BY_REGISTERS, SM_SMEM // (smem + CTA_RESERVED))
 
 
+def _wide_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int) -> Plan:
+    """K3's wide variant: the largest cluster size that divides the heads
+    with columns on 16-byte boundaries (it depends on D and H alone, so a
+    row's arithmetic does not depend on B); a layout of the warps'
+    probabilities, LayerNorm's exchange and, where they fit, the CTA's
+    columns of Q, K and V (csrc/mha_fwd.cu's mha_fwd_wide_kernel); as many
+    clusters as the card runs at once, at most B."""
+    cs = max(c for c in CLUSTER_SIZES if num_heads % c == 0 and (D // c) % 4 == 0)
+    arrays = (Tq + 2 * Tk) * (D // cs + PAD)
+    fixed = 4 * (THREADS // 32 * _r4(Tk) + 3 * WIDE_LN_ROWS)
+    in_smem = fixed + 4 * arrays <= SMEM_LIMIT
+    smem = fixed + 4 * arrays if in_smem else fixed
+    clusters = min(B, ACTIVE_CLUSTERS[cs, ctas_per_sm(smem)])
+    return Plan(D // num_heads, cs, clusters * cs, THREADS, 32, smem, True, clusters,
+                arrays, 0 if in_smem else clusters * cs * arrays)
+
+
 @functools.lru_cache(maxsize=512)
 def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
                 self_attention: bool = False) -> Plan:
@@ -158,30 +191,27 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
     shared memory for both): the largest cluster size whose CTA fits in
     shared memory and whose B clusters the card runs at once
     (ACTIVE_CLUSTERS), or, when B is too large for one wave, the smallest
-    that fits.  Raises ValueError for what the kernel refuses."""
+    that fits.  Where no row-split variant takes the shape (heads past
+    MAX_HEAD_WIDTH features, D past MAX_D, or no cluster's CTA fits), the
+    wide variant (`_wide_plan`).  Raises ValueError for what the kernel
+    refuses."""
     if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or D % num_heads:
         raise ValueError(
             f"K3 needs B, Tq, Tk >= 1 and D % num_heads == 0; got B={B}, "
             f"Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    if dh > MAX_HEAD_WIDTH:
+    if D > WIDE_MAX_D or D % 4:
         raise ValueError(
-            f"K3 takes heads of at most {MAX_HEAD_WIDTH} features; got D={D}, "
-            f"num_heads={num_heads} (dh={dh})")
-    if D > MAX_D or D % 4:
-        raise ValueError(
-            f"K3 takes D of at most {MAX_D} and a multiple of 4; got D={D}")
+            f"K3 takes D of at most {WIDE_MAX_D} and a multiple of 4; got D={D}")
     if Tk > MAX_KEYS:
         raise ValueError(f"K3 takes at most {MAX_KEYS} keys; got Tk={Tk}")
+    if dh > MAX_HEAD_WIDTH or D > MAX_D:
+        return _wide_plan(B, Tq, Tk, D, num_heads)
     smem = {cs: _smem(Tq, Tk, D, num_heads, cs, self_attention)
             for cs in CLUSTER_SIZES}
     fits = [cs for cs in CLUSTER_SIZES if smem[cs] <= SMEM_LIMIT]
     if not fits:
-        raise ValueError(
-            f"K3 at Tq={Tq}, Tk={Tk}, D={D} needs {smem[CLUSTER_SIZES[-1]]} "
-            f"bytes of shared memory a CTA at the largest cluster "
-            f"({CLUSTER_SIZES[-1]}), above the card's {SMEM_LIMIT} (at D=64 "
-            "it takes Tq and Tk up to 256)")
+        return _wide_plan(B, Tq, Tk, D, num_heads)
     one_wave = [cs for cs in fits
                 if B <= ACTIVE_CLUSTERS[cs, ctas_per_sm(smem[cs])]]
     cs = max(one_wave) if one_wave else fits[0]
@@ -285,13 +315,9 @@ def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
             f"B={B}, Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}, "
             f"replicas={replicas}")
     dh = D // num_heads
-    if dh > MAX_HEAD_WIDTH:
+    if D > WIDE_MAX_D or D % 4:
         raise ValueError(
-            f"K3b takes heads of at most {MAX_HEAD_WIDTH} features; got D={D}, "
-            f"num_heads={num_heads} (dh={dh})")
-    if D > MAX_D or D % 4:
-        raise ValueError(
-            f"K3b takes D of at most {MAX_D} and a multiple of 4; got D={D}")
+            f"K3b takes D of at most {WIDE_MAX_D} and a multiple of 4; got D={D}")
     alias = bool(self_attention) and Tq == Tk
     best = None
     for cs in CLUSTER_SIZES:
@@ -327,6 +353,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 13 + [ctypes.c_int] * 11
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         lib.mha_fwd_launch.restype = ctypes.c_int
+        lib.mha_fwd_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
+        lib.mha_fwd_wide_launch.restype = ctypes.c_int
         lib.mha_fwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
         lib.mha_fwd_active_clusters.restype = ctypes.c_int
@@ -414,17 +444,36 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     # tensor, as here
     plan = launch_plan(rows, Tq, Tk, D, num_heads, queries.data_ptr() == keys.data_ptr())
     lib = _library()
-    err = launch(queries.get_device(), lambda stream: lib.mha_fwd_launch(
-        queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
-        *(t.data_ptr() for t in weights), out.data_ptr(), Tq, Tk, D, num_heads,
-        plan.dh, plan.cs, plan.group, B, plan.grid, plan.threads, plan.smem,
-        None if keep_mask is None else keep_mask.data_ptr(), keep, stream))
+    ptrs = (queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
+            *(t.data_ptr() for t in weights), out.data_ptr())
+    mask = None if keep_mask is None else keep_mask.data_ptr()
+    if plan.wide:
+        work = _fwd_work(queries, plan)
+        err = launch(queries.get_device(), lambda stream: lib.mha_fwd_wide_launch(
+            *ptrs, work, Tq, Tk, D, num_heads, plan.dh, plan.cs, plan.clusters, B, rows,
+            plan.arrays, plan.threads, plan.smem, mask, keep, stream))
+    else:
+        err = launch(queries.get_device(), lambda stream: lib.mha_fwd_launch(
+            *ptrs, Tq, Tk, D, num_heads, plan.dh, plan.cs, plan.group, B, plan.grid,
+            plan.threads, plan.smem, mask, keep, stream))
     if err != 0:
         raise RuntimeError(
             f"mha_fwd launch failed (cluster of {plan.cs}, {plan.smem} bytes of "
             f"shared memory a CTA): {lib.mha_error_string(err).decode()}")
     launches += 1
     return out
+
+
+def _fwd_work(queries: torch.Tensor, plan: Plan):
+    """The address of queries' device's workspace for K3's wide variant,
+    grown to the plan's size, or None for a plan in shared memory."""
+    if not plan.work:
+        return None
+    index = queries.get_device()
+    work = _fwd_scratch.get(index)
+    if work is None or work.numel() < plan.work:
+        work = _fwd_scratch[index] = queries.new_empty(plan.work)
+    return work.data_ptr()
 
 
 def _bwd_scratch(queries: torch.Tensor, plan: BwdPlan):

@@ -1,7 +1,7 @@
 """Time the kernels of two checkouts in turns on one card: other, this,
 this, other.
 
-    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT [--kernels fwa|mha|mha_bwd|all]
+    python -m tlsan_tpu_torch.tools.pair_kernels OTHER_CHECKOUT [--kernels fwa|mha|mha_bwd|widths|all]
 
 Each turn is a fresh process in one checkout: it builds that checkout's
 kernels and runs its ``chip_smoke.py`` kernel phases at the main-path shapes,
@@ -12,7 +12,12 @@ with (Tq, Tk) = (96, 96) and (1, 96), self- and cross-attention;
 ``mha_bwd`` K3b alone, per-call and device time (the profiler's, a launch)
 at B=32 for the (96, 96) self-attention and the (1, 96) readout and at
 B=512 and 2048 for (96, 96), the inputs those of ``chip_smoke.py``'s
-kernel phase; ``all`` K1, K2 and K3.  Its ``kernel fwa_*`` or ``kernel
+kernel phase; ``widths`` K1, K2, K3 and K3b at B=32 at the reference
+widths (D=64, H=8: S=10 and 25, (96, 96) and (1, 96)) and at shapes of the
+width grid (heads of 64 and 128 features, D=256 and 512), each with a
+digest of its outputs (SHA-256 of their bytes), per-call and device time,
+or "refused" where the checkout's plans refuse the shape, so that two
+checkouts' outputs can be held bit for bit; ``all`` K1, K2 and K3.  Its ``kernel fwa_*`` or ``kernel
 mha_*`` lines are printed with the checkout's tag.  Two versions are
 compared only within one such call: the card, its power limit and its host
 then stay the same.
@@ -74,13 +79,53 @@ for B, Tq, Tk, sa in ((32, 96, 96, True), (32, 1, 96, False), (512, 96, 96, True
     print(f"kernel mha_bwd B={B} Tq={Tq} Tk={Tk} {'self' if sa else 'cross'}: "
           f"kernel_ms={ms:.6f} device_ms={dev}", flush=True)
 """,
+    # every kernel at the reference widths and at the width grid, through
+    # the wrappers every checkout has
+    "widths": """
+import hashlib
+from tlsan_tpu_torch.ops.cuda import fwa as cf
+from tlsan_tpu_torch.ops.cuda import mha as cm
+
+def turn(tag, kernel, run):
+    try:
+        out = run()
+    except ValueError as e:
+        print(f"kernel widths {tag}: refused ({e})", flush=True)
+        return
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, tuple) else (out,)):
+        h.update(t.cpu().numpy().tobytes())
+    ms = per_call_ms(run, iters=20, warmup=5)
+    print(f"kernel widths {tag}: digest={h.hexdigest()[:16]} kernel_ms={ms:.6f} "
+          f"device_ms={c._device_ms(run, kernel, calls=20)}", flush=True)
+
+for B, S, d, h in ((32, 10, 64, 8), (32, 25, 64, 8), (32, 10, 64, 1), (32, 25, 128, 1)):
+    x, l, w1, b1, w2, b2 = c._fwa_inputs(B, S, c.SEED + 60, d, h)
+    g = torch.from_numpy(np.random.default_rng(c.SEED + 61).normal(
+        size=(B, d)).astype(np.float32)).cuda()
+    shape = f"B={B} S={S} D={d} H={h}"
+    turn(f"fwa_fwd {shape}", "fwa_fwd", lambda: cf.fwa_forward(x, l, h, w1, b1, w2, b2))
+    turn(f"fwa_bwd {shape}", "fwa_bwd",
+         lambda: cf.fwa_backward(x, l, h, w1, b1, w2, b2, g))
+for B, Tq, Tk, d, h, sa in ((32, 96, 96, 64, 8, True), (32, 1, 96, 64, 8, False),
+                            (32, 96, 96, 64, 1, True), (32, 96, 96, 256, 8, True),
+                            (32, 96, 96, 512, 8, True)):
+    q, k, ql, kl, w = c._mha_inputs(B, Tq, Tk, sa, c.SEED + 70, d)
+    ws = [w[n] * (64.0 / d) ** 0.5 if n.startswith("w") else w[n] for n in cm.WEIGHTS]
+    g = torch.from_numpy(np.random.default_rng(c.SEED + 71).normal(
+        size=(B, Tq, d)).astype(np.float32)).cuda()
+    shape = f"B={B} Tq={Tq} Tk={Tk} D={d} H={h} {'self' if sa else 'cross'}"
+    turn(f"mha_fwd {shape}", "mha_fwd", lambda: cm.mha_forward(q, k, ql, kl, h, *ws))
+    turn(f"mha_bwd {shape}", "mha_bwd", lambda: cm.mha_backward(q, k, ql, kl, h, *ws, g))
+""",
 }
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", help="root of the other checkout")
-    parser.add_argument("--kernels", choices=("fwa", "mha", "mha_bwd", "all"), default="fwa",
+    parser.add_argument("--kernels", choices=("fwa", "mha", "mha_bwd", "widths", "all"),
+                        default="fwa",
                         help="which kernels to time (default: fwa, K1 and K2)")
     args = parser.parse_args(argv)
     kinds = ("fwa", "mha") if args.kernels == "all" else (args.kernels,)
