@@ -49,27 +49,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
              mask's keep share within 5 binomial deviations; per-call,
              device and plain times of the masked kernels and their bound
              (the masks' bytes added) beside the unmasked kernels';
-     widths  the wide variants, at shapes of the width grid (every D <= 512,
-             a multiple of 4, with any H dividing it): K1 and K2 at heads
-             of 64 to 512 features and B=32, 128, S=10, 25 and past a
-             chunk of steps; K3 and K3b at heads of 64 features, D=256 and
-             512 at (96, 96), (128, 128), (1, 96) and (1, 256), K3 in
-             shared memory and in device memory; each against its plain
+     widths  the wide variants, at shapes of the width grid (every D with
+             any H dividing it): K1 and K2 at heads of 64 to 1024
+             features and B=32, 128, S=10, 25 and past a chunk of steps;
+             K3 and K3b at heads of 64 features, D=256, 512 and 1024 at
+             (96, 96), (128, 128), (1, 96) and (1, 256), D=50 in 5 and 2
+             heads, 300 keys, K3 and K3b in shared memory and in device
+             memory; each against its plain
              version with and without dropout masks (K1 and K3 to
              KERNEL_TOL, or KERNEL_TOL · (1 + the output's magnitude) at
              heads of 128 features and more and D past 256; K2 and K3b to
              their error scales), at R=2 against single launches bit for
              bit, FWAFunction and MHAFunction against autograd, 201 calls
              equal at one train shape, per-call, device and plain times at
-             two shapes a kernel beside the bound.  After the families'
-             phases, five configurations at the Electronics catalog
-             (ATRank num_heads=1; hidden_units=256 and 512 in 8 heads with
-             item and category embeddings of half that; TLSAN num_heads=1;
-             TLSAN hidden_units=128 in one head, its item, category and
-             user embeddings 64 wide): one chunk of 100 steps
+             two shapes a kernel (K3b four) beside the bound.  After the
+             families' phases, seven configurations at the Electronics
+             catalog (ATRank num_heads=1; hidden_units=256, 512 and 1024
+             in 8 heads with item and category embeddings of half that;
+             TLSAN num_heads=1; TLSAN hidden_units=128 and 1024 in one
+             head, its item, category and user embeddings half that
+             wide): one chunk of 100 steps
              of batch 32, a bulk recommend of 4,000 users (launches exact,
              512 users as the CPU serves them), 20 steps against the CPU
-             (PARITY_TOL; lr 0.1 for TLSAN, 0.01 for ATRank); in the cli
+             (PARITY_TOL; lr 0.1 for TLSAN, 0.01 for ATRank, 0.001 at D =
+             1024); in the cli
              phase train.cli --model atrank --num_heads 1 for one epoch at
              batch 128 on the Digital-Music fixture, K3 and K3b counted
              exactly;
@@ -310,6 +313,7 @@ from tlsan_tpu_torch.models.tlsan import TLSAN
 from tlsan_tpu_torch.ops.cuda import build
 from tlsan_tpu_torch.ops.cuda import fwa as cuda_fwa
 from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
+from tlsan_tpu_torch.tools.widths import WIDTHS_FWA, WIDTHS_MHA
 from tlsan_tpu_torch.ops.feature_attention import (
     feature_wise_attention_reference,
     fwa_backward_error_scale,
@@ -383,10 +387,12 @@ MHA_TRAIN = [(TRAIN_B, T_ATRANK, T_ATRANK), (TRAIN_B, 1, T_ATRANK)]
 # (B, Tq, Tk, D, H): one row (clusters of 8) and 200 rows (clusters of 1),
 # heads of 16 and 32 features, T past 128 (groups of 32 lanes), T = 256
 # (at B=200 the shared memory takes clusters of 4) and the readout over
-# 256 keys; heads of 12 and 15 features (K3b's generic variant in shared
-# memory, at clusters of 4 and, with padded head columns, of 1) and 600
-# query rows over 17 keys (K3b's layout in device memory, MHA_BWD_GLOBAL)
-MHA_BWD_GLOBAL = (3, 600, 17)
+# 256 keys; heads of 12 and 15 features (K3b's resident generic variant,
+# at clusters of 4 and, with padded head columns, of 1), 600 query rows
+# over 17 keys and 600 over 600 (K3 past 256 keys; K3b streamed in shared
+# memory, the latter in query blocks of 2) and 700 over 700 (K3b streamed
+# in device memory, MHA_BWD_GLOBAL)
+MHA_BWD_GLOBAL = (3, 700, 700)
 # K3b's calls at the train step's shapes that must all equal the first: a
 # race between a cluster's CTAs shows as a call that differs
 MHA_BWD_REPEATS = 200
@@ -394,7 +400,7 @@ MHA_EDGES = [(1, T_ATRANK, T_ATRANK), (1, 1, T_ATRANK), (200, T_ATRANK, T_ATRANK
              (200, 1, T_ATRANK), (37, 17, 17, 64, 4), (37, 17, 17, 128, 4),
              (37, 129, 129), (4, 256, 256), (200, 256, 256), (37, 1, 256),
              (9, 7, 250, 64, 4), (37, 17, 17, 48, 4), (37, 17, 17, 60, 4),
-             MHA_BWD_GLOBAL]
+             (3, 600, 17), (3, 600, 600), MHA_BWD_GLOBAL]
 MHA_SHAPES = MHA_MAIN + MHA_TRAIN + [(37, 17, 17)] + MHA_EDGES
 TRAIN_ROWS, TEST_USERS, STEPS_PER_CALL = 9_600, 4_096, 100
 EMPTY_HISTORY_SHARE = 0.1  # rows with sl = 0
@@ -551,7 +557,8 @@ def _variants(report: str, name: str) -> dict:
     """The ptxas report's (registers, spill stores, spill loads) of each
     variant of `name`'s kernel, by its template arguments ((DH, DROP) for
     K3 and K3b, (DH, ONE, DROP) for K1 and K2), and of its wide variant (a
-    kernel `name`_wide_kernel, or K3b's WIDE argument) as ("wide", DROP); a
+    kernel `name`_wide_kernel, or K3b's WIDE argument) as ("wide", DROP),
+    K3b's streamed ones as ("stream", DROP) and ("stream_wide", DROP); a
     variant whose report does not parse is missing."""
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
@@ -563,8 +570,9 @@ def _variants(report: str, name: str) -> dict:
             key = ("wide", int(w.group(1)))
         else:
             key = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1)))
-            if name == cuda_mha.BWD_SOURCE:  # (DH, DROP, WIDE)
-                key = ("wide", key[1]) if key[2] else key[:2]
+            if name == cuda_mha.BWD_SOURCE:  # (DH, DROP, WIDE, STREAM)
+                kind = ("stream_wide" if key[2] else "stream") if key[3] else "wide"
+                key = (kind, key[1]) if key[2] or key[3] else key[:2]
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
         regs = re.search(r"Used (\d+) registers", lines[i + 2])
         if spill and regs:
@@ -935,18 +943,22 @@ def _active_clusters_match() -> None:
 
 
 def _bwd_plan_line(B: int, Tq: int, Tk: int, d: int, h: int, self_attention: bool) -> str:
-    """K3b's plan at a shape, its layout held against the kernel's own
-    (make_layout in csrc/mha_bwd.cu, which refuses a launch whose layout
-    differs)."""
+    """K3b's plan at a shape, its layout and stage held against the
+    kernel's own (make_layout and make_stream_layout in csrc/mha_bwd.cu,
+    which refuse a launch whose layout differs)."""
     plan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
+    stage = ctypes.c_int()
     floats = cuda_mha._bwd_library().mha_bwd_layout_floats(
-        Tq, Tk, d, h, d // h, plan.cs, plan.qb, plan.xmode, int(plan.alias))
-    if floats != plan.per_cta:
+        Tq, Tk, d, h, d // h, plan.cs, plan.qb, plan.mode, int(plan.alias),
+        ctypes.byref(stage))
+    if (floats, stage.value) != (plan.per_cta, plan.stage):
         raise AssertionError(f"mha_bwd B={B} Tq={Tq} Tk={Tk}: the kernel's layout is "
-                             f"{floats} floats, backward_plan's {plan.per_cta}")
-    where = ("x in the region", "device memory")[plan.xmode]
-    return (f"{plan.clusters} clusters of {plan.cs}, query blocks of {plan.qb}, {where}, "
-            f"smem {plan.smem}")
+                             f"{floats} + {stage.value} floats, backward_plan's "
+                             f"{plan.per_cta} + {plan.stage}")
+    design = ("resident", "streamed by heads", "streamed by rows")[plan.mode]
+    where = "device memory" if plan.work else "shared memory"
+    return (f"{design}, {plan.clusters} clusters of {plan.cs}, query blocks of {plan.qb}, "
+            f"{where}, smem {plan.smem}")
 
 
 def _mha_grad_err(got, want, scale, what: str) -> float:
@@ -1031,15 +1043,15 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
     backward, with and without a dropout mask, and itself; MHAFunction's
     gradients (K3, then K3b) against autograd, at every shape, self- and
     cross-attention; a refused cluster launch must raise.  K3b must have
-    run its layout in device memory (at MHA_BWD_GLOBAL) and its generic
-    variant in shared memory.  Returns K3's row and K3b's: K3's times per request batch (the sum over the two
+    run its resident design's generic variant, and its streamed design in
+    shared memory and (at MHA_BWD_GLOBAL) in device memory.  Returns K3's row and K3b's: K3's times per request batch (the sum over the two
     main-path launches: self-attention and readout), K3b's per train step
     (B = 32); the other shapes are logged, K3b's untimed."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     worst, main = 0.0, {}
     worst_b, main_b = 0.0, {}
-    placed = set()  # K3b's (xmode, a specialised head width) that ran
+    placed = set()  # K3b's (design, in device memory, a specialised head width) that ran
     mains = [_mha_shape(m) for m in main_shapes]
     bwd_mains = [_mha_shape(m) for m in bwd_main_shapes]
     _active_clusters_match()
@@ -1070,9 +1082,9 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
                 size=(B, Tq, d)).astype(np.float32)).cuda()
             bwd = what.replace("mha_fwd", "mha_bwd")
             bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
-            if shape == MHA_BWD_GLOBAL and bplan.xmode != cuda_mha.X_GLOBAL:
+            if shape == MHA_BWD_GLOBAL and not bplan.work:
                 raise AssertionError(f"{bwd}: planned in shared memory, not device memory")
-            placed.add((bplan.xmode, d // h in (8, 16, 32)))
+            placed.add((bplan.mode, bool(bplan.work), d // h in (8, 16, 32)))
             gen = torch.Generator(device="cuda").manual_seed(SEED + 45 + i)
             for mask in (None, torch.rand((B, h, Tq, Tk), generator=gen, device="cuda")
                          < 1.0 - DROPOUT):
@@ -1132,9 +1144,15 @@ def phase_kernel_mha(shapes=MHA_SHAPES, main_shapes=MHA_MAIN,
                         + _backward_launches(q, k, ql, kl, h, w, g, self_attention))
             log(msg)
     if shapes is MHA_SHAPES:
-        for need in ((cuda_mha.X_GLOBAL, True), (cuda_mha.X_REGION, False)):
-            if need not in placed:
-                raise AssertionError(f"mha_bwd: no shape ran (xmode, dh in 8/16/32) = {need}")
+        resident = cuda_mha.RESIDENT
+        for what, ran in (("the resident generic variant",
+                           lambda m, w, spec: m == resident and not spec),
+                          ("the streamed design in shared memory",
+                           lambda m, w, spec: m != resident and not w),
+                          ("the streamed design in device memory",
+                           lambda m, w, spec: m != resident and w)):
+            if not any(ran(*p) for p in placed):
+                raise AssertionError(f"mha_bwd: no shape ran {what}")
     _refused_cluster_raises()
     return _summed(main, worst), _summed(main_b, worst_b)
 
@@ -1898,12 +1916,23 @@ def _cpu_parity(tmp: str, fam: Family, cfg, tc, data, idx, tag: str) -> float:
     """The steps of the index chunk `idx` from one start on the card and on
     the CPU (the plain versions), by Trainers of `tc` on `data` (cate_list,
     train, test): losses and every parameter within PARITY_TOL.  Returns
-    the largest difference."""
+    the largest difference.  The CPU run takes torch's deterministic
+    algorithms: on several threads its embedding gradients' scatter-add
+    (index_put_ with accumulate) sums in a varying order: two CPU runs of
+    ATRank's 20 steps at D = 512 on 8 threads parted by 3.5e-4, where the
+    H100's runs are bit for bit equal."""
     out = {}
     for device in ("cuda", "cpu"):
-        tr = Trainer(fam.model, cfg, dataclasses.replace(
-            tc, model_dir=os.path.join(tmp, f"parity_{device}")), *data, device=device)
-        losses = tr._train_chunk(torch.as_tensor(idx).to(device))
+        was = (torch.are_deterministic_algorithms_enabled(),
+               torch.is_deterministic_algorithms_warn_only_enabled())
+        if device == "cpu":
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            tr = Trainer(fam.model, cfg, dataclasses.replace(
+                tc, model_dir=os.path.join(tmp, f"parity_{device}")), *data, device=device)
+            losses = tr._train_chunk(torch.as_tensor(idx).to(device))
+        finally:
+            torch.use_deterministic_algorithms(was[0], warn_only=was[1])
         out[device] = (losses.cpu(), {k: v.detach().cpu() for k, v in
                                       tr.model.state_dict().items()})
         tr.close()
@@ -3595,30 +3624,19 @@ def check_http(line: dict, card: str, catalog: int) -> None:
 
 # ------------------------------------------------------------------- widths
 #
-# The wide variants: K1/K2 at heads of 33 to 512 features, K3/K3b past
-# 32-feature heads, past D = 256 and past one CTA's shared memory.  Shapes
-# (B, S, D, H) and (B, Tq, Tk, D, H) of the grid every D <= 512 with any H
-# dividing it: the train and serving batches (32, 128), both towers' S (10,
-# 25), S past one chunk of steps, the ATRank blocks (96, 96) and (1, 96),
-# (128, 128) and the readout over 256 keys; D = 512 in one head (K3 and K3b
-# in device memory) and in 512 heads of one feature.  The weights are
-# scaled by the fan-in (std 0.3·√(8/dh) for the head maps, 0.2·√(64/D) for
-# the projections, the reference widths' own at dh = 8 and D = 64), as a
+# The wide variants' shapes (tlsan_tpu_torch/tools/widths.py).  The weights
+# are scaled by the fan-in (std 0.3·√(8/dh) for the head maps, 0.2·√(64/D)
+# for the projections, the reference widths' own at dh = 8 and D = 64), as a
 # model's initialisation scales them, so that every width sees scores of
 # the same spread.
-WIDTHS_FWA = [(32, 10, 64, 1), (32, 25, 64, 1), (128, 10, 128, 1), (128, 25, 128, 2),
-              (32, 25, 512, 1), (37, 40, 64, 1), (4, 301, 96, 2), (37, 33, 512, 1),
-              (32, 10, 512, 512)]
-WIDTHS_MHA = [(32, 96, 96, 64, 1), (32, 1, 96, 64, 1), (128, 96, 96, 64, 1),
-              (32, 128, 128, 128, 2), (32, 1, 256, 128, 2), (128, 96, 96, 256, 8),
-              (32, 96, 96, 256, 8), (32, 96, 96, 512, 8), (32, 1, 96, 512, 8),
-              (8, 128, 128, 512, 1), (32, 1, 256, 512, 1), (8, 128, 128, 512, 512),
-              (9, 7, 250, 256, 4)]
-# the shapes whose times go to the kernels line and PERF.md (two a kernel)
-WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2)],
-                "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2)],
+# the shapes whose times go to the kernels line and PERF.md (K1/K2 at heads
+# of 1024 features; K3b's streamed design at four shapes, among them D = 256
+# and the D = 512 readout)
+WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 10, 1024, 1)],
+                "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 10, 1024, 1)],
                 "mha_fwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)],
-                "mha_bwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)]}
+                "mha_bwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8), (32, 96, 96, 256, 8),
+                            (32, 1, 96, 512, 8)]}
 WIDTHS_REPEATS = 200  # calls at one train shape that must all equal the first
 WIDTHS_R = 2          # the replica axis
 
@@ -3832,16 +3850,18 @@ def phase_widths_mha() -> tuple:
                    f"{_bwd_plan_line(B, Tq, Tk, d, h, self_attention)}: plain, dropout, "
                    f"R={WIDTHS_R} and MHAFunction agree; max abs err K3 "
                    f"{worst['mha_fwd']:.3e} K3b {worst['mha_bwd']:.3e} (so far)")
-            if (B, Tq, Tk, d, h) in WIDTHS_TIMED["mha_fwd"] and self_attention == (Tq == Tk):
+            main_path = self_attention == (Tq == Tk)
+            if (B, Tq, Tk, d, h) in WIDTHS_TIMED["mha_fwd"] and main_path:
                 _repeat_equal(lambda: (cuda_mha.mha_forward(*args),), what)
-                _repeat_equal(lambda: cuda_mha.mha_backward(*args, g), bwd)
-                msg += (f"; {WIDTHS_REPEATS + 1} calls of each equal; K3 "
+                msg += (f"; {WIDTHS_REPEATS + 1} calls of K3 equal; K3 "
                         + _widths_time(rows["mha_fwd"], "mha_fwd",
                                        lambda: cuda_mha.mha_forward(*args),
                                        lambda: multihead_attention_reference(q, ql, k, kl, h, w),
                                        mha_bound(B, Tq, Tk, self_attention, d),
-                                       "mha_fwd_wide_kernel")
-                        + "; K3b "
+                                       "mha_fwd_wide_kernel"))
+            if (B, Tq, Tk, d, h) in WIDTHS_TIMED["mha_bwd"] and main_path:
+                _repeat_equal(lambda: cuda_mha.mha_backward(*args, g), bwd)
+                msg += (f"; {WIDTHS_REPEATS + 1} calls of K3b equal; K3b "
                         + _widths_time(rows["mha_bwd"], "mha_bwd",
                                        lambda: cuda_mha.mha_backward(*args, g),
                                        lambda: multihead_attention_backward_reference(
@@ -3855,7 +3875,7 @@ def phase_widths_mha() -> tuple:
     return {k: _summed(rows[k], worst[k]) for k in rows}
 
 
-# the five configurations of the widths phase, at the Electronics catalog:
+# the configurations of the widths phase, at the Electronics catalog:
 # (family, ModelConfig fields over the reference's)
 WIDTHS_CONFIGS = [("atrank", dict(num_heads=1)),
                   ("atrank", dict(itemid_embedding_size=128, cateid_embedding_size=128,
@@ -3865,13 +3885,101 @@ WIDTHS_CONFIGS = [("atrank", dict(num_heads=1)),
                   ("tlsan", dict(num_heads=1)),
                   ("tlsan", dict(itemid_embedding_size=64, cateid_embedding_size=64,
                                  userid_embedding_size=64, hidden_units=128,
+                                 num_heads=1)),
+                  ("atrank", dict(itemid_embedding_size=512, cateid_embedding_size=512,
+                                  hidden_units=1024, num_heads=8)),
+                  ("tlsan", dict(itemid_embedding_size=512, cateid_embedding_size=512,
+                                 userid_embedding_size=512, hidden_units=1024,
                                  num_heads=1))]
+# the configuration whose chunk is profiled: K3's and K3b's device share
+WIDTHS_PROFILED = ("atrank", 512)
 WIDTHS_PARITY_LR = {"tlsan": 0.1, "atrank": 0.01}  # the ReLU-kink rule (ROADMAP §3)
+# From it on, ATRank's 20 steps at WIDTHS_PARITY_LR are held against the
+# card's own plain backward, a step's gradients at a time (`_card_plain_
+# parity`), and the CPU check runs at a tenth of the rate besides: at D =
+# 1024, 20 steps at lr 0.01 on an H100 part from the CPU by 1.2e-3 with K3b
+# and with the plain backward alike (sums in another order, grown through
+# ReLU kink flips over the steps)
+WIDTHS_KINK_D = 1024
+
+
+def _widths_parity_lr(name: str, cfg) -> float:
+    """The rate of a configuration's 20-step check against the CPU."""
+    lr = WIDTHS_PARITY_LR[name]
+    return lr / 10 if name == "atrank" and cfg.hidden_units >= WIDTHS_KINK_D else lr
 WIDTHS_CPU_CHECK_USERS = 512
 
 
+def _plain_mha_backward(queries, keys, q_len, k_len, num_heads, *rest):
+    """`cuda_mha.mha_backward`'s function by its plain version
+    (multihead_attention_backward_reference) on the same tensors: what
+    MHAFunction's backward runs on the card in place of K3b."""
+    n = len(cuda_mha.WEIGHTS)
+    w, g, drop = rest[:n], rest[n], rest[n + 1:]
+    mask, keep = drop if drop else (None, 1.0)
+    return multihead_attention_backward_reference(
+        queries, q_len, keys, k_len, num_heads, dict(zip(cuda_mha.WEIGHTS, w)), g,
+        0.0 if mask is None else 1.0 - keep, mask)
+
+
+def _card_plain_parity(tmp: str, fam: Family, cfg, tc, data, idx, tag: str) -> float:
+    """The steps of the index chunk `idx` (a device tensor) by a Trainer of
+    `tc` on the card: at each, from the same parameters, the gradients of
+    the batch's loss with K3b and with its plain version on the card
+    (`_plain_mha_backward`) agree within PARITY_TOL, then the step is taken
+    with K3b.  Both gradients are taken at one point, so no drift between
+    two runs (ReLU kinks crossed in one and not the other) enters.  Returns
+    the largest difference."""
+    tr = Trainer(fam.model, cfg, dataclasses.replace(
+        tc, model_dir=os.path.join(tmp, "card_plain")), *data, device="cuda")
+    xs = {k: v[idx] for k, v in tr.train_data.items()}
+    worst = 0.0
+    for s in range(idx.shape[0]):
+        batch = {k: v[s] for k, v in xs.items()}
+        grads = []
+        for backward in (cuda_mha.mha_backward, _plain_mha_backward):
+            kept, cuda_mha.mha_backward = cuda_mha.mha_backward, backward
+            try:
+                for p in tr.params:
+                    p.grad = None
+                tr._forward("loss", batch, tr._masks).backward()
+            finally:
+                cuda_mha.mha_backward = kept
+            grads.append([None if p.grad is None else p.grad.detach().to_dense().clone()
+                          for p in tr.params])
+        for i, (got, want) in enumerate(zip(*grads)):
+            if got is None or want is None:
+                if got is not want:
+                    raise AssertionError(f"{tag}: step {s}: gradient {i} is missing once")
+                continue
+            diff = float((got - want).abs().max())
+            worst = max(worst, diff)
+            if not torch.allclose(got, want, rtol=PARITY_TOL, atol=PARITY_TOL):
+                raise AssertionError(f"{tag}: step {s}: gradient {i} differs from the "
+                                     f"plain backward's by {diff:.3e}")
+        tr._train_chunk(idx[s:s + 1])
+    tr.close()
+    return worst
+
+
+def _attention_share(trace: str) -> str:
+    """The device time of a Trainer.profile_trace chunk (its Chrome trace's
+    kernel events) and K3's and K3b's shares of it."""
+    with open(trace) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e]
+    if not events:
+        raise AssertionError(f"{trace}: no device kernel in the trace")
+    total = sum(e["dur"] for e in events)
+    parts = {k: sum(e["dur"] for e in events if k in e["name"])
+             for k in ("mha_fwd", "mha_bwd_kernel")}
+    return (f"{len(events)} kernels, {total / 1e3:.3f} ms on the device; K3 "
+            f"{parts['mha_fwd'] / 1e3:.3f} ms ({parts['mha_fwd'] / total:.3f}), K3b "
+            f"{parts['mha_bwd_kernel'] / 1e3:.3f} ms ({parts['mha_bwd_kernel'] / total:.3f})")
+
+
 def phase_widths_models(card: str) -> list:
-    """The five WIDTHS_CONFIGS on the card at the Electronics catalog, from
+    """The WIDTHS_CONFIGS on the card at the Electronics catalog, from
     the seed: Trainer takes a warm-up step and one chunk of STEPS_PER_CALL
     steps of batch 32 on the train phase's planted rows (examples/s of the
     chunk; finite losses; launches exact: no plain version runs on the
@@ -3879,8 +3987,10 @@ def phase_widths_models(card: str) -> list:
     Recommender.from_model_dir to BULK_USERS featurized users in bulk
     (launches exact; the first WIDTHS_CPU_CHECK_USERS as the CPU serves
     the same save), and PARITY_STEPS steps from the same start agree with
-    the CPU plain path within PARITY_TOL at WIDTHS_PARITY_LR.  Returns the
-    launches of each configuration's path."""
+    the CPU plain path within PARITY_TOL at `_widths_parity_lr`; ATRank
+    from WIDTHS_KINK_D on also takes them at WIDTHS_PARITY_LR against the
+    card's plain backward (`_card_plain_parity`).  Returns the launches of
+    each configuration's path."""
     runs = []
     for name, over in WIDTHS_CONFIGS:
         fam = TLSAN_FAMILY if name == "tlsan" else ATRANK_FAMILY
@@ -3907,6 +4017,13 @@ def phase_widths_models(card: str) -> list:
                                 f"{tag}: a chunk")
             if not bool(torch.isfinite(losses).all()):
                 raise AssertionError(f"{tag}: non-finite losses {losses}")
+            profiled = ""
+            if (name, cfg.hidden_units) == WIDTHS_PROFILED:
+                trainer.profile_trace(1, out_dir=os.path.join(tmp, "profile"))
+                n = expect_launches(n, _times(fam.per_step, STEPS_PER_CALL),
+                                    f"{tag}: the profiled chunk")
+                profiled = "; profiled chunk: " + _attention_share(
+                    os.path.join(tmp, "profile", "trace.json"))
             checkpoint.save(tmp, name, STEPS_PER_CALL, trainer.model, None, cfg, best=True)
             trainer.close()
             bulk = featurize_many(name, cfg, fam.requests(np.random.default_rng(SEED),
@@ -3926,8 +4043,16 @@ def phase_widths_models(card: str) -> list:
             assert_topk_match(want_ids, want_scores, ids[:m], scores[:m], SCORE_TOL)
             # PARITY_STEPS steps on the card and on the CPU from one start
             worst = _cpu_parity(tmp, fam, cfg, dataclasses.replace(
-                tc, learning_rate=WIDTHS_PARITY_LR[name]), (cate_list, train, test),
+                tc, learning_rate=_widths_parity_lr(name, cfg)), (cate_list, train, test),
                 idx[:PARITY_STEPS].cpu(), f"{tag}: parity")
+            card_plain = ""
+            if name == "atrank" and cfg.hidden_units >= WIDTHS_KINK_D:
+                lr = WIDTHS_PARITY_LR[name]
+                diff = _card_plain_parity(tmp, fam, cfg, dataclasses.replace(
+                    tc, learning_rate=lr), (cate_list, train, test), idx[:PARITY_STEPS],
+                    f"{tag}: against the card's plain backward")
+                card_plain = (f"; {PARITY_STEPS} steps at lr {lr}, each step's gradients "
+                              f"within {diff:.3e} of the card's plain backward's")
         d, h = cfg.hidden_units, cfg.num_heads
         plans = (f"K1 {cuda_fwa.launch_plan(TRAIN_B, LS, d, h)}" if name == "tlsan" else
                  f"K3 {cuda_mha.launch_plan(TRAIN_B, T_ATRANK, T_ATRANK, d, h, True)}")
@@ -3935,9 +4060,10 @@ def phase_widths_models(card: str) -> list:
             f"(host clock, one chunk after a warm-up step), losses "
             f"{float(losses[:10].mean()):.6f} → {float(losses[-10:].mean()):.6f} (means of "
             f"the first and last 10); {BULK_USERS} users served, the first {m} as the CPU "
-            f"serves them; {PARITY_STEPS} steps at lr {WIDTHS_PARITY_LR[name]} within "
-            f"{worst:.3e} of the CPU; launches {n}; in {time.perf_counter() - t0:.1f} s; "
-            f"{plans}")
+            f"serves them; {PARITY_STEPS} steps at lr {_widths_parity_lr(name, cfg)} within "
+            f"{worst:.3e} of the CPU{card_plain}; launches {n}; in "
+            f"{time.perf_counter() - t0:.1f} s; "
+            f"{plans}{profiled}")
     return runs
 
 
@@ -3986,7 +4112,7 @@ def main() -> int:
         log(f"{fam.name}: path and train in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     widths_runs = phase_widths_models(card)
-    log(f"widths: the five configurations in {time.perf_counter() - t0:.1f} s")
+    log(f"widths: the {len(WIDTHS_CONFIGS)} configurations in {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         runs.extend(phase_ext(tmp, card))

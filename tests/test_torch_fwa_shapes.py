@@ -116,13 +116,15 @@ def test_launch_plan_fits_the_card_at_every_s(backward):
 
 @pytest.mark.parametrize("D,H,limit", [
     (96, 2, None), (128, 2, None), (64, 1, None),  # dh 48 and 64: the wide variant
-    (1024, 1, "at most 512 features"), (1032, 2, "at most 512 features"),
+    (1024, 1, None), (1032, 2, None),  # past 512 features: a thread takes several
+    (16384, 1, "do not fit"),  # one step past a block's shared memory
     (64, 6, "D % num_heads"),
 ])
 def test_launch_plan_refuses_heads_above_the_limit(D, H, limit):
     """Heads past the warp-a-unit variants' 32 features take the wide
-    variant, one block a unit, within a block's shared memory; past 512
-    features (and where the heads do not divide D) the plan refuses."""
+    variant, one block a unit, within a block's shared memory; only heads
+    of which not even one step fits it (and heads that do not divide D)
+    are refused."""
     for backward in (False, True):
         if limit is not None:
             with pytest.raises(ValueError, match=limit):

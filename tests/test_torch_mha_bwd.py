@@ -324,53 +324,75 @@ def _k3_shapes(D):
         yield B, Tq, Tk, H, self_attention
 
 
+def _check_bwd_plan(plan, B, Tq, Tk, D, H, R, self_attention):
+    """A K3b plan within the card's limits: the resident design where its
+    layout fits a CTA's shared memory at some cluster size dividing the
+    heads (columns on 16-byte boundaries), with the clusters the card runs
+    at once; else the streamed one (split by heads or by rows, its layout
+    in shared memory or in device memory past it, the weights never in the
+    layout); slots of a tree's columns and the scratch of its tree."""
+    limit = SMEM_LIMIT - cuda_mha.STATIC_SMEM
+    cs, rows = plan.cs, plan.mode == cuda_mha.ROWS
+    assert cs in cuda_mha.CLUSTER_SIZES and (rows or H % cs == 0)
+    assert plan.replicas == R and plan.dh == D // H
+    assert plan.threads == cuda_mha.THREADS and plan.qb >= 1
+    assert plan.qb <= (-(-Tq // cs) if rows else Tq)
+    assert plan.alias == (self_attention and Tq == Tk)
+    assert plan.smem <= limit
+    if plan.mode == cuda_mha.RESIDENT:
+        assert D % 4 == 0 and (D // cs) % 4 == 0 and plan.stage == 0 and plan.work == 0
+        assert plan.per_cta == cuda_mha._bwd_layout(Tq, Tk, D, H, cs, plan.qb, plan.alias)
+        assert plan.smem == 4 * plan.per_cta
+        active = cuda_mha.ACTIVE_CLUSTERS[cs, cuda_mha.ctas_per_sm(plan.smem)]
+        assert plan.clusters == min(B, active)
+    else:
+        # no resident layout fits, at any cluster size or block
+        for c in cuda_mha.CLUSTER_SIZES:
+            if D % 4 == 0 and H % c == 0 and (D // c) % 4 == 0:
+                assert 4 * cuda_mha._bwd_layout(Tq, Tk, D, H, c, 1, plan.alias) > limit
+        main, stage = cuda_mha._stream_layout(Tq, Tk, D, H, cs, plan.qb, rows)
+        assert (plan.per_cta, plan.stage) == (main, stage)
+        if plan.work:  # no streamed layout fits shared memory either
+            assert plan.smem == 4 * stage and plan.work == plan.clusters * cs * main
+            assert cs * main <= cuda_mha.WORK_LIMIT
+        else:  # one CTA an SM: the streamed kernel's registers
+            assert plan.smem == 4 * (main + stage)
+            assert plan.clusters == min(B, cuda_mha.ACTIVE_CLUSTERS[cs, 1])
+        # the stage holds two buffers, each a k-tile of the own query and key
+        # rows of x and the three weights' tiles, so one loads while the
+        # other is summed
+        nq, nk = (-(-Tq // cs), -(-Tk // cs)) if rows else (Tq, Tk)
+        ra, rk = (-(-min(n, cuda_mha.TILE_ROWS) // 4) * 4 for n in (nq, nk))
+        dcp = (H if rows else H // cs) * (-(-(D // H) // 4) * 4)
+        nc = min(dcp, cuda_mha.TILE_N)
+        assert stage >= 2 * ((ra + rk) * (cuda_mha.TILE_K + cuda_mha.PAD)
+                             + 3 * cuda_mha.TILE_K * (nc + cuda_mha.PAD))
+    assert plan.grid == plan.clusters * cs <= 2 * 132  # two CTAs on each of 132 SMs
+    dc = D if rows else D // cs
+    assert plan.weights == 3 * D * dc + 5 * dc
+    assert plan.trees == (1 if rows else cs)
+    assert (plan.slots, plan.tickets) == _levels(plan.clusters * cs if rows else plan.clusters)
+
+
 @pytest.mark.parametrize("D", [16, 48, 64, 128, 256])
 def test_backward_plan_takes_every_shape_k3_takes(D):
     """(d) Wherever K3's launch_plan accepts a shape, K3b's backward_plan
-    does, for R = 1 and 8: a cluster size of 1, 2, 4 or 8 that divides the
-    heads, with each CTA's columns on 16-byte boundaries; a layout that fits
-    a CTA's shared memory (232,448 bytes less the static flag) and the
-    clusters the card runs at once at its CTAs an SM, or else one CTA a row
-    with the layout in device memory; query blocks of 1 .. Tq rows; slots of
-    a rank's columns and the scratch of its cross-cluster tree.  None of it
-    grows with B past one wave: B = 5000 and B = 50,000 get one plan."""
+    does, for R = 1 and 8 (`_check_bwd_plan`).  None of it grows with B
+    past one wave: B = 5000 and B = 50,000 get one plan."""
     accepted = 0
-    limit = SMEM_LIMIT - cuda_mha.STATIC_SMEM
     for B, Tq, Tk, H, self_attention in _k3_shapes(D):
         accepted += 1
         for R in (1, 8):
             plan = cuda_mha.backward_plan(B, Tq, Tk, D, H, R, self_attention)
-            cs = plan.cs
-            assert cs in cuda_mha.CLUSTER_SIZES and H % cs == 0 and (D // cs) % 4 == 0
-            assert plan.replicas == R and plan.dh == D // H
-            assert plan.threads == cuda_mha.THREADS and 1 <= plan.qb <= Tq
-            assert plan.alias == (self_attention and Tq == Tk)
-            assert plan.per_cta == cuda_mha._bwd_layout(Tq, Tk, D, H, cs, plan.qb, plan.xmode,
-                                                        plan.alias)
-            if plan.smem:
-                assert plan.smem == 4 * plan.per_cta <= limit and plan.work == 0
-                assert plan.xmode == cuda_mha.X_REGION
-                active = cuda_mha.ACTIVE_CLUSTERS[cs, cuda_mha.ctas_per_sm(plan.smem)]
-                assert plan.clusters == min(B, active)
-            else:  # nothing fits shared memory at any cluster size or block
-                assert cs == 1 and plan.xmode == cuda_mha.X_GLOBAL
-                assert plan.clusters == min(B, cuda_mha.SMS)
-                assert plan.work == plan.clusters * plan.per_cta
-                for c in cuda_mha.CLUSTER_SIZES:
-                    if H % c == 0 and (D // c) % 4 == 0:
-                        assert 4 * cuda_mha._bwd_layout(
-                            Tq, Tk, D, H, c, 1, cuda_mha.X_REGION, plan.alias) > limit
-            assert plan.grid == plan.clusters * cs <= 2 * cuda_mha.SMS
-            assert plan.weights == 3 * D * (D // cs) + 5 * (D // cs)
-            assert (plan.slots, plan.tickets) == _levels(plan.clusters)
+            _check_bwd_plan(plan, B, Tq, Tk, D, H, R, self_attention)
             if B == 5000:
                 assert cuda_mha.backward_plan(50_000, Tq, Tk, D, H, R, self_attention) == \
                     dataclasses.replace(plan)
     assert accepted > 0
-    # the main-path shapes: a cluster of several CTAs a row, all in shared memory
+    # the main-path shapes: a resident cluster of several CTAs a row in shared memory
     for Tq, self_attention in ((96, True), (1, False)):
         plan = cuda_mha.backward_plan(32, Tq, 96, 64, 8, 1, self_attention)
-        assert plan.cs > 1 and plan.smem > 0 and plan.clusters == 32
+        assert plan.mode == cuda_mha.RESIDENT and plan.cs > 1 and plan.clusters == 32
 
 
 def test_backward_plan_is_a_pure_function_of_the_shape():
@@ -393,21 +415,22 @@ def test_backward_plan_is_a_pure_function_of_the_shape():
 
 
 def test_backward_plan_refuses_what_k3_refuses():
-    """K3b refuses what K3 refuses (D past 512 or not a multiple of 4, no
-    rows); heads of 64 features and D = 512, which both refused before
-    their wide variants, now take a plan: in shared memory within a CTA's
-    limit, or in device memory one CTA a row."""
+    """K3b refuses no rows and heads that do not divide D, as K3 does, and
+    a layout past WORK_LIMIT floats a cluster; heads of 64 features, D =
+    512, D past 512 and D not a multiple of 4, which refused before, take a
+    plan: resident or streamed, in shared memory within a CTA's limit, or
+    in device memory."""
     for shape, match in (((4, 5, 5, 64, 1), None),
-                         ((4, 5, 5, 66, 6), "multiple of 4"),
+                         ((4, 5, 5, 66, 6), None),
                          ((4, 5, 5, 512, 16), None),
-                         ((4, 5, 5, 1024, 16), "D of at most 512"),
+                         ((4, 5, 5, 1024, 16), None),
+                         ((4, 5, 5, 64, 6), "D % num_heads"),
+                         ((1, 1, 1 << 24, 64, 1), "device memory"),
                          ((0, 5, 5, 64, 8), "B, Tq, Tk")):
         if match is None:
             plan = cuda_mha.backward_plan(*shape)
             assert cuda_mha.launch_plan(*shape).smem <= SMEM_LIMIT
-            assert plan.dh == shape[3] // shape[4]
-            assert plan.smem <= SMEM_LIMIT - cuda_mha.STATIC_SMEM
-            assert (plan.smem == 0) == (plan.work > 0)
+            _check_bwd_plan(plan, *shape, 1, False)
             continue
         with pytest.raises(ValueError, match=match):
             cuda_mha.backward_plan(*shape)
@@ -428,9 +451,11 @@ def test_backward_scratch_grows_and_is_reused(monkeypatch):
     slots, tickets, work = cuda_mha._bwd_scratch(x, small)
     assert slots.numel() == trees * small.slots * small.weights and work is None
     assert tickets.numel() == trees * small.tickets and torch.count_nonzero(tickets) == 0
-    big = cuda_mha.backward_plan(4, 600, 256, 256, 8)
-    assert big.work > 0 and big.smem == 0
+    assert small.mode == cuda_mha.RESIDENT
+    big = cuda_mha.backward_plan(4, 600, 600, 256, 8)
+    assert big.work > 0 and big.smem == 4 * big.stage
     slots2, tickets2, work2 = cuda_mha._bwd_scratch(x, big)
-    assert work2.numel() == big.work and slots2.numel() >= big.slots * big.weights
+    assert work2.numel() == big.work
+    assert slots2.numel() >= big.trees * big.slots * big.weights
     again = cuda_mha._bwd_scratch(x, small)
     assert again[0] is slots2 and again[1] is tickets2 and again[2] is None

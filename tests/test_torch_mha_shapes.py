@@ -198,33 +198,40 @@ def test_launch_plan_takes_every_length_up_to_256():
     ((4, 10, 10, 128, 2), None),  # dh = 64: the wide variant
     ((4, 10, 10, 64, 1), None),
     ((4, 10, 10, 288, 9), None),  # D past 256
-    ((4, 10, 10, 30, 5), "at most 512 and a multiple of 4"),
-    ((4, 10, 10, 1024, 8), "at most 512 and a multiple of 4"),
-    ((4, 10, 257, 64, 8), "at most 256 keys"),
-    ((4, 1, 300, 64, 8), "at most 256 keys"),
+    ((4, 10, 10, 30, 5), None),  # D not a multiple of 4: one float at a time
+    ((4, 10, 10, 1024, 8), None),  # D past 512
+    ((4, 10, 257, 64, 8), None),  # past 256 keys: scores in the warp's slice
+    ((4, 1, 300, 64, 8), None),
     ((4, 200, 200, 128, 4), None),  # past one CTA's shared memory
     ((4, 4000, 8, 64, 8), None),
     ((4, 10, 10, 64, 6), "D % num_heads"),
     ((0, 10, 10, 64, 8), "B, Tq, Tk >= 1"),
+    ((4, 1, 7300, 64, 8), "probabilities over the Tk keys"),  # a memory limit
+    ((1, 8192, 1, 1 << 17, 1), "device memory"),
 ])
 def test_launch_plan_refuses_beyond_the_limits(shape, limit):
     """What the row-split variants refuse (heads past 32 features, D past
-    256, a CTA past shared memory) takes the wide variant: a cluster a row
-    split by heads, within a CTA's shared memory (its Q, K and V columns
-    there or in device memory) and the clusters the card runs at once.
-    The rest still raises, naming the limit."""
+    256 or not a multiple of 4, more than 256 keys, a CTA past shared
+    memory) takes the wide variant: a cluster a row split by heads, within
+    a CTA's shared memory (its Q, K and V columns there or in device
+    memory) and the clusters the card runs at once.  Only no rows, heads
+    that do not divide D and what memory forces still raise, naming the
+    limit: a warp's probabilities over the keys past a CTA's shared memory,
+    a cluster's columns past WORK_LIMIT floats."""
     if limit is not None:
         with pytest.raises(ValueError, match=limit):
             cuda_mha.launch_plan(*shape)
         return
     B, Tq, Tk, D, H = shape
     plan = cuda_mha.launch_plan(*shape)
-    assert plan.wide and plan.dh == D // H and H % plan.cs == 0 and (D // plan.cs) % 4 == 0
+    vec = D % 4 == 0
+    assert plan.wide and plan.dh == D // H and H % plan.cs == 0
+    assert (D // plan.cs) % 4 == 0 or not vec
     assert plan.smem <= cuda_mha.SMEM_LIMIT
     assert plan.clusters == min(
         B, cuda_mha.ACTIVE_CLUSTERS[plan.cs, cuda_mha.ctas_per_sm(plan.smem)])
     assert plan.grid == plan.clusters * plan.cs
-    assert plan.arrays == (Tq + 2 * Tk) * (D // plan.cs + cuda_mha.PAD)
+    assert plan.arrays == (Tq + 2 * Tk) * (-(-(D // plan.cs) // 4) * 4 + cuda_mha.PAD)
     assert plan.work in (0, plan.grid * plan.arrays)
 
 

@@ -1,9 +1,10 @@
 """The attention ops at every head and model width the command lines take
 (`--num_heads`, `--hidden_units` and the embedding sizes), on the CPU.
 
-The grid: every D <= 512 that is a multiple of 4 with any H dividing it;
-its corners here are D in {64, 128, 256, 512} and heads of dh in {1, 64,
-128, 512} features.
+The grid: every D with any H dividing it; its corners here are D in {64,
+128, 256, 512} and heads of dh in {1, 64, 128, 512} features, and past
+them D = 1024 in 8 heads and in one, and D = 50 (not a multiple of 4) in
+5 and in 2 heads.
 
   - Plans: K1, K2, K3 and K3b plan every corner of the grid (K1/K2 at S
     from 1 to 301, K3/K3b at (128, 128) and (96, 96) self-attention and
@@ -40,6 +41,7 @@ import torch
 
 from tests.test_torch_atrank import _batch as atrank_batch
 from tests.test_torch_atrank import _cate_list as atrank_cate_list
+from tests.test_torch_mha_bwd import _check_bwd_plan
 from tests.test_torch_train import _batch as tlsan_batch
 from tests.test_torch_train import _tree_items
 from tlsan_tpu.core.config import ModelConfig as JaxModelConfig
@@ -57,13 +59,16 @@ from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
 from tlsan_tpu_torch.ops.cuda.common import SMEM_LIMIT
 from tlsan_tpu_torch.tools.params import grads_to_numpy, params_from_numpy, params_to_numpy
 from tlsan_tpu_torch.tools.snap_fixture import write_snap_fixture
+from tlsan_tpu_torch.tools.widths import WIDTHS_MHA
 from tlsan_tpu_torch.train import cli
 
 TOL = 1e-5
 STEP_TOL = 1e-4  # 20 SGD steps: f32 sums in other orders, compounded
 RATE = 0.1
 R = 2  # the replica axis
+R_MAX = 8  # the fan-out's replicas
 CORNERS = [(D, D // dh) for D in (64, 128, 256, 512) for dh in (1, 64, 128, 512) if dh <= D]
+CORNERS += [(1024, 8), (1024, 1), (50, 5), (50, 2)]
 W = cuda_mha.WEIGHTS
 
 
@@ -111,11 +116,13 @@ def test_every_kernel_plans_every_width(D, H):
                 assert plan.wide or (dh <= cuda_mha.MAX_HEAD_WIDTH and D <= cuda_mha.MAX_D)
                 if plan.wide:
                     assert H % plan.cs == 0 and plan.grid == plan.clusters * plan.cs
-                    assert plan.clusters == min(rows, cuda_mha.ACTIVE_CLUSTERS[
+                    want = min(rows, cuda_mha.ACTIVE_CLUSTERS[
                         plan.cs, cuda_mha.ctas_per_sm(plan.smem)])
-            bplan = cuda_mha.backward_plan(B, Tq, Tk, D, H, R, sa)
-            assert bplan.dh == dh and bplan.smem <= SMEM_LIMIT - cuda_mha.STATIC_SMEM
-            assert (bplan.smem == 0) == (bplan.work > 0)
+                    if plan.work:  # the workspace bounded by WORK_CAP floats
+                        want = min(want, max(1, cuda_mha.WORK_CAP // (plan.cs * plan.arrays)))
+                    assert plan.clusters == want
+            _check_bwd_plan(cuda_mha.backward_plan(B, Tq, Tk, D, H, R, sa), B, Tq, Tk, D, H,
+                            R, sa)
     # D = 512 runs K3 wide whatever the head width; the readout at (1, 96)
     # of D = 256 in heads of 32 features stays on the row-split variant
     assert cuda_mha.launch_plan(32, 1, 96, 512, 512).wide
@@ -134,6 +141,61 @@ def test_reference_widths_keep_their_plans():
             assert not cuda_mha.launch_plan(B, Tq, 96, 64, 8, sa).wide
     assert not cuda_fwa.launch_plan(32, 10, 1024, 32).chunk  # dh = 32 at any D
     assert not cuda_mha.launch_plan(37, 17, 17, 128, 4).wide
+
+
+# K3's and K3b's plans at the reference widths, as the parent of the
+# streamed K3b design computed them (its launch_plan and backward_plan at
+# D = 64, H = 8): (B, Tq, Tk, self-attention) → K3's (cs, grid, group,
+# smem), K3b's (cs, clusters, qb, smem, per_cta, weights, slots, tickets)
+REFERENCE_PLANS = {
+    (32, 96, 96, True): ((4, 128, 16, 79232), (4, 32, 32, 112512, 28128, 3152, 35, 3)),
+    (32, 1, 96, False): ((4, 128, 4, 71248), (4, 32, 1, 74512, 18628, 3152, 35, 3)),
+    (128, 96, 96, True): ((2, 256, 16, 104960), (4, 62, 32, 112512, 28128, 3152, 67, 5)),
+    (128, 1, 96, False): ((2, 256, 8, 91216), (2, 128, 1, 113040, 28260, 6304, 137, 9)),
+    (16, 96, 96, True): ((8, 128, 16, 66368), (8, 16, 96, 93504, 23376, 1576, 17, 1)),
+    (16, 1, 96, False): ((8, 128, 2, 61264), (8, 16, 1, 55248, 13812, 1576, 17, 1)),
+}
+
+
+def test_reference_widths_keep_the_parents_plans():
+    """At D = 64, H = 8 (the train and serving batches, the mesh's per-rank
+    batch) K3 and K3b plan exactly what they planned before K3b's streamed
+    design: the resident design, the same cluster, blocks and layout."""
+    for (B, Tq, Tk, sa), (fwd, bwd) in REFERENCE_PLANS.items():
+        plan = cuda_mha.launch_plan(B, Tq, Tk, 64, 8, sa)
+        assert not plan.wide and (plan.cs, plan.grid, plan.group, plan.smem) == fwd
+        for R in (1, R_MAX):
+            plan = cuda_mha.backward_plan(B, Tq, Tk, 64, 8, R, sa)
+            assert plan.mode == cuda_mha.RESIDENT and plan.stage == 0 and plan.work == 0
+            assert (plan.cs, plan.clusters, plan.qb, plan.smem, plan.per_cta, plan.weights,
+                    plan.slots, plan.tickets) == bwd
+
+
+@pytest.mark.parametrize("B,Tq,Tk,D,H", WIDTHS_MHA)
+def test_streamed_plans_at_the_widths_shapes(B, Tq, Tk, D, H):
+    """At every shape of chip_smoke.py's widths phase, self- and
+    cross-attention: K3b's layout fits a CTA's shared memory (the streamed
+    design's stage always does), and where K3b streams, a row takes a
+    cluster of several CTAs and no CTA's layout holds the weights: it is
+    the biases, Q, O, dy, K, V, dK and dV of the own columns, the block's
+    statistics and probabilities, and nothing of size D·D."""
+    for sa in ([True, False] if Tq == Tk else [False]):
+        plan = cuda_mha.backward_plan(B, Tq, Tk, D, H, 1, sa)
+        assert plan.smem <= SMEM_LIMIT - cuda_mha.STATIC_SMEM
+        assert cuda_mha.launch_plan(B, Tq, Tk, D, H, sa).smem <= SMEM_LIMIT
+        if plan.mode == cuda_mha.RESIDENT:
+            continue
+        assert plan.cs > 1
+        hc = H if plan.mode == cuda_mha.ROWS else H // plan.cs
+        dcp = hc * -(-(D // H) // 4) * 4
+        ldc, qb = dcp + 4, plan.qb
+
+        def r4(n):
+            return -(-n // 4) * 4
+
+        assert plan.per_cta == (4 * dcp + (3 * r4(Tq) + 4 * r4(Tk)) * ldc + r4(qb * hc)
+                                + r4(2 * qb) + 8 * qb + r4(2 * hc * (D // H))
+                                + hc * qb * (r4(Tk) + 4))
 
 
 # ------------------------------------------------------ FWA's plain version
@@ -239,41 +301,52 @@ def _mha_case(B, Tq, Tk, D, self_attention, seed, lead=()):
     return q, k, q_len, k_len, p, f32(B, Tq, D)
 
 
+def _mha_plain_vs_jax(B, Tq, Tk, D, H, sa, dropout, seed):
+    """K3's plain version against the JAX multihead_attention and K3b's
+    against jax.vjp, with or without the keep mask JAX draws."""
+    q, k, q_len, k_len, p, g = _mha_case(B, Tq, Tk, D, sa, seed=seed)
+    rate, rng, mask = 0.0, None, None
+    if dropout:
+        rate, rng = RATE, jax.random.PRNGKey(seed)
+        mask = torch.from_numpy(np.array(jax.random.bernoulli(rng, 1 - rate, (B, H, Tq, Tk))))
+    names = list(W)
+
+    def jax_fn(q, k, *ws):
+        return jax_mha.multihead_attention(
+            q, jnp.asarray(q_len), k, jnp.asarray(k_len), H, dict(zip(names, ws)),
+            dropout_rate=rate, rng=rng)[0]
+
+    want, vjp = jax.vjp(jax_fn, jnp.asarray(q), jnp.asarray(k),
+                        *(jnp.asarray(p[n]) for n in names))
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    tp = {n: torch.from_numpy(v) for n, v in p.items()}
+    ql, kl = torch.from_numpy(q_len), torch.from_numpy(k_len)
+    got, _ = M.multihead_attention_reference(tq, ql, tk, kl, H, tp, rate, keep_mask=mask)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_fwd_bar(D // H, want))
+    tg = torch.from_numpy(g)
+    grads = M.multihead_attention_backward_reference(tq, ql, tk, kl, H, tp, tg, rate, mask)
+    scale = M.multihead_attention_backward_error_scale(tq, ql, tk, kl, H, tp, tg, rate, mask)
+    _assert_grads(_np(*grads), vjp(jnp.asarray(g)), _np(*scale), ("d_queries", "d_keys", *names))
+
+
 @pytest.mark.parametrize("dropout", [False, True])
 @pytest.mark.parametrize("D,H", CORNERS)
 def test_mha_plain_matches_jax_at_every_width(D, H, dropout):
     """K3's plain version against the JAX multihead_attention, and K3b's
     against jax.vjp, self-attention at T = 9 and the readout over 7 keys,
     with and without the keep mask JAX draws."""
-    dh = D // H
     for Tq, Tk, sa in ((9, 9, True), (1, 7, False)):
-        q, k, q_len, k_len, p, g = _mha_case(3, Tq, Tk, D, sa, seed=D + H + Tq)
-        rate, rng, mask = 0.0, None, None
-        if dropout:
-            rate, rng = RATE, jax.random.PRNGKey(D + H + Tq)
-            mask = torch.from_numpy(np.array(jax.random.bernoulli(rng, 1 - rate,
-                                                                  (3, H, Tq, Tk))))
-        names = list(W)
+        _mha_plain_vs_jax(3, Tq, Tk, D, H, sa, dropout, seed=D + H + Tq)
 
-        def jax_fn(q, k, *ws):
-            return jax_mha.multihead_attention(
-                q, jnp.asarray(q_len), k, jnp.asarray(k_len), H, dict(zip(names, ws)),
-                dropout_rate=rate, rng=rng)[0]
 
-        want, vjp = jax.vjp(jax_fn, jnp.asarray(q), jnp.asarray(k),
-                            *(jnp.asarray(p[n]) for n in names))
-        tq, tk = torch.from_numpy(q), torch.from_numpy(k)
-        tp = {n: torch.from_numpy(v) for n, v in p.items()}
-        ql, kl = torch.from_numpy(q_len), torch.from_numpy(k_len)
-        got, _ = M.multihead_attention_reference(tq, ql, tk, kl, H, tp, rate, keep_mask=mask)
-        want = np.asarray(want)
-        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_fwd_bar(dh, want))
-        tg = torch.from_numpy(g)
-        grads = M.multihead_attention_backward_reference(tq, ql, tk, kl, H, tp, tg, rate, mask)
-        scale = M.multihead_attention_backward_error_scale(tq, ql, tk, kl, H, tp, tg, rate,
-                                                           mask)
-        want_g = vjp(jnp.asarray(g))
-        _assert_grads(_np(*grads), want_g, _np(*scale), ("d_queries", "d_keys", *names))
+@pytest.mark.parametrize("dropout", [False, True])
+@pytest.mark.parametrize("Tq,Tk,sa", [(1, 300, False), (300, 300, True), (5, 300, False)])
+def test_mha_plain_matches_jax_past_256_keys(Tq, Tk, sa, dropout):
+    """Past 256 keys, where K3's wide variant now scores into a warp's
+    slice of shared memory: the plain versions against JAX at D = 64, H =
+    8."""
+    _mha_plain_vs_jax(2, Tq, Tk, 64, 8, sa, dropout, seed=Tq + Tk)
 
 
 @pytest.mark.parametrize("D,H", [(64, 1), (256, 4), (512, 8), (512, 1)])
@@ -322,7 +395,10 @@ MODELS = [("tlsan", dict(num_heads=1), 0.1),
           ("atrank", dict(itemid_embedding_size=128, cateid_embedding_size=128,
                          hidden_units=256, num_heads=8), 0.01),
           ("atrank", dict(itemid_embedding_size=256, cateid_embedding_size=256,
-                         hidden_units=512, num_heads=8), 0.01)]
+                         hidden_units=512, num_heads=8), 0.01),
+          # D = 50, not a multiple of 4: K3 and K3b read its rows a float at a time
+          ("atrank", dict(itemid_embedding_size=30, cateid_embedding_size=20,
+                         hidden_units=50, num_heads=5), 0.01)]
 
 
 @pytest.mark.parametrize("family,over,lr", MODELS)

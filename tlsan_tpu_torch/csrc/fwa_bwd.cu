@@ -436,7 +436,7 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
 // the scratch with the same number
 constexpr int kWideGroup = 4;
 
-// The wide variant (fwa_wide.cuh): heads of 33 to 512 features.  A block
+// The wide variant (fwa_wide.cuh): heads of more than 32 features.  A block
 // of kWideThreads threads takes the units blockIdx.x, blockIdx.x + grid,
 // ... in turn (the grid bounded so that the slots stay small); for each it
 // takes the softmax statistics in three passes over the steps (max, sum,
@@ -708,7 +708,7 @@ int fwa_bwd_launch(const float* x, const int* lengths, const float* w1,
 #undef FWA_BWD_ARGS
 }
 
-// Launches K2's wide variant (heads of 33 to kWideMaxDh features) on
+// Launches K2's wide variant (heads of more than kMaxDh features) on
 // `stream` with the geometry of ops/cuda/fwa.py::launch_plan: grid ×
 // replicas blocks of `threads` = kWideThreads threads, block i taking the
 // units i, i + grid, ... of its replica's B·H, steps in chunks of `chunk`,
@@ -724,7 +724,7 @@ int fwa_bwd_wide_launch(const float* x, const int* lengths, const float* w1,
                         const std::uint8_t* k1, const std::uint8_t* k2, float keep,
                         void* stream) {
   static int opted[2][kWideMaxDevices];
-  if (threads != kWideThreads || dh <= kMaxDh || dh > kWideMaxDh || chunk < 1 || grid < 1 ||
+  if (threads != kWideThreads || dh <= kMaxDh || chunk < 1 || grid < 1 ||
       grid > units)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

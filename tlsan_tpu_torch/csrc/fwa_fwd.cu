@@ -36,7 +36,7 @@
 // tile goes through shared memory.  For S > 32 each lane takes steps t,
 // t + 32, ...: three passes (max, sum, weighted sum) re-read x and
 // recompute the maps.  dh = 8 is specialised; any other dh <= 32 runs a
-// generic variant with plain loops; heads of 33 to 512 features run the
+// generic variant with plain loops; wider heads run the
 // wide variant (fwa_wide.cuh: a block a unit).  The TPU kernel's
 // block-diagonal [D, D] lift of the head maps is not carried over: 8×8
 // maps are below any tensor-core tile, and TF32 is off by contract.
@@ -147,7 +147,7 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   }
 }
 
-// The wide variant (fwa_wide.cuh): heads of 33 to 512 features, one block
+// The wide variant (fwa_wide.cuh): heads of more than 32 features, one block
 // of kWideThreads threads a (row, head) unit, the steps in chunks of C.
 // Pass 0 takes the max of m2 per feature, pass 1 the sum of exp(m2 − max),
 // pass 2 out = Σ_t exp(m2 − max) / sum · x, each over the steps in order;
@@ -268,7 +268,7 @@ int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
 #undef FWA_FWD_ARGS
 }
 
-// Launches K1's wide variant (heads of 33 to kWideMaxDh features) on
+// Launches K1's wide variant (heads of more than kMaxDh features) on
 // `stream` with the geometry of ops/cuda/fwa.py::launch_plan: grid ×
 // replicas blocks of `threads` = kWideThreads threads, one block a unit of a
 // replica's B·H units, steps in chunks of `chunk`, `smem` bytes of dynamic
@@ -279,7 +279,7 @@ int fwa_fwd_wide_launch(const float* x, const int* lengths, const float* w1,
                         int replicas, int threads, int smem, const std::uint8_t* k1,
                         const std::uint8_t* k2, float keep, void* stream) {
   static int opted[2][kWideMaxDevices];
-  if (threads != kWideThreads || dh <= kMaxDh || dh > kWideMaxDh || chunk < 1 || grid != units)
+  if (threads != kWideThreads || dh <= kMaxDh || chunk < 1 || grid != units)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool drop = k1 != nullptr;

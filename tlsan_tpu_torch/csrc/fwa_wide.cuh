@@ -1,5 +1,5 @@
 // Device code of the wide variants of the feature-wise attention kernels K1
-// (fwa_fwd.cu) and K2 (fwa_bwd.cu): heads of 33 to 512 features, where the
+// (fwa_fwd.cu) and K2 (fwa_bwd.cu): heads of more than 32 features, where the
 // one-warp-per-(row, head) variants of fwa_common.cuh would hold 3·dh
 // floats a lane (x, m1 and m2: 192 at dh = 64) and spill.
 //
@@ -14,8 +14,10 @@
 // dh = 512, above a block's shared memory; the L1 and L2 caches hold them)
 // and the chunk's inputs are broadcast from shared memory.  The softmax
 // over time is per feature: the thread that owns feature e (e = tid, tid +
-// kWideThreads) walks the steps in order, so its max, its sum and the
-// weighted sum are sequential and bitwise repeatable.  With S <= C the maps
+// kWideThreads, tid + 2·kWideThreads, ... for any dh) walks the steps in
+// order, so its max, its sum and the weighted sum are sequential and
+// bitwise repeatable.  What bounds dh is shared memory: a chunk of one
+// step, 6·dh floats (K1) or 9·dh (K2), must fit a block's.  With S <= C the maps
 // are computed once; past C each pass (max, sum, weighted sum, and K2's
 // backward) recomputes them chunk by chunk, re-reading x from L2.
 //
@@ -38,7 +40,6 @@
 namespace fwa {
 
 constexpr int kWideThreads = 256;
-constexpr int kWideMaxDh = 512;   // the widest head the wide variants take
 constexpr int kWideMaxDevices = 64;
 
 // out[t][e] for the nt steps of a chunk and every feature e < dh:

@@ -76,14 +76,69 @@
 //   while the current row finishes.  A row's x rows (xq and xk, one copy
 //   for self-attention) are loaded by cp.async into the block region for
 //   the projections and reloaded there for the weight gradients.  The
-//   keep mask is read where P₀ is stored.  Shapes whose buffers do not fit
-//   one CTA's shared memory run at cs = 1 with the same layout in a slice
-//   of device memory that the CTA alone uses (x read where it lies; the
-//   generic variant), so every shape K3 takes runs.  Every row of a CTA's
+//   keep mask is read where P₀ is stored.  Every row of a CTA's
 //   own-column arrays is padded by 4 floats, so lanes reading consecutive
 //   rows as float4 hit distinct banks; a head's columns are padded to a
-//   multiple of 4 (zeros) for a width that is not one.
+//   multiple of 4 (zeros) for a width that is not one.  This is the
+//   resident design; shapes whose layout it cannot fit in one CTA's
+//   shared memory run the streamed one (below).
 //
+// The streamed design (STREAM; ops/cuda/mha.py::backward_plan takes it
+// where the resident layout fits no cluster size, and for D not a multiple
+// of 4).  What bounds it: operations, as above, but at D = 512 a row is
+// 255 M multiply-adds (0.243 ms for B = 32 at the f32 peak), three
+// quarters of them in three [T, D]·[D, D] products (the projections, the
+// weight gradients, the input gradients).  Resident weight columns cost
+// 3·D·D/cs floats a CTA, so the layout holds none of them, nor copies of x
+// or g:
+//   - the weights stay where they lie (3 MB at D = 512, L2-resident and
+//     shared by every CTA).  The projections, the input gradients and the
+//     weight gradients are products staged through shared memory k-tiles:
+//     a block of up to kTileRows rows (or features of x) × kTileN columns,
+//     of all three matrices at once in the projections (and of both sides
+//     in the input gradients), a thread taking 4 rows × 4 (or 8) columns
+//     of a product, the sums in registers over the k-loop; x and g are
+//     read where they lie;
+//   - the stage is double-buffered: while a k-tile is summed, the next one
+//     (a block's first: during the block before's last) loads into the
+//     other buffer, by cp.async from device memory and through registers
+//     from the layout, so the products wait on no load but the first.  Two
+//     buffers of kTileK = 8 columns fit beside the layout at D = 512 with
+//     query blocks of 32 rows; a k-tile of 16 would not;
+//   - a row is split over a cluster of cs CTAs either by heads (HEADS, CTA
+//     c owning heads c·H/cs ..: the resident design's split) or, where the
+//     heads do not divide, by rows (ROWS: CTA c owning query rows and key
+//     rows c·⌈T/cs⌉ .., all heads; its K and V rows projected once and
+//     gathered by every CTA through distributed shared memory; dK and dV
+//     partial over its query rows, summed for its key rows across the
+//     cluster in rank order; LayerNorm local, since a CTA holds whole rows);
+//   - the input gradients are pulled, not exchanged: after the ReLU masks a
+//     CTA passes the cluster's barrier, computes its weight gradients from
+//     its own dpre, waits at the barrier, and then sums, for its D/cs input
+//     columns, dy + Σ_c' dQpre_c'·Wq[own, c']ᵀ over the columns in order
+//     (and d_keys, dKpre·Wkᵀ in the same pass, dVpre·Wvᵀ in a second),
+//     reading rank c''s dpre columns through distributed shared memory
+//     (under ROWS a CTA holds every column of its rows: all its own); no
+//     [T, D] partial is exchanged, and dpre never leaves the layout;
+//   - where no cluster size fits shared memory (Tk or D in the thousands)
+//     the same layout lies in device memory, a slice a CTA, the peers' read
+//     there past L1 (ld.cg) after a fence and the cluster barrier; the
+//     stage stays in shared memory.  The weights are never copied.
+//   The plan takes the split and cluster size that give the fewest waves of
+//   rows a CTA of the cluster (⌈B / active clusters⌉ / cs).  The weight
+//   gradients go up the resident design's ticket tree (ROWS: a leaf a CTA,
+//   one tree a replica, since every rank holds every column), a CTA's slot
+//   read and written back at each of its rows.  What holds it above its
+//   bound (D = 512, H = 8, B = 32, (96, 96): some 12×): the products' 4 × 4
+//   register tiles take two shared-memory loads for every eight FMAs, with
+//   8 warps an SM to hide their latency, and the 8-column k-tiles that two
+//   buffers leave room for pass twice the barriers of a 16-column tile;
+//   hiding the k-tiles' loads does not pay for that (a single-buffered stage
+//   of 16-column tiles measured faster at every width but D = 128, H = 2:
+//   PERF.md §6); the attention
+//   phases are latency chains over the query blocks; and 32 rows on 15
+//   clusters of 8 take three rounds, the last with 2 clusters busy.
+
 // Cluster barriers: every exchange is a barrier.cluster arrive (release)
 // and wait (acquire) on both sides.  LayerNorm's exchange buffer is double
 // buffered by the query block's parity: a CTA writes a block's sums only
@@ -116,12 +171,14 @@
 //
 // dh = 8, 16 and 32 are specialised (a head's columns as float4s, loops
 // unrolled); any other dh <= 32 at D <= 256 runs a generic variant.  The
-// wide variant (WIDE) takes heads of any width and D up to 512 (a multiple
-// of 4): it is the generic one but for the two passes that hold a head's
-// features in registers (2 and 4a), which read a dot product's operands
-// from the layout and sum O = P′·V and dQ = dS·K 32 features at a time, so
-// no register array grows with dh.  Tq and Tk are bounded by nothing but
-// memory.
+// wide variant (WIDE) takes heads of any width and any D: it is the
+// generic one but for the two passes that hold a head's features in
+// registers (2 and 4a), which read a dot product's operands from the
+// layout and sum O = P′·V and dQ = dS·K 32 features at a time, so no
+// register array grows with dh.  The streamed design runs the generic and
+// wide variants only, and reads x, g and the weights as single floats
+// where D or dh is not a multiple of 4.  Tq, Tk and D are bounded by
+// nothing but memory.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math.  The
 // scores are q·k scaled by 1/√dh (the reference divides by √dh: the two
@@ -148,18 +205,22 @@ constexpr int kWarp = 32;
 constexpr int kThreads = 256;
 constexpr int kMaxDh = 32;
 constexpr int kMaxD = 256;
-constexpr int kWideMaxD = 512;  // the wide variant's
-constexpr int kWideChunk = 32;  // its features summed at once
+constexpr int kWideChunk = 32;  // the wide variant's features summed at once
 constexpr int kPad = 4;  // floats after each row of a shared array
 constexpr int kMaxCs = 8;  // the largest cluster
 // slots summed together at each level of the cross-CTA tree;
 // ops/cuda/mha.py::backward_plan sizes the scratch with the same number
 constexpr int kGroup = 16;
 constexpr int kMaxDevices = 64;
-// where a row's x rows live (ops/cuda/mha.py's X_REGION, X_GLOBAL): the
-// block region, reloaded for the weight gradients; device memory, read
-// where they lie (the device-memory workspace)
-constexpr int kXRegion = 0, kXGlobal = 1;
+// the designs (ops/cuda/mha.py's RESIDENT, HEADS, ROWS): the weights'
+// columns resident; streamed, a row split by heads; streamed, split by rows
+constexpr int kResident = 0, kHeads = 1, kRows = 2;
+// the streamed products' tiles: k-columns staged at once, output columns
+// and rows (or features of x) at a time, and the weight gradients' steps
+// staged at once (ops/cuda/mha.py's TILE_K, TILE_N, TILE_ROWS, STEP_K)
+constexpr int kTileK = 8, kTileN = 64, kTileRows = 128, kStepK = 16;
+constexpr int kLdt = kTileK + kPad;  // rows of a staged x or dpre tile
+constexpr int kLds = kStepK + kPad;  // rows of the weight gradients' xᵀ tile
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 
@@ -169,15 +230,20 @@ __host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
 // K, V, dK and dV [Tk4][ldc]; the
 // block's D per (row, head), its rows' mean and σ, and the exchange of
 // LayerNorm's sums [2][qb][4] (by the block's parity); dγ and dβ of the
-// row; the region (the block's P, x, the partial input gradients).
+// row; the region (the block's P, x, the partial input gradients).  The
+// streamed design's (make_stream_layout) has no weights, xq, g or x, its
+// region holds P alone, and `stage` floats of shared memory follow it.
 struct Layout {
   int hc, dhp, Dcp, Dc, ldc, ldx, ldp, Tq4, Tk4, xrows, region;
   int w, bias, q, o, dy, xr, gs, k, v, dk, dv, drow, rowst, ex, dgb, reg, total;
+  // streamed: the stage (two buffers of buf floats), a buffer's query and
+  // key rows, x's features (the weight gradients') and output columns
+  int stage, ra, rk, rw, nc, buf;
 };
 
 inline Layout make_layout(int Tq, int Tk, int D, int H, int dh, int cs,
-                                              int qb, int xmode, int alias) {
-  Layout L;
+                          int qb, int alias) {
+  Layout L = {};
   L.hc = H / cs;
   L.dhp = round4(dh);
   L.Dcp = L.hc * L.dhp;
@@ -207,11 +273,63 @@ inline Layout make_layout(int Tq, int Tk, int D, int H, int dh, int cs,
   const int maxT = Tq > Tk ? Tq : Tk;
   int region = L.hc * qb * L.ldp;
   region = region > maxT * L.ldx ? region : maxT * L.ldx;
-  if (xmode == kXRegion) region = region > L.xrows * L.ldx ? region : L.xrows * L.ldx;
+  region = region > L.xrows * L.ldx ? region : L.xrows * L.ldx;
   L.reg = off;
   L.region = region;
   off += region;
   L.total = off;
+  return L;
+}
+
+// The streamed design's layout (ops/cuda/mha.py::_stream_layout mirrors
+// it): under ROWS a CTA holds every head (hc = H) and its rows' share of
+// the query rows, nq = ⌈Tq/cs⌉ (the arrays keep all Tq rows: row indices
+// stay the batch row's); the stage is two buffers, each the larger of a
+// product's tiles: the projections' kTileK columns of ra query rows and rk
+// key rows of x and three weight tiles [kTileK][nc + kPad]; the input
+// gradients' as many of dpre and two weight tiles [nc][kLdt]; the weight
+// gradients' xᵀ [rw][kLds] and dpre [kStepK][nc + kPad]; in the query
+// blocks it holds the block's own columns of xq and g [2][qb][ldc].
+inline Layout make_stream_layout(int Tq, int Tk, int D, int H, int dh, int cs, int qb,
+                                 bool rows) {
+  Layout L = {};
+  L.hc = rows ? H : H / cs;
+  L.dhp = round4(dh);
+  L.Dcp = L.hc * L.dhp;
+  L.Dc = L.hc * dh;
+  L.ldc = L.Dcp + kPad;
+  L.Tq4 = round4(Tq);
+  L.Tk4 = round4(Tk);
+  L.ldp = L.Tk4 + kPad;
+  int off = 0;
+  L.bias = off, off += 4 * L.Dcp;
+  L.q = off, off += L.Tq4 * L.ldc;
+  L.o = off, off += L.Tq4 * L.ldc;
+  L.dy = off, off += L.Tq4 * L.ldc;
+  L.k = off, off += L.Tk4 * L.ldc;
+  L.v = off, off += L.Tk4 * L.ldc;
+  L.dk = off, off += L.Tk4 * L.ldc;
+  L.dv = off, off += L.Tk4 * L.ldc;
+  L.drow = off, off += round4(qb * L.hc);
+  L.rowst = off, off += round4(2 * qb);
+  L.ex = off, off += 2 * 4 * qb;
+  L.dgb = off, off += round4(2 * L.Dc);
+  L.reg = off;
+  L.region = L.hc * qb * L.ldp;
+  off += L.region;
+  L.total = off;
+  const int nq = rows ? (Tq + cs - 1) / cs : Tq, nk = rows ? (Tk + cs - 1) / cs : Tk;
+  L.ra = round4(nq < kTileRows ? nq : kTileRows);
+  L.rk = round4(nk < kTileRows ? nk : kTileRows);
+  L.rw = round4(D < kTileRows ? D : kTileRows);
+  L.nc = L.Dcp < kTileN ? L.Dcp : kTileN;
+  const int proj = (L.ra + L.rk) * kLdt + 3 * kTileK * (L.nc + kPad);
+  const int grad = (L.ra + L.rk) * kLdt + 2 * L.nc * kLdt;
+  const int wgrad = L.rw * kLds + kStepK * (L.nc + kPad);
+  L.buf = proj > grad ? proj : grad;
+  L.buf = L.buf > wgrad ? L.buf : wgrad;
+  // between the products the stage holds a query block's own columns of xq and g
+  L.stage = 2 * L.buf > 2 * qb * L.ldc ? 2 * L.buf : 2 * qb * L.ldc;
   return L;
 }
 
@@ -241,9 +359,10 @@ struct Params {
   float* dbeta;
   float* slots;
   unsigned* tickets;
-  float* work;  // the workspace in device memory, or null for shared memory
+  float* work;  // the streamed layout in device memory, or null for shared memory
   int Tq, Tk, D, H, dh, rows;  // rows: the batch rows a replica
-  int cs, clusters, qb, xmode, alias;
+  int cs, clusters, qb, mode, alias;
+  int vec;  // streamed: x, g and the weights' rows read as float4 (D, dh multiples of 4)
   int tree_slots, tree_tickets;
   float inv_scale;
   float keep;
@@ -320,9 +439,17 @@ __device__ __forceinline__ int group_size(int tiles, int threads, int cap = kWar
 
 // The cluster's barrier: arrive (release) after this CTA's last write of
 // shared memory a peer reads, wait (acquire) before reading the peers'.
-__device__ __forceinline__ void cluster_sync() {
+__device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -339,16 +466,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// 16 bytes from device memory into the layout: by cp.async into shared
-// memory, by a plain copy into the device-memory workspace.
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool async) {
-  if (async) {
-    cp_async16(dst, src);
-  } else {
-    st4(dst, ldg4(src));
-  }
-}
-
 // A row's x rows (xq's Tq, then xk's Tk unless they alias) into X, rows
 // ldx apart, by cp.async; the caller commits and waits.
 __device__ __forceinline__ void load_x(const float* xq, const float* xk, int Tq, int Tk, int D,
@@ -363,25 +480,18 @@ __device__ __forceinline__ void load_x(const float* xq, const float* xk, int Tq,
 }
 
 // The own columns of a row's xq and g (device memory, rows D apart, from
-// column c0) into XR and GS (rows ldc apart, padded columns): by cp.async
-// into shared memory (g 4 bytes at a time: it need not be 16-byte
-// aligned), by plain copies into the device-memory workspace; padding is
-// never read.
+// column c0) into XR and GS (rows ldc apart, padded columns) by cp.async
+// (g 4 bytes at a time: it need not be 16-byte aligned); padding is never
+// read.
 template <int DH>
 __device__ __forceinline__ void load_own(const float* xq, const float* g, int Tq, int D, int c0,
-                                         int Dc, int dh, int dhp, int ldc, float* XR, float* GS,
-                                         bool async) {
+                                         int Dc, int dh, int dhp, int ldc, float* XR, float* GS) {
   for (int i = threadIdx.x; i < Tq * Dc; i += kThreads) {
     const int t = i / Dc, c = i % Dc;
     const int pc = DH ? c : c / dh * dhp + c % dh;
-    if (async) {
-      cp_async4(GS + t * ldc + pc, g + t * D + c0 + c);
-      if (DH != 0 && c % 4 == 0) cp_async16(XR + t * ldc + pc, xq + t * D + c0 + c);
-      if (DH == 0) cp_async4(XR + t * ldc + pc, xq + t * D + c0 + c);
-    } else {
-      GS[t * ldc + pc] = __ldg(g + t * D + c0 + c);
-      XR[t * ldc + pc] = __ldg(xq + t * D + c0 + c);
-    }
+    cp_async4(GS + t * ldc + pc, g + t * D + c0 + c);
+    if (DH != 0 && c % 4 == 0) cp_async16(XR + t * ldc + pc, xq + t * D + c0 + c);
+    if (DH == 0) cp_async4(XR + t * ldc + pc, xq + t * D + c0 + c);
   }
 }
 
@@ -555,12 +665,12 @@ __device__ __forceinline__ float4 decode(float4 v) {
 // 3b and 4b. out[k][hoff + f] (+)= mul · Σ_t A_h[t][k]·B[t0 + t][hoff + f]
 // over the block's nb rows, for every key k < Tk4 and own head: dV = P′ᵀ·dy
 // (mul 1/keep under dropout) or dK = dSᵀ·Q.  Tiles of 4 keys × 4 columns;
-// the rows split over a group of G lanes.  The block at t0 = 0 writes, the
-// others add.  Run by threads [base, base + n).
+// the rows split over a group of G lanes.  The first block writes, the
+// others `add`.  Run by threads [base, base + n).
 template <bool DROP, bool PROB>
 __device__ __forceinline__ void keys_times_rows(const float* P, int ldp, int qb, const float* B,
-                                                int ldc, float* out, int t0, int nb, int Tk4,
-                                                int hc, int dhp, float mul, int base,
+                                                int ldc, float* out, int t0, int nb, bool add,
+                                                int Tk4, int hc, int dhp, float mul, int base,
                                                 int n) {
   if (threadIdx.x < base || threadIdx.x >= base + n) return;  // whole warps
   const int nk = Tk4 / 4, nf = dhp / 4;
@@ -596,7 +706,7 @@ __device__ __forceinline__ void keys_times_rows(const float* P, int ldp, int qb,
         float* e = out + (4 * kq + i) * ldc + hoff;
         float4 v = make_float4(acc[i][0] * mul, acc[i][1] * mul, acc[i][2] * mul,
                                acc[i][3] * mul);
-        if (t0 != 0) {
+        if (add) {
           const float4 o = ld4(e);
           v.x = o.x + v.x, v.y = o.y + v.y, v.z = o.z + v.z, v.w = o.w + v.w;
         }
@@ -681,8 +791,609 @@ __device__ __forceinline__ void partial_tile(const float* d0, const float* w0, c
   }
 }
 
-template <int DH, bool DROP, bool WIDE = false>
-__global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_constant__ Params p) {
+// ------------------------------------------------- the streamed design
+
+// acc[i][·] += Σ_k A[i·sa + k] · B[k·ldb + 0 .. 3] over a staged k-tile, k
+// in order: 4 rows of a staged x or dpre tile times 4 columns of a staged
+// weight tile.
+__device__ __forceinline__ void tile_kt(float (&acc)[4][4], const float* A, int sa,
+                                        const float* B, int ldb) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK; kk += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + i * sa + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b = ld4(B + (kk + q) * ldb);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = comp(a[i], q);
+        acc[i][0] = fmaf(x, b.x, acc[i][0]);
+        acc[i][1] = fmaf(x, b.y, acc[i][1]);
+        acc[i][2] = fmaf(x, b.z, acc[i][2]);
+        acc[i][3] = fmaf(x, b.w, acc[i][3]);
+      }
+    }
+  }
+}
+
+// A product's 4 × 4 sums, rows rq + i·n4 (below `rows`) of C (rows ldc
+// apart): loaded, or 0 with `fresh`.
+__device__ __forceinline__ void tile_load(float (&acc)[4][4], const float* C, int ldc, int rq,
+                                          int n4, int rows, bool fresh) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = rq + i * n4;
+    const float4 v = fresh || t >= rows ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : ld4(C + t * ldc);
+    acc[i][0] = v.x, acc[i][1] = v.y, acc[i][2] = v.z, acc[i][3] = v.w;
+  }
+}
+
+// acc[i][j] += Σ_k A[i·sa + k] · B[j·kLdt + k] over a staged k-tile, k in
+// order: 4 rows of a dpre tile times 4 of a weight's own rows (the input
+// gradients' products, W read as it lies).
+__device__ __forceinline__ void tile_nt(float (&acc)[4][4], const float* A, int sa,
+                                        const float* B) {
+#pragma unroll
+  for (int kk = 0; kk < kTileK; kk += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + i * sa + kk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = ld4(B + j * kLdt + kk);
+    dot4_tile(acc, a, b);
+  }
+}
+
+// Four floats of a row of x or a weight into the stage: by cp.async where
+// they are 16 aligned bytes (`vec`), else one at a time, both from L2
+// (.cg); 0 past the row (`left` floats of it remain) and for a row past the
+// tile's (`live` false).
+__device__ __forceinline__ void stage_row4(float* dst, const float* src, bool live, int left,
+                                           bool vec) {
+  if (live && vec && left >= 4) {
+    cp_async16(dst, src);
+    return;
+  }
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (live) {
+    if (left > 0) v.x = __ldcg(src);
+    if (left > 1) v.y = __ldcg(src + 1);
+    if (left > 2) v.z = __ldcg(src + 2);
+    if (left > 3) v.w = __ldcg(src + 3);
+  }
+  st4(dst, v);
+}
+
+// A thread's tiles of one block of a streamed product, at most: the sums
+// stay in registers over the block's k-loop.  A block of the projections
+// holds 3 · kTileRows/4 · kTileN/4 tiles of 4 × 4 (Q's, K's and V's), one
+// of the input gradients 2 · (a side's rows each), one of the weight
+// gradients kTileRows/4 · kTileN/8 of 4 × 8 (one matrix's).
+constexpr int kProjJobs = 3 * (kTileRows / 4) * (kTileN / 4) / kThreads;
+constexpr int kGradJobs = 2 * (kTileRows / 4) * (kTileN / 4) / kThreads;
+constexpr int kWgradJobs = (kTileRows / 4) * (kTileN / 8) / kThreads;
+// a thread's float4s of the input gradients' dpre tiles (both sides'
+// rows) and of the weight gradients' xᵀ tile, at most
+constexpr int kItems = 2 * kTileRows * kTileK / 4 / kThreads;
+constexpr int kXtItems = kTileRows * kStepK / 4 / kThreads;
+
+// acc[i][0 .. 7] += Σ_t A[i·sa + t] · B[t·ldb + 0 .. 7] over kStepK staged
+// steps, t in order: 4 rows times 8 columns, each A load serving both
+// halves; the second half (`two` false) is 0 past the tile's columns.
+__device__ __forceinline__ void tile_kt8(float (&acc)[4][8], const float* A, int sa,
+                                         const float* B, int ldb, bool two) {
+#pragma unroll
+  for (int kk = 0; kk < kStepK; kk += 4) {
+    float4 a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = ld4(A + i * sa + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 b = ld4(B + (kk + q) * ldb);
+      const float4 b2 = two ? ld4(B + (kk + q) * ldb + 4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = comp(a[i], q);
+        acc[i][0] = fmaf(x, b.x, acc[i][0]);
+        acc[i][1] = fmaf(x, b.y, acc[i][1]);
+        acc[i][2] = fmaf(x, b.z, acc[i][2]);
+        acc[i][3] = fmaf(x, b.w, acc[i][3]);
+        acc[i][4] = fmaf(x, b2.x, acc[i][4]);
+        acc[i][5] = fmaf(x, b2.y, acc[i][5]);
+        acc[i][6] = fmaf(x, b2.z, acc[i][6]);
+        acc[i][7] = fmaf(x, b2.w, acc[i][7]);
+      }
+    }
+  }
+}
+
+// Four floats of a layout array (shared memory, a peer's through
+// distributed shared memory, or device memory past L1 with `dev`), the
+// padded columns pc .. pc + 3 of a row: 0 at a column that is padding
+// (`vec` false: dh not a multiple of 4).
+__device__ __forceinline__ float4 layout4(const float* src, bool dev, bool vec, int pc, int dh,
+                                          int dhp) {
+  float4 v = dev ? __ldcg(reinterpret_cast<const float4*>(src)) : ld4(src);
+  if (!vec) {
+    if (true_col<0>(pc, dh, dhp) < 0) v.x = 0.0f;
+    if (true_col<0>(pc + 1, dh, dhp) < 0) v.y = 0.0f;
+    if (true_col<0>(pc + 2, dh, dhp) < 0) v.z = 0.0f;
+    if (true_col<0>(pc + 3, dh, dhp) < 0) v.w = 0.0f;
+  }
+  return v;
+}
+
+// A streamed block: rows from rb (of the own query and key rows alike) and
+// padded columns from j0, and its rows and column quads.
+struct Block {
+  int rb, j0, mq, mk, nq4, nk4, nc4;
+};
+
+__device__ __forceinline__ Block block_at(int b, int ncb, int nqr, int nkr, int Dcp) {
+  Block k;
+  k.rb = b / ncb * kTileRows;
+  k.j0 = b % ncb * kTileN;
+  k.mq = min(max(nqr - k.rb, 0), kTileRows);
+  k.mk = min(max(nkr - k.rb, 0), kTileRows);
+  k.nq4 = (k.mq + 3) / 4;
+  k.nk4 = (k.mk + 3) / 4;
+  k.nc4 = min(kTileN, Dcp - k.j0) / 4;
+  return k;
+}
+
+// Streamed 1.  Q = relu(xq·Wq[:, own] + bq), K and V likewise from xk, for
+// the query rows [q0, q1) and the key rows [k0, k1): x's rows D apart in
+// device memory, the weights' own columns c0 + true column (rows D apart,
+// the replica's).  For each block of kTileRows rows and kTileN padded
+// columns the k-loop stages kTileK columns of x (a tile of xq's rows, one
+// of xk's) and kTileK rows of each weight by cp.async into one of the
+// stage's two buffers while the other's are summed, so that each k-tile's
+// loads (a block's first: during the block before's last) are in flight
+// during the product before it.  A thread keeps up to kProjJobs tiles of 4
+// rows × 4 columns of the three products, k in order, and writes relu(· +
+// b); the lanes of a warp run along the columns, so that they read x's
+// tile as broadcasts.  The padded rows are zero.
+__device__ void stream_project(const float* xq, const float* xk, const float* wq,
+                               const float* wk, const float* wv, int Tq, int Tk, int D, int dh,
+                               int c0, int q0, int q1, int k0, int k1, bool vec, const Layout& L,
+                               float* stage, const float* Bs, float* Qs, float* Ks, float* Vs) {
+  const int tid = threadIdx.x;
+  const int ldb = L.nc + kPad;
+  const int nqr = q1 - q0, nkr = k1 - k0;
+  const int ncb = (L.Dcp + kTileN - 1) / kTileN;
+  const int nblk = (max(nqr, nkr) + kTileRows - 1) / kTileRows * ncb;
+  const int wo = (L.ra + L.rk) * kLdt;  // the weight tiles, [3][kTileK][ldb]
+  constexpr int kq = kTileK / 4;
+  auto issue = [&](int b, int kb, float* buf) {
+    const Block k = block_at(b, ncb, nqr, nkr, L.Dcp);
+    for (int i = tid; i < 4 * (k.nq4 + k.nk4) * kq; i += kThreads) {
+      const int row = i / kq, c = i % kq * 4;
+      const bool isq = row < 4 * k.nq4;
+      const int t = isq ? row : row - 4 * k.nq4, mr = isq ? k.mq : k.mk;
+      const float* src = (isq ? xq + static_cast<long long>(q0 + k.rb) * D
+                              : xk + static_cast<long long>(k0 + k.rb) * D) +
+                         static_cast<long long>(max(min(t, mr - 1), 0)) * D + kb + c;
+      stage_row4(buf + ((isq ? 0 : L.ra) + t) * kLdt + c, src, t < mr, D - kb - c, vec);
+    }
+    for (int i = tid; i < 3 * kTileK * k.nc4; i += kThreads) {
+      const int m = i / (kTileK * k.nc4), e = i % (kTileK * k.nc4);
+      const int kk = e / k.nc4, jj = e % k.nc4 * 4;
+      const float* w = (m == 0 ? wq : m == 1 ? wk : wv) + static_cast<long long>(kb + kk) * D + c0;
+      float* dst = buf + wo + (m * kTileK + kk) * ldb + jj;
+      if (kb + kk < D && vec) {
+        cp_async16(dst, w + k.j0 + jj);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int cc = true_col<0>(k.j0 + jj + q, dh, L.dhp);
+          v[q] = kb + kk < D && cc >= 0 ? __ldg(w + cc) : 0.0f;
+        }
+        st4(dst, make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+  };
+  if (nblk > 0) issue(0, 0, stage);
+  int it = 0;
+  for (int b = 0; b < nblk; ++b) {
+    const Block k = block_at(b, ncb, nqr, nkr, L.Dcp);
+    const int jq = k.nq4 * k.nc4, jk = k.nk4 * k.nc4, jobs = jq + 2 * jk;
+    // a thread's jobs: a tile of Q, K or V, 4 rows strided by a quarter of
+    // the block's rows × 4 columns; its A and B offsets in a buffer
+    int ao[kProjJobs], bo[kProjJobs], sa[kProjJobs];
+    float acc[kProjJobs][4][4];
+#pragma unroll
+    for (int jj = 0; jj < kProjJobs; ++jj) {
+      const int job = min(tid + jj * kThreads, jobs - 1);
+      const int m = job < jq ? 0 : 1 + (job - jq) / jk;
+      const int u = job < jq ? job : (job - jq) % jk;
+      ao[jj] = ((m == 0 ? 0 : L.ra) + u / k.nc4) * kLdt;
+      sa[jj] = (m == 0 ? k.nq4 : k.nk4) * kLdt;
+      bo[jj] = wo + m * kTileK * ldb + u % k.nc4 * 4;
+      zero_tile(acc[jj]);
+    }
+    for (int kb = 0; kb < D; kb += kTileK, ++it) {
+      cp_async_wait_all();
+      __syncthreads();  // k-tile it has landed, and no thread reads the other buffer
+      float* next = stage + ((it + 1) & 1) * L.buf;
+      if (kb + kTileK < D) {
+        issue(b, kb + kTileK, next);
+      } else if (b + 1 < nblk) {
+        issue(b + 1, 0, next);
+      }
+      const float* buf = stage + (it & 1) * L.buf;
+#pragma unroll
+      for (int jj = 0; jj < kProjJobs; ++jj) {
+        if (tid + jj * kThreads >= jobs) break;
+        tile_kt(acc[jj], buf + ao[jj], sa[jj], buf + bo[jj], ldb);
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < kProjJobs; ++jj) {
+      const int job = tid + jj * kThreads;
+      if (job >= jobs) break;
+      const int m = job < jq ? 0 : 1 + (job - jq) / jk;
+      const int u = job < jq ? job : (job - jq) % jk;
+      const int n4 = m == 0 ? k.nq4 : k.nk4, rows = m == 0 ? k.mq : k.mk;
+      const int rq = u / k.nc4, c = k.j0 + u % k.nc4 * 4;
+      float* C = m == 0 ? Qs + (q0 + k.rb) * L.ldc : (m == 1 ? Ks : Vs) + (k0 + k.rb) * L.ldc;
+      const float4 bv = ld4(Bs + m * L.Dcp + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (rq + i * n4 < rows)
+          st4(C + (rq + i * n4) * L.ldc + c,
+              make_float4(fmaxf(acc[jj][i][0] + bv.x, 0.0f), fmaxf(acc[jj][i][1] + bv.y, 0.0f),
+                          fmaxf(acc[jj][i][2] + bv.z, 0.0f), fmaxf(acc[jj][i][3] + bv.w, 0.0f)));
+    }
+  }
+  // the padded rows of Q, K and V
+  const int n4c = L.Dcp / 4;
+  const int qn = (L.Tq4 - Tq) * n4c, kn = (L.Tk4 - Tk) * n4c;
+  for (int i = tid; i < qn + 2 * kn; i += kThreads) {
+    const int m = i < qn ? 0 : 1 + (i - qn) / kn;
+    const int u = i < qn ? i : (i - qn) % kn;
+    float* C = m == 0 ? Qs + Tq * L.ldc : (m == 1 ? Ks : Vs) + Tk * L.ldc;
+    st4(C + u / n4c * L.ldc + u % n4c * 4, make_float4(0.0f, 0.0f, 0.0f, 0.0f));
+  }
+  __syncthreads();
+}
+
+// Streamed 5b.  The own input columns (c0 + true column) of d_queries = dy
+// + dQpre·Wq[own, :]ᵀ for the query rows [q0, q1), into DYs (which holds
+// dy), and of d_keys = dKpre·Wk[own, :]ᵀ + dVpre·Wv[own, :]ᵀ for the key
+// rows [k0, k1), into Ks (free after the ReLU masks).  dpre is the layout's
+// O, dK and dV (dQpre, dKpre, dVpre) of the `ranks` CTAs that hold its
+// columns: under HEADS rank c' those of its heads, read through
+// distributed shared memory (`peer`) or, in device memory, past L1; under
+// ROWS (ranks = 1) the CTA's own, every column.  Two passes over dpre's
+// padded columns in order (the ranks' in rank order): the first sums
+// dQpre·Wqᵀ and dKpre·Wkᵀ, the second adds dVpre·Wvᵀ to d_keys.  For each
+// block of kTileRows rows and kTileN own input columns, a k-tile of kTileK
+// columns of each side's dpre rows and of the weights' own rows (W_m[own,
+// true column], 0 at a padded column) is staged in one of the stage's two
+// buffers while the other's are summed: the weights by cp.async, dpre
+// loaded into registers before the product and stored after it.  A thread
+// keeps up to kGradJobs tiles' sums in registers.
+template <class Peer>
+__device__ void stream_input_grads(float* Os, float* DKs, float* DVs, Peer peer, int me,
+                                   int ranks, bool dev, const float* wq, const float* wk,
+                                   const float* wv, int D, int dh, int c0, int q0, int q1, int k0,
+                                   int k1, bool vec, const Layout& L, float* stage, float* DYs,
+                                   float* Ks) {
+  const int tid = threadIdx.x;
+  const int ncols = ranks * L.Dcp;  // dpre's padded columns
+  const int nqr = q1 - q0, nkr = k1 - k0;
+  const int ncb = (L.Dcp + kTileN - 1) / kTileN;
+  const int nblk = (max(nqr, nkr) + kTileRows - 1) / kTileRows * ncb;
+  const int wo = (L.ra + L.rk) * kLdt;  // the weights' own rows, [2][nc][kLdt]
+  constexpr int kq = kTileK / 4;
+  float4 va[kItems];  // the next dpre tiles, between their loads and their stores
+  for (int pass = 0; pass < 2; ++pass) {
+    const bool with_q = pass == 0;  // the second pass has no query rows
+    float* Ak = pass == 0 ? DKs : DVs;
+    const float* Wk = pass == 0 ? wk : wv;
+    auto at = [&](int b) {
+      Block k = block_at(b, ncb, with_q ? nqr : 0, nkr, L.Dcp);
+      return k;
+    };
+    auto load = [&](int b, int kb) {
+      const Block k = at(b);
+#pragma unroll
+      for (int s = 0; s < kItems; ++s) {
+        const int i = tid + s * kThreads, row = i / kq, kc = kb + i % kq * 4;
+        const bool isq = row < 4 * k.nq4;
+        const int t = isq ? row : row - 4 * k.nq4;
+        va[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (row < 4 * (k.nq4 + k.nk4) && t < (isq ? k.mq : k.mk) && kc < ncols) {
+          const int o = ranks == 1 ? me : kc / L.Dcp, pc = ranks == 1 ? kc : kc % L.Dcp;
+          float* arr = isq ? Os : Ak;
+          const int r0 = (isq ? q0 : k0) + k.rb + t;
+          va[s] = layout4((o == me ? arr : peer(arr, o)) + r0 * L.ldc + pc, dev, vec, pc, dh,
+                          L.dhp);
+        }
+      }
+    };
+    auto store = [&](int b, float* buf) {
+      const Block k = at(b);
+#pragma unroll
+      for (int s = 0; s < kItems; ++s) {
+        const int i = tid + s * kThreads, row = i / kq;
+        if (row >= 4 * (k.nq4 + k.nk4)) break;
+        const bool isq = row < 4 * k.nq4;
+        st4(buf + ((isq ? 0 : L.ra) + (isq ? row : row - 4 * k.nq4)) * kLdt + i % kq * 4, va[s]);
+      }
+    };
+    // the weights' own rows (input features c0 + true(j0 + ii)) over dpre's
+    // k-tile of columns: as they lie where dpre's padded columns are the true ones
+    auto issue = [&](int b, int kb, float* buf) {
+      const Block k = at(b);
+      const int nc = 4 * k.nc4, sides = with_q ? 2 : 1;
+      for (int i = tid; i < sides * nc * kq; i += kThreads) {
+        const int side = with_q ? i / (nc * kq) : 1, e = with_q ? i % (nc * kq) : i;
+        const int ii = e / kq, o = e % kq * 4;
+        const int ci = true_col<0>(k.j0 + ii, dh, L.dhp);
+        const float* w = (side == 0 ? wq : Wk) + static_cast<long long>(c0 + max(ci, 0)) * D;
+        float* dst = buf + wo + (side * L.nc + ii) * kLdt + o;
+        if (vec) {
+          stage_row4(dst, w + kb + o, ci >= 0, D - kb - o, true);
+          continue;
+        }
+        float v[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int kc = kb + o + q;
+          const int cc = kc >= ncols ? -1
+                         : ranks == 1 ? true_col<0>(kc, dh, L.dhp)
+                                      : kc / L.Dcp * L.Dc + true_col<0>(kc % L.Dcp, dh, L.dhp);
+          v[q] = ci >= 0 && cc >= 0 ? __ldg(w + cc) : 0.0f;
+        }
+        st4(dst, make_float4(v[0], v[1], v[2], v[3]));
+      }
+    };
+    if (nblk > 0) {
+      load(0, 0);
+      issue(0, 0, stage);
+      store(0, stage);
+    }
+    int it = 0;
+    for (int b = 0; b < nblk; ++b) {
+      const Block k = at(b);
+      const int jq = k.nq4 * k.nc4, jk = k.nk4 * k.nc4, jobs = jq + jk;
+      // a thread's jobs: a tile of d_queries or d_keys, 4 rows strided by a
+      // quarter of the side's rows × 4 columns; its A and B offsets in a
+      // buffer; its sums from dy (d_queries), 0 (d_keys' first pass) or
+      // the first pass's
+      int ao[kGradJobs], bo[kGradJobs], sa[kGradJobs];
+      float acc[kGradJobs][4][4];
+#pragma unroll
+      for (int jj = 0; jj < kGradJobs; ++jj) {
+        const int job = tid + jj * kThreads;
+        if (job >= jobs) break;
+        const bool isq = job < jq;
+        const int u = isq ? job : job - jq, n4 = isq ? k.nq4 : k.nk4;
+        ao[jj] = ((isq ? 0 : L.ra) + u % n4) * kLdt;
+        sa[jj] = n4 * kLdt;
+        bo[jj] = wo + ((isq ? 0 : L.nc) + u / n4 * 4) * kLdt;
+        float* C = (isq ? DYs + (q0 + k.rb) * L.ldc : Ks + (k0 + k.rb) * L.ldc) + k.j0;
+        tile_load(acc[jj], C + u / n4 * 4, L.ldc, u % n4, n4, isq ? k.mq : k.mk,
+                  !isq && pass == 0);
+      }
+      for (int kb = 0; kb < ncols; kb += kTileK, ++it) {
+        cp_async_wait_all();
+        __syncthreads();  // k-tile it is staged, and no thread reads the other buffer
+        float* next = stage + ((it + 1) & 1) * L.buf;
+        const int nb = kb + kTileK < ncols ? b : b + 1, nkb = nb == b ? kb + kTileK : 0;
+        const bool more = nb < nblk;
+        if (more) {
+          load(nb, nkb);
+          issue(nb, nkb, next);
+        }
+        const float* buf = stage + (it & 1) * L.buf;
+#pragma unroll
+        for (int jj = 0; jj < kGradJobs; ++jj) {
+          if (tid + jj * kThreads >= jobs) break;
+          tile_nt(acc[jj], buf + ao[jj], sa[jj], buf + bo[jj]);
+        }
+        if (more) store(nb, next);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGradJobs; ++jj) {
+        const int job = tid + jj * kThreads;
+        if (job >= jobs) break;
+        const bool isq = job < jq;
+        const int u = isq ? job : job - jq, n4 = isq ? k.nq4 : k.nk4, rows = isq ? k.mq : k.mk;
+        const int rq = u % n4;
+        float* C = (isq ? DYs + (q0 + k.rb) * L.ldc : Ks + (k0 + k.rb) * L.ldc) + k.j0 +
+                   u / n4 * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (rq + i * n4 < rows)
+            st4(C + (rq + i * n4) * L.ldc,
+                make_float4(acc[jj][i][0], acc[jj][i][1], acc[jj][i][2], acc[jj][i][3]));
+      }
+    }
+    __syncthreads();  // the pass's last tiles are read before the next pass stages
+  }
+}
+
+// Streamed 5a.  dW_m[:, own] += x_mᵀ·dpre_m over the own time steps of
+// each of the three matrices (x in device memory, rows D apart; dpre the
+// layout's O, dK and dV, the own rows' own columns) and db_m = Σ dpre_m:
+// added to the slot (`ws` [3][D][Dc], `bs` [3][Dc]) or written at the
+// CTA's first row (`first`).  For each block of up to rw features of x and
+// kTileN padded columns, the loop over the steps stages x's transposed tile
+// [features][kStepK] and dpre's [kStepK][columns] (0 past the steps) in one
+// of the stage's two buffers while the other's are summed, loading the next
+// tile into registers before the product and storing it after; a thread
+// keeps kWgradJobs tiles' sums in registers, and db's in a register, the
+// steps in order.
+__device__ void stream_weight_grads(const float* xq, const float* xk, const float* Os,
+                                    const float* DKs, const float* DVs, bool dev, int D, int dh,
+                                    int q0, int q1, int k0, int k1, bool vec, const Layout& L,
+                                    float* stage, float* ws, float* bs, bool first) {
+  const int tid = threadIdx.x;
+  const int ldb = L.nc + kPad;
+  const int nab = (D + L.rw - 1) / L.rw, ncb = (L.Dcp + kTileN - 1) / kTileN;
+  const int per = nab * ncb;  // blocks a matrix
+  const int dto = L.rw * kLds;  // dpre's tile in a buffer
+  // block b: its matrix, first feature and features, first column and
+  // column quads, first own step and steps
+  struct WBlock {
+    int m, a0, na, j0, nc4, t0, steps;
+  };
+  auto at = [&](int b) {
+    WBlock k;
+    k.m = b / per;
+    const int e = b % per;
+    k.a0 = e / ncb * L.rw;
+    k.na = min(L.rw, D - k.a0);
+    k.j0 = e % ncb * kTileN;
+    k.nc4 = min(kTileN, L.Dcp - k.j0) / 4;
+    k.t0 = k.m == 0 ? q0 : k0;
+    k.steps = k.m == 0 ? q1 - q0 : k1 - k0;
+    return k;
+  };
+  float4 vx[kXtItems], vd;  // the next tile, between its loads and its stores
+  auto load = [&](int b, int ub) {
+    const WBlock k = at(b);
+    const int na4 = (k.na + 3) / 4, nt = max(0, min(kStepK, k.steps - ub));
+    const float* x = (k.m == 0 ? xq : xk) + static_cast<long long>(k.t0 + ub) * D + k.a0;
+#pragma unroll
+    for (int s = 0; s < kXtItems; ++s) {
+      const int i = tid + s * kThreads, t = i % kStepK, a = i / kStepK * 4;
+      vx[s] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (i < kStepK * na4 && t < nt) {
+        const float* src = x + static_cast<long long>(t) * D + a;
+        if (vec) {
+          vx[s] = ldg4(src);
+        } else {
+          vx[s].x = a < k.na ? __ldg(src) : 0.0f;
+          vx[s].y = a + 1 < k.na ? __ldg(src + 1) : 0.0f;
+          vx[s].z = a + 2 < k.na ? __ldg(src + 2) : 0.0f;
+          vx[s].w = a + 3 < k.na ? __ldg(src + 3) : 0.0f;
+        }
+      }
+    }
+    vd = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (tid < kStepK * k.nc4 && tid / k.nc4 < nt) {
+      const int pc = k.j0 + tid % k.nc4 * 4;
+      const float* arr = k.m == 0 ? Os : k.m == 1 ? DKs : DVs;
+      vd = layout4(arr + (k.t0 + ub + tid / k.nc4) * L.ldc + pc, dev, vec, pc, dh, L.dhp);
+    }
+  };
+  // xᵀ: Xt[a][t] = x at step t, feature a0 + a (consecutive lanes on
+  // consecutive steps: distinct banks); dpre's tile [kStepK][ldb]
+  auto store = [&](int b, float* buf) {
+    const WBlock k = at(b);
+    const int na4 = (k.na + 3) / 4;
+#pragma unroll
+    for (int s = 0; s < kXtItems; ++s) {
+      const int i = tid + s * kThreads, t = i % kStepK, a = i / kStepK * 4;
+      if (i >= kStepK * na4) break;
+      buf[a * kLds + t] = vx[s].x, buf[(a + 1) * kLds + t] = vx[s].y;
+      buf[(a + 2) * kLds + t] = vx[s].z, buf[(a + 3) * kLds + t] = vx[s].w;
+    }
+    if (tid < kStepK * k.nc4) st4(buf + dto + tid / k.nc4 * ldb + tid % k.nc4 * 4, vd);
+  };
+  load(0, 0);
+  store(0, stage);
+  int it = 0;
+  for (int b = 0; b < 3 * per; ++b) {
+    const WBlock k = at(b);
+    const int na4 = (k.na + 3) / 4, nc8 = (k.nc4 + 1) / 2, jobs = na4 * nc8;
+    const int kt = max(1, (k.steps + kStepK - 1) / kStepK);  // one at least: a rank
+    // without rows writes its zeros
+    float acc[kWgradJobs][4][8];
+    int xo[kWgradJobs], dof[kWgradJobs];
+    bool two[kWgradJobs];
+#pragma unroll
+    for (int jj = 0; jj < kWgradJobs; ++jj) {
+      const int job = tid + jj * kThreads, c = job % nc8 * 8;
+      xo[jj] = job / nc8 * kLds;
+      dof[jj] = dto + c;
+      two[jj] = c + 4 < 4 * k.nc4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[jj][i][j] = 0.0f;
+    }
+    float db = 0.0f;  // a0 = 0: column tid's Σ dpre over the steps so far
+    for (int s = 0; s < kt; ++s, ++it) {
+      __syncthreads();  // tile it is staged, and no thread reads the other buffer
+      const int nb = s + 1 < kt ? b : b + 1, nub = nb == b ? (s + 1) * kStepK : 0;
+      const bool more = nb < 3 * per;
+      if (more) load(nb, nub);
+      const float* buf = stage + (it & 1) * L.buf;
+      const int nt = max(0, min(kStepK, k.steps - s * kStepK));
+      if (k.a0 == 0 && tid < 4 * k.nc4)
+        for (int t = 0; t < nt; ++t) db += buf[dto + t * ldb + tid];
+#pragma unroll
+      for (int jj = 0; jj < kWgradJobs; ++jj) {
+        if (tid + jj * kThreads >= jobs) break;
+        tile_kt8(acc[jj], buf + xo[jj], na4 * kLds, buf + dof[jj], ldb, two[jj]);
+      }
+      if (more) store(nb, stage + ((it + 1) & 1) * L.buf);
+    }
+    const int m = k.m, a0 = k.a0, na = k.na, nc4 = k.nc4;
+    if (a0 == 0 && tid < 4 * nc4) {  // db_m of the block's columns
+      const int cc = true_col<0>(k.j0 + tid, dh, L.dhp);
+      if (cc >= 0) bs[m * L.Dc + cc] = first ? db : bs[m * L.Dc + cc] + db;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kWgradJobs; ++jj) {
+      const int job = tid + jj * kThreads;
+      if (job >= jobs) break;
+      const int aq = job / nc8, c8 = job % nc8 * 8, c = k.j0 + c8;
+      float old[4][8] = {};  // the slot's sums so far, all loads in flight at once
+      if (vec) {  // true columns are the padded ones: float4s along the slot's rows
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (first || aq + i * na4 >= na) continue;
+          const float* e = ws + (static_cast<long long>(m) * D + a0 + aq + i * na4) * L.Dc + c;
+          const float4 u = ld4(e), w = two[jj] ? ld4(e + 4) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          old[i][0] = u.x, old[i][1] = u.y, old[i][2] = u.z, old[i][3] = u.w;
+          old[i][4] = w.x, old[i][5] = w.y, old[i][6] = w.z, old[i][7] = w.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (aq + i * na4 >= na) continue;
+          float* e = ws + (static_cast<long long>(m) * D + a0 + aq + i * na4) * L.Dc + c;
+          st4(e, make_float4(old[i][0] + acc[jj][i][0], old[i][1] + acc[jj][i][1],
+                             old[i][2] + acc[jj][i][2], old[i][3] + acc[jj][i][3]));
+          if (two[jj])
+            st4(e + 4, make_float4(old[i][4] + acc[jj][i][4], old[i][5] + acc[jj][i][5],
+                                   old[i][6] + acc[jj][i][6], old[i][7] + acc[jj][i][7]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = c8 + j < 4 * nc4 ? true_col<0>(c + j, dh, L.dhp) : -1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (!first && cc >= 0 && aq + i * na4 < na)
+            old[i][j] = ws[(static_cast<long long>(m) * D + a0 + aq + i * na4) * L.Dc + cc];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int cc = c8 + j < 4 * nc4 ? true_col<0>(c + j, dh, L.dhp) : -1;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (cc >= 0 && aq + i * na4 < na)
+            ws[(static_cast<long long>(m) * D + a0 + aq + i * na4) * L.Dc + cc] =
+                old[i][j] + acc[jj][i][j];
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The streamed design keeps its products' sums in registers (up to 255 a
+// thread: one CTA an SM, as its shared memory mostly allows anyway).
+template <int DH, bool DROP, bool WIDE = false, bool STREAM = false>
+__global__ void __launch_bounds__(kThreads, STREAM ? 1 : 2) mha_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];
   __shared__ bool last;
   cg::cluster_group cluster = cg::this_cluster();
@@ -694,24 +1405,26 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
   const int tid = threadIdx.x;
   const int Tq = p.Tq, Tk = p.Tk, D = p.D, H = p.H, qb = p.qb;
   const int dh = DH ? DH : p.dh;
-  // the specialised variants run from shared memory alone; the generic one
-  // also from the device-memory workspace
-  const bool smem = DH != 0 || p.work == nullptr;
   const bool alias = p.alias != 0;
   const float inv_scale = p.inv_scale;
   constexpr int NR = DH ? DH : kMaxDh;  // registers of a head's features
   const int n4 = L.dhp / 4;
+  // streamed: a row split by rows (every head a CTA), the layout in device memory
+  const bool rows_split = STREAM && p.mode == kRows;
+  const bool dev = STREAM && p.work != nullptr;
+  const bool vec = STREAM && p.vec != 0;
 
-  float* base = smem ? reinterpret_cast<float*>(smem4)
-                     : p.work + (static_cast<long long>(r) * gridDim.x + blockIdx.x) * L.total;
-  float* Ws = base + L.w;  // [3][D][ldc]: wq, wk, wv
+  float* base = dev ? p.work + (static_cast<long long>(r) * gridDim.x + blockIdx.x) * L.total
+                    : reinterpret_cast<float*>(smem4);
+  float* stage = reinterpret_cast<float*>(smem4) + (dev ? 0 : L.total);  // streamed
+  float* Ws = base + L.w;  // [3][D][ldc]: wq, wk, wv (resident)
   float* Bs = base + L.bias;  // [4][Dcp]: bq, bk, bv, γ
   const float* gam = Bs + 3 * L.Dcp;
   float* Qs = base + L.q;
   float* Os = base + L.o;
   float* DYs = base + L.dy;
-  float* XR = base + L.xr;  // the own columns of xq
-  float* GS = base + L.gs;  // the own columns of g
+  float* XR = base + L.xr;  // the own columns of xq (resident)
+  float* GS = base + L.gs;  // the own columns of g (resident)
   float* Ks = base + L.k;
   float* Vs = base + L.v;
   float* DKs = base + L.dk;
@@ -722,29 +1435,55 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
   float* ex2 = base + L.ex;  // [2][qb][4]: LayerNorm's sums the cluster exchanges
   float* dgb = base + L.dgb;   // [2][Dc]: the row's dγ, dβ
   float* region = base + L.reg;
-  float* X = region;  // the x rows, unless they lie in device memory
+  float* X = region;  // the x rows (resident)
 
-  // the replica's weights, and the slot of this CTA (its rank's columns)
+  // the replica's weights, and the slot of this CTA (its rank's columns;
+  // under ROWS every column, a leaf of one tree a replica)
   const long long wo = static_cast<long long>(r) * D * D;
   const int vo = r * D;
-  const int c0 = rank * L.Dc;  // the first own column
+  const int c0 = rows_split ? 0 : rank * L.Dc;  // the first own column
+  const int h0 = rows_split ? 0 : rank * L.hc;  // the first own head
+  const int lnc = rows_split ? 1 : cs;          // the CTAs a row's LayerNorm sums span
   const int Pc = 3 * D * L.Dc + 5 * L.Dc;
-  const int tree = r * cs + rank;
+  const int tree = rows_split ? r : r * cs + rank;
+  const int leaf = rows_split ? cid * cs + rank : cid;
+  const int leaves = rows_split ? p.clusters * cs : p.clusters;
+  // the own query and key rows (ROWS: the rank's share)
+  int q0 = 0, q1 = Tq, k0 = 0, k1 = Tk;
+  if (rows_split) {
+    const int qs = (Tq + cs - 1) / cs, ks = (Tk + cs - 1) / cs;
+    q0 = min(Tq, rank * qs), q1 = min(Tq, q0 + qs);
+    k0 = min(Tk, rank * ks), k1 = min(Tk, k0 + ks);
+  }
+  // a peer's copy of a layout array, and its reads (past L1 from device memory)
+  auto peer = [&](float* ptr, int rr) -> float* {
+    if (dev) return ptr + static_cast<long long>(rr - rank) * L.total;
+    return cs > 1 ? cluster.map_shared_rank(ptr, rr) : ptr;
+  };
+  auto peer4 = [&](const float* ptr) -> float4 {
+    return dev ? __ldcg(reinterpret_cast<const float4*>(ptr)) : ld4(ptr);
+  };
+  auto sync_cluster = [&]() {
+    if (dev) __threadfence();  // the workspace's writes, before the release
+    cluster_sync();
+  };
 
-  // the column slices of wq, wk, wv and the biases, once a launch
+  // the column slices of wq, wk, wv (resident) and the biases, once a launch
   {
     const int nc4 = L.Dcp / 4;
-    for (int i = tid; i < 3 * D * nc4; i += kThreads) {
-      const int m = i / (D * nc4), e = i % (D * nc4), k = e / nc4, j = e % nc4 * 4;
-      const float* w = (m == 0 ? p.wq : m == 1 ? p.wk : p.wv) + wo + k * D + c0;
-      float* dst = Ws + (m * D + k) * L.ldc + j;
-      if constexpr (DH != 0) {
-        copy16(dst, w + j, smem);
-      } else {
+    if constexpr (!STREAM) {
+      for (int i = tid; i < 3 * D * nc4; i += kThreads) {
+        const int m = i / (D * nc4), e = i % (D * nc4), k = e / nc4, j = e % nc4 * 4;
+        const float* w = (m == 0 ? p.wq : m == 1 ? p.wk : p.wv) + wo + k * D + c0;
+        float* dst = Ws + (m * D + k) * L.ldc + j;
+        if constexpr (DH != 0) {
+          cp_async16(dst, w + j);
+        } else {
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          const int cc = true_col<DH>(j + jj, dh, L.dhp);
-          dst[jj] = cc < 0 ? 0.0f : __ldg(w + cc);
+          for (int jj = 0; jj < 4; ++jj) {
+            const int cc = true_col<DH>(j + jj, dh, L.dhp);
+            dst[jj] = cc < 0 ? 0.0f : __ldg(w + cc);
+          }
         }
       }
     }
@@ -760,43 +1499,75 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
     const long long b = static_cast<long long>(r) * p.rows + j;
     const int q_live = max(0, min(p.q_len[b], Tq));
     const int k_live = max(0, min(p.k_len[b], Tk));
+    const float* xq = p.queries + b * Tq * D;
+    const float* xk = p.keys + b * Tk * D;
+    const float* gb = p.g + b * Tq * D;
+    // the own columns of xq and g: resident in the layout, else the query
+    // block's rows (from row blk) in the stage
+    int blk = 0;
+    auto XQ = [&](int t, int pc) -> float {
+      if constexpr (STREAM) return stage[(t - blk) * L.ldc + pc];
+      return XR[t * L.ldc + pc];
+    };
+    auto GQ = [&](int t, int pc) -> float {
+      if constexpr (STREAM) return stage[(qb + t - blk) * L.ldc + pc];
+      return GS[t * L.ldc + pc];
+    };
 
-    // this row's x rows, and its own columns of xq and g (prefetched at the
-    // previous row's end)
-    if (first)
-      load_own<DH>(p.queries + b * Tq * D, p.g + b * Tq * D, Tq, D, c0, L.Dc, dh, L.dhp, L.ldc,
-                   XR, GS, smem);
-    if (p.xmode != kXGlobal) {
-      load_x(p.queries + b * Tq * D, p.keys + b * Tk * D, Tq, Tk, D, alias, X, L.ldx);
+    if constexpr (!STREAM) {
+      // this row's x rows, and its own columns of xq and g (prefetched at
+      // the previous row's end)
+      if (first) load_own<DH>(xq, gb, Tq, D, c0, L.Dc, dh, L.dhp, L.ldc, XR, GS);
+      load_x(xq, xk, Tq, Tk, D, alias, X, L.ldx);
       cp_async_wait_all();
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // 1. the projections of the own columns, a tile of Q, K or V a job: 4
-    // rows strided by a quarter of the rows (consecutive lanes, consecutive
-    // rows) × 4 columns
-    {
-      const bool glob = p.xmode == kXGlobal;
-      const int ldx = glob ? D : L.ldx;
+      // 1. the projections of the own columns, a tile of Q, K or V a job: 4
+      // rows strided by a quarter of the rows (consecutive lanes,
+      // consecutive rows) × 4 columns
       const int nc4 = L.Dcp / 4, nq = L.Tq4 / 4, nk = L.Tk4 / 4;
       const int qj = nq * nc4, kj = nk * nc4;
       for (int jb = tid; jb < qj + 2 * kj; jb += kThreads) {
         if (jb < qj) {
-          project_tile(glob ? p.queries + b * Tq * D : X, ldx, Tq, D, jb % nq, nq,
-                       jb / nq * 4, Ws, Bs, Qs, L.ldc);
+          project_tile(X, L.ldx, Tq, D, jb % nq, nq, jb / nq * 4, Ws, Bs, Qs, L.ldc);
         } else {
           const int m = (jb - qj) / kj + 1, v = (jb - qj) % kj;
-          const float* xk = glob ? p.keys + b * Tk * D : alias ? X : X + Tq * L.ldx;
-          project_tile(xk, ldx, Tk, D, v % nk, nk, v / nk * 4, Ws + m * D * L.ldc,
-                       Bs + m * L.Dcp, m == 1 ? Ks : Vs, L.ldc);
+          project_tile(alias ? X : X + Tq * L.ldx, L.ldx, Tk, D, v % nk, nk, v / nk * 4,
+                       Ws + m * D * L.ldc, Bs + m * L.Dcp, m == 1 ? Ks : Vs, L.ldc);
         }
       }
+      __syncthreads();
+    } else {
+      // 1. streamed: the own rows' projections, the weights from L2
+      stream_project(xq, xk, p.wq + wo, p.wk + wo, p.wv + wo, Tq, Tk, D, dh, c0, q0, q1, k0,
+                     k1, vec, L, stage, Bs, Qs, Ks, Vs);
+      if (rows_split) {  // every CTA gathers the cluster's K and V rows
+        sync_cluster();
+        const int ks = (Tk + cs - 1) / cs, nc4 = L.Dcp / 4;
+        for (int i = tid; i < Tk * nc4; i += kThreads) {
+          const int t = i / nc4, owner = t / ks;
+          if (owner == rank) continue;
+          const int e = t * L.ldc + i % nc4 * 4;
+          st4(Ks + e, peer4(peer(Ks, owner) + e));
+          st4(Vs + e, peer4(peer(Vs, owner) + e));
+        }
+        __syncthreads();
+      }
     }
-    __syncthreads();
 
-    for (int t0 = 0; t0 < Tq; t0 += qb) {
-      const int nb = min(qb, Tq - t0);
-      float* ex = ex2 + ((t0 / qb) & 1) * 4 * qb;  // this block's exchange buffer
+    for (int t0 = q0; t0 < q1; t0 += qb) {
+      const int nb = min(qb, q1 - t0);
+      float* ex = ex2 + (((t0 - q0) / qb) & 1) * 4 * qb;  // this block's exchange buffer
+      if constexpr (STREAM) {  // the block's own columns of xq and g, read by 3 and 3a
+        blk = t0;
+        for (int i = tid; i < nb * L.Dcp; i += kThreads) {
+          const int t = i / L.Dcp, pc = i % L.Dcp, cc = true_col<DH>(pc, dh, L.dhp);
+          if (cc < 0) continue;
+          const long long e = static_cast<long long>(t0 + t) * D + c0 + cc;
+          cp_async4(stage + t * L.ldc + pc, xq + e);
+          cp_async4(stage + (qb + t) * L.ldc + pc, gb + e);
+        }
+      }
 
       // 2. each own head's scores, softmax and output for the block's rows,
       // a group of G lanes a (row, head), the keys strided over the group:
@@ -834,7 +1605,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
             const bool live = tg < q_live;
             const std::uint8_t* kr = nullptr;
             if constexpr (DROP)
-              kr = p.keep_mask + ((b * H + rank * L.hc + hl) * Tq + tg) * static_cast<long long>(Tk);
+              kr = p.keep_mask + ((b * H + h0 + hl) * Tq + tg) * static_cast<long long>(Tk);
             for (int k = part; k < L.Tk4; k += G) {
               float v = 0.0f;
               if (live && k < Tk) {
@@ -870,7 +1641,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           const bool live = tg < q_live;
           const std::uint8_t* kr = nullptr;
           if constexpr (DROP)
-            kr = p.keep_mask + ((b * H + rank * L.hc + hl) * Tq + tg) * static_cast<long long>(Tk);
+            kr = p.keep_mask + ((b * H + h0 + hl) * Tq + tg) * static_cast<long long>(Tk);
 #pragma unroll
           for (int f = 0; f < NR; ++f) a[f] = 0.0f;  // now O's sums
 #pragma unroll 2
@@ -890,6 +1661,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
             store_head<NR>(Os + tg * L.ldc + hoff, a, DROP ? 1.0f / p.keep : 1.0f, n4);
         }
       }
+      if constexpr (STREAM) cp_async_wait_all();
       __syncthreads();
 
       // 3. LayerNorm's backward over the block's rows, a group of G lanes a
@@ -905,42 +1677,40 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           const bool valid = u < nb * G;
           const int t = (valid ? u : nb * G - 1) / G, part = u % G, tg = t0 + t;
           const float* orow = Os + tg * L.ldc;
-          const float* xrow = XR + tg * L.ldc;
-          const float* grow = GS + tg * L.ldc;
           float sy = 0.0f, sd = 0.0f;
           for (int pc = part; pc < L.Dcp; pc += G) {
             if (true_col<DH>(pc, dh, L.dhp) < 0) continue;
-            sy += orow[pc] + xrow[pc];
-            sd += grow[pc] * gam[pc];
+            sy += orow[pc] + XQ(tg, pc);
+            sd += GQ(tg, pc) * gam[pc];
           }
           sy = group_fold_sum(sy, G), sd = group_fold_sum(sd, G);
           const float mc = sy / dc;
           float m2 = 0.0f, sdy = 0.0f;
           for (int pc = part; pc < L.Dcp; pc += G) {
             if (true_col<DH>(pc, dh, L.dhp) < 0) continue;
-            const float d = orow[pc] + xrow[pc] - mc;
+            const float d = orow[pc] + XQ(tg, pc) - mc;
             m2 = fmaf(d, d, m2);
-            sdy = fmaf(grow[pc] * gam[pc], d, sdy);
+            sdy = fmaf(GQ(tg, pc) * gam[pc], d, sdy);
           }
           m2 = group_fold_sum(m2, G), sdy = group_fold_sum(sdy, G);
           if (valid && part == 0) st4(ex + 4 * t, make_float4(sy, m2, sd, sdy));
         }
       }
-      if (cs > 1) cluster_sync(); else __syncthreads();
+      if (lnc > 1) sync_cluster(); else __syncthreads();
       {
         const int G = group_size(nb, kThreads, L.Dcp / 4);
         const float dc = static_cast<float>(L.Dc);
         for (int u = tid; u < nb * G; u += kThreads) {
           const int t = u / G, part = u % G, tg = t0 + t;
           float sy = 0.0f, sd = 0.0f;
-          for (int rr = 0; rr < cs; ++rr) {
-            const float4 e = ld4((cs > 1 ? cluster.map_shared_rank(ex, rr) : ex) + 4 * t);
+          for (int rr = 0; rr < lnc; ++rr) {
+            const float4 e = peer4((lnc > 1 ? peer(ex, rr) : ex) + 4 * t);
             sy += e.x, sd += e.z;
           }
           const float mean = sy / D, m1 = sd / D;
           float m2 = 0.0f, sdy = 0.0f;
-          for (int rr = 0; rr < cs; ++rr) {
-            const float4 e = ld4((cs > 1 ? cluster.map_shared_rank(ex, rr) : ex) + 4 * t);
+          for (int rr = 0; rr < lnc; ++rr) {
+            const float4 e = peer4((lnc > 1 ? peer(ex, rr) : ex) + 4 * t);
             const float dm = e.x / dc - mean;
             m2 += e.y + dc * dm * dm;
             sdy += e.w + dm * e.z;
@@ -948,13 +1718,11 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           const float sigma = sqrtf(m2 / D + kLnEps);
           const float mdy = sdy / sigma / D;  // mean(dŷ⊙ŷ)
           const float* orow = Os + tg * L.ldc;
-          const float* xrow = XR + tg * L.ldc;
-          const float* grow = GS + tg * L.ldc;
           for (int pc = part; pc < L.Dcp; pc += G) {
             float v = 0.0f;
             if (true_col<DH>(pc, dh, L.dhp) >= 0) {
-              const float yh = (orow[pc] + xrow[pc] - mean) / sigma;
-              v = (grow[pc] * gam[pc] - m1 - yh * mdy) / sigma;
+              const float yh = (orow[pc] + XQ(tg, pc) - mean) / sigma;
+              v = (GQ(tg, pc) * gam[pc] - m1 - yh * mdy) / sigma;
             }
             DYs[tg * L.ldc + pc] = v;
           }
@@ -964,8 +1732,8 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
       __syncthreads();
 
       // 3b. dV += P′ᵀ·dy on half the threads, beside 3a on the other half
-      keys_times_rows<DROP, true>(region, L.ldp, qb, DYs, L.ldc, DVs, t0, nb, L.Tk4, L.hc,
-                                  L.dhp, DROP ? 1.0f / p.keep : 1.0f, 0, kThreads / 2);
+      keys_times_rows<DROP, true>(region, L.ldp, qb, DYs, L.ldc, DVs, t0, nb, t0 != q0, L.Tk4,
+                                  L.hc, L.dhp, DROP ? 1.0f / p.keep : 1.0f, 0, kThreads / 2);
       // 3a. D = dy·O per (row, head); the block's dγ and dβ per own column
       for (int i = tid - kThreads / 2; tid >= kThreads / 2 && i < L.hc * nb + L.Dc;
            i += kThreads / 2) {
@@ -983,13 +1751,13 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
           float sg = 0.0f, sbeta = 0.0f;
           for (int t = 0; t < nb; ++t) {
             const int tg = t0 + t;
-            const float gv = GS[tg * L.ldc + pc];
-            const float yh = (Os[tg * L.ldc + pc] + XR[tg * L.ldc + pc] - mean_s[t]) / sigma_s[t];
+            const float gv = GQ(tg, pc);
+            const float yh = (Os[tg * L.ldc + pc] + XQ(tg, pc) - mean_s[t]) / sigma_s[t];
             sg = fmaf(gv, yh, sg);
             sbeta += gv;
           }
-          dgb[c] = t0 == 0 ? sg : dgb[c] + sg;
-          dgb[L.Dc + c] = t0 == 0 ? sbeta : dgb[L.Dc + c] + sbeta;
+          dgb[c] = t0 == q0 ? sg : dgb[c] + sg;
+          dgb[L.Dc + c] = t0 == q0 ? sbeta : dgb[L.Dc + c] + sbeta;
         }
       }
       __syncthreads();
@@ -1046,33 +1814,58 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
       __syncthreads();
 
       // 4b. dK += dSᵀ·Q
-      keys_times_rows<DROP, false>(region, L.ldp, qb, Qs, L.ldc, DKs, t0, nb, L.Tk4, L.hc,
-                                   L.dhp, 1.0f, 0, kThreads);
+      keys_times_rows<DROP, false>(region, L.ldp, qb, Qs, L.ldc, DKs, t0, nb, t0 != q0, L.Tk4,
+                                   L.hc, L.dhp, 1.0f, 0, kThreads);
       __syncthreads();
     }
 
-    // 5. the region is free: reload x (region mode) while the ReLU masks
-    // run; the next row's own columns of xq and g
-    if (p.xmode == kXRegion)
-      load_x(p.queries + b * Tq * D, p.keys + b * Tk * D, Tq, Tk, D, alias, X, L.ldx);
-    if (j + p.clusters < p.rows) {
-      const long long bn = b + p.clusters;
-      load_own<DH>(p.queries + bn * Tq * D, p.g + bn * Tq * D, Tq, D, c0, L.Dc, dh, L.dhp,
-                   L.ldc, XR, GS, smem);
+    if constexpr (STREAM) {
+      if (q0 >= q1) {  // a rank with no query rows adds nothing to dK, dV, dγ, dβ
+        for (int i = tid; i < L.Tk4 * L.ldc; i += kThreads) DKs[i] = 0.0f, DVs[i] = 0.0f;
+        for (int i = tid; i < 2 * L.Dc; i += kThreads) dgb[i] = 0.0f;
+        __syncthreads();
+      }
+      if (rows_split) {  // dK and dV of the own key rows: the cluster's partials in rank order
+        sync_cluster();
+        const int nc4 = L.Dcp / 4;
+        for (int i = tid; i < (k1 - k0) * nc4; i += kThreads) {
+          const int e = (k0 + i / nc4) * L.ldc + i % nc4 * 4;
+          float4 sk = peer4(peer(DKs, 0) + e), sv = peer4(peer(DVs, 0) + e);
+          for (int rr = 1; rr < cs; ++rr) {
+            const float4 dk = peer4(peer(DKs, rr) + e), dv = peer4(peer(DVs, rr) + e);
+            sk.x += dk.x, sk.y += dk.y, sk.z += dk.z, sk.w += dk.w;
+            sv.x += dv.x, sv.y += dv.y, sv.z += dv.z, sv.w += dv.w;
+          }
+          st4(DKs + e, sk);
+          st4(DVs + e, sv);
+        }
+        __syncthreads();
+      }
+    }
+
+    // 5. the ReLU masks of the own rows (resident: the region is free, so x
+    // is reloaded meanwhile, and the next row's own columns of xq and g)
+    if constexpr (!STREAM) {
+      load_x(xq, xk, Tq, Tk, D, alias, X, L.ldx);
+      if (j + p.clusters < p.rows) {
+        const long long bn = b + p.clusters;
+        load_own<DH>(p.queries + bn * Tq * D, p.g + bn * Tq * D, Tq, D, c0, L.Dc, dh, L.dhp,
+                     L.ldc, XR, GS);
+      }
     }
     {
       const int nc4 = L.Dcp / 4;
-      const int qn = Tq * nc4, kn = Tk * nc4;
+      const int qn = (q1 - q0) * nc4, kn = (k1 - k0) * nc4;
       for (int i = tid; i < qn + kn; i += kThreads) {
         if (i < qn) {
-          const int e = i / nc4 * L.ldc + i % nc4 * 4;
+          const int e = (q0 + i / nc4) * L.ldc + i % nc4 * 4;
           const float4 q = ld4(Qs + e);
           float4 d = ld4(Os + e);
           d.x = q.x > 0.0f ? d.x : 0.0f, d.y = q.y > 0.0f ? d.y : 0.0f;
           d.z = q.z > 0.0f ? d.z : 0.0f, d.w = q.w > 0.0f ? d.w : 0.0f;
           st4(Os + e, d);
         } else {
-          const int u = i - qn, e = u / nc4 * L.ldc + u % nc4 * 4;
+          const int u = i - qn, e = (k0 + u / nc4) * L.ldc + u % nc4 * 4;
           const float4 kv = ld4(Ks + e), vv = ld4(Vs + e);
           float4 dk = ld4(DKs + e), dv = ld4(DVs + e);
           dk.x = kv.x > 0.0f ? dk.x * inv_scale : 0.0f, dk.y = kv.y > 0.0f ? dk.y * inv_scale : 0.0f;
@@ -1084,28 +1877,39 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
         }
       }
     }
-    if (p.xmode == kXRegion) cp_async_wait_all();
+    if constexpr (!STREAM) cp_async_wait_all();
     __syncthreads();
+    // streamed, split by heads: the input gradients (5b) read the peers'
+    // dpre columns, so the cluster's barrier is passed (arrive) here and
+    // waited for after the weight gradients, which read the CTA's own
+    const bool pull = STREAM && cs > 1 && !rows_split;
+    if (pull) {
+      if (dev) __threadfence();  // the workspace's writes, before the release
+      cluster_arrive();
+    }
 
-    // 5a. the weight gradients of the own columns, into the slot: a tile
-    // of dWq, dWk or dWv a job (the rows split over a group where there are
-    // few jobs); the row's dγ and dβ
+    // 5a. the weight gradients of the own columns, into the slot (resident:
+    // a tile of dWq, dWk or dWv a job, the rows split over a group where
+    // there are few jobs); the row's dγ and dβ
     {
-      float* slot = p.slots + (static_cast<long long>(tree) * p.tree_slots + cid) * Pc;
-      const int nc4 = L.Dcp / 4, D4 = D / 4;
-      const int wt = D4 * nc4;
-      const int G = group_size(3 * wt, kThreads);
-      for (int u0 = 0; u0 < 3 * wt * G; u0 += kThreads) {
-        const int u = u0 + tid;
-        const bool valid = u < 3 * wt * G;
-        const int job = (valid ? u : 3 * wt * G - 1) / G, part = u % G;
-        const int m = job / wt, e = job % wt, a = e / nc4 * 4, c = e % nc4 * 4;
-        const bool glob = p.xmode == kXGlobal;
-        const float* x = glob ? (m == 0 ? p.queries + b * Tq * D : p.keys + b * Tk * D)
-                              : (m == 0 || alias ? X : X + Tq * L.ldx);
-        weight_grad_tile<DH>(x, glob ? D : L.ldx, m == 0 ? Os : m == 1 ? DKs : DVs, L.ldc,
-                             m == 0 ? Tq : Tk, a, c, part, G, valid, slot + m * D * L.Dc,
-                             slot + 3 * D * L.Dc + m * L.Dc, L.Dc, dh, L.dhp, first);
+      float* slot = p.slots + (static_cast<long long>(tree) * p.tree_slots + leaf) * Pc;
+      if constexpr (STREAM) {
+        stream_weight_grads(xq, xk, Os, DKs, DVs, dev, D, dh, q0, q1, k0, k1, vec, L, stage, slot,
+                            slot + 3 * D * L.Dc, first);
+      } else {
+        const int nc4 = L.Dcp / 4, D4 = D / 4;
+        const int wt = D4 * nc4;
+        const int G = group_size(3 * wt, kThreads);
+        for (int u0 = 0; u0 < 3 * wt * G; u0 += kThreads) {
+          const int u = u0 + tid;
+          const bool valid = u < 3 * wt * G;
+          const int job = (valid ? u : 3 * wt * G - 1) / G, part = u % G;
+          const int m = job / wt, e = job % wt, a = e / nc4 * 4, c = e % nc4 * 4;
+          weight_grad_tile<DH>(m == 0 || alias ? X : X + Tq * L.ldx, L.ldx,
+                               m == 0 ? Os : m == 1 ? DKs : DVs, L.ldc, m == 0 ? Tq : Tk, a, c,
+                               part, G, valid, slot + m * D * L.Dc,
+                               slot + 3 * D * L.Dc + m * L.Dc, L.Dc, dh, L.dhp, first);
+        }
       }
       for (int c = tid; c < 2 * L.Dc; c += kThreads) {
         float* e = slot + 3 * D * L.Dc + 3 * L.Dc + c;
@@ -1113,6 +1917,29 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
       }
     }
     __syncthreads();
+
+    if constexpr (STREAM) {
+      // 5b. streamed: the own input columns of the own rows from the
+      // cluster's dpre, once every rank has its own in place
+      if (pull) cluster_wait();
+      stream_input_grads(Os, DKs, DVs, peer, rank, rows_split ? 1 : cs, dev, p.wq + wo,
+                         p.wk + wo, p.wv + wo, D, dh, c0, q0, q1, k0, k1, vec, L, stage, DYs, Ks);
+      const int qn = (q1 - q0) * L.Dcp, kn = (k1 - k0) * L.Dcp;
+      for (int i = tid; i < qn + kn; i += kThreads) {
+        const bool isq = i < qn;
+        const int u = isq ? i : i - qn, t = (isq ? q0 : k0) + u / L.Dcp, pc = u % L.Dcp;
+        const int cc = true_col<DH>(pc, dh, L.dhp);
+        if (cc < 0) continue;
+        if (isq) {
+          p.dq[(b * Tq + t) * D + c0 + cc] = DYs[t * L.ldc + pc];
+        } else {
+          p.dk[(b * Tk + t) * D + c0 + cc] = Ks[t * L.ldc + pc];
+        }
+      }
+      // no peer reads this CTA's arrays any more, nor overwrites its own
+      if (cs > 1) sync_cluster(); else __syncthreads();
+      continue;
+    }
 
     // 5b. the partial input gradients [T][D] into the region, then each
     // CTA adds the cluster's partials of its own columns in rank order: the
@@ -1172,7 +1999,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
   // them, in slot order, into one slot of the next level
   unsigned* tickets = p.tickets + static_cast<long long>(tree) * p.tree_tickets;
   float* level = p.slots + static_cast<long long>(tree) * p.tree_slots * Pc;
-  int count = p.clusters, idx = cid;
+  int count = leaves, idx = leaf;
   while (count > 1) {
     const int group = idx / kGroup;
     const int firsts = group * kGroup;
@@ -1214,7 +2041,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_bwd_kernel(const __grid_const
   }
 }
 
-template <int DH, bool DROP, bool WIDE = false>
+template <int DH, bool DROP, bool WIDE = false, bool STREAM = false>
 int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   // the dynamic shared memory each device's variant is opted in to
   static int opted[kMaxDevices];
@@ -1223,7 +2050,7 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > opted[device]) {
-    err = cudaFuncSetAttribute(mha_bwd_kernel<DH, DROP, WIDE>,
+    err = cudaFuncSetAttribute(mha_bwd_kernel<DH, DROP, WIDE, STREAM>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
@@ -1240,7 +2067,7 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, mha_bwd_kernel<DH, DROP, WIDE>, p);
+  err = cudaLaunchKernelEx(&config, mha_bwd_kernel<DH, DROP, WIDE, STREAM>, p);
   // read (and clear) the launch's error either way, so that a refused
   // launch is not reported again by a later one
   const cudaError_t last = cudaGetLastError();
@@ -1250,10 +2077,12 @@ int launch(const Params& p, int replicas, int smem, cudaStream_t stream) {
 template <bool DROP>
 int launch_heads(const Params& p, int replicas, int smem, cudaStream_t stream) {
   // heads past kMaxDh features or D past kMaxD run the wide variant
-  if (p.dh > kMaxDh || p.D > kMaxD) return launch<0, DROP, true>(p, replicas, smem, stream);
-  // the specialised variants assume shared memory; the workspace in device
-  // memory runs the generic one
-  if (p.work != nullptr) return launch<0, DROP>(p, replicas, smem, stream);
+  const bool wide = p.dh > kMaxDh || p.D > kMaxD;
+  if (p.mode != kResident) {
+    return wide ? launch<0, DROP, true, true>(p, replicas, smem, stream)
+                : launch<0, DROP, false, true>(p, replicas, smem, stream);
+  }
+  if (wide) return launch<0, DROP, true>(p, replicas, smem, stream);
   switch (p.dh) {
     case 8:
       return launch<8, DROP>(p, replicas, smem, stream);
@@ -1266,6 +2095,11 @@ int launch_heads(const Params& p, int replicas, int smem, cudaStream_t stream) {
   }
 }
 
+Layout plan_layout(int Tq, int Tk, int D, int H, int dh, int cs, int qb, int mode, int alias) {
+  return mode == kResident ? make_layout(Tq, Tk, D, H, dh, cs, qb, alias)
+                           : make_stream_layout(Tq, Tk, D, H, dh, cs, qb, mode == kRows);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1274,17 +2108,20 @@ extern "C" {
 // ops/cuda/mha.py::backward_plan: `clusters` clusters of `cs` CTAs of
 // `threads` threads for each of `replicas` replicas (grid y), cluster i
 // taking the rows i, i + clusters, ... of its replica's `rows`; query
-// blocks of `qb` rows; `xmode` and `alias` as the plan's; `smem` bytes of
-// dynamic shared memory hold a CTA's layout of `per_cta` floats or, with
-// `work` not null, `per_cta` floats of `work` a CTA do (then cs is 1).
+// blocks of `qb` rows; `mode` the design (0 resident, 1 streamed split by
+// heads, 2 streamed split by rows) and `alias` as the plan's; `smem` bytes
+// of dynamic shared memory hold a CTA's layout of `per_cta` floats (and,
+// streamed, its `stage` floats) or, with `work` not null (streamed only),
+// the stage alone, the layout then `per_cta` floats of `work` a CTA.
 // `slots` and `tickets` are the plan's scratch (tickets all 0): per
-// replica and rank, `tree_slots` slots of 3·D·D/cs + 5·D/cs floats and
-// `tree_tickets` tickets.  `keep_mask` holds dropout's keep flags
-// ([rows·replicas, H, Tq, Tk] bytes) and `keep` = 1 − rate; a null mask
-// runs the variant without dropout.  Returns the launch's CUDA error (0 =
-// launched); a refused cluster launch is returned, never retried with
-// another geometry.  The caller has checked shapes, types, devices,
-// contiguity, 16-byte alignment and the limits.
+// replica, a tree of `tree_slots` slots (3·D·Dc + 5·Dc floats: Dc = D/cs,
+// or D under ROWS) and `tree_tickets` tickets for each rank (one tree
+// under ROWS).  `keep_mask` holds dropout's keep flags ([rows·replicas, H,
+// Tq, Tk] bytes) and `keep` = 1 − rate; a null mask runs the variant
+// without dropout.  Returns the launch's CUDA error (0 = launched); a
+// refused cluster launch is returned, never retried with another geometry.
+// The caller has checked shapes, types, devices, contiguity and, for D a
+// multiple of 4, 16-byte alignment.
 int mha_bwd_launch(const float* queries, const float* keys, const int* q_len,
                    const int* k_len, const float* wq, const float* bq, const float* wk,
                    const float* bk, const float* wv, const float* bv, const float* gamma,
@@ -1293,33 +2130,40 @@ int mha_bwd_launch(const float* queries, const float* keys, const int* q_len,
                    float* dwq, float* dbq, float* dwk, float* dbk, float* dwv, float* dbv,
                    float* dgamma, float* dbeta, float* slots, unsigned* tickets, float* work,
                    int Tq, int Tk, int D, int H, int dh, int rows, int cs, int clusters,
-                   int replicas, int qb, int xmode, int alias, int tree_slots,
-                   int tree_tickets, int per_cta, int threads, int smem, float keep,
+                   int replicas, int qb, int mode, int alias, int tree_slots,
+                   int tree_tickets, int per_cta, int stage, int threads, int smem, float keep,
                    void* stream) {
-  if (threads != kThreads || dh < 1 || D != dh * H || D % 4 != 0 ||
-      D > kWideMaxD || rows < 1 || clusters < 1 || clusters > rows || replicas < 1 ||
-      (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 || (D / cs) % 4 != 0 ||
-      qb < 1 || qb > Tq || xmode < kXRegion || xmode > kXGlobal ||
-      (xmode == kXGlobal) != (work != nullptr) || (work != nullptr && cs != 1) ||
-      (alias && (Tq != Tk || queries != keys)))
+  const bool resident = mode == kResident;
+  const int own = mode == kRows ? (Tq + cs - 1) / cs : Tq;  // a rank's query rows at most
+  if (threads != kThreads || dh < 1 || D != dh * H || rows < 1 || clusters < 1 ||
+      clusters > rows || replicas < 1 || (cs != 1 && cs != 2 && cs != 4 && cs != 8) ||
+      mode < kResident || mode > kRows || (mode != kRows && H % cs != 0) ||
+      (resident && (D % 4 != 0 || (D / cs) % 4 != 0 || work != nullptr)) ||
+      qb < 1 ||
+      qb > own || (alias && (Tq != Tk || queries != keys)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L = make_layout(Tq, Tk, D, H, dh, cs, qb, xmode, alias);
-  if (L.total != per_cta || (work == nullptr && 4 * per_cta > smem))
+  const Layout L = plan_layout(Tq, Tk, D, H, dh, cs, qb, mode, alias);
+  const int need = work != nullptr ? L.stage : L.total + L.stage;
+  if (L.total != per_cta || L.stage != stage || 4 * need > smem)
     return static_cast<int>(cudaErrorInvalidValue);
   const Params p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, g, keep_mask,
                  dq, dk, dwq, dbq, dwk, dbk, dwv, dbv, dgamma, dbeta, slots, tickets, work,
-                 Tq, Tk, D, H, dh, rows, cs, clusters, qb, xmode, alias, tree_slots,
-                 tree_tickets, 1.0f / sqrtf(static_cast<float>(dh)), keep, L};
+                 Tq, Tk, D, H, dh, rows, cs, clusters, qb, mode, alias,
+                 D % 4 == 0 && dh % 4 == 0, tree_slots, tree_tickets,
+                 1.0f / sqrtf(static_cast<float>(dh)), keep, L};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (keep_mask != nullptr) return launch_heads<true>(p, replicas, smem, s);
   return launch_heads<false>(p, replicas, smem, s);
 }
 
-// The floats of a CTA's layout (ops/cuda/mha.py::_bwd_layout is checked
-// against it on the card).
-int mha_bwd_layout_floats(int Tq, int Tk, int D, int H, int dh, int cs, int qb, int xmode,
-                          int alias) {
-  return make_layout(Tq, Tk, D, H, dh, cs, qb, xmode, alias).total;
+// The floats of a CTA's layout and, streamed, of its stage, into *stage
+// (ops/cuda/mha.py::_bwd_layout and _stream_layout are checked against
+// them on the card).
+int mha_bwd_layout_floats(int Tq, int Tk, int D, int H, int dh, int cs, int qb, int mode,
+                          int alias, int* stage) {
+  const Layout L = plan_layout(Tq, Tk, D, H, dh, cs, qb, mode, alias);
+  *stage = L.stage;
+  return L.total;
 }
 
 // The clusters of `cs` CTAs with `smem` bytes each that the current device

@@ -81,8 +81,7 @@
 // plain loops.  D <= 256 and a multiple of 4, Tk <= 256 (a group of 32
 // lanes holds 8 scores each); Tq and Tk are otherwise bounded by the
 // shared memory of one CTA (232,448 bytes): at D = 64 both reach 256.  The
-// wide variant (below) takes every other shape with D <= 512, a multiple
-// of 4, and Tk <= 256.
+// wide variant (below) takes every other shape.
 //
 // Exactness: expf (not __expf), IEEE division and sqrtf, no fast math;
 // the scores are q·k with q scaled once by 1/√dh, as the Pallas kernel
@@ -763,7 +762,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 // ------------------------------------------------------------ wide variant
 //
 // The wide variant takes what the variants above refuse: heads of more
-// than 32 features (up to 512: D = 512 in one head), D from 260 to 512,
+// than 32 features, D past 256 or not a multiple of 4, more than 256 keys,
 // and rows whose full copies of K and V do not fit one CTA's shared memory
 // (at D = 256, (96, 96) self-attention).  Its design is K3b's
 // (csrc/mha_bwd.cu): a cluster of cs CTAs takes a batch row, CTA c owning
@@ -777,14 +776,17 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 //   1. projects its columns, Q = relu(q·Wq[:, c] + bq[c]) / √dh and K, V
 //      likewise, a thread a tile of 4 rows × 4 columns (K and V together),
 //      x and W read as float4s from device memory (the L1 and L2 caches
-//      hold them; W is 3 MB at D = 512, above any CTA's shared memory);
+//      hold them; W is 3 MB at D = 512, above any CTA's shared memory), or
+//      one float at a time where D is not a multiple of 4 (the VEC = false
+//      variant; a CTA's columns are then padded to a multiple of 4);
 //   2. takes each (query row, own head) on one warp: lane l scores the keys
-//      l, l + 32, ... (at most 8 a lane: Tk <= 256) over the head's dh
-//      features in order, keeps them in registers, takes the max, exp and
-//      sum by butterflies, and writes the probabilities (0 where dropped)
-//      to the warp's slice of shared memory; then lane l sums features l,
-//      l + 32, ... of P·V over the keys in order, so no register array
-//      grows with dh.  The output overwrites the row's Q in place;
+//      l, l + 32, ... over the head's dh features in order into the warp's
+//      slice of shared memory (Tk floats: any number of keys), takes the
+//      max, then exp and the sum over its own scores in order, both folded
+//      by butterflies, and writes the probabilities (0 where dropped) over
+//      the scores; then lane l sums features l, l + 32, ... of P·V over the
+//      keys in order, so no register array grows with dh or Tk.  The output
+//      overwrites the row's Q in place;
 //   3. LayerNorm couples the heads: per block of kWideLnRows rows each CTA
 //      sums its columns of y = o + q, the cluster exchanges the sums
 //      through distributed shared memory and every CTA adds them in rank
@@ -796,7 +798,6 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 // zeroed before the residual.
 
 constexpr int kWideLnRows = 64;   // rows of a LayerNorm exchange
-constexpr int kWideMaxD = 512;
 
 struct WideParams {
   const float* queries;
@@ -819,12 +820,25 @@ struct WideParams {
   float keep;
 };
 
+// Four floats from device memory: a float4 (VEC), else one at a time, 0
+// from the n-th on.
+template <bool VEC>
+__device__ __forceinline__ float4 ldg_part(const float* p, int n) {
+  if constexpr (VEC) {
+    return ldg4(p);
+  } else {
+    return make_float4(n > 0 ? __ldg(p) : 0.0f, n > 1 ? __ldg(p + 1) : 0.0f,
+                       n > 2 ? __ldg(p + 2) : 0.0f, n > 3 ? __ldg(p + 3) : 0.0f);
+  }
+}
+
 // Rows r0 .. r0+3 (below R) of x (device memory, rows D apart) times NM
-// column slices of the weights (columns c0 + c .. +3, rows D apart):
-// relu(x·w + b) · scale into o (rows ldc apart, columns c .. c+3).
-template <int NM>
+// column slices of the weights (columns c0 + c .. +3, rows D apart; those
+// from Dc on read as 0): relu(x·w + b) · scale into o (rows ldc apart,
+// columns c .. c+3).
+template <int NM, bool VEC>
 __device__ __forceinline__ void wide_project(const float* __restrict__ x, int R, int D,
-                                             int r0, int c0, int c, float scale,
+                                             int r0, int c0, int c, int Dc, float scale,
                                              const float* __restrict__ w0,
                                              const float* __restrict__ b0, float* o0,
                                              const float* __restrict__ w1,
@@ -843,15 +857,18 @@ __device__ __forceinline__ void wide_project(const float* __restrict__ x, int R,
   const float* xr[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) xr[i] = x + static_cast<long long>(min(r0 + i, R - 1)) * D;
+  const int nc = Dc - c;  // the own columns from c on
   for (int k = 0; k < D; k += 4) {
     float4 xv[kRows];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) xv[i] = ldg4(xr[i] + k);
+    for (int i = 0; i < kRows; ++i) xv[i] = ldg_part<VEC>(xr[i] + k, D - k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
+      if (!VEC && k + kk >= D) break;
       float4 wv[NM];
 #pragma unroll
-      for (int m = 0; m < NM; ++m) wv[m] = ldg4(w[m] + static_cast<long long>(k + kk) * D + c0 + c);
+      for (int m = 0; m < NM; ++m)
+        wv[m] = ldg_part<VEC>(w[m] + static_cast<long long>(k + kk) * D + c0 + c, nc);
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float xs = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
@@ -867,7 +884,7 @@ __device__ __forceinline__ void wide_project(const float* __restrict__ x, int R,
   }
 #pragma unroll
   for (int m = 0; m < NM; ++m) {
-    const float4 bv = ldg4(bias[m] + c0 + c);
+    const float4 bv = ldg_part<VEC>(bias[m] + c0 + c, nc);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       if (r0 + i < R) {
@@ -899,7 +916,7 @@ __device__ __forceinline__ void wide_cluster_sync(int cs) {
   }
 }
 
-template <bool DROP>
+template <bool DROP, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_constant__ WideParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -935,16 +952,16 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_
 
     // 1. the projections of the own columns
     {
-      const int nc4 = Dc / 4;
+      const int nc4 = (Dc + 3) / 4;
       const int qj = (Tq + kRows - 1) / kRows * nc4, kj = (Tk + kRows - 1) / kRows * nc4;
       for (int j = tid; j < qj + kj; j += kThreads) {
         if (j < qj) {
-          wide_project<1>(xq, Tq, D, j / nc4 * kRows, c0, j % nc4 * 4, p.inv_scale,
-                          p.wq + wo, p.bq + vo, Qs, nullptr, nullptr, nullptr, ldc);
+          wide_project<1, VEC>(xq, Tq, D, j / nc4 * kRows, c0, j % nc4 * 4, Dc, p.inv_scale,
+                               p.wq + wo, p.bq + vo, Qs, nullptr, nullptr, nullptr, ldc);
         } else {
           const int jk = j - qj;
-          wide_project<2>(xk, Tk, D, jk / nc4 * kRows, c0, jk % nc4 * 4, 1.0f, p.wk + wo,
-                          p.bk + vo, Ks, p.wv + wo, p.bv + vo, Vs, ldc);
+          wide_project<2, VEC>(xk, Tk, D, jk / nc4 * kRows, c0, jk % nc4 * 4, Dc, 1.0f,
+                               p.wk + wo, p.bk + vo, Ks, p.wv + wo, p.bv + vo, Vs, ldc);
         }
       }
     }
@@ -954,21 +971,16 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_
     for (int task = warp; task < Tq * hc; task += kWarps) {
       const int t = task / hc, hl = task - t * hc, h = rank * hc + hl;
       const float* q = Qs + t * ldc + hl * dh;
-      float s[kPerLane], m = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int k = lane + kWarp * i;
-        float v = -INFINITY;
-        if (k < Tk) {
-          v = kKeyMask;
-          if (k < k_live) {
-            const float* kr = Ks + k * ldc + hl * dh;
-            float d = 0.0f;
-            for (int f = 0; f < dh; ++f) d = fmaf(q[f], kr[f], d);
-            v = d;
-          }
+      float m = -INFINITY;
+      for (int k = lane; k < Tk; k += kWarp) {
+        float v = kKeyMask;
+        if (k < k_live) {
+          const float* kr = Ks + k * ldc + hl * dh;
+          float d = 0.0f;
+          for (int f = 0; f < dh; ++f) d = fmaf(q[f], kr[f], d);
+          v = d;
         }
-        s[i] = v;
+        P[k] = v;  // the lane's own scores, read back by the lane alone
         m = fmaxf(m, v);
       }
       for (int off = kWarp / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
@@ -976,16 +988,12 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_
       const std::uint8_t* km = nullptr;
       if constexpr (DROP)
         km = p.keep_mask + ((static_cast<long long>(b) * H + h) * Tq + t) * Tk;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int k = lane + kWarp * i;
-        if (k < Tk) {
-          const float e = expf(s[i] - m);
-          sum += e;
-          float w = e;
-          if constexpr (DROP) w = __ldg(km + k) ? e : 0.0f;
-          P[k] = w;
-        }
+      for (int k = lane; k < Tk; k += kWarp) {
+        const float e = expf(P[k] - m);
+        sum += e;
+        float w = e;
+        if constexpr (DROP) w = __ldg(km + k) ? e : 0.0f;
+        P[k] = w;
       }
       for (int off = kWarp / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
       __syncwarp();
@@ -1080,7 +1088,7 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool DROP>
+template <bool DROP, bool VEC>
 int launch_wide(const WideParams& p, int smem, cudaStream_t stream) {
   static int opted[kMaxDevices];
   int device = 0;
@@ -1088,7 +1096,7 @@ int launch_wide(const WideParams& p, int smem, cudaStream_t stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > opted[device]) {
-    err = cudaFuncSetAttribute(mha_fwd_wide_kernel<DROP>,
+    err = cudaFuncSetAttribute(mha_fwd_wide_kernel<DROP, VEC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
@@ -1105,7 +1113,7 @@ int launch_wide(const WideParams& p, int smem, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, mha_fwd_wide_kernel<DROP>, p);
+  err = cudaLaunchKernelEx(&config, mha_fwd_wide_kernel<DROP, VEC>, p);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -1150,11 +1158,14 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
 // `threads` threads, cluster i taking the rows i, i + clusters, ... of the
 // `total` batch rows (`rows` a replica, each replica with its own weights);
 // CTA c of a cluster owns heads c·H/cs .. (c+1)·H/cs − 1; `smem` bytes of
-// dynamic shared memory; the arrays, `arrays` floats a CTA, in shared
-// memory or, with `work` not null, in `work` (clusters·cs·arrays floats).
-// `keep_mask` and `keep` as mha_fwd_launch's.  Returns the launch's CUDA
-// error (0 = launched).  The caller has checked shapes, types, devices,
-// contiguity, 16-byte alignment and the limits.
+// dynamic shared memory; the arrays, `arrays` floats a CTA (rows of the
+// CTA's columns padded to a multiple of 4, plus 4), in shared memory or,
+// with `work` not null, in `work` (clusters·cs·arrays floats).  D not a
+// multiple of 4 runs the variant that reads x and the weights one float at
+// a time.  `keep_mask` and `keep` as mha_fwd_launch's.  Returns the
+// launch's CUDA error (0 = launched).  The caller has checked shapes,
+// types, devices, contiguity and, for D a multiple of 4, 16-byte
+// alignment.
 int mha_fwd_wide_launch(const float* queries, const float* keys, const int* q_len,
                         const int* k_len, const float* wq, const float* bq,
                         const float* wk, const float* bk, const float* wv,
@@ -1162,11 +1173,12 @@ int mha_fwd_wide_launch(const float* queries, const float* keys, const int* q_le
                         float* out, float* work, int Tq, int Tk, int D, int H, int dh,
                         int cs, int clusters, int rows, int total, int arrays, int threads,
                         int smem, const std::uint8_t* keep_mask, float keep, void* stream) {
-  if (threads != kThreads || dh < 1 || D != dh * H || D % 4 != 0 || D > kWideMaxD ||
-      Tk > kWarp * kPerLane || (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 ||
-      (D / cs) % 4 != 0 || clusters < 1 || rows < 1 || total < rows || total % rows != 0)
+  const bool vec = D % 4 == 0;
+  if (threads != kThreads || dh < 1 || D != dh * H ||
+      (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 || (vec && (D / cs) % 4 != 0) ||
+      clusters < 1 || rows < 1 || total < rows || total % rows != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ldc = D / cs + kPad, tk4 = round4(Tk);
+  const int ldc = round4(D / cs) + kPad, tk4 = round4(Tk);
   const int fixed = kWarps * tk4 + 3 * kWideLnRows;
   if (arrays != (Tq + 2 * Tk) * ldc ||
       4 * (fixed + (work != nullptr ? 0 : arrays)) > smem)
@@ -1175,7 +1187,10 @@ int mha_fwd_wide_launch(const float* queries, const float* keys, const int* q_le
                      keep_mask, work, Tq, Tk, D, H, dh, cs, clusters, rows, total, ldc,
                      arrays, tk4, 1.0f / sqrtf(static_cast<float>(dh)), keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return keep_mask != nullptr ? launch_wide<true>(p, smem, s) : launch_wide<false>(p, smem, s);
+  if (vec) return keep_mask != nullptr ? launch_wide<true, true>(p, smem, s)
+                                       : launch_wide<false, true>(p, smem, s);
+  return keep_mask != nullptr ? launch_wide<true, false>(p, smem, s)
+                              : launch_wide<false, false>(p, smem, s);
 }
 
 // The clusters of `cs` CTAs with `smem` bytes each that the current device

@@ -31,8 +31,9 @@ axis first.  Without masks the kernels run the variant without dropout.
 
 Both kernels run one warp per (batch row, head) unit for heads of up to
 `MAX_HEAD_WIDTH` features, and a wide variant (csrc/fwa_wide.cuh: one block
-a unit, the steps in chunks that fit shared memory) for heads of up to
-`WIDE_MAX_HEAD`; `launch_plan` gives their geometry (pure Python, so the
+a unit, the steps in chunks that fit shared memory) for wider heads, up to
+the widest whose chunk of one step fits a block's shared memory;
+`launch_plan` gives their geometry (pure Python, so the
 CPU tests hold it).  They take any S >= 1.  K2 sums its weight gradients
 across blocks through scratch memory that this module keeps per device and
 reuses, so K2 calls on one device run on one stream at a time.
@@ -62,10 +63,10 @@ WARP = 32
 MAX_HEAD_WIDTH = 32        # kMaxDh in csrc/fwa_common.cuh
 FWD_WARPS, BWD_WARPS = 4, 8  # warps (units) a block
 GROUP = 128                # kGroup in csrc/fwa_bwd.cu: slots summed together
-# the wide variants (csrc/fwa_wide.cuh): kWideMaxDh, kWideThreads, the steps
-# a chunk at most, kWideGroup in csrc/fwa_bwd.cu; K2's blocks at most (two
-# an SM) and the floats its slots may take a replica, which bound its grid
-WIDE_MAX_HEAD, WIDE_THREADS, WIDE_CHUNK, WIDE_GROUP = 512, 256, 32, 4
+# the wide variants (csrc/fwa_wide.cuh): kWideThreads, the steps a chunk at
+# most, kWideGroup in csrc/fwa_bwd.cu; K2's blocks at most (two an SM) and
+# the floats its slots may take a replica, which bound its grid
+WIDE_THREADS, WIDE_CHUNK, WIDE_GROUP = 256, 32, 4
 WIDE_BLOCKS, WIDE_SLOT_FLOATS = 264, 1 << 24
 
 launches = 0
@@ -114,11 +115,17 @@ def _wide_plan(B: int, S: int, dh: int, num_heads: int, backward: bool,
     at most WIDE_BLOCKS blocks, fewer where the slots would pass
     WIDE_SLOT_FLOATS), and the most steps a chunk (up to WIDE_CHUNK and S)
     whose arrays fit shared memory: x, m2, m1 and three per-feature
-    statistics; K2 also dm2, dz1 and a fourth (g)."""
+    statistics; K2 also dm2, dz1 and a fourth (g).  Raises ValueError
+    where not even one step fits."""
     units = B * num_heads
     arrays, stats = (5, 4) if backward else (3, 3)
     room = (SMEM_LIMIT - 64) // 4 - stats * dh
     chunk = min(S, WIDE_CHUNK, room // (arrays * dh))
+    if chunk < 1:
+        raise ValueError(
+            f"feature-wise attention's wide {'K2' if backward else 'K1'} keeps a step "
+            f"of {arrays + stats}·dh floats in a block's shared memory ({SMEM_LIMIT} "
+            f"bytes): heads of dh={dh} features do not fit")
     smem = 4 * (arrays * chunk * dh + stats * dh)
     warps = WIDE_THREADS // WARP
     if not backward:
@@ -144,11 +151,6 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
             f"D % num_heads == 0; got B={B}, S={S}, D={D}, "
             f"num_heads={num_heads}, replicas={replicas}")
     dh = D // num_heads
-    if dh > WIDE_MAX_HEAD:
-        raise ValueError(
-            f"feature-wise attention kernels take heads of at most "
-            f"{WIDE_MAX_HEAD} features; got D={D}, num_heads={num_heads} "
-            f"(dh={dh})")
     if dh > MAX_HEAD_WIDTH:
         return _wide_plan(B, S, dh, num_heads, backward, replicas)
     units = B * num_heads
@@ -223,10 +225,6 @@ def _check_inputs(fn: str, x, lengths, num_heads, w1, b1, w2, b2, g=None,
             f"{fn}: needs S >= 1 and D % num_heads == 0; "
             f"got S={S}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    if dh > WIDE_MAX_HEAD:
-        raise ValueError(
-            f"{fn}: the kernels take heads of at most {WIDE_MAX_HEAD} "
-            f"features; got D={D}, num_heads={num_heads} (dh={dh})")
     index = x.get_device()
     wshape, bshape = lead + (dh, dh), lead + (dh,)
     todo = [("x", x, _F32, lead + (B, S, D)), ("lengths", lengths, _I32, lead + (B,)),
@@ -258,7 +256,7 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
                 b2: torch.Tensor, k1=None, k2=None,
                 keep: float = 1.0) -> torch.Tensor:
     """K1.  x f32 [B, S, D], lengths i32 [B], w1/w2 f32 [dh, dh], b1/b2 f32
-    [dh] (dh = D / num_heads <= 512), all contiguous on one CUDA device →
+    [dh] (dh = D / num_heads), all contiguous on one CUDA device →
     out f32 [B, D]; or every tensor with a leading replica axis R (x [R,
     B, S, D], ..., out [R, B, D]), R replicas in one launch.  Dropout:
     `k1` and `k2`, bool [B, S, num_heads, dh] (R first with the replica

@@ -20,16 +20,20 @@ row-split variants take heads of up to `MAX_HEAD_WIDTH` features, D up to
 `MAX_D` and as many query rows as one CTA's shared memory holds (at D =
 64: Tq and Tk up to 256, and past it for Tq); its wide variant takes the
 rest (a cluster a row split by heads, the arrays in shared memory where
-they fit and in device memory past it): D up to `WIDE_MAX_D` and a
-multiple of 4, any head width, up to `MAX_KEYS` keys; anything else
-raises ValueError naming the limit.  K3b
-(`backward_plan`) takes every shape K3 takes: a cluster of cs CTAs a row,
-split by heads, as many clusters as the card holds at once (at most B),
-each taking rows in order; a CTA's arrays in shared memory where they fit
-at some cluster size and in device memory past it (one CTA a row then);
-the weight gradients summed across clusters through scratch memory that
-this module keeps per device and reuses, so K3b calls on one device run on
-one stream at a time.
+they fit and in device memory past it): any D (one float at a time where
+D is not a multiple of 4), any head width, any number of keys; only what
+memory forces raises ValueError, naming the limit (a warp's
+probabilities over the keys past a CTA's shared memory, a cluster's
+arrays past `WORK_LIMIT` floats), besides no rows and heads that do not
+divide D.  K3b (`backward_plan`) takes every shape K3 takes: its resident
+design (a cluster of cs CTAs a row split by heads, each CTA's weight
+columns in shared memory) where that fits, else its streamed one (the
+weights read where they lie, a row split over a cluster by heads or by
+rows, in shared memory or past it in device memory); as many clusters as
+the card holds at once (at most B), each taking rows in order; the weight
+gradients summed across clusters through scratch memory that this module
+keeps per device and reuses, so K3b calls on one device run on one stream
+at a time.
 
 Dropout (train time) is a variant of both kernels: a keep mask on the
 attention probabilities after the query mask, bool [B, H, Tq, Tk] (with
@@ -52,6 +56,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import fractions
 import functools
 import math
 
@@ -78,9 +83,9 @@ W_CHUNK = 12_288              # kWChunk: floats of weights staged at once
 MAX_HEAD_WIDTH = 32           # kMaxDh
 MAX_D = 256                   # kMaxLnPerLane · 32: LayerNorm's lanes
 MAX_KEYS = 32 * PER_LANE      # a group of a warp's lanes
-# the wide variants of K3 and K3b (kWideMaxD in csrc/mha_fwd.cu and
-# csrc/mha_bwd.cu) and K3's rows of a LayerNorm exchange (kWideLnRows)
-WIDE_MAX_D, WIDE_LN_ROWS = 512, 64
+# K3's wide variant: its rows of a LayerNorm exchange (kWideLnRows in
+# csrc/mha_fwd.cu)
+WIDE_LN_ROWS = 64
 # an SM holds two CTAs by registers (128 a thread, __launch_bounds__(256,
 # 2)) and as many as fit its 233,472 bytes of shared memory, 1,024 of them
 # reserved a CTA
@@ -92,15 +97,22 @@ SM_SMEM, CTA_RESERVED, CTAS_BY_REGISTERS = 233_472, 1_024, 2
 ACTIVE_CLUSTERS = {(1, 1): 132, (2, 1): 66, (4, 1): 30, (8, 1): 15,
                    (1, 2): 264, (2, 2): 132, (4, 2): 62, (8, 2): 30}
 
-# K3b: the CTAs of its device-memory fallback (one an SM), slots summed
-# together at each level of its cross-CTA tree (kGroup in csrc/mha_bwd.cu)
-SMS, BWD_GROUP = 132, 16
-# where K3b keeps a row's x rows (kXRegion, kXGlobal in csrc/mha_bwd.cu):
-# in the region that holds the query block's probabilities, reloaded there
-# for the weight gradients; in device memory, read where they lie (the plan
-# of last resort, whose layout lies in device memory too)
-X_REGION, X_GLOBAL = 0, 1
+# K3b: slots summed together at each level of its cross-CTA tree (kGroup
+# in csrc/mha_bwd.cu)
+BWD_GROUP = 16
+# K3b's designs (kResident, kHeads, kRows in csrc/mha_bwd.cu): the weights'
+# columns resident in shared memory; streamed, a row split over a cluster
+# by heads; streamed, split by rows
+RESIDENT, HEADS, ROWS = 0, 1, 2
+# the streamed design's tiles: k-columns staged at once, output columns and
+# rows (or features of x) at a time, and the weight gradients' steps staged
+# at once (kTileK, kTileN, kTileRows, kStepK)
+TILE_K, TILE_N, TILE_ROWS, STEP_K = 8, 64, 128, 16
 STATIC_SMEM = 64  # bytes K3b keeps for its static flag
+# the most floats a cluster's streamed layout may take in device memory
+# (its CTAs' slices), and the most a replica's workspace (and its dpre
+# rows) takes: clusters past it wait for a later wave
+WORK_LIMIT, WORK_CAP = 1 << 30, 1 << 27
 
 launches = 0
 bwd_launches = 0
@@ -168,17 +180,33 @@ def ctas_per_sm(smem: int) -> int:
 
 def _wide_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int) -> Plan:
     """K3's wide variant: the largest cluster size that divides the heads
-    with columns on 16-byte boundaries (it depends on D and H alone, so a
-    row's arithmetic does not depend on B); a layout of the warps'
-    probabilities, LayerNorm's exchange and, where they fit, the CTA's
-    columns of Q, K and V (csrc/mha_fwd.cu's mha_fwd_wide_kernel); as many
-    clusters as the card runs at once, at most B."""
-    cs = max(c for c in CLUSTER_SIZES if num_heads % c == 0 and (D // c) % 4 == 0)
-    arrays = (Tq + 2 * Tk) * (D // cs + PAD)
+    (for D a multiple of 4, with columns on 16-byte boundaries; else its
+    single-float variant); a layout of the warps' probabilities (Tk floats
+    each), LayerNorm's exchange and, where they fit, the CTA's columns of Q,
+    K and V (csrc/mha_fwd.cu's mha_fwd_wide_kernel); as many clusters as the
+    card runs at once, at most B, and as many as WORK_CAP floats of device
+    memory hold where the columns lie there.  Raises ValueError where the
+    probabilities pass a CTA's shared memory or a cluster's columns
+    WORK_LIMIT."""
+    vec = D % 4 == 0
+    cs = max(c for c in CLUSTER_SIZES
+             if num_heads % c == 0 and (not vec or (D // c) % 4 == 0))
+    arrays = (Tq + 2 * Tk) * (_r4(D // cs) + PAD)
     fixed = 4 * (THREADS // 32 * _r4(Tk) + 3 * WIDE_LN_ROWS)
+    if fixed > SMEM_LIMIT:
+        raise ValueError(
+            f"K3 keeps a warp's probabilities over the Tk keys in shared memory: "
+            f"{fixed} bytes a CTA at Tk={Tk}, above its {SMEM_LIMIT}")
+    if cs * arrays > WORK_LIMIT:
+        raise ValueError(
+            f"K3's columns of Q, K and V take {cs * arrays} floats a cluster at "
+            f"(Tq, Tk, D) = ({Tq}, {Tk}, {D}), above the {WORK_LIMIT} it places in "
+            "device memory")
     in_smem = fixed + 4 * arrays <= SMEM_LIMIT
     smem = fixed + 4 * arrays if in_smem else fixed
     clusters = min(B, ACTIVE_CLUSTERS[cs, ctas_per_sm(smem)])
+    if not in_smem:
+        clusters = min(clusters, max(1, WORK_CAP // (cs * arrays)))
     return Plan(D // num_heads, cs, clusters * cs, THREADS, 32, smem, True, clusters,
                 arrays, 0 if in_smem else clusters * cs * arrays)
 
@@ -192,20 +220,17 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
     shared memory and whose B clusters the card runs at once
     (ACTIVE_CLUSTERS), or, when B is too large for one wave, the smallest
     that fits.  Where no row-split variant takes the shape (heads past
-    MAX_HEAD_WIDTH features, D past MAX_D, or no cluster's CTA fits), the
-    wide variant (`_wide_plan`).  Raises ValueError for what the kernel
-    refuses."""
+    MAX_HEAD_WIDTH features, D past MAX_D or not a multiple of 4, more than
+    MAX_KEYS keys, or no cluster's CTA fits), the wide variant
+    (`_wide_plan`).  Raises ValueError for what the kernel refuses: no
+    rows, heads that do not divide D, and the memory limits of
+    `_wide_plan`."""
     if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or D % num_heads:
         raise ValueError(
             f"K3 needs B, Tq, Tk >= 1 and D % num_heads == 0; got B={B}, "
             f"Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
-    if D > WIDE_MAX_D or D % 4:
-        raise ValueError(
-            f"K3 takes D of at most {WIDE_MAX_D} and a multiple of 4; got D={D}")
-    if Tk > MAX_KEYS:
-        raise ValueError(f"K3 takes at most {MAX_KEYS} keys; got Tk={Tk}")
-    if dh > MAX_HEAD_WIDTH or D > MAX_D:
+    if dh > MAX_HEAD_WIDTH or D > MAX_D or D % 4 or Tk > MAX_KEYS:
         return _wide_plan(B, Tq, Tk, D, num_heads)
     smem = {cs: _smem(Tq, Tk, D, num_heads, cs, self_attention)
             for cs in CLUSTER_SIZES}
@@ -226,14 +251,18 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
 class BwdPlan:
     """One K3b launch: `clusters` clusters of `cs` CTAs (`grid` = clusters ·
     cs) of `threads` threads for each of `replicas` replicas, cluster i
-    taking the rows i, i + clusters, ... of its replica; CTA c of a cluster
-    owns heads c·H/cs .. (c+1)·H/cs − 1.  Query blocks of `qb` rows; the x
-    rows where `xmode` says (X_REGION or X_GLOBAL), one copy for
-    both when `alias` (self-attention).  A CTA's layout of `per_cta` floats
-    lies in `smem` bytes of dynamic shared memory or, with `smem` 0, in
-    `work` floats of device memory a replica.  Per replica and rank a tree
-    of `slots` weight-gradient slots of `weights` floats (the rank's
-    columns) and `tickets` integers."""
+    taking the rows i, i + clusters, ... of its replica.  `mode` the
+    design: RESIDENT (the weights' own columns in shared memory, CTA c of a
+    cluster owning heads c·H/cs .. (c+1)·H/cs − 1, one copy of x for both
+    when `alias`, self-attention), HEADS (streamed: the weights read where
+    they lie, the same split) or ROWS (streamed, CTA c owning all heads and
+    query and key rows c·⌈T/cs⌉ ..).  Query blocks of `qb` rows.  A CTA's
+    layout of `per_cta` floats and, streamed, its `stage` floats lie in
+    `smem` bytes of dynamic shared memory; or, with `work` > 0, the layout
+    lies in `work` floats of device memory a replica and `smem` holds the
+    stage.  Per replica and tree (one a rank, one under ROWS) `slots`
+    weight-gradient slots of `weights` floats (a rank's columns, all under
+    ROWS) and `tickets` integers."""
     dh: int
     cs: int
     clusters: int
@@ -241,39 +270,69 @@ class BwdPlan:
     replicas: int
     threads: int
     qb: int
-    xmode: int
+    mode: int
     alias: bool
     smem: int
     per_cta: int
+    stage: int
     weights: int
     slots: int
     tickets: int
     work: int
+
+    @property
+    def trees(self) -> int:
+        """Weight-gradient trees a replica."""
+        return 1 if self.mode == ROWS else self.cs
 
 
 def _r4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-def _bwd_layout(Tq: int, Tk: int, D: int, num_heads: int, cs: int, qb: int, xmode: int,
+def _bwd_layout(Tq: int, Tk: int, D: int, num_heads: int, cs: int, qb: int,
                 alias: bool) -> int:
-    """Floats of a K3b CTA's layout (make_layout in csrc/mha_bwd.cu): the
-    column slices of the three weights, the biases and γ; Q, O, dy and the
-    own columns of xq and g; K, V, dK and dV (the own heads' columns, each
-    padded to a multiple of 4, rows 4 floats longer); the query block's
-    statistics and LayerNorm's exchange (two buffers, by the block's
-    parity); dγ and dβ; the region, which holds the block's probabilities,
-    the x rows (X_REGION) and the partial input gradients in turn."""
+    """Floats of a resident K3b CTA's layout (make_layout in
+    csrc/mha_bwd.cu): the column slices of the three weights, the biases and
+    γ; Q, O, dy and the own columns of xq and g; K, V, dK and dV (the own
+    heads' columns, each padded to a multiple of 4, rows 4 floats longer);
+    the query block's statistics and LayerNorm's exchange (two buffers, by
+    the block's parity); dγ and dβ; the region, which holds the block's
+    probabilities, the x rows and the partial input gradients in turn."""
     hc, dhp = num_heads // cs, _r4(D // num_heads)
     dcp, dc = hc * dhp, hc * (D // num_heads)
     ldc, ldx, ldp = dcp + PAD, D + PAD, _r4(Tk) + PAD
     xrows = Tq + (0 if alias else Tk)
     floats = (3 * D * ldc + 4 * dcp + 5 * _r4(Tq) * ldc + 4 * _r4(Tk) * ldc
               + _r4(qb * hc) + _r4(2 * qb) + 2 * 4 * qb + _r4(2 * dc))
-    region = max(hc * qb * ldp, max(Tq, Tk) * ldx)
-    if xmode == X_REGION:
-        region = max(region, xrows * ldx)
-    return floats + region
+    return floats + max(hc * qb * ldp, max(Tq, Tk) * ldx, xrows * ldx)
+
+
+def _stream_layout(Tq: int, Tk: int, D: int, num_heads: int, cs: int, qb: int,
+                   rows: bool):
+    """(layout, stage) floats of a streamed K3b CTA (make_stream_layout in
+    csrc/mha_bwd.cu): the biases and γ; Q, O, dy [Tq][·] and K, V, dK, dV
+    [Tk][·] of the own columns (all under ROWS); the query block's
+    statistics, LayerNorm's exchange, dγ and dβ and its probabilities; the
+    stage: two buffers, each the largest of a product's tiles (TILE_K
+    columns of at most TILE_ROWS own query and key rows of x or dpre, and
+    the projections' three weight tiles or the input gradients' two; the
+    weight gradients' xᵀ of up to TILE_ROWS features by STEP_K steps and
+    dpre's STEP_K rows); in the query blocks, a block's own columns of xq
+    and g."""
+    hc = num_heads if rows else num_heads // cs
+    dhp = _r4(D // num_heads)
+    dcp, dc = hc * dhp, hc * (D // num_heads)
+    ldc, ldp = dcp + PAD, _r4(Tk) + PAD
+    main = (4 * dcp + 3 * _r4(Tq) * ldc + 4 * _r4(Tk) * ldc + _r4(qb * hc) + _r4(2 * qb)
+            + 2 * 4 * qb + _r4(2 * dc) + hc * qb * ldp)
+    nq, nk = (-(-Tq // cs), -(-Tk // cs)) if rows else (Tq, Tk)
+    nc, ldt = min(dcp, TILE_N), TILE_K + PAD
+    ra, rk, rw = (_r4(min(n, TILE_ROWS)) for n in (nq, nk, D))
+    buf = max((ra + rk) * ldt + 3 * TILE_K * (nc + PAD),    # the projections
+              (ra + rk) * ldt + 2 * nc * ldt,               # the input gradients
+              rw * (STEP_K + PAD) + STEP_K * (nc + PAD))    # the weight gradients
+    return main, max(2 * buf, 2 * qb * ldc)
 
 
 def _query_blocks(Tq: int):
@@ -293,38 +352,75 @@ def _tree(n: int):
     return slots, tickets
 
 
+def _bwd_plan(B, Tq, Tk, D, num_heads, replicas, mode, cs, clusters, qb, alias, smem, per_cta,
+              stage, work) -> BwdPlan:
+    dc = D if mode == ROWS else D // cs
+    slots, tickets = _tree(clusters * cs if mode == ROWS else clusters)
+    return BwdPlan(D // num_heads, cs, clusters, clusters * cs, replicas, THREADS, qb, mode,
+                   alias, smem, per_cta, stage, 3 * D * dc + 5 * dc, slots, tickets, work)
+
+
+def _stream_plans(B: int, Tq: int, Tk: int, D: int, num_heads: int, in_smem: bool):
+    """(key, mode, cs, qb, layout, stage, smem, clusters) of every streamed
+    geometry: the layout within a CTA's shared memory (`in_smem`) or in
+    device memory (the largest query block of up to 64 rows whose stage
+    fits shared memory; the clusters as many as WORK_CAP floats hold, at
+    least one; none past WORK_LIMIT a cluster).
+    The key orders them by the rows' share a CTA takes (1/cs within one
+    wave, B over the CTAs past it, so that no plan changes with B past every
+    geometry's wave), then HEADS before ROWS, larger clusters, larger
+    blocks."""
+    for mode in (HEADS, ROWS):
+        for cs in CLUSTER_SIZES:
+            if (mode == HEADS and num_heads % cs) or (mode == ROWS and cs == 1):
+                continue
+            own = -(-Tq // cs) if mode == ROWS else Tq
+            for qb in _query_blocks(own):
+                main, stage = _stream_layout(Tq, Tk, D, num_heads, cs, qb, mode == ROWS)
+                smem = 4 * (main + stage) if in_smem else 4 * stage
+                if (smem > SMEM_LIMIT - STATIC_SMEM or
+                        (not in_smem and (qb > 64 or cs * main > WORK_LIMIT))):
+                    continue
+                # one CTA an SM: the streamed kernel takes up to 255 registers a thread
+                clusters = min(B, ACTIVE_CLUSTERS[cs, 1])
+                if not in_smem:
+                    clusters = min(clusters, max(1, WORK_CAP // (cs * main)))
+                # a row's share a CTA: 1/cs within one wave, the CTAs' share of B past it
+                share = fractions.Fraction(1 if B <= clusters else B, cs * (1 if B <= clusters else clusters))
+                yield (share, mode, -cs, -qb), mode, cs, qb, main, stage, smem, clusters
+                if not in_smem:  # in device memory the largest block that fits will do
+                    break
+
+
 @functools.lru_cache(maxsize=512)
 def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
                   replicas: int = 1, self_attention: bool = False) -> BwdPlan:
     """The geometry of K3b for queries [B, Tq, D] and keys [B, Tk, D] in
     `num_heads` heads (`self_attention`: keys is queries, one copy of x),
-    for each of `replicas` replicas.  Among the cluster sizes that divide
-    the heads (with columns on 16-byte boundaries) and the query blocks
-    whose layout fits a CTA's shared memory: the largest cluster whose
-    clusters hold the B rows in one wave (ACTIVE_CLUSTERS at the CTAs an SM
-    holds), else the one with the most CTAs resident; then the fewest query
-    blocks.  The grid is that
-    wave, at most B clusters, so the scratch does not grow with B.  Where
-    nothing fits, one CTA a row (132 at most) with its layout in device
-    memory.  It depends on the shape alone, so two calls agree bit for bit,
-    and a replica's CTAs are those of its own launch.  Raises ValueError for
-    what the kernel refuses, which K3 refuses too."""
+    for each of `replicas` replicas.  The resident design where its layout
+    fits (D a multiple of 4): among the cluster sizes that divide the heads
+    (with columns on 16-byte boundaries) and the query blocks whose layout
+    fits a CTA's shared memory, the largest cluster whose clusters hold the
+    B rows in one wave (ACTIVE_CLUSTERS at the CTAs an SM holds), else the
+    one with the most CTAs resident; then the fewest query blocks.  Else
+    the streamed design (`_stream_plans`), in shared memory where some
+    geometry fits, else in device memory.  The grid is that wave, at most B
+    clusters, so the scratch does not grow with B.  It depends on the shape
+    alone, so two calls agree bit for bit, and a replica's CTAs are those of
+    its own launch.  Raises ValueError for no rows, heads that do not divide
+    D and a layout past WORK_LIMIT floats a cluster at every geometry."""
     if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or replicas < 1 or D % num_heads:
         raise ValueError(
             f"K3b needs B, Tq, Tk, replicas >= 1 and D % num_heads == 0; got "
             f"B={B}, Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}, "
             f"replicas={replicas}")
-    dh = D // num_heads
-    if D > WIDE_MAX_D or D % 4:
-        raise ValueError(
-            f"K3b takes D of at most {WIDE_MAX_D} and a multiple of 4; got D={D}")
     alias = bool(self_attention) and Tq == Tk
     best = None
-    for cs in CLUSTER_SIZES:
+    for cs in CLUSTER_SIZES if D % 4 == 0 else ():
         if num_heads % cs or (D // cs) % 4:
             continue
         for qb in _query_blocks(Tq):
-            floats = _bwd_layout(Tq, Tk, D, num_heads, cs, qb, X_REGION, alias)
+            floats = _bwd_layout(Tq, Tk, D, num_heads, cs, qb, alias)
             if 4 * floats > SMEM_LIMIT - STATIC_SMEM:
                 continue
             active = ACTIVE_CLUSTERS[cs, ctas_per_sm(4 * floats)]
@@ -332,18 +428,19 @@ def backward_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
             key = (wave, cs if wave else cs * active, qb)
             if best is None or key > best[0]:
                 best = key, cs, qb, floats, active
-    if best is None:
-        cs, xmode, qb = 1, X_GLOBAL, min(Tq, 64)
-        floats = _bwd_layout(Tq, Tk, D, num_heads, cs, qb, xmode, alias)
-        clusters, smem = min(B, SMS), 0
-    else:
+    if best is not None:
         _, cs, qb, floats, active = best
-        xmode, clusters, smem = X_REGION, min(B, active), 4 * floats
-    slots, tickets = _tree(clusters)
-    dc = D // cs
-    return BwdPlan(dh, cs, clusters, clusters * cs, replicas, THREADS, qb, xmode, alias,
-                   smem, floats, 3 * D * dc + 5 * dc, slots, tickets,
-                   0 if smem else clusters * floats)
+        return _bwd_plan(B, Tq, Tk, D, num_heads, replicas, RESIDENT, cs, min(B, active), qb,
+                         alias, 4 * floats, floats, 0, 0)
+    for in_smem in (True, False):
+        plans = list(_stream_plans(B, Tq, Tk, D, num_heads, in_smem))
+        if plans:
+            _, mode, cs, qb, main, stage, smem, clusters = min(plans, key=lambda p: p[0])
+            return _bwd_plan(B, Tq, Tk, D, num_heads, replicas, mode, cs, clusters, qb, alias,
+                             smem, main, stage, 0 if in_smem else clusters * cs * main)
+    raise ValueError(
+        f"K3b's layout at (Tq, Tk, D, H) = ({Tq}, {Tk}, {D}, {num_heads}) takes more "
+        f"than {WORK_LIMIT} floats of device memory a cluster at every cluster size")
 
 
 def _library() -> ctypes.CDLL:
@@ -369,10 +466,10 @@ def _bwd_library() -> ctypes.CDLL:
     lib = build.load(BWD_SOURCE)
     if lib.mha_bwd_launch.argtypes is None:
         lib.mha_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 17
+            [ctypes.c_void_p] * 27 + [ctypes.c_int] * 18
             + [ctypes.c_float, ctypes.c_void_p])
         lib.mha_bwd_launch.restype = ctypes.c_int
-        lib.mha_bwd_layout_floats.argtypes = [ctypes.c_int] * 9
+        lib.mha_bwd_layout_floats.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.mha_bwd_layout_floats.restype = ctypes.c_int
         lib.mha_bwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
                                                 ctypes.c_void_p]
@@ -385,8 +482,9 @@ def _bwd_library() -> ctypes.CDLL:
 def _check_inputs(fn: str, queries, keys, q_len, k_len, weights, num_heads,
                   keep_mask=None, keep=1.0, g=None):
     """One pass over the tensors, the dropout mask and K3b's incoming
-    gradient `g` among them: device, dtype, shape, contiguity, and the
-    16-byte alignment of the float rows the kernels read as float4.
+    gradient `g` among them: device, dtype, shape, contiguity, and, for D
+    a multiple of 4, the 16-byte alignment of the float rows the kernels
+    read as float4 (they read rows of any other D one float at a time).
     Returns (lead, B, Tq, Tk, D), `lead` () for one replica or (R,) for a
     replica axis that every tensor leads with."""
     if queries.device.type != "cuda":
@@ -415,7 +513,7 @@ def _check_inputs(fn: str, queries, keys, q_len, k_len, weights, num_heads,
                 or not t.is_contiguous()):
             check_tensor(fn, name, t, dtype, shape, queries.device)
         # K3b reads g a float at a time; every other float row goes as float4
-        if dtype is _F32 and name != "g" and t.data_ptr() % 16:
+        if dtype is _F32 and name != "g" and D % 4 == 0 and t.data_ptr() % 16:
             raise ValueError(f"{fn}: {name} must start on a 16-byte boundary")
     return lead, B, Tq, Tk, D
 
@@ -478,10 +576,10 @@ def _fwd_work(queries: torch.Tensor, plan: Plan):
 
 def _bwd_scratch(queries: torch.Tensor, plan: BwdPlan):
     """queries' device's K3b scratch, grown to the plan's size: (slots,
-    tickets, workspace or None), a tree a replica and rank and a workspace
-    a replica.  The kernel leaves every ticket at 0 again."""
+    tickets, workspace or None), a tree a replica and tree, a workspace a
+    replica.  The kernel leaves every ticket at 0 again."""
     index = queries.get_device()
-    trees = plan.replicas * plan.cs
+    trees = plan.replicas * plan.trees
     need = (trees * plan.slots * plan.weights, trees * plan.tickets,
             plan.replicas * plan.work)
     have = list(_scratch.get(index, (None, None, None)))
@@ -528,9 +626,9 @@ def mha_backward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
         None if keep_mask is None else keep_mask.data_ptr(),
         d_queries.data_ptr(), d_keys.data_ptr(), *(t.data_ptr() for t in grads),
         slots.data_ptr(), tickets.data_ptr(), None if work is None else work.data_ptr(),
-        Tq, Tk, D, num_heads, plan.dh, B, plan.cs, plan.clusters, R, plan.qb, plan.xmode,
-        int(plan.alias), plan.slots, plan.tickets, plan.per_cta, plan.threads, plan.smem,
-        keep, stream))
+        Tq, Tk, D, num_heads, plan.dh, B, plan.cs, plan.clusters, R, plan.qb,
+        plan.mode, int(plan.alias), plan.slots, plan.tickets, plan.per_cta, plan.stage,
+        plan.threads, plan.smem, keep, stream))
     if err != 0:
         raise RuntimeError(
             f"mha_bwd launch failed ({plan.clusters} x {R} clusters of {plan.cs}, "

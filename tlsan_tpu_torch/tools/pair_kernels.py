@@ -14,7 +14,11 @@ at B=32 for the (96, 96) self-attention and the (1, 96) readout and at
 B=512 and 2048 for (96, 96), the inputs those of ``chip_smoke.py``'s
 kernel phase; ``widths`` K1, K2, K3 and K3b at B=32 at the reference
 widths (D=64, H=8: S=10 and 25, (96, 96) and (1, 96)) and at shapes of the
-width grid (heads of 64 and 128 features, D=256 and 512), each with a
+width grid (heads of 64 and 128 features; (96, 96) at D=128 in 2 heads, D=256
+and 512 in 8, the (1, 96) readout at D=512 and (128, 128) at D=512 in one head
+at B=8) and past the old limits (K1 and K2 at D=1024 in one head; K3 and K3b
+at D=1024 in 8 heads at B=8, D=50 in 5 heads and the readout over 300 keys),
+each with a
 digest of its outputs (SHA-256 of their bytes), per-call and device time,
 or "refused" where the checkout's plans refuse the shape, so that two
 checkouts' outputs can be held bit for bit; ``all`` K1, K2 and K3.  Its ``kernel fwa_*`` or ``kernel
@@ -99,7 +103,8 @@ def turn(tag, kernel, run):
     print(f"kernel widths {tag}: digest={h.hexdigest()[:16]} kernel_ms={ms:.6f} "
           f"device_ms={c._device_ms(run, kernel, calls=20)}", flush=True)
 
-for B, S, d, h in ((32, 10, 64, 8), (32, 25, 64, 8), (32, 10, 64, 1), (32, 25, 128, 1)):
+for B, S, d, h in ((32, 10, 64, 8), (32, 25, 64, 8), (32, 10, 64, 1), (32, 25, 128, 1),
+                   (32, 10, 1024, 1)):
     x, l, w1, b1, w2, b2 = c._fwa_inputs(B, S, c.SEED + 60, d, h)
     g = torch.from_numpy(np.random.default_rng(c.SEED + 61).normal(
         size=(B, d)).astype(np.float32)).cuda()
@@ -108,8 +113,11 @@ for B, S, d, h in ((32, 10, 64, 8), (32, 25, 64, 8), (32, 10, 64, 1), (32, 25, 1
     turn(f"fwa_bwd {shape}", "fwa_bwd",
          lambda: cf.fwa_backward(x, l, h, w1, b1, w2, b2, g))
 for B, Tq, Tk, d, h, sa in ((32, 96, 96, 64, 8, True), (32, 1, 96, 64, 8, False),
-                            (32, 96, 96, 64, 1, True), (32, 96, 96, 256, 8, True),
-                            (32, 96, 96, 512, 8, True)):
+                            (32, 96, 96, 64, 1, True), (32, 96, 96, 128, 2, True),
+                            (32, 96, 96, 256, 8, True), (32, 96, 96, 512, 8, True),
+                            (32, 1, 96, 512, 8, False), (8, 128, 128, 512, 1, True),
+                            (8, 96, 96, 1024, 8, True), (32, 96, 96, 50, 5, True),
+                            (32, 1, 300, 64, 8, False)):
     q, k, ql, kl, w = c._mha_inputs(B, Tq, Tk, sa, c.SEED + 70, d)
     ws = [w[n] * (64.0 / d) ** 0.5 if n.startswith("w") else w[n] for n in cm.WEIGHTS]
     g = torch.from_numpy(np.random.default_rng(c.SEED + 71).normal(
