@@ -61,8 +61,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              heads of 128 features and more and D past 256; K2 and K3b to
              their error scales), at R=2 against single launches bit for
              bit, FWAFunction and MHAFunction against autograd, 201 calls
-             equal at one train shape, per-call, device and plain times at
-             two shapes a kernel (K3b four) beside the bound.  After the
+             equal at each timed shape, per-call, device and plain times at
+             five shapes (K1, K2), two (K3) or four (K3b) beside the bound
+             (a wide K1's or K2's launches summed into one call).  After the
              families' phases, seven configurations at the Electronics
              catalog (ATRank num_heads=1; hidden_units=256, 512 and 1024
              in 8 heads with item and category embeddings of half that;
@@ -72,7 +73,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
              of batch 32, a bulk recommend of 4,000 users (launches exact,
              512 users as the CPU serves them), 20 steps against the CPU
              (PARITY_TOL; lr 0.1 for TLSAN, 0.01 for ATRank, 0.001 at D =
-             1024); in the cli
+             1024), a profiled chunk of ATRank at D = 512 and TLSAN at
+             D = 1024 (the attention kernels' device shares); in the cli
              phase train.cli --model atrank --num_heads 1 for one epoch at
              batch 128 on the Digital-Music fixture, K3 and K3b counted
              exactly;
@@ -558,16 +560,19 @@ def _variants(report: str, name: str) -> dict:
     variant of `name`'s kernel, by its template arguments ((DH, DROP) for
     K3 and K3b, (DH, ONE, DROP) for K1 and K2), and of its wide variant (a
     kernel `name`_wide_kernel, or K3b's WIDE argument) as ("wide", DROP),
-    K3b's streamed ones as ("stream", DROP) and ("stream_wide", DROP); a
+    K3b's streamed ones as ("stream", DROP) and ("stream_wide", DROP); K1's
+    and K2's wide variants are several kernels `name`_wide_<phase>_kernel,
+    each ("wide_<phase>", DROP), DROP -1 where the phase has one variant; a
     variant whose report does not parse is missing."""
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(rf"{name}_kernelI((?:L[ib]\d+E)+)E", line)
-        w = re.search(rf"{name}_wide_kernelILb([01])E", line)
+        w = re.search(rf"{name}_wide_(?:([a-z0-9]+(?:_[a-z0-9]+)*?)_)?kernel(ILb([01])E)?", line)
         if not (m or w) or "Function properties for" not in line or i + 2 >= len(lines):
             continue
         if w:
-            key = ("wide", int(w.group(1)))
+            phase = "wide" + (f"_{w.group(1)}" if w.group(1) else "")
+            key = (phase, int(w.group(3)) if w.group(2) else -1)
         else:
             key = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1)))
             if name == cuda_mha.BWD_SOURCE:  # (DH, DROP, WIDE, STREAM)
@@ -605,7 +610,7 @@ def phase_build() -> None:
             log(f"build: {name} variant {key} (dh or 'wide', ..., dropout): {regs} "
                 f"registers, {stores} bytes spill stores, {loads} bytes spill loads")
         for drop in (0, 1):
-            if ("wide", drop) not in variants:
+            if not any(str(k[0]).startswith("wide") and k[1] == drop for k in variants):
                 raise AssertionError(f"{name}: no report of its wide variant "
                                      f"(dropout={bool(drop)})")
         for drop in drops:
@@ -3630,10 +3635,12 @@ def check_http(line: dict, card: str, catalog: int) -> None:
 # model's initialisation scales them, so that every width sees scores of
 # the same spread.
 # the shapes whose times go to the kernels line and PERF.md (K1/K2 at heads
-# of 1024 features; K3b's streamed design at four shapes, among them D = 256
-# and the D = 512 readout)
-WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 10, 1024, 1)],
-                "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 10, 1024, 1)],
+# of 64, 128 and 1024 features, both towers' S at 1024; K3b's streamed
+# design at four shapes, among them D = 256 and the D = 512 readout)
+WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 25, 128, 1),
+                            (32, 10, 1024, 1), (32, 25, 1024, 1)],
+                "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 25, 128, 1),
+                            (32, 10, 1024, 1), (32, 25, 1024, 1)],
                 "mha_fwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)],
                 "mha_bwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8), (32, 96, 96, 256, 8),
                             (32, 1, 96, 512, 8)]}
@@ -3704,7 +3711,7 @@ def phase_widths_fwa() -> tuple:
         fargs = (x, lengths, h, w1, b1, w2, b2)
         what = _fwa_tag("fwa_fwd", B, S, d, h)
         plan, bplan = cuda_fwa.launch_plan(B, S, d, h), cuda_fwa.launch_plan(B, S, d, h, True)
-        variants.add(bool(plan.chunk))
+        variants.add(plan.wide)
         gen = torch.Generator(device="cuda").manual_seed(SEED + 400 + i)
         shape = (B, S, h, dh)
         masks = tuple(torch.rand(shape, generator=gen, device="cuda") < 1.0 - DROPOUT
@@ -3755,8 +3762,14 @@ def phase_widths_fwa() -> tuple:
             err = float((rep[r] - feature_wise_attention_reference(*one)).abs().max())
             if not err <= _wide_tol(dh, d, rep[r]):
                 raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} off by {err:.3e}")
-        mapping = f"wide, chunks of {plan.chunk}" if plan.chunk else "warp a unit"
-        msg = (f"widths {what}: plan {mapping} (K2 grid {bplan.grid}, smem {bplan.smem}): "
+        if plan.wide:
+            k1 = ("K1 fused, a CTA a batch row" if plan.fused else
+                  f"K1 tiled, {plan.grid} tiles a product in {plan.passes} pass(es)")
+            mapping = (f"wide: {k1}; K2 tiled, {bplan.grid} tiles a product, its weight "
+                       f"gradients in {bplan.splits} split(s)")
+        else:
+            mapping = f"warp a unit (K2 grid {bplan.grid}, smem {bplan.smem})"
+        msg = (f"widths {what}: plan {mapping}: "
                f"plain, dropout, R={WIDTHS_R} "
                f"and FWAFunction agree; max abs err K1 {worst['fwa_fwd']:.3e} K2 "
                f"{worst['fwa_bwd']:.3e} (so far)")
@@ -3767,12 +3780,12 @@ def phase_widths_fwa() -> tuple:
                     + _widths_time(rows["fwa_fwd"], "fwa_fwd",
                                    lambda: cuda_fwa.fwa_forward(*fargs),
                                    lambda: feature_wise_attention_reference(*fargs),
-                                   fwa_bound(B, S, d, h), "fwa_fwd_wide_kernel")
+                                   fwa_bound(B, S, d, h), "fwa_fwd_wide")
                     + "; K2 "
                     + _widths_time(rows["fwa_bwd"], "fwa_bwd",
                                    lambda: cuda_fwa.fwa_backward(*fargs, g),
                                    lambda: fwa_backward_reference(*fargs, g),
-                                   fwa_bwd_bound(B, S, d, h), "fwa_bwd_wide_kernel"))
+                                   fwa_bwd_bound(B, S, d, h), "fwa_bwd_wide"))
         log(msg)
     if variants != {True, False}:
         raise AssertionError(f"widths: the FWA shapes ran the variants {variants}")
@@ -3891,8 +3904,13 @@ WIDTHS_CONFIGS = [("atrank", dict(num_heads=1)),
                   ("tlsan", dict(itemid_embedding_size=512, cateid_embedding_size=512,
                                  userid_embedding_size=512, hidden_units=1024,
                                  num_heads=1))]
-# the configuration whose chunk is profiled: K3's and K3b's device share
-WIDTHS_PROFILED = ("atrank", 512)
+# the configurations whose chunk is profiled: K3's and K3b's device share
+# (ATRank), K1's and K2's (TLSAN)
+WIDTHS_PROFILED = (("atrank", 512), ("tlsan", 1024))
+# the kernels whose device share a profiled chunk logs: (name, substring of
+# their device functions' names)
+WIDTHS_SHARES = {"atrank": (("K3", "mha_fwd"), ("K3b", "mha_bwd_kernel")),
+                 "tlsan": (("K1", "fwa_fwd"), ("K2", "fwa_bwd"))}
 WIDTHS_PARITY_LR = {"tlsan": 0.1, "atrank": 0.01}  # the ReLU-kink rule (ROADMAP §3)
 # From it on, ATRank's 20 steps at WIDTHS_PARITY_LR are held against the
 # card's own plain backward, a step's gradients at a time (`_card_plain_
@@ -3962,20 +3980,20 @@ def _card_plain_parity(tmp: str, fam: Family, cfg, tc, data, idx, tag: str) -> f
     return worst
 
 
-def _attention_share(trace: str) -> str:
+def _attention_share(trace: str, name: str) -> str:
     """The device time of a Trainer.profile_trace chunk (its Chrome trace's
-    kernel events) and K3's and K3b's shares of it."""
+    kernel events) and the shares of family `name`'s attention kernels
+    (WIDTHS_SHARES) in it."""
     with open(trace) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("cat") == "kernel" and "dur" in e]
     if not events:
         raise AssertionError(f"{trace}: no device kernel in the trace")
     total = sum(e["dur"] for e in events)
-    parts = {k: sum(e["dur"] for e in events if k in e["name"])
-             for k in ("mha_fwd", "mha_bwd_kernel")}
-    return (f"{len(events)} kernels, {total / 1e3:.3f} ms on the device; K3 "
-            f"{parts['mha_fwd'] / 1e3:.3f} ms ({parts['mha_fwd'] / total:.3f}), K3b "
-            f"{parts['mha_bwd_kernel'] / 1e3:.3f} ms ({parts['mha_bwd_kernel'] / total:.3f})")
+    parts = [(k, sum(e["dur"] for e in events if sub in e["name"]))
+             for k, sub in WIDTHS_SHARES[name]]
+    return (f"{len(events)} kernels, {total / 1e3:.3f} ms on the device; "
+            + ", ".join(f"{k} {us / 1e3:.3f} ms ({us / total:.3f})" for k, us in parts))
 
 
 def phase_widths_models(card: str) -> list:
@@ -4017,13 +4035,14 @@ def phase_widths_models(card: str) -> list:
                                 f"{tag}: a chunk")
             if not bool(torch.isfinite(losses).all()):
                 raise AssertionError(f"{tag}: non-finite losses {losses}")
-            profiled = ""
-            if (name, cfg.hidden_units) == WIDTHS_PROFILED:
+            profiled, laps = "", {"train": time.perf_counter() - t0}
+            if (name, cfg.hidden_units) in WIDTHS_PROFILED:
                 trainer.profile_trace(1, out_dir=os.path.join(tmp, "profile"))
                 n = expect_launches(n, _times(fam.per_step, STEPS_PER_CALL),
                                     f"{tag}: the profiled chunk")
                 profiled = "; profiled chunk: " + _attention_share(
-                    os.path.join(tmp, "profile", "trace.json"))
+                    os.path.join(tmp, "profile", "trace.json"), name)
+                laps["profile"] = time.perf_counter() - t0 - sum(laps.values())
             checkpoint.save(tmp, name, STEPS_PER_CALL, trainer.model, None, cfg, best=True)
             trainer.close()
             bulk = featurize_many(name, cfg, fam.requests(np.random.default_rng(SEED),
@@ -4041,6 +4060,7 @@ def phase_widths_models(card: str) -> list:
                                                  batch_size=BATCH, k=K)
             want_ids, want_scores = cpu_rec.recommend({k: v[:m] for k, v in bulk.items()})
             assert_topk_match(want_ids, want_scores, ids[:m], scores[:m], SCORE_TOL)
+            laps["serve"] = time.perf_counter() - t0 - sum(laps.values())
             # PARITY_STEPS steps on the card and on the CPU from one start
             worst = _cpu_parity(tmp, fam, cfg, dataclasses.replace(
                 tc, learning_rate=_widths_parity_lr(name, cfg)), (cate_list, train, test),
@@ -4062,7 +4082,9 @@ def phase_widths_models(card: str) -> list:
             f"the first and last 10); {BULK_USERS} users served, the first {m} as the CPU "
             f"serves them; {PARITY_STEPS} steps at lr {_widths_parity_lr(name, cfg)} within "
             f"{worst:.3e} of the CPU{card_plain}; launches {n}; in "
-            f"{time.perf_counter() - t0:.1f} s; "
+            f"{time.perf_counter() - t0:.1f} s ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+            + f", parity {time.perf_counter() - t0 - sum(laps.values()):.1f}); "
             f"{plans}{profiled}")
     return runs
 

@@ -4,8 +4,14 @@ a warp's worth of steps and one past it, two warps' worth, and heads of 8,
 16 and 32 features.  The port's plain versions (what a CPU tensor runs, and
 K1's and K2's oracles on the card) against the JAX package's reference and
 jax.vjp, on the same numpy-seeded inputs, with lengths 0, 1, S and S + 3.
-Also: the kernels' launch plan, which the CPU can hold, and the build
+Also: the kernels' launch plan, which the CPU can hold (the wide
+variant's passes and weight-gradient splits among it), the launch
+functions' ctypes declarations against the C sources, and the build
 cache's key."""
+
+import ctypes
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -114,34 +120,122 @@ def test_launch_plan_fits_the_card_at_every_s(backward):
     assert one.grid == 1 and one.tickets == 0
 
 
+def check_wide_plan(plan, B, S, D, H, backward):
+    """The invariants of a wide plan (ops/cuda/fwa.py::_wide_plan), either
+    path.  Fused (K1 alone): a CTA a batch row, its m1_in and m2 in shared
+    memory.  Tiled: passes of
+    whole batch rows (a pass holds every step of its units, for the
+    softmax over time) as large as the scratch's bound allows; K2's splits
+    take every row of a full pass once, none empty, each a whole number of
+    staged slices, and only as many as keep the tiles near WIDE_TARGET."""
+    dh, arrays = D // H, 4 if backward else 2
+    assert plan.wide and plan.dh == dh > cuda_fwa.MAX_HEAD_WIDTH
+    assert plan.threads == (cuda_fwa.WIDE_FUSE_THREADS if plan.fused else cuda_fwa.WIDE_THREADS)
+    assert plan.smem <= cuda_fwa.SMEM_LIMIT
+    assert 1 <= plan.rows <= B
+    entries = 2 * (dh + 1) * dh
+    fuse = dh <= cuda_fwa.WIDE_FUSE_DH and S * H <= cuda_fwa.WIDE_FUSE_ROWS
+    assert plan.fused == (fuse and not backward)
+    if plan.fused:
+        assert plan.rows == plan.passes == 1 and plan.grid == B and plan.scratch == 0
+        assert plan.smem == cuda_fwa.WIDE_SMEM + 4 * arrays * S * H * dh
+        assert plan.smem <= 48 * 1024  # static-sized: the launch needs no opt-in
+        return
+    assert plan.smem == cuda_fwa.WIDE_SMEM and plan.passes == -(-B // plan.rows)
+    steps = plan.rows * S * H
+    assert plan.grid == cuda_fwa.wide_product_tiles(steps, dh)
+    assert plan.grid == -(-steps // cuda_fwa.WIDE_BM) * -(-dh // cuda_fwa.WIDE_BN)
+    if plan.rows > 1:  # a pass is as large as the scratch's bound allows
+        assert arrays * steps * dh <= cuda_fwa.WIDE_SCRATCH_FLOATS
+    assert plan.rows == B or arrays * (plan.rows + 1) * S * H * dh > \
+        cuda_fwa.WIDE_SCRATCH_FLOATS
+    if not backward:
+        assert plan.scratch == arrays * steps * dh
+        return
+    assert plan.split_rows % cuda_fwa.WIDE_BK == 0
+    assert (plan.splits - 1) * plan.split_rows < steps <= plan.splits * plan.split_rows
+    assert plan.scratch == arrays * steps * dh + (plan.splits * entries if plan.splits > 1 else 0)
+    if plan.splits > 1:  # split only as far as the tiles stay few
+        assert cuda_fwa.wide_weight_tiles(dh) * (plan.splits - 1) < cuda_fwa.WIDE_TARGET
+
+
 @pytest.mark.parametrize("D,H,limit", [
     (96, 2, None), (128, 2, None), (64, 1, None),  # dh 48 and 64: the wide variant
-    (1024, 1, None), (1032, 2, None),  # past 512 features: a thread takes several
-    (16384, 1, "do not fit"),  # one step past a block's shared memory
+    (1024, 1, None), (1032, 2, None),  # past 512 features
+    (16384, 1, None),  # past what one step in a block's shared memory allowed
     (64, 6, "D % num_heads"),
 ])
 def test_launch_plan_refuses_heads_above_the_limit(D, H, limit):
     """Heads past the warp-a-unit variants' 32 features take the wide
-    variant, one block a unit, within a block's shared memory; only heads
-    of which not even one step fits it (and heads that do not divide D)
-    are refused."""
+    variant, tiled products whose shared memory does not grow with the
+    head (or, for narrow heads, whole batch rows a CTA); only heads that
+    do not divide D are refused."""
     for backward in (False, True):
         if limit is not None:
             with pytest.raises(ValueError, match=limit):
                 cuda_fwa.launch_plan(4, 10, D, H, backward)
             continue
         plan = cuda_fwa.launch_plan(4, 10, D, H, backward)
-        assert plan.dh == D // H > cuda_fwa.MAX_HEAD_WIDTH
-        assert plan.chunk == 10 and plan.threads == cuda_fwa.WIDE_THREADS
-        assert 0 < plan.smem <= cuda_fwa.SMEM_LIMIT - 64
-        assert plan.grid == (min(4 * H, cuda_fwa.WIDE_BLOCKS) if backward else 4 * H)
+        check_wide_plan(plan, 4, 10, D, H, backward)
     with pytest.raises(ValueError, match="B, S, replicas >= 1"):
         cuda_fwa.launch_plan(0, 10, 64, 1)
+
+
+@pytest.mark.parametrize("B,S,D,H", [(32, 10, 64, 1), (128, 25, 128, 2), (37, 40, 64, 1),
+                                     (4, 301, 96, 2), (32, 25, 1024, 1), (8192, 25, 1024, 1),
+                                     (3, 100000, 64, 1), (8192, 10, 128, 1)])
+def test_wide_plan_covers_every_row(B, S, D, H):
+    """The wide plans at both towers' and longer S, small and large
+    batches: K1 fused where heads are narrow and batch rows short, tiled
+    elsewhere, K2 tiled, each path's invariants."""
+    for backward in (False, True):
+        plan = cuda_fwa.launch_plan(B, S, D, H, backward)
+        check_wide_plan(plan, B, S, D, H, backward)
 
 
 def test_widest_head_fits_shared_memory():
     plan = cuda_fwa.launch_plan(37, 40, 128, 4, True)  # dh = 32
     assert plan.dh == cuda_fwa.MAX_HEAD_WIDTH and plan.smem <= cuda_fwa.SMEM_LIMIT
+
+
+def _c_params(source: str, fn: str):
+    """The ctypes types of the parameters of `fn` in csrc/`source`.cu."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    params = re.search(rf"\bint {fn}\(([^)]*)\)", text).group(1).split(",")
+    out = []
+    for p in params:
+        words = p.split()[:-1]  # the type without the name
+        if "*" in p:
+            out.append(ctypes.c_void_p)
+        else:
+            out.append({"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                        "float": ctypes.c_float}[" ".join(words)])
+    return out
+
+
+@pytest.mark.parametrize("source,fn", [
+    (cuda_fwa.SOURCE, "fwa_fwd_launch"), (cuda_fwa.SOURCE, "fwa_fwd_wide_launch"),
+    (cuda_fwa.BWD_SOURCE, "fwa_bwd_launch"), (cuda_fwa.BWD_SOURCE, "fwa_bwd_wide_launch")])
+def test_launch_signatures_match_the_sources(source, fn, monkeypatch):
+    """The wrappers' ctypes declarations of K1's and K2's launch functions
+    (pointers as c_void_p: ctypes would cut them to 32 bits otherwise)
+    agree with the C sources parameter by parameter, and the wide
+    variants' tile constants with those of csrc/fwa_wide.cuh."""
+    names = ("fwa_fwd_launch", "fwa_fwd_wide_launch", "fwa_empty_launch", "fwa_error_string",
+             "fwa_bwd_launch", "fwa_bwd_wide_launch", "fwa_bwd_error_string")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace(argtypes=None, restype=None)
+                                   for n in names})
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    (cuda_fwa._library if source == cuda_fwa.SOURCE else cuda_fwa._bwd_library)()
+    assert list(getattr(lib, fn).argtypes) == _c_params(source, fn)
+    assert getattr(lib, fn).restype is ctypes.c_int
+    header = (build.CSRC / "fwa_wide.cuh").read_text()
+    for name, value in (("kWideBM", cuda_fwa.WIDE_BM), ("kWideBN", cuda_fwa.WIDE_BN),
+                        ("kWideBK", cuda_fwa.WIDE_BK), ("kWideThreads", cuda_fwa.WIDE_THREADS),
+                        ("kWideRowThreads", cuda_fwa.WIDE_FUSE_THREADS),
+                        ("kWideFuseDh", cuda_fwa.WIDE_FUSE_DH),
+                        ("kWideFuseRows", cuda_fwa.WIDE_FUSE_ROWS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", header).group(1)) == value
 
 
 def test_library_path_covers_the_headers(tmp_path, monkeypatch):

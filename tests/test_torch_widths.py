@@ -29,6 +29,7 @@ them D = 1024 in 8 heads and in one, and D = 50 (not a multiple of 4) in
     for one epoch over a seeded SNAP dump (tools/snap_fixture.py).
 """
 
+import dataclasses
 import gzip
 import json
 import os
@@ -41,6 +42,7 @@ import torch
 
 from tests.test_torch_atrank import _batch as atrank_batch
 from tests.test_torch_atrank import _cate_list as atrank_cate_list
+from tests.test_torch_fwa_shapes import check_wide_plan
 from tests.test_torch_mha_bwd import _check_bwd_plan
 from tests.test_torch_train import _batch as tlsan_batch
 from tests.test_torch_train import _tree_items
@@ -59,7 +61,7 @@ from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
 from tlsan_tpu_torch.ops.cuda.common import SMEM_LIMIT
 from tlsan_tpu_torch.tools.params import grads_to_numpy, params_from_numpy, params_to_numpy
 from tlsan_tpu_torch.tools.snap_fixture import write_snap_fixture
-from tlsan_tpu_torch.tools.widths import WIDTHS_MHA
+from tlsan_tpu_torch.tools.widths import WIDTHS_FWA, WIDTHS_MHA
 from tlsan_tpu_torch.train import cli
 
 TOL = 1e-5
@@ -104,10 +106,9 @@ def test_every_kernel_plans_every_width(D, H):
                     plan = cuda_fwa.launch_plan(B, S, D, H, backward, replicas)
                     assert plan.dh == dh and plan.units == B * H
                     assert plan.smem <= SMEM_LIMIT - 64 and plan.threads <= 1024
-                    assert bool(plan.chunk) == (dh > cuda_fwa.MAX_HEAD_WIDTH)
-                    if plan.chunk:
-                        assert 1 <= plan.chunk <= min(S, cuda_fwa.WIDE_CHUNK)
-                        assert 1 <= plan.grid <= B * H
+                    assert plan.wide == (dh > cuda_fwa.MAX_HEAD_WIDTH)
+                    if plan.wide:
+                        check_wide_plan(plan, B, S, D, H, backward)
         for Tq, Tk, sa in ((128, 128, True), (96, 96, True), (1, 96, False),
                            (1, 256, False), (7, 250, False), (600, 17, False)):
             for rows in (B, R * B):
@@ -136,10 +137,10 @@ def test_reference_widths_keep_their_plans():
     for B in (16, 32, 64, 128, 8192):
         for S in (10, 25):
             for backward in (False, True):
-                assert not cuda_fwa.launch_plan(B, S, 64, 8, backward).chunk
+                assert not cuda_fwa.launch_plan(B, S, 64, 8, backward).wide
         for Tq, sa in ((96, True), (1, False)):
             assert not cuda_mha.launch_plan(B, Tq, 96, 64, 8, sa).wide
-    assert not cuda_fwa.launch_plan(32, 10, 1024, 32).chunk  # dh = 32 at any D
+    assert not cuda_fwa.launch_plan(32, 10, 1024, 32).wide  # dh = 32 at any D
     assert not cuda_mha.launch_plan(37, 17, 17, 128, 4).wide
 
 
@@ -169,6 +170,57 @@ def test_reference_widths_keep_the_parents_plans():
             assert plan.mode == cuda_mha.RESIDENT and plan.stage == 0 and plan.work == 0
             assert (plan.cs, plan.clusters, plan.qb, plan.smem, plan.per_cta, plan.weights,
                     plan.slots, plan.tickets) == bwd
+
+
+@pytest.mark.parametrize("B,S,D,H", WIDTHS_FWA)
+def test_fwa_plans_at_the_widths_shapes(B, S, D, H):
+    """At every shape of chip_smoke.py's widths phase, K1's and K2's plans
+    fit a block's shared memory and keep their scratch bounded (within
+    WIDE_SCRATCH_FLOATS but for the weight gradients' slots, or one batch
+    row's arrays where that is more); a replica's geometry is a single
+    launch's, R times the scratch; and the plan is a pure function of the
+    shape (the cached plan is the one computed anew)."""
+    dh = D // H
+    for backward in (False, True):
+        plan = cuda_fwa.launch_plan(B, S, D, H, backward)
+        assert plan.smem <= SMEM_LIMIT - 64 and plan.threads <= 1024
+        for reps in (R, R_MAX):
+            assert dataclasses.replace(cuda_fwa.launch_plan(B, S, D, H, backward, reps),
+                                       replicas=1) == plan
+        if not plan.wide:
+            continue
+        check_wide_plan(plan, B, S, D, H, backward)
+        assert plan == cuda_fwa._wide_plan(B, S, dh, H, backward, 1)
+        arrays = 0 if plan.fused else 4 if backward else 2
+        slots = 2 * plan.splits * (dh + 1) * dh if plan.splits > 1 else 0
+        assert plan.scratch - slots <= max(cuda_fwa.WIDE_SCRATCH_FLOATS, arrays * S * H * dh)
+        assert slots <= max(cuda_fwa.WIDE_SCRATCH_FLOATS,
+                            2 * cuda_fwa.WIDE_TARGET * cuda_fwa.WIDE_BM * cuda_fwa.WIDE_BN)
+
+
+@pytest.mark.parametrize("S", [10, 25])
+def test_fwa_wide_grids_fill_the_card_at_1024_features(S):
+    """TLSAN at --hidden_units 1024 --num_heads 1 (both towers' S at the
+    train batch): K1's and K2's products, and K2's dx and weight-gradient
+    launch, each take at least 128 SMs' worth of CTAs."""
+    for backward in (False, True):
+        plan = cuda_fwa.launch_plan(32, S, 1024, 1, backward)
+        assert plan.wide and plan.passes == 1 and plan.grid >= 128
+    plan = cuda_fwa.launch_plan(32, S, 1024, 1, True)
+    assert plan.grid + plan.splits * cuda_fwa.wide_weight_tiles(1024) >= 128
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_fwa_wide_plans_take_what_the_parent_took(backward):
+    """Every head the design before the tiles planned (up to 9,682
+    features for K1, 6,455 for K2, where one step filled a block's shared
+    memory) plans, and so do wider ones: a plan raises only for shapes
+    that are no batch of heads."""
+    widest = 9682 if backward is False else 6455
+    for dh in list(range(33, 300, 7)) + [511, 512, 513, 1024, 4097, widest, widest + 1, 20000]:
+        for B, S, H in ((1, 1, 1), (32, 10, 1), (7, 33, 3), (128, 25, 2)):
+            plan = cuda_fwa.launch_plan(B, S, dh * H, H, backward)
+            assert plan.wide and plan.smem <= SMEM_LIMIT and plan.grid >= 1
 
 
 @pytest.mark.parametrize("B,Tq,Tk,D,H", WIDTHS_MHA)

@@ -32,7 +32,9 @@
 // values stay live across the IEEE divisions, whose slow path is a call,
 // and the dh = 8 variant spills nothing.  For S > 32, lanes take steps
 // t, t + 32, ...: the statistics are passes that re-read x, and the
-// backward runs a chunk of 32 steps at a time.
+// backward runs a chunk of 32 steps at a time.  Heads of more than 32
+// features run the wide variant (fwa_wide.cuh and below: tiled products
+// over every step of the batch, the weight gradients a tile of entries).
 //
 // The weight gradients (2·dh² + 2·dh sums over every (b, t, h)) are summed
 // in a fixed order, without float atomics, so that two calls agree bit for
@@ -430,208 +432,73 @@ fwa_bwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   }
 }
 
-// slots summed together at each level of the wide variant's cross-block
-// tree: its slots are 2·dh² + 2·dh floats (2.1 MB at dh = 512), so the last
-// block of a group reads few of them; ops/cuda/fwa.py::launch_plan sizes
-// the scratch with the same number
-constexpr int kWideGroup = 4;
-
-// The wide variant (fwa_wide.cuh): heads of more than 32 features.  A block
-// of kWideThreads threads takes the units blockIdx.x, blockIdx.x + grid,
-// ... in turn (the grid bounded so that the slots stay small); for each it
-// takes the softmax statistics in three passes over the steps (max, sum,
-// Σ_t soft ⊙ ds), then the backward chunk by chunk: soft, dm2, dz1 =
-// (dm2 · W2ᵀ) ⊙ [m1 > 0], dx = soft ⊙ g + dz1 · W1ᵀ (the masks and keep
-// under dropout, as backward_step_drop applies them), and adds the chunk's
-// weight-gradient sums to the block's slot in device memory: the thread of
-// entry i adds Σ_t left · right over the chunk's steps in order, so the
-// block's sums run over its units and steps in order.  Then the slots go up
-// fwa_bwd_kernel's tree in groups of kWideGroup.  No float atomics: two
-// calls agree bit for bit.
+// The wide variant (fwa_wide.cuh): heads of more than 32 features, five
+// launches a pass over whole batch rows and one after the passes: the two
+// maps recomputed (tiled products over all of the pass's B·S·H steps, into
+// the scratch); the softmax backward of each (row, head, feature) column,
+// its steps split over a block's warps: soft and dm2 = soft ⊙ (ds − Σ_t soft ⊙ ds); dz1 = (dm2 · W2ᵀ) ⊙ [m1 > 0]; then
+// one launch of two kinds of tiles, dx = soft ⊙ g + dz1 · W1ᵀ (the masks
+// and keep under dropout, as backward_step_drop applies them) and the
+// weight-gradient sums over the rows of a split; last, where the rows are
+// split, the splits summed in order.  No float atomics: two calls agree bit
+// for bit.  Six [B·S·H, dh] × [dh, dh] products (two maps, dm1, dx, dW1,
+// dW2), 12·B·S·D·dh operations, bound it on the card: 4.0 GFLOP at B = 32,
+// S = 10, dh = 1024, 60 µs at the f32 peak; the tiles keep every SM on
+// them (fwa_wide.cuh).
 template <bool DROP>
 __global__ void __launch_bounds__(kWideThreads)
-fwa_bwd_wide_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    const float* __restrict__ g, float* __restrict__ dx,
-                    float* __restrict__ slots, unsigned* __restrict__ tickets,
-                    float* __restrict__ dw1, float* __restrict__ db1,
-                    float* __restrict__ dw2, float* __restrict__ db2,
-                    int units, int S, int D, int H, int dh, int C, int replica_slots,
-                    int replica_tickets, const std::uint8_t* __restrict__ k1,
-                    const std::uint8_t* __restrict__ k2, float keep) {
-  extern __shared__ float smem[];
-  __shared__ bool last;
-  {  // replica blockIdx.y's rows, weights, gradients and cross-block tree
-    const long long r = blockIdx.y, rows = units / H;
-    x += r * rows * S * D;
-    g += r * rows * D;
-    dx += r * rows * S * D;
-    if constexpr (DROP) k1 += r * rows * S * D, k2 += r * rows * S * D;
-    lengths += r * rows;
-    w1 += r * dh * dh;
-    w2 += r * dh * dh;
-    dw1 += r * dh * dh;
-    dw2 += r * dh * dh;
-    b1 += r * dh;
-    b2 += r * dh;
-    db1 += r * dh;
-    db2 += r * dh;
-    slots += r * replica_slots;
-    tickets += r * replica_tickets;
-  }
-  const int tid = threadIdx.x;
-  const int nn = dh * dh;
-  const int P = 2 * nn + 2 * dh;
-  float* X = smem;           // [C][dh] x, then x_in under dropout
-  float* A = X + C * dh;     // [C][dh] m2, then soft
-  float* M1 = A + C * dh;    // [C][dh] m1 (m1_in)
-  float* DM2 = M1 + C * dh;  // [C][dh] dm2
-  float* DZ1 = DM2 + C * dh; // [C][dh] dz1
-  float* mx = DZ1 + C * dh;  // [dh] each: the unit's statistics and g
-  float* sm = mx + dh;
-  float* sds = sm + dh;
-  float* gv = sds + dh;
-  float* slot = slots + static_cast<long long>(blockIdx.x) * P;
-  const bool one = S <= C;
+fwa_bwd_wide_map1_kernel(WideArgs a) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, true);
+  wide_map1<Tiled, DROP>(a, blockIdx.x, smem);
+}
 
-  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
-    const bool first_unit = unit == static_cast<int>(blockIdx.x);
-    const int b = unit / H;
-    const int h = unit - b * H;
-    const long long base = static_cast<long long>(b) * S * D + static_cast<long long>(h) * dh;
-    const float* xb = x + base;
-    float* dxb = dx + base;
-    const std::uint8_t* kb1 = DROP ? k1 + base : nullptr;
-    const std::uint8_t* kb2 = DROP ? k2 + base : nullptr;
-    const int len = lengths[b];
-    __syncthreads();  // the previous unit's arrays are used up
-    for (int e = tid; e < dh; e += blockDim.x) {
-      mx[e] = -INFINITY, sm[e] = 0.0f, sds[e] = 0.0f;
-      gv[e] = __ldg(g + static_cast<long long>(b) * D + static_cast<long long>(h) * dh + e);
-    }
-    for (int pass = 0; pass < 4; ++pass) {
-      for (int t0 = 0; t0 < S; t0 += C) {
-        const int nt = min(C, S - t0);
-        if (!one || pass == 0) {
-          __syncthreads();  // the chunk's arrays are free, gv written
-          wide_maps<DROP>(xb, t0, nt, D, dh, len, w1, b1, w2, b2, kb1, kb2, keep, X, A, M1);
-        }
-        if (pass < 2) {
-          wide_stats(pass, A, nt, dh, mx, sm);
-          continue;
-        }
-        if (pass == 2) {  // Σ_t soft ⊙ ds, ds = g ⊙ x rounded as the reference does
-          for (int e = tid; e < dh; e += blockDim.x) {
-            float a = sds[e];
-            const float m = mx[e], s = sm[e], ge = gv[e];
-            for (int t = 0; t < nt; ++t)
-              a = fmaf(expf(A[t * dh + e] - m) / s, __fmul_rn(ge, X[t * dh + e]), a);
-            sds[e] = a;
-          }
-          if (one) __syncthreads();  // sds complete before pass 3 reads it
-          continue;
-        }
-        // (past C the recomputed maps' barriers order sds before this)
-        // soft and dm2 = soft ⊙ (ds − Σ_t soft ⊙ ds)
-        for (int i = tid; i < nt * dh; i += blockDim.x) {
-          const int e = i % dh;
-          const float soft = expf(A[i] - mx[e]) / sm[e];
-          A[i] = soft;
-          DM2[i] = soft * (__fmul_rn(gv[e], X[i]) - sds[e]);
-        }
-        __syncthreads();
-        // dz1 = (dm2 · W2ᵀ) ⊙ [m1 > 0] (m1_in > 0: kept and z1 > 0; / keep)
-        chunk_product<true>(DM2, w2, nullptr, dh, nt, [&](int t, int d, float v) {
-          DZ1[t * dh + d] = M1[t * dh + d] > 0.0f ? (DROP ? v / keep : v) : 0.0f;
-        });
-        __syncthreads();
-        // dx = soft ⊙ g + dz1 · W1ᵀ (⊙ k1 / keep)
-        chunk_product<true>(DZ1, w1, nullptr, dh, nt, [&](int t, int d, float v) {
-          const long long off = static_cast<long long>(t0 + t) * D + d;
-          if constexpr (DROP) v = kb1[off] ? v / keep : 0.0f;
-          dxb[off] = fmaf(A[t * dh + d], gv[d], v);
-        });
-        if constexpr (DROP) {  // x_in for dW1 (dm2 has read x)
-          for (int i = tid; i < nt * dh; i += blockDim.x) {
-            const int t = i / dh, j = i - t * dh;
-            X[i] = kb1[static_cast<long long>(t0 + t) * D + j] ? X[i] / keep : 0.0f;
-          }
-        }
-        __syncthreads();
-        // the chunk's weight-gradient sums into the block's slot: entry i of
-        // dW1 | db1 | dW2 | db2 is Σ_t left · right (the biases' left is 1)
-        const bool first = first_unit && t0 == 0;
-        for (int i = tid; i < P; i += blockDim.x) {
-          const float *left = nullptr, *right;
-          int j = i, k = 0;
-          if (j < nn) {
-            k = j / dh, left = X, right = DZ1 + j % dh;
-          } else if ((j -= nn) < dh) {
-            right = DZ1 + j;
-          } else if ((j -= dh) < nn) {
-            k = j / dh, left = M1, right = DM2 + j % dh;
-          } else {
-            right = DM2 + j - nn;
-          }
-          float acc = first ? 0.0f : slot[i];
-          if (left != nullptr) {
-            for (int t = 0; t < nt; ++t) acc = fmaf(left[t * dh + k], right[t * dh], acc);
-          } else {
-            for (int t = 0; t < nt; ++t) acc += right[t * dh];
-          }
-          slot[i] = acc;
-        }
-      }
-    }
-  }
+__global__ void __launch_bounds__(kWideThreads) fwa_bwd_wide_map2_kernel(WideArgs a) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, true);
+  wide_map2<Tiled>(a, blockIdx.x, smem);
+}
 
-  // up the tree, as fwa_bwd_kernel: the last block of each group of
-  // kWideGroup slots sums them, in slot order, into one slot of the next
-  // level; each thread its entries, from L2
-  int count = gridDim.x, idx = blockIdx.x;
-  float* level = slots;
-  while (count > 1) {
-    const int group = idx / kWideGroup;
-    const int first = group * kWideGroup;
-    const int members = min(kWideGroup, count - first);
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      last = atomicAdd(tickets + group, 1u) == static_cast<unsigned>(members - 1);
-      if (last) tickets[group] = 0;  // every block of the group has counted
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    const float* src = level + static_cast<long long>(first) * P;
-    float* next = level + static_cast<long long>(count) * P;
-    for (int i = tid; i < P; i += blockDim.x) {
-      float acc = __ldcg(src + i);
-      for (int m = 1; m < members; ++m) acc += __ldcg(src + static_cast<long long>(m) * P + i);
-      next[static_cast<long long>(group) * P + i] = acc;
-    }
-    tickets += (count + kWideGroup - 1) / kWideGroup;
-    count = (count + kWideGroup - 1) / kWideGroup;
-    idx = group;
-    level = next;
+__global__ void __launch_bounds__(kWideRowThreads) fwa_bwd_wide_softmax_kernel(WideArgs a) {
+  to_replica(a, true);
+  __shared__ float red[kWideRowThreads];
+  wide_softmax_backward(a, static_cast<long long>(blockIdx.x) * kWarp, kWarp, red);
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads) fwa_bwd_wide_dm1_kernel(WideArgs a) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, true);
+  wide_dm1<Tiled, DROP>(a, blockIdx.x, smem);
+}
+
+// blocks below `dx_tiles` take dx's tiles, the rest the weight gradients'
+template <bool DROP>
+__global__ void __launch_bounds__(kWideThreads)
+fwa_bwd_wide_dx_dw_kernel(WideArgs a, int dx_tiles) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, true);
+  const int tile = static_cast<int>(blockIdx.x);
+  if (tile < dx_tiles) {
+    wide_dx<Tiled, DROP>(a, tile, smem);
+  } else {
+    wide_dw<Tiled, DROP>(a, tile - dx_tiles, smem);
   }
-  // one block is left, with the total in slot 0 of `level`
-  __threadfence();
-  __syncthreads();
-  for (int i = tid; i < P; i += blockDim.x) {
-    const float v = __ldcg(level + i);
-    int j = i;
-    if (j < nn) {
-      dw1[j] = v;
-    } else if ((j -= nn) < dh) {
-      db1[j] = v;
-    } else if ((j -= dh) < nn) {
-      dw2[j] = v;
-    } else {
-      db2[j - nn] = v;
-    }
-  }
+}
+
+__global__ void __launch_bounds__(kWideRowThreads) fwa_bwd_wide_sum_kernel(WideArgs a) {
+  to_replica(a, true);
+  wide_sum_splits(a);
+}
+
+template <bool DROP>
+void wide_pass(const WideArgs& a, dim3 grid, dim3 columns, dim3 dx_dw, int dx_tiles,
+               cudaStream_t s) {
+  fwa_bwd_wide_map1_kernel<DROP><<<grid, kWideThreads, 0, s>>>(a);
+  fwa_bwd_wide_map2_kernel<<<grid, kWideThreads, 0, s>>>(a);
+  fwa_bwd_wide_softmax_kernel<<<columns, kWideRowThreads, 0, s>>>(a);
+  fwa_bwd_wide_dm1_kernel<DROP><<<grid, kWideThreads, 0, s>>>(a);
+  fwa_bwd_wide_dx_dw_kernel<DROP><<<dx_dw, kWideThreads, 0, s>>>(a, dx_tiles);
 }
 
 template <int DH, bool ONE, bool DROP>
@@ -709,38 +576,55 @@ int fwa_bwd_launch(const float* x, const int* lengths, const float* w1,
 }
 
 // Launches K2's wide variant (heads of more than kMaxDh features) on
-// `stream` with the geometry of ops/cuda/fwa.py::launch_plan: grid ×
-// replicas blocks of `threads` = kWideThreads threads, block i taking the
-// units i, i + grid, ... of its replica's B·H, steps in chunks of `chunk`,
-// `smem` bytes of dynamic shared memory; `slots` and `tickets` the plan's
-// scratch (tickets all 0), `replica_slots` and `replica_tickets` of them a
-// replica.  Otherwise as fwa_bwd_launch.
+// `stream` with the geometry of ops/cuda/fwa.py::launch_plan: passes of
+// `rows` batch rows, each five launches (fwa_wide.cuh), the weight
+// gradients' rows split in `splits` of `split_rows` (then a last launch
+// sums the splits), every grid with `replicas` on its y axis; `scratch`
+// holds `scratch_floats` floats a replica (four arrays of rows·S·H·dh,
+// then the splits' sums where splits > 1).  Otherwise as fwa_bwd_launch.
 int fwa_bwd_wide_launch(const float* x, const int* lengths, const float* w1,
                         const float* b1, const float* w2, const float* b2,
-                        const float* g, float* dx, float* slots, unsigned* tickets,
-                        float* dw1, float* db1, float* dw2, float* db2, int units, int S,
-                        int D, int H, int dh, int chunk, int grid, int replicas,
-                        int replica_slots, int replica_tickets, int threads, int smem,
-                        const std::uint8_t* k1, const std::uint8_t* k2, float keep,
-                        void* stream) {
-  static int opted[2][kWideMaxDevices];
-  if (threads != kWideThreads || dh <= kMaxDh || chunk < 1 || grid < 1 ||
-      grid > units)
+                        const float* g, float* dx, float* dw1, float* db1, float* dw2,
+                        float* db2, float* scratch, const std::uint8_t* k1,
+                        const std::uint8_t* k2, int B, int S, int D, int H, int dh, int rows,
+                        int splits, int split_rows, int replicas, long long scratch_floats,
+                        float keep, void* stream) {
+  const long long span = static_cast<long long>(rows) * S * H * dh;
+  const long long entries = 2LL * (dh + 1) * dh;  // [dW1; db1 | dW2; db2]
+  if (dh <= kMaxDh || D != H * dh || rows < 1 || splits < 1 || split_rows < 1 ||
+      replicas < 1 ||
+      static_cast<long long>(splits) * split_rows < static_cast<long long>(rows) * S * H ||
+      scratch_floats < 4 * span + (splits > 1 ? splits * entries : 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = k1 != nullptr;
-  const int err = drop ? opt_in(fwa_bwd_wide_kernel<true>, smem, opted[1])
-                       : opt_in(fwa_bwd_wide_kernel<false>, smem, opted[0]);
-  if (err != 0) return err;
-#define FWA_BWD_WIDE_ARGS                                                                    \
-  x, lengths, w1, b1, w2, b2, g, dx, slots, tickets, dw1, db1, dw2, db2, units, S, D, H, dh, \
-      chunk, replica_slots, replica_tickets, k1, k2, keep
-  if (drop) {
-    fwa_bwd_wide_kernel<true><<<dim3(grid, replicas), threads, smem, s>>>(FWA_BWD_WIDE_ARGS);
-  } else {
-    fwa_bwd_wide_kernel<false><<<dim3(grid, replicas), threads, smem, s>>>(FWA_BWD_WIDE_ARGS);
+  WideArgs a{};
+  a.x = x, a.lengths = lengths, a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2, a.g = g, a.out = dx;
+  a.k1 = k1, a.k2 = k2, a.keep = keep;
+  a.m1 = scratch, a.a = scratch + span, a.dm2 = scratch + 2 * span, a.dz1 = scratch + 3 * span;
+  a.part = splits > 1 ? scratch + 4 * span : nullptr;
+  a.dw1 = dw1, a.db1 = db1, a.dw2 = dw2, a.db2 = db2;
+  a.B = B, a.S = S, a.H = H, a.dh = dh, a.scratch = scratch_floats;
+  a.splits = splits, a.split_rows = split_rows;
+  const dim3 sum(static_cast<unsigned>((entries + kWideRowThreads - 1) / kWideRowThreads),
+                 replicas);
+  const int dw_tiles = 2 * splits * ((dh + 1 + kWideBM - 1) / kWideBM) * wide_tiles_n(dh);
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    a.b0 = b0, a.nb = B - b0 < rows ? B - b0 : rows, a.first = b0 == 0;
+    const long long steps = static_cast<long long>(a.nb) * S * H;
+    const int tiles = static_cast<int>((steps + kWideBM - 1) / kWideBM * wide_tiles_n(dh));
+    const dim3 grid(tiles, replicas), dx_dw(tiles + dw_tiles, replicas);
+    const dim3 columns(
+        static_cast<unsigned>((static_cast<long long>(a.nb) * H * dh + kWarp - 1) / kWarp),
+        replicas);
+    if (k1 != nullptr) {
+      wide_pass<true>(a, grid, columns, dx_dw, tiles, s);
+    } else {
+      wide_pass<false>(a, grid, columns, dx_dw, tiles, s);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-#undef FWA_BWD_WIDE_ARGS
+  if (splits > 1) fwa_bwd_wide_sum_kernel<<<sum, kWideRowThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

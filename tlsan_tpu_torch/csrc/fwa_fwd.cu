@@ -37,7 +37,8 @@
 // t + 32, ...: three passes (max, sum, weighted sum) re-read x and
 // recompute the maps.  dh = 8 is specialised; any other dh <= 32 runs a
 // generic variant with plain loops; wider heads run the
-// wide variant (fwa_wide.cuh: a block a unit).  The TPU kernel's
+// wide variant (fwa_wide.cuh: tiled products over every step of the batch,
+// then the softmax a thread a feature).  The TPU kernel's
 // block-diagonal [D, D] lift of the head maps is not carried over: 8×8
 // maps are below any tensor-core tile, and TF32 is off by contract.
 //
@@ -147,68 +148,40 @@ fwa_fwd_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
   }
 }
 
-// The wide variant (fwa_wide.cuh): heads of more than 32 features, one block
-// of kWideThreads threads a (row, head) unit, the steps in chunks of C.
-// Pass 0 takes the max of m2 per feature, pass 1 the sum of exp(m2 − max),
-// pass 2 out = Σ_t exp(m2 − max) / sum · x, each over the steps in order;
-// with S <= C the chunk's maps are computed once for all three.
+// The wide variant (fwa_wide.cuh): heads of more than 32 features, three
+// launches a pass over whole batch rows: the first map and the second
+// (tiled products over all of the pass's B·S·H steps, into the scratch),
+// then the softmax over time and Σ_t soft · x of each (row, head, feature)
+// column, its steps split over a block's warps.  The two products,
+// 4·B·S·D·dh operations, bound it on the card (1.3 GFLOP at B = 32, S = 10,
+// dh = 1024: 20 µs at the f32 peak); the tiles keep every SM on them
+// (fwa_wide.cuh).
 template <bool DROP>
 __global__ void __launch_bounds__(kWideThreads)
-fwa_fwd_wide_kernel(const float* __restrict__ x, const int* __restrict__ lengths,
-                    const float* __restrict__ w1, const float* __restrict__ b1,
-                    const float* __restrict__ w2, const float* __restrict__ b2,
-                    float* __restrict__ out, int units, int S, int D, int H, int dh, int C,
-                    const std::uint8_t* __restrict__ k1, const std::uint8_t* __restrict__ k2,
-                    float keep) {
-  extern __shared__ float smem[];
-  {  // replica blockIdx.y's rows, lengths, weights and outputs
-    const long long r = blockIdx.y, rows = units / H;
-    x += r * rows * S * D;
-    if constexpr (DROP) k1 += r * rows * S * D, k2 += r * rows * S * D;
-    lengths += r * rows;
-    out += r * rows * D;
-    w1 += r * dh * dh;
-    w2 += r * dh * dh;
-    b1 += r * dh;
-    b2 += r * dh;
-  }
-  const int unit = blockIdx.x;
-  const int b = unit / H;
-  const int h = unit - b * H;
-  const long long base = static_cast<long long>(b) * S * D + static_cast<long long>(h) * dh;
-  const float* xb = x + base;
-  const std::uint8_t* kb1 = DROP ? k1 + base : nullptr;
-  const std::uint8_t* kb2 = DROP ? k2 + base : nullptr;
-  const int len = lengths[b];
-  float* X = smem;          // [C][dh] x
-  float* A = X + C * dh;    // [C][dh] m2 (x_in before it under dropout)
-  float* M1 = A + C * dh;   // [C][dh] m1
-  float* mx = M1 + C * dh;  // [dh] each, owned by the thread of the feature
-  float* sm = mx + dh;
-  float* acc = sm + dh;
-  for (int e = threadIdx.x; e < dh; e += blockDim.x) mx[e] = -INFINITY, sm[e] = 0.0f, acc[e] = 0.0f;
-  const bool one = S <= C;
-  for (int pass = 0; pass < 3; ++pass) {
-    for (int t0 = 0; t0 < S; t0 += C) {
-      const int nt = min(C, S - t0);
-      if (!one || pass == 0) {
-        __syncthreads();  // the chunk's arrays are free
-        wide_maps<DROP>(xb, t0, nt, D, dh, len, w1, b1, w2, b2, kb1, kb2, keep, X, A, M1);
-      }
-      if (pass < 2) {
-        wide_stats(pass, A, nt, dh, mx, sm);
-      } else {
-        for (int e = threadIdx.x; e < dh; e += blockDim.x) {
-          float a = acc[e];
-          const float m = mx[e], s = sm[e];
-          for (int t = 0; t < nt; ++t) a = fmaf(expf(A[t * dh + e] - m) / s, X[t * dh + e], a);
-          acc[e] = a;
-        }
-      }
-    }
-  }
-  float* ob = out + static_cast<long long>(b) * D + static_cast<long long>(h) * dh;
-  for (int e = threadIdx.x; e < dh; e += blockDim.x) ob[e] = acc[e];
+fwa_fwd_wide_map1_kernel(WideArgs a) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, false);
+  wide_map1<Tiled, DROP>(a, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(kWideThreads) fwa_fwd_wide_map2_kernel(WideArgs a) {
+  __shared__ __align__(16) float smem[Tiled::kSmemFloats];
+  to_replica(a, false);
+  wide_map2<Tiled>(a, blockIdx.x, smem);
+}
+
+__global__ void __launch_bounds__(kWideRowThreads) fwa_fwd_wide_softmax_kernel(WideArgs a) {
+  to_replica(a, false);
+  __shared__ float red[kWideRowThreads];
+  wide_softmax_forward(a, static_cast<long long>(blockIdx.x) * kWarp, kWarp, red);
+}
+
+// The fused path (fwa_wide.cuh): a CTA a batch row, every phase.
+template <bool DROP>
+__global__ void __launch_bounds__(kWideRowThreads) fwa_fwd_wide_fused_kernel(WideArgs a) {
+  extern __shared__ __align__(16) float fused_smem[];
+  to_replica(a, false);
+  wide_fused_forward<DROP>(a, fused_smem);
 }
 
 __global__ void fwa_empty_kernel() {}
@@ -269,31 +242,56 @@ int fwa_fwd_launch(const float* x, const int* lengths, const float* w1,
 }
 
 // Launches K1's wide variant (heads of more than kMaxDh features) on
-// `stream` with the geometry of ops/cuda/fwa.py::launch_plan: grid ×
-// replicas blocks of `threads` = kWideThreads threads, one block a unit of a
-// replica's B·H units, steps in chunks of `chunk`, `smem` bytes of dynamic
-// shared memory.  Otherwise as fwa_fwd_launch.
+// `stream` with the geometry of ops/cuda/fwa.py::launch_plan, every grid
+// with `replicas` on its y axis: `fused`, one launch of a CTA a batch row
+// (`rows` 1); else passes of `rows` batch rows, each three launches
+// (fwa_wide.cuh), `scratch` holding `scratch_floats` floats a replica (two
+// arrays of rows·S·H·dh).  Otherwise as fwa_fwd_launch.
 int fwa_fwd_wide_launch(const float* x, const int* lengths, const float* w1,
                         const float* b1, const float* w2, const float* b2, float* out,
-                        int units, int S, int D, int H, int dh, int chunk, int grid,
-                        int replicas, int threads, int smem, const std::uint8_t* k1,
-                        const std::uint8_t* k2, float keep, void* stream) {
-  static int opted[2][kWideMaxDevices];
-  if (threads != kWideThreads || dh <= kMaxDh || chunk < 1 || grid != units)
+                        float* scratch, const std::uint8_t* k1, const std::uint8_t* k2,
+                        int B, int S, int D, int H, int dh, int rows, int fused, int replicas,
+                        long long scratch_floats, float keep, void* stream) {
+  const long long span = static_cast<long long>(rows) * S * H * dh;
+  if (dh <= kMaxDh || D != H * dh || rows < 1 || replicas < 1 ||
+      (fused ? rows != 1 || dh > kWideFuseDh || static_cast<long long>(S) * H > kWideFuseRows
+             : scratch_floats < 2 * span))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool drop = k1 != nullptr;
-  const int err = drop ? opt_in(fwa_fwd_wide_kernel<true>, smem, opted[1])
-                       : opt_in(fwa_fwd_wide_kernel<false>, smem, opted[0]);
-  if (err != 0) return err;
-  if (drop) {
-    fwa_fwd_wide_kernel<true><<<dim3(grid, replicas), threads, smem, s>>>(
-        x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, chunk, k1, k2, keep);
-  } else {
-    fwa_fwd_wide_kernel<false><<<dim3(grid, replicas), threads, smem, s>>>(
-        x, lengths, w1, b1, w2, b2, out, units, S, D, H, dh, chunk, k1, k2, keep);
+  WideArgs a{};
+  a.x = x, a.lengths = lengths, a.w1 = w1, a.b1 = b1, a.w2 = w2, a.b2 = b2, a.out = out;
+  a.k1 = k1, a.k2 = k2, a.keep = keep;
+  a.m1 = scratch, a.a = scratch + span;
+  a.B = B, a.S = S, a.H = H, a.dh = dh, a.scratch = scratch_floats;
+  if (fused) {
+    const int smem = static_cast<int>(4 * (Fused::kSmemFloats + 2 * span));
+    const dim3 grid(B, replicas);
+    if (k1 != nullptr) {
+      fwa_fwd_wide_fused_kernel<true><<<grid, kWideRowThreads, smem, s>>>(a);
+    } else {
+      fwa_fwd_wide_fused_kernel<false><<<grid, kWideRowThreads, smem, s>>>(a);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  for (int b0 = 0; b0 < B; b0 += rows) {
+    a.b0 = b0, a.nb = B - b0 < rows ? B - b0 : rows;
+    const long long steps = static_cast<long long>(a.nb) * S * H;
+    const dim3 grid(static_cast<unsigned>((steps + kWideBM - 1) / kWideBM * wide_tiles_n(dh)),
+                    replicas);
+    const dim3 columns(
+        static_cast<unsigned>((static_cast<long long>(a.nb) * H * dh + kWarp - 1) / kWarp),
+        replicas);
+    if (k1 != nullptr) {
+      fwa_fwd_wide_map1_kernel<true><<<grid, kWideThreads, 0, s>>>(a);
+    } else {
+      fwa_fwd_wide_map1_kernel<false><<<grid, kWideThreads, 0, s>>>(a);
+    }
+    fwa_fwd_wide_map2_kernel<<<grid, kWideThreads, 0, s>>>(a);
+    fwa_fwd_wide_softmax_kernel<<<columns, kWideRowThreads, 0, s>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 // One launch of an empty kernel: the floor of any launch's device time.

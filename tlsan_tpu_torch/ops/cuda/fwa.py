@@ -30,13 +30,19 @@ the same generator calls as the plain version, and keep = 1 − rate.
 axis first.  Without masks the kernels run the variant without dropout.
 
 Both kernels run one warp per (batch row, head) unit for heads of up to
-`MAX_HEAD_WIDTH` features, and a wide variant (csrc/fwa_wide.cuh: one block
-a unit, the steps in chunks that fit shared memory) for wider heads, up to
-the widest whose chunk of one step fits a block's shared memory;
-`launch_plan` gives their geometry (pure Python, so the
-CPU tests hold it).  They take any S >= 1.  K2 sums its weight gradients
-across blocks through scratch memory that this module keeps per device and
-reuses, so K2 calls on one device run on one stream at a time.
+`MAX_HEAD_WIDTH` features.  Wider heads take a wide variant
+(csrc/fwa_wide.cuh): the maps of all B·S·H steps are tiled products
+([B·S·H, dh] × [dh, dh], WIDE_BM × WIDE_BN outputs a CTA), the
+intermediates go through scratch memory between a few launches (three for
+K1 and five or six for K2, each call counted once), the softmax over time
+is per (row, head, feature) column, and K2's weight gradients are tiles of
+entries summed over the rows in a fixed order; K1 at narrow heads of short
+rows runs its phases in one launch, a CTA a batch row.
+`launch_plan` gives every geometry (pure Python, so the CPU tests hold
+it).  They take any S >= 1 and any head width.  K2 sums its weight
+gradients across blocks, and the wide variants keep their intermediates,
+in scratch memory that this module keeps per device and reuses, so calls
+of one kernel on one device run on one stream at a time.
 """
 
 from __future__ import annotations
@@ -63,11 +69,20 @@ WARP = 32
 MAX_HEAD_WIDTH = 32        # kMaxDh in csrc/fwa_common.cuh
 FWD_WARPS, BWD_WARPS = 4, 8  # warps (units) a block
 GROUP = 128                # kGroup in csrc/fwa_bwd.cu: slots summed together
-# the wide variants (csrc/fwa_wide.cuh): kWideThreads, the steps a chunk at
-# most, kWideGroup in csrc/fwa_bwd.cu; K2's blocks at most (two an SM) and
-# the floats its slots may take a replica, which bound its grid
-WIDE_THREADS, WIDE_CHUNK, WIDE_GROUP = 256, 32, 4
-WIDE_BLOCKS, WIDE_SLOT_FLOATS = 264, 1 << 24
+# the wide variants (csrc/fwa_wide.cuh): a product tile's rows and output
+# features, the depth staged at once and the threads of a tile (kWideBM,
+# kWideBN, kWideBK, kWideThreads); the shared memory of a tile's CTA (two
+# staged slices of both operands, padded rows of 4 floats more)
+WIDE_BM, WIDE_BN, WIDE_BK, WIDE_THREADS = 32, 64, 16, 128
+WIDE_SMEM = 4 * 2 * WIDE_BK * (WIDE_BM + 4 + WIDE_BN + 4)
+# K1's fused path (kWideFuseDh, kWideFuseRows and kWideRowThreads in
+# csrc/fwa_wide.cuh): heads of at most this many features whose batch rows
+# hold at most this many steps (S·H), in CTAs of this many threads
+WIDE_FUSE_DH, WIDE_FUSE_ROWS, WIDE_FUSE_THREADS = 64, 32, 256
+# the floats a replica's intermediates may take (more only where one batch
+# row needs more); K2's weight-gradient tiles aimed at (two CTAs an SM) and
+# the fewest rows a split of them sums
+WIDE_SCRATCH_FLOATS, WIDE_TARGET, WIDE_SPLIT_ROWS = 1 << 24, 264, 32
 
 launches = 0
 bwd_launches = 0
@@ -77,6 +92,8 @@ _I32 = torch.int32
 _BOOL = torch.bool
 # K2's cross-block scratch per device index: (slots f32, tickets i32, all 0)
 _scratch: dict = {}
+# the wide variants' scratch per (device index, backward)
+_wide_scratch: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +102,12 @@ class Plan:
     (`warps` units a block, `units` = B·H a replica), `smem` bytes of
     dynamic shared memory; for K2 also `slots` scratch floats and
     `tickets` scratch integers a replica (its cross-block tree).  The wide
-    variant (`chunk` > 0) runs one unit a block at a time, the steps
-    `chunk` at once."""
+    variant (`wide`) runs passes of `rows` batch rows (`passes` of them):
+    `grid` CTAs of WIDE_THREADS a product of a full pass, `smem` bytes of
+    static shared memory each, `scratch` floats a replica; K2 sums its
+    weight gradients over `splits` splits of `split_rows` rows a pass.
+    K1's fused path (`fused`) is one launch of `grid` CTAs of one batch row
+    each (`rows` 1), `smem` bytes of shared memory holding its arrays."""
     dh: int
     units: int
     warps: int
@@ -96,7 +117,16 @@ class Plan:
     slots: int = 0
     tickets: int = 0
     replicas: int = 1
-    chunk: int = 0
+    rows: int = 0
+    passes: int = 0
+    splits: int = 0
+    split_rows: int = 0
+    scratch: int = 0
+    fused: bool = False
+
+    @property
+    def wide(self) -> bool:
+        return self.rows > 0
 
 
 def _tree(n: int, group: int):
@@ -109,33 +139,53 @@ def _tree(n: int, group: int):
     return slots, tickets
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wide_product_tiles(rows: int, dh: int) -> int:
+    """The CTAs of a [rows, dh] × [dh, dh] product of the wide variants."""
+    return _cdiv(rows, WIDE_BM) * _cdiv(dh, WIDE_BN)
+
+
+def wide_weight_tiles(dh: int) -> int:
+    """The tiles of K2's two weight gradients [dW; db], (dh + 1) × dh each."""
+    return 2 * _cdiv(dh + 1, WIDE_BM) * _cdiv(dh, WIDE_BN)
+
+
 def _wide_plan(B: int, S: int, dh: int, num_heads: int, backward: bool,
                replicas: int) -> Plan:
-    """The wide variant's geometry: one block of WIDE_THREADS a unit (K2:
-    at most WIDE_BLOCKS blocks, fewer where the slots would pass
-    WIDE_SLOT_FLOATS), and the most steps a chunk (up to WIDE_CHUNK and S)
-    whose arrays fit shared memory: x, m2, m1 and three per-feature
-    statistics; K2 also dm2, dz1 and a fourth (g).  Raises ValueError
-    where not even one step fits."""
+    """The wide variants' geometry (csrc/fwa_wide.cuh).  K1 at heads of at
+    most WIDE_FUSE_DH features whose batch rows hold at most WIDE_FUSE_ROWS
+    steps takes the fused path: a CTA a batch row, its m1_in and m2 in the
+    CTA's shared memory.  Otherwise the tiled path: passes of the most
+    whole batch rows whose intermediates (m1_in and m2; K2 also dm2 and
+    dz1: [rows·S·H, dh] each) fit WIDE_SCRATCH_FLOATS, one at least; the
+    products of a pass in tiles of WIDE_BM rows × WIDE_BN features.  K2
+    splits a pass's rows for its weight gradients until their tiles come
+    near WIDE_TARGET CTAs, each split WIDE_SPLIT_ROWS rows at least (a
+    multiple of WIDE_BK), and then keeps a slot of both gradients a split.
+    A pure function of the shape: the replicas only repeat it."""
     units = B * num_heads
-    arrays, stats = (5, 4) if backward else (3, 3)
-    room = (SMEM_LIMIT - 64) // 4 - stats * dh
-    chunk = min(S, WIDE_CHUNK, room // (arrays * dh))
-    if chunk < 1:
-        raise ValueError(
-            f"feature-wise attention's wide {'K2' if backward else 'K1'} keeps a step "
-            f"of {arrays + stats}·dh floats in a block's shared memory ({SMEM_LIMIT} "
-            f"bytes): heads of dh={dh} features do not fit")
-    smem = 4 * (arrays * chunk * dh + stats * dh)
-    warps = WIDE_THREADS // WARP
+    arrays = 4 if backward else 2
+    if not backward and dh <= WIDE_FUSE_DH and S * num_heads <= WIDE_FUSE_ROWS:
+        smem = WIDE_SMEM + 4 * arrays * S * num_heads * dh
+        return Plan(dh, units, WIDE_FUSE_THREADS // WARP, B, WIDE_FUSE_THREADS, smem,
+                    replicas=replicas, rows=1, passes=1, fused=True)
+    rows = max(1, min(B, WIDE_SCRATCH_FLOATS // (arrays * S * num_heads * dh)))
+    steps = rows * S * num_heads
+    common = dict(dh=dh, units=units, warps=WIDE_THREADS // WARP,
+                  grid=wide_product_tiles(steps, dh), threads=WIDE_THREADS, smem=WIDE_SMEM,
+                  replicas=replicas, rows=rows, passes=_cdiv(B, rows))
     if not backward:
-        return Plan(dh, units, warps, units, WIDE_THREADS, smem, replicas=replicas,
-                    chunk=chunk)
-    weights = 2 * dh * dh + 2 * dh
-    grid = min(units, WIDE_BLOCKS, max(1, WIDE_SLOT_FLOATS // weights))
-    slots, tickets = _tree(grid, WIDE_GROUP)
-    return Plan(dh, units, warps, grid, WIDE_THREADS, smem, slots * weights, tickets,
-                replicas, chunk)
+        return Plan(**common, scratch=arrays * steps * dh)
+    splits = max(1, min(_cdiv(WIDE_TARGET, wide_weight_tiles(dh)),
+                        _cdiv(steps, WIDE_SPLIT_ROWS)))
+    split_rows = _cdiv(_cdiv(steps, splits), WIDE_BK) * WIDE_BK
+    splits = _cdiv(steps, split_rows)
+    parts = 2 * splits * (dh + 1) * dh if splits > 1 else 0
+    return Plan(**common, splits=splits, split_rows=split_rows,
+                scratch=arrays * steps * dh + parts)
 
 
 @functools.lru_cache(maxsize=512)
@@ -144,7 +194,8 @@ def launch_plan(B: int, S: int, D: int, num_heads: int,
     """The geometry of K1 (or, with `backward`, K2) for x [B, S, D] in
     `num_heads` heads, for each of `replicas` replicas (the grid's y axis;
     a replica's blocks, and K2's scratch tree, are those of one replica's
-    launch); raises ValueError for what the kernels refuse."""
+    launch); raises ValueError for what the kernels refuse: shapes that
+    are not a batch of heads."""
     if B < 1 or S < 1 or num_heads < 1 or D % num_heads or replicas < 1:
         raise ValueError(
             f"feature-wise attention needs B, S, replicas >= 1 and "
@@ -181,8 +232,8 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_fwd_launch.restype = ctypes.c_int
         lib.fwa_fwd_wide_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+            + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
         lib.fwa_fwd_wide_launch.restype = ctypes.c_int
         lib.fwa_empty_launch.argtypes = [ctypes.c_void_p]
         lib.fwa_empty_launch.restype = ctypes.c_int
@@ -199,8 +250,8 @@ def _bwd_library() -> ctypes.CDLL:
             + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
         lib.fwa_bwd_launch.restype = ctypes.c_int
         lib.fwa_bwd_wide_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
-            + [ctypes.c_void_p] * 2 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9
+            + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p])
         lib.fwa_bwd_wide_launch.restype = ctypes.c_int
         lib.fwa_bwd_error_string.argtypes = [ctypes.c_int]
         lib.fwa_bwd_error_string.restype = ctypes.c_char_p
@@ -270,15 +321,17 @@ def fwa_forward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         return out
     plan = launch_plan(B, S, D, num_heads, replicas=math.prod(lead))
     lib = _library()
-    args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), plan.units, S, D,
-            num_heads, dh)
-    tail = (plan.grid, plan.replicas, plan.threads, plan.smem, _ptr(k1), _ptr(k2), keep)
-    if plan.chunk:
+    ptrs = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr())
+    if plan.wide:
+        scratch = _wide_buffer(x, plan, False)
         err = launch(x.get_device(), lambda stream: lib.fwa_fwd_wide_launch(
-            *args, plan.chunk, *tail, stream))
+            *ptrs, scratch.data_ptr(), _ptr(k1), _ptr(k2), B, S, D, num_heads, dh,
+            plan.rows, int(plan.fused), plan.replicas, plan.scratch, keep, stream))
     else:
-        err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(*args, *tail, stream))
+        err = launch(x.get_device(), lambda stream: lib.fwa_fwd_launch(
+            *ptrs, plan.units, S, D, num_heads, dh, plan.grid, plan.replicas, plan.threads,
+            plan.smem, _ptr(k1), _ptr(k2), keep, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_fwd launch failed: {lib.fwa_error_string(err).decode()}")
@@ -298,6 +351,17 @@ def _bwd_scratch(x: torch.Tensor, plan: Plan):
         tickets = x.new_zeros(max(need_tickets, 1), dtype=_I32)
     _scratch[index] = (slots, tickets)
     return slots, tickets
+
+
+def _wide_buffer(x: torch.Tensor, plan: Plan, backward: bool) -> torch.Tensor:
+    """x's device's scratch of the wide K1 (K2 with `backward`), grown to
+    the plan's floats for all its replicas."""
+    key = (x.get_device(), backward)
+    need = plan.replicas * plan.scratch
+    buf = _wide_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _wide_scratch[key] = x.new_empty(need)
+    return buf
 
 
 def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
@@ -323,18 +387,21 @@ def fwa_backward(x: torch.Tensor, lengths: torch.Tensor, num_heads: int,
         return dx, dw1, db1, dw2, db2
     plan = launch_plan(B, S, D, num_heads, True, math.prod(lead))
     lib = _bwd_library()
-    slots, tickets = _bwd_scratch(x, plan)
-    args = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            slots.data_ptr(), tickets.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), plan.units, S, D, num_heads, dh)
-    tail = (plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
-            plan.smem, _ptr(k1), _ptr(k2), keep)
-    if plan.chunk:
+    ptrs = (x.data_ptr(), lengths.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), g.data_ptr(), dx.data_ptr())
+    grads = (dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr())
+    if plan.wide:
+        scratch = _wide_buffer(x, plan, True)
         err = launch(x.get_device(), lambda stream: lib.fwa_bwd_wide_launch(
-            *args, plan.chunk, *tail, stream))
+            *ptrs, *grads, scratch.data_ptr(), _ptr(k1), _ptr(k2), B, S, D, num_heads, dh,
+            plan.rows, plan.splits, plan.split_rows, plan.replicas, plan.scratch, keep,
+            stream))
     else:
-        err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(*args, *tail, stream))
+        slots, tickets = _bwd_scratch(x, plan)
+        err = launch(x.get_device(), lambda stream: lib.fwa_bwd_launch(
+            *ptrs, slots.data_ptr(), tickets.data_ptr(), *grads, plan.units, S, D,
+            num_heads, dh, plan.grid, plan.replicas, plan.slots, plan.tickets, plan.threads,
+            plan.smem, _ptr(k1), _ptr(k2), keep, stream))
     if err != 0:
         raise RuntimeError(
             f"fwa_bwd launch failed: {lib.fwa_bwd_error_string(err).decode()}")

@@ -16,9 +16,12 @@ kernel phase; ``widths`` K1, K2, K3 and K3b at B=32 at the reference
 widths (D=64, H=8: S=10 and 25, (96, 96) and (1, 96)) and at shapes of the
 width grid (heads of 64 and 128 features; (96, 96) at D=128 in 2 heads, D=256
 and 512 in 8, the (1, 96) readout at D=512 and (128, 128) at D=512 in one head
-at B=8) and past the old limits (K1 and K2 at D=1024 in one head; K3 and K3b
+at B=8; K1 and K2 also at B=128, S=25, D=128 in 2 heads) and past the old
+limits (K1 and K2 at D=1024 in one head, S=10 and 25; K3 and K3b
 at D=1024 in 8 heads at B=8, D=50 in 5 heads and the readout over 300 keys),
-each with a
+K1 and K2
+also at every other shape of ``tools/widths.py::WIDTHS_FWA`` that runs a wide
+variant; each with a
 digest of its outputs (SHA-256 of their bytes), per-call and device time,
 or "refused" where the checkout's plans refuse the shape, so that two
 checkouts' outputs can be held bit for bit; ``all`` K1, K2 and K3.  Its ``kernel fwa_*`` or ``kernel
@@ -33,6 +36,9 @@ import argparse
 import subprocess
 import sys
 from pathlib import Path
+
+from tlsan_tpu_torch.ops.cuda.fwa import MAX_HEAD_WIDTH
+from tlsan_tpu_torch.tools.widths import WIDTHS_FWA
 
 ROOT = Path(__file__).resolve().parents[2]
 TURN = """
@@ -103,8 +109,7 @@ def turn(tag, kernel, run):
     print(f"kernel widths {tag}: digest={h.hexdigest()[:16]} kernel_ms={ms:.6f} "
           f"device_ms={c._device_ms(run, kernel, calls=20)}", flush=True)
 
-for B, S, d, h in ((32, 10, 64, 8), (32, 25, 64, 8), (32, 10, 64, 1), (32, 25, 128, 1),
-                   (32, 10, 1024, 1)):
+for B, S, d, h in FWA_SHAPES:
     x, l, w1, b1, w2, b2 = c._fwa_inputs(B, S, c.SEED + 60, d, h)
     g = torch.from_numpy(np.random.default_rng(c.SEED + 61).normal(
         size=(B, d)).astype(np.float32)).cuda()
@@ -129,6 +134,13 @@ for B, Tq, Tk, d, h, sa in ((32, 96, 96, 64, 8, True), (32, 1, 96, 64, 8, False)
 }
 
 
+# K1's and K2's shapes in ``widths``: the reference widths and every shape
+# of chip_smoke.py's widths phase that runs a wide variant, as this
+# checkout lists them (written into the script both checkouts run)
+FWA_SHAPES = [(32, 10, 64, 8), (32, 25, 64, 8)] + [
+    s for s in WIDTHS_FWA if s[2] // s[3] > MAX_HEAD_WIDTH]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("other", help="root of the other checkout")
@@ -137,7 +149,8 @@ def main(argv=None) -> int:
                         help="which kernels to time (default: fwa, K1 and K2)")
     args = parser.parse_args(argv)
     kinds = ("fwa", "mha") if args.kernels == "all" else (args.kernels,)
-    script = TURN + "".join(PHASES[kind] for kind in kinds)
+    script = TURN + "".join(PHASES[kind] for kind in kinds).replace(
+        "FWA_SHAPES", repr(FWA_SHAPES))
     prefixes = tuple(f"kernel {kind}" for kind in kinds)
     for tag, root in (("other", args.other), ("this", ROOT), ("this", ROOT),
                       ("other", args.other)):

@@ -10,12 +10,13 @@ steps, the ATRank blocks (96, 96) and (1, 96), (128, 128) and the readout
 over 256 keys; D = 512 in one head (K3 and K3b in device memory) and in
 512 heads of one feature; D = 1024 in 8 heads (K3b in device memory), D =
 50 in 5 and 2 heads (rows read a float at a time), 300 keys (K3's scores
-in a warp's slice) and FWA heads of 1024 features.
+in a warp's slice) and FWA heads of 1024 features at both towers' S (10
+and 25, as TLSAN trains at --hidden_units 1024 --num_heads 1).
 """
 
 WIDTHS_FWA = [(32, 10, 64, 1), (32, 25, 64, 1), (128, 10, 128, 1), (128, 25, 128, 2),
               (32, 25, 512, 1), (37, 40, 64, 1), (4, 301, 96, 2), (37, 33, 512, 1),
-              (32, 10, 512, 512), (32, 10, 1024, 1)]
+              (32, 10, 512, 512), (32, 25, 128, 1), (32, 10, 1024, 1), (32, 25, 1024, 1)]
 WIDTHS_MHA = [(32, 96, 96, 64, 1), (32, 1, 96, 64, 1), (128, 96, 96, 64, 1),
               (32, 128, 128, 128, 2), (32, 1, 256, 128, 2), (128, 96, 96, 256, 8),
               (32, 96, 96, 256, 8), (32, 96, 96, 512, 8), (32, 1, 96, 512, 8),
