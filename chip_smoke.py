@@ -54,15 +54,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
              features and B=32, 128, S=10, 25 and past a chunk of steps;
              K3 and K3b at heads of 64 features, D=256, 512 and 1024 at
              (96, 96), (128, 128), (1, 96) and (1, 256), D=50 in 5 and 2
-             heads, 300 keys, K3 and K3b in shared memory and in device
-             memory; each against its plain
+             heads, 300 keys, K3's wide variant with several key and
+             feature chunks, a float at a time, both projection tiles and
+             in several passes (bit for bit against one), K3b in shared
+             memory and in device memory; each against its plain
              version with and without dropout masks (K1 and K3 to
              KERNEL_TOL, or KERNEL_TOL · (1 + the output's magnitude) at
              heads of 128 features and more and D past 256; K2 and K3b to
              their error scales), at R=2 against single launches bit for
              bit, FWAFunction and MHAFunction against autograd, 201 calls
              equal at each timed shape, per-call, device and plain times at
-             five shapes (K1, K2), two (K3) or four (K3b) beside the bound
+             five shapes (K1, K2, K3) or four (K3b) beside the bound
              (a wide K1's or K2's launches summed into one call).  After the
              families' phases, seven configurations at the Electronics
              catalog (ATRank num_heads=1; hidden_units=256, 512 and 1024
@@ -73,8 +75,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
              of batch 32, a bulk recommend of 4,000 users (launches exact,
              512 users as the CPU serves them), 20 steps against the CPU
              (PARITY_TOL; lr 0.1 for TLSAN, 0.01 for ATRank, 0.001 at D =
-             1024), a profiled chunk of ATRank at D = 512 and TLSAN at
-             D = 1024 (the attention kernels' device shares); in the cli
+             1024), a profiled chunk of ATRank in one head and at D = 512
+             and of TLSAN at D = 1024 (the attention kernels' device
+             shares); in the cli
              phase train.cli --model atrank --num_heads 1 for one epoch at
              batch 128 on the Digital-Music fixture, K3 and K3b counted
              exactly;
@@ -560,19 +563,23 @@ def _variants(report: str, name: str) -> dict:
     variant of `name`'s kernel, by its template arguments ((DH, DROP) for
     K3 and K3b, (DH, ONE, DROP) for K1 and K2), and of its wide variant (a
     kernel `name`_wide_kernel, or K3b's WIDE argument) as ("wide", DROP),
-    K3b's streamed ones as ("stream", DROP) and ("stream_wide", DROP); K1's
-    and K2's wide variants are several kernels `name`_wide_<phase>_kernel,
-    each ("wide_<phase>", DROP), DROP -1 where the phase has one variant; a
-    variant whose report does not parse is missing."""
+    K3b's streamed ones as ("stream", DROP) and ("stream_wide", DROP); K1's,
+    K2's and K3's wide variants are several kernels
+    `name`_wide_<phase>_kernel, each ("wide_<phase>", DROP), DROP -1 where
+    the phase has one variant, an int template argument N (K3's projection
+    tile) as ("wide_<phase>_N", -1); a variant whose report does not parse
+    is missing."""
     lines, out = report.splitlines(), {}
     for i, line in enumerate(lines):
         m = re.search(rf"{name}_kernelI((?:L[ib]\d+E)+)E", line)
-        w = re.search(rf"{name}_wide_(?:([a-z0-9]+(?:_[a-z0-9]+)*?)_)?kernel(ILb([01])E)?", line)
+        w = re.search(rf"{name}_wide_(?:([a-z0-9]+(?:_[a-z0-9]+)*?)_)?kernel"
+                      r"(?:ILb([01])E|ILi(\d+)E)?", line)
         if not (m or w) or "Function properties for" not in line or i + 2 >= len(lines):
             continue
         if w:
-            phase = "wide" + (f"_{w.group(1)}" if w.group(1) else "")
-            key = (phase, int(w.group(3)) if w.group(2) else -1)
+            phase = ("wide" + (f"_{w.group(1)}" if w.group(1) else "")
+                     + (f"_{w.group(3)}" if w.group(3) else ""))
+            key = (phase, int(w.group(2)) if w.group(2) else -1)
         else:
             key = tuple(int(a) for a in re.findall(r"L[ib](\d+)E", m.group(1)))
             if name == cuda_mha.BWD_SOURCE:  # (DH, DROP, WIDE, STREAM)
@@ -698,6 +705,19 @@ def _device_ms(fn, kernel: str, calls: int = 50) -> str:
     _, prof = device_profile(lambda: [fn() for _ in range(calls)])
     us = [us for key, (_, us) in prof.items() if kernel in key]
     return f"{1e-3 * sum(us) / calls:.6f}" if us else "not measured (no device events)"
+
+
+def _device_split(fn, kernel: str, calls: int = 10) -> str:
+    """Device ms a call of fn in each kernel whose name holds `kernel`, by
+    the name from `kernel` on (a template's arguments kept), from the
+    profiler: where a call's time goes among its launches."""
+    _, prof = device_profile(lambda: [fn() for _ in range(calls)])
+    split = {}
+    for key, (_, us) in prof.items():
+        if kernel in key:
+            name = key[key.index(kernel):].split("(")[0]
+            split[name] = split.get(name, 0.0) + 1e-3 * us / calls
+    return ", ".join(f"{k} {v:.6f}" for k, v in sorted(split.items())) or "no device events"
 
 
 def _summed(main: dict, worst: float) -> dict:
@@ -3635,13 +3655,16 @@ def check_http(line: dict, card: str, catalog: int) -> None:
 # model's initialisation scales them, so that every width sees scores of
 # the same spread.
 # the shapes whose times go to the kernels line and PERF.md (K1/K2 at heads
-# of 64, 128 and 1024 features, both towers' S at 1024; K3b's streamed
-# design at four shapes, among them D = 256 and the D = 512 readout)
+# of 64, 128 and 1024 features, both towers' S at 1024; K3 at one head, D =
+# 512 and 1024 in 8 heads, D = 50 in 5 and the one-head readout; K3b's
+# streamed design at four shapes, among them D = 256 and the D = 512
+# readout)
 WIDTHS_TIMED = {"fwa_fwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 25, 128, 1),
                             (32, 10, 1024, 1), (32, 25, 1024, 1)],
                 "fwa_bwd": [(32, 10, 64, 1), (128, 25, 128, 2), (32, 25, 128, 1),
                             (32, 10, 1024, 1), (32, 25, 1024, 1)],
-                "mha_fwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8)],
+                "mha_fwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8), (8, 96, 96, 1024, 8),
+                            (32, 96, 96, 50, 5), (32, 1, 96, 64, 1)],
                 "mha_bwd": [(32, 96, 96, 64, 1), (32, 96, 96, 512, 8), (32, 96, 96, 256, 8),
                             (32, 1, 96, 512, 8)]}
 WIDTHS_REPEATS = 200  # calls at one train shape that must all equal the first
@@ -3792,11 +3815,66 @@ def phase_widths_fwa() -> tuple:
     return {k: _summed(rows[k], worst[k]) for k in rows}
 
 
+# what K3's wide variant must have run at WIDTHS_MHA (`_wide_features`)
+WIDE_FEATURES = ("several key chunks", "several feature chunks", "a float at a time",
+                 "64 x 128 tiles", "32 x 64 tiles", "query blocks of 32", "query blocks of 16",
+                 "query blocks of 1")
+
+
+def _wide_features(plan, Tk: int, d: int, h: int) -> set:
+    """The paths of K3's wide variant that `plan` takes (WIDE_FEATURES)."""
+    dh = d // h
+    return {name for name, on in (
+        ("several key chunks", Tk > plan.kc), ("several feature chunks", dh > plan.fc),
+        ("a float at a time", d % 4 or dh % 4), ("64 x 128 tiles", plan.big),
+        ("32 x 64 tiles", not plan.big), (f"query blocks of {plan.qb}", True)) if on}
+
+
+def _wide_plan_line(plan) -> str:
+    return (f"wide, {plan.passes} pass(es) of {plan.pass_reps} x {plan.pass_rows} rows; "
+            f"projections {plan.proj_grid} CTAs of "
+            f"{'64 x 128' if plan.big else '32 x 64'} tiles; attention {plan.grid} CTAs of "
+            f"{plan.qb} query rows of a head, {plan.kc} keys and {plan.fc} features staged, "
+            f"smem {plan.smem}")
+
+
+def _wide_passes(B: int, Tq: int, Tk: int, d: int, h: int, seed: int) -> str:
+    """K3's wide variant in several passes, with the scratch's cap cut so
+    that a pass holds 3 batch rows of one replica, then 1 row of one of
+    R = WIDTHS_R replicas: bit for bit the outputs of one pass (a row's
+    arithmetic does not depend on its pass)."""
+    q, k, ql, kl, w = _widths_mha_inputs(B, Tq, Tk, True, seed, d)
+    args = (q, k, ql, kl, h, *(w[n] for n in cuda_mha.WEIGHTS))
+    rq, rk, rql, rkl, rws = _replica_mha_inputs(WIDTHS_R, B, Tq, Tk, True, seed + 1, d)
+    fan = math.sqrt(64.0 / d)
+    rargs = (rq, rk, rql, rkl, h,
+             *(t * fan if n.startswith("w") else t for n, t in zip(cuda_mha.WEIGHTS, rws)))
+    one, rep = cuda_mha.mha_forward(*args), cuda_mha.mha_forward(*rargs)
+    cap, per_row = cuda_mha.WIDE_SCRATCH_FLOATS, (Tq + 2 * Tk) * d
+    out = []
+    try:
+        for floats, fn, want, R in ((3 * per_row, args, one, 1), (per_row, rargs, rep, WIDTHS_R)):
+            cuda_mha.WIDE_SCRATCH_FLOATS = floats
+            cuda_mha.launch_plan.cache_clear()
+            plan = cuda_mha.launch_plan(R * B, Tq, Tk, d, h, True, R)
+            if plan.passes < 2:
+                raise AssertionError(f"K3 wide passes: {plan} runs one pass")
+            if not torch.equal(cuda_mha.mha_forward(*fn), want):
+                raise AssertionError(f"K3 wide at B={B} ({Tq}, {Tk}) D={d} H={h} R={R}: "
+                                     f"{plan.passes} passes differ from one")
+            out.append(f"R={R}: {plan.passes} passes of {plan.pass_reps} x {plan.pass_rows} rows")
+    finally:
+        cuda_mha.WIDE_SCRATCH_FLOATS = cap
+        cuda_mha.launch_plan.cache_clear()
+    return ", ".join(out)
+
+
 def phase_widths_mha() -> tuple:
     """K3 and K3b at WIDTHS_MHA, self- and cross-attention, as
     phase_widths_fwa holds K1 and K2; MHAFunction against autograd.  K3
-    must have run its wide variant in shared memory and in device memory.
-    Returns the two kernels' rows of the wide variant."""
+    must have run every path of its wide variant (WIDE_FEATURES), and in
+    several passes bit for bit as in one (`_wide_passes`).  Returns the
+    two kernels' rows of the wide variant."""
     rows = {"mha_fwd": {}, "mha_bwd": {}}
     worst = {"mha_fwd": 0.0, "mha_bwd": 0.0}
     placed = set()
@@ -3804,7 +3882,8 @@ def phase_widths_mha() -> tuple:
         for self_attention in ([True, False] if Tq == Tk else [False]):
             plan = cuda_mha.launch_plan(B, Tq, Tk, d, h, self_attention)
             bplan = cuda_mha.backward_plan(B, Tq, Tk, d, h, 1, self_attention)
-            placed.add((plan.wide, bool(plan.work)))
+            if plan.wide:
+                placed |= _wide_features(plan, Tk, d, h)
             q, k, ql, kl, w = _widths_mha_inputs(B, Tq, Tk, self_attention, SEED + 600 + i, d)
             args = (q, k, ql, kl, h, *(w[n] for n in cuda_mha.WEIGHTS))
             g = torch.from_numpy(np.random.default_rng(SEED + 700 + i).normal(
@@ -3857,9 +3936,8 @@ def phase_widths_mha() -> tuple:
                     raise AssertionError(f"{what} R={WIDTHS_R}: replica {r} off its launch")
                 if not _same([t[r] for t in rep_b], cuda_mha.mha_backward(*one, rg[r])):
                     raise AssertionError(f"{bwd} R={WIDTHS_R}: replica {r} differs")
-            where = "device memory" if plan.work else "shared memory"
-            msg = (f"widths {what}: K3 {'wide' if plan.wide else 'row-split'} cluster "
-                   f"{plan.cs} ({where}, smem {plan.smem}); K3b "
+            msg = (f"widths {what}: K3 "
+                   f"{_wide_plan_line(plan) if plan.wide else f'row-split cluster {plan.cs}'}; K3b "
                    f"{_bwd_plan_line(B, Tq, Tk, d, h, self_attention)}: plain, dropout, "
                    f"R={WIDTHS_R} and MHAFunction agree; max abs err K3 "
                    f"{worst['mha_fwd']:.3e} K3b {worst['mha_bwd']:.3e} (so far)")
@@ -3871,7 +3949,10 @@ def phase_widths_mha() -> tuple:
                                        lambda: cuda_mha.mha_forward(*args),
                                        lambda: multihead_attention_reference(q, ql, k, kl, h, w),
                                        mha_bound(B, Tq, Tk, self_attention, d),
-                                       "mha_fwd_wide_kernel"))
+                                       "mha_fwd_wide")
+                        + " (device ms by kernel: "
+                        + _device_split(lambda: cuda_mha.mha_forward(*args), "mha_fwd_wide")
+                        + ")")
             if (B, Tq, Tk, d, h) in WIDTHS_TIMED["mha_bwd"] and main_path:
                 _repeat_equal(lambda: cuda_mha.mha_backward(*args, g), bwd)
                 msg += (f"; {WIDTHS_REPEATS + 1} calls of K3b equal; K3b "
@@ -3882,9 +3963,10 @@ def phase_widths_mha() -> tuple:
                                        mha_bwd_bound(B, Tq, Tk, self_attention, d),
                                        "mha_bwd_kernel"))
             log(msg)
-    for need in ((True, False), (True, True)):
-        if need not in placed:
-            raise AssertionError(f"widths: K3's wide variant never ran with work={need[1]}")
+    missing = set(WIDE_FEATURES) - placed
+    if missing:
+        raise AssertionError(f"widths: K3's wide variant never ran with {sorted(missing)}")
+    log(f"widths: K3's wide variant in passes: {_wide_passes(32, 96, 96, 512, 8, SEED + 990)}")
     return {k: _summed(rows[k], worst[k]) for k in rows}
 
 
@@ -3904,9 +3986,10 @@ WIDTHS_CONFIGS = [("atrank", dict(num_heads=1)),
                   ("tlsan", dict(itemid_embedding_size=512, cateid_embedding_size=512,
                                  userid_embedding_size=512, hidden_units=1024,
                                  num_heads=1))]
-# the configurations whose chunk is profiled: K3's and K3b's device share
-# (ATRank), K1's and K2's (TLSAN)
-WIDTHS_PROFILED = (("atrank", 512), ("tlsan", 1024))
+# the configurations whose chunk is profiled, by (family, hidden_units):
+# K3's and K3b's device share (ATRank in one head and at D = 512), K1's and
+# K2's (TLSAN)
+WIDTHS_PROFILED = (("atrank", 64), ("atrank", 512), ("tlsan", 1024))
 # the kernels whose device share a profiled chunk logs: (name, substring of
 # their device functions' names)
 WIDTHS_SHARES = {"atrank": (("K3", "mha_fwd"), ("K3b", "mha_bwd_kernel")),

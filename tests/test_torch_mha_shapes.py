@@ -8,7 +8,10 @@ lengths 0, 1 and T; ATRank at 4 heads and a history of 150 against the JAX
 ATRank.  Also: K3's launch plan (cluster size, grid, shared memory), which
 the CPU can hold, and the limits it refuses."""
 
+import ctypes
 import functools
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +25,10 @@ from tlsan_tpu.core.config import ModelConfig as JaxModelConfig
 from tlsan_tpu.models.atrank import ATRank as JaxATRank
 from tlsan_tpu.models.atrank import _attn_params
 from tlsan_tpu.ops import multihead_attention as jax_mha
+from tests.test_torch_fwa_shapes import _c_params
 from tlsan_tpu_torch.core.config import ModelConfig
 from tlsan_tpu_torch.ops import multihead_attention as T
+from tlsan_tpu_torch.ops.cuda import build
 from tlsan_tpu_torch.ops.cuda import mha as cuda_mha
 from tlsan_tpu_torch.tools.params import grads_to_numpy, params_from_numpy
 
@@ -194,45 +199,121 @@ def test_launch_plan_takes_every_length_up_to_256():
         _check_plan(37, 1, 256, D, H)
 
 
+def _r4(n):
+    return -(-n // 4) * 4
+
+
+def _cdiv(n, d):
+    return -(-n // d)
+
+
+def check_wide_mha_plan(plan, B, Tq, Tk, D, H, self_attention=False, replicas=1):
+    """K3's wide plan for `replicas` replicas of B batch rows, recomputed
+    here from its rules: passes of as many whole rows as
+    WIDE_SCRATCH_FLOATS hold (one at least, then as many replicas as it
+    holds); the projections' tiles in one matrix's columns, 64 × 128 where
+    D >= 128 and they give every SM a CTA, else 32 × 64; the attention's
+    features (a power of two up to 64) and keys (a multiple of 32 up to
+    128) staged at once, its layout (two buffers of Q and of a K or V tile,
+    the scores, the sums, P·V's partial sums) within a CTA's shared memory
+    and its blocks of query rows: the largest whose CTAs, one a (row,
+    block, head), fill the card, else the smallest that fits."""
+    dh, per_row = D // H, (Tq + 2 * Tk) * D
+    cap = cuda_mha.WIDE_SCRATCH_FLOATS
+    assert plan.wide and plan.dh == dh and plan.cs == 1
+    assert plan.threads == cuda_mha.WIDE_THREADS == 256
+    fc = max(4, 1 << (min(dh, 64) - 1).bit_length())
+    assert plan.fc == fc and plan.kc == min(128, _cdiv(Tk, 32) * 32)
+    rows = max(1, min(B, cap // (replicas * per_row)))
+    reps = min(replicas, cuda_mha.MAX_GRID_Y)
+    if rows == 1:
+        reps = max(1, min(reps, cap // per_row))
+    assert (plan.pass_rows, plan.pass_reps) == (rows, reps)
+    assert plan.passes == _cdiv(B, rows) * _cdiv(replicas, reps)
+    assert plan.work == reps * rows * per_row <= max(cap, per_row)
+
+    def smem(q):
+        return 4 * (2 * q * (fc + 4) + 2 * plan.kc * (fc + 4) + q * (_r4(Tk) + 4) + _r4(q)
+                    + 256 * 16)
+
+    def ctas(q):
+        return reps * rows * _cdiv(Tq, q) * H
+
+    assert plan.smem == smem(plan.qb) <= cuda_mha.SMEM_LIMIT
+    blocks = [q for q in (32, 16, 8, 4, 2, 1)
+              if (q <= Tq or q == 1) and smem(q) <= cuda_mha.SMEM_LIMIT]
+    full = [q for q in blocks if ctas(q) >= 132]
+    assert plan.qb == (max(full) if full else min(blocks))
+    assert plan.grid == ctas(plan.qb)
+    sa = self_attention and Tq == Tk
+
+    def proj(bm, bn):
+        n = _cdiv(D, bn)
+        tiles = (_cdiv(rows * Tq, bm) * 3 * n if sa
+                 else (_cdiv(rows * Tq, bm) + 2 * _cdiv(rows * Tk, bm)) * n)
+        return reps * tiles
+
+    assert plan.big == (D >= 128 and proj(64, 128) >= 132)
+    assert plan.proj_grid == proj(*((64, 128) if plan.big else (32, 64)))
+
+
 @pytest.mark.parametrize("shape,limit", [
     ((4, 10, 10, 128, 2), None),  # dh = 64: the wide variant
     ((4, 10, 10, 64, 1), None),
     ((4, 10, 10, 288, 9), None),  # D past 256
     ((4, 10, 10, 30, 5), None),  # D not a multiple of 4: one float at a time
     ((4, 10, 10, 1024, 8), None),  # D past 512
-    ((4, 10, 257, 64, 8), None),  # past 256 keys: scores in the warp's slice
+    ((4, 10, 257, 64, 8), None),  # past 256 keys: the keys in chunks
     ((4, 1, 300, 64, 8), None),
     ((4, 200, 200, 128, 4), None),  # past one CTA's shared memory
     ((4, 4000, 8, 64, 8), None),
+    ((4, 1, 7300, 64, 8), None),  # past the 7,240 keys of the design before
     ((4, 10, 10, 64, 6), "D % num_heads"),
     ((0, 10, 10, 64, 8), "B, Tq, Tk >= 1"),
-    ((4, 1, 7300, 64, 8), "probabilities over the Tk keys"),  # a memory limit
+    ((4, 1, 60000, 64, 8), "scores over the Tk keys"),  # a memory limit
     ((1, 8192, 1, 1 << 17, 1), "device memory"),
 ])
 def test_launch_plan_refuses_beyond_the_limits(shape, limit):
     """What the row-split variants refuse (heads past 32 features, D past
     256 or not a multiple of 4, more than 256 keys, a CTA past shared
-    memory) takes the wide variant: a cluster a row split by heads, within
-    a CTA's shared memory (its Q, K and V columns there or in device
-    memory) and the clusters the card runs at once.  Only no rows, heads
-    that do not divide D and what memory forces still raise, naming the
-    limit: a warp's probabilities over the keys past a CTA's shared memory,
-    a cluster's columns past WORK_LIMIT floats."""
+    memory) takes the wide variant: passes of whole rows, the projections
+    as tiled products, the attention a CTA a (row, block of query rows,
+    head) within a CTA's shared memory (`check_wide_mha_plan`).  Only no
+    rows, heads that do not divide D and what memory forces still raise,
+    naming the limit: a query row's scores over the keys past a CTA's
+    shared memory, a batch row's Q, K and V past WORK_LIMIT floats."""
     if limit is not None:
         with pytest.raises(ValueError, match=limit):
             cuda_mha.launch_plan(*shape)
         return
-    B, Tq, Tk, D, H = shape
-    plan = cuda_mha.launch_plan(*shape)
-    vec = D % 4 == 0
-    assert plan.wide and plan.dh == D // H and H % plan.cs == 0
-    assert (D // plan.cs) % 4 == 0 or not vec
-    assert plan.smem <= cuda_mha.SMEM_LIMIT
-    assert plan.clusters == min(
-        B, cuda_mha.ACTIVE_CLUSTERS[plan.cs, cuda_mha.ctas_per_sm(plan.smem)])
-    assert plan.grid == plan.clusters * plan.cs
-    assert plan.arrays == (Tq + 2 * Tk) * (-(-(D // plan.cs) // 4) * 4 + cuda_mha.PAD)
-    assert plan.work in (0, plan.grid * plan.arrays)
+    check_wide_mha_plan(cuda_mha.launch_plan(*shape), *shape)
+
+
+@pytest.mark.parametrize("fn", ["mha_fwd_launch", "mha_fwd_wide_launch"])
+def test_launch_signatures_match_the_source(fn, monkeypatch):
+    """The wrapper's ctypes declarations of K3's launch functions (pointers
+    as c_void_p: ctypes would cut them to 32 bits otherwise) agree with
+    csrc/mha_fwd.cu parameter by parameter, and the wide variant's
+    constants in ops/cuda/mha.py with the source's: its attention's
+    threads, blocks of query rows, features and keys staged, the replicas
+    of a launch and the projections' tiles."""
+    names = ("mha_fwd_launch", "mha_fwd_wide_launch", "mha_fwd_active_clusters",
+             "mha_error_string")
+    lib = types.SimpleNamespace(**{n: types.SimpleNamespace(argtypes=None, restype=None)
+                                   for n in names})
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    cuda_mha._library()
+    assert list(getattr(lib, fn).argtypes) == _c_params(cuda_mha.SOURCE, fn)
+    assert getattr(lib, fn).restype is ctypes.c_int
+    source = (build.CSRC / f"{cuda_mha.SOURCE}.cu").read_text()
+    for name, value in (("kAttThreads", cuda_mha.WIDE_THREADS), ("kMaxQb", cuda_mha.WIDE_QB),
+                        ("kMaxFc", cuda_mha.WIDE_FC), ("kMaxKc", cuda_mha.WIDE_KC),
+                        ("kMaxGridY", cuda_mha.MAX_GRID_Y)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", source).group(1)) == value
+    for name, tile in (("ProjBig", cuda_mha.WIDE_BIG_TILE),
+                       ("ProjSmall", cuda_mha.WIDE_SMALL_TILE)):
+        args = re.search(rf"using {name} = tile::Tiling<([^>]*)>;", source).group(1)
+        assert tuple(int(a) for a in args.split(",")[2:4]) == tile
 
 
 def _atrank_batch(n, T_, items, users, seed):

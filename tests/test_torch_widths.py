@@ -44,6 +44,7 @@ from tests.test_torch_atrank import _batch as atrank_batch
 from tests.test_torch_atrank import _cate_list as atrank_cate_list
 from tests.test_torch_fwa_shapes import check_wide_plan
 from tests.test_torch_mha_bwd import _check_bwd_plan
+from tests.test_torch_mha_shapes import check_wide_mha_plan
 from tests.test_torch_train import _batch as tlsan_batch
 from tests.test_torch_train import _tree_items
 from tlsan_tpu.core.config import ModelConfig as JaxModelConfig
@@ -111,17 +112,12 @@ def test_every_kernel_plans_every_width(D, H):
                         check_wide_plan(plan, B, S, D, H, backward)
         for Tq, Tk, sa in ((128, 128, True), (96, 96, True), (1, 96, False),
                            (1, 256, False), (7, 250, False), (600, 17, False)):
-            for rows in (B, R * B):
-                plan = cuda_mha.launch_plan(rows, Tq, Tk, D, H, sa)
+            for rows, reps in ((B, 1), (R * B, 1), (R * B, R)):
+                plan = cuda_mha.launch_plan(rows, Tq, Tk, D, H, sa, reps)
                 assert plan.dh == dh and plan.smem <= SMEM_LIMIT
                 assert plan.wide or (dh <= cuda_mha.MAX_HEAD_WIDTH and D <= cuda_mha.MAX_D)
                 if plan.wide:
-                    assert H % plan.cs == 0 and plan.grid == plan.clusters * plan.cs
-                    want = min(rows, cuda_mha.ACTIVE_CLUSTERS[
-                        plan.cs, cuda_mha.ctas_per_sm(plan.smem)])
-                    if plan.work:  # the workspace bounded by WORK_CAP floats
-                        want = min(want, max(1, cuda_mha.WORK_CAP // (plan.cs * plan.arrays)))
-                    assert plan.clusters == want
+                    check_wide_mha_plan(plan, rows // reps, Tq, Tk, D, H, sa, reps)
             _check_bwd_plan(cuda_mha.backward_plan(B, Tq, Tk, D, H, R, sa), B, Tq, Tk, D, H,
                             R, sa)
     # D = 512 runs K3 wide whatever the head width; the readout at (1, 96)
@@ -221,6 +217,76 @@ def test_fwa_wide_plans_take_what_the_parent_took(backward):
         for B, S, H in ((1, 1, 1), (32, 10, 1), (7, 33, 3), (128, 25, 2)):
             plan = cuda_fwa.launch_plan(B, S, dh * H, H, backward)
             assert plan.wide and plan.smem <= SMEM_LIMIT and plan.grid >= 1
+
+
+@pytest.mark.parametrize("D,H", [(64, 1), (512, 8), (1024, 8), (50, 5)])
+def test_mha_wide_launches_fill_the_card(D, H):
+    """ATRank's train step at one head, at D = 512 and 1024 in 8 heads and
+    at D = 50 in 5 (B = 32, (96, 96) self-attention): each of K3's wide
+    launches, the projections, the attention and LayerNorm (a warp a row,
+    8 a CTA), takes at least 132 CTAs, one pass for the batch."""
+    plan = cuda_mha.launch_plan(32, 96, 96, D, H, True)
+    check_wide_mha_plan(plan, 32, 96, 96, D, H, True)
+    assert plan.passes == 1
+    assert min(plan.proj_grid, plan.grid, -(-32 * 96 // 8)) >= 132
+
+
+@pytest.mark.parametrize("B,Tq,Tk,D,H,replicas", [
+    (4096, 96, 96, 512, 8, 1), (512, 96, 96, 1024, 8, 1), (2048, 1, 96, 512, 8, 1),
+    (64, 96, 96, 512, 8, 8), (1, 1, 30000, 1024, 8, 3), (2, 4000, 8, 64, 8, 2)])
+def test_mha_wide_passes_are_bounded_by_the_scratch(B, Tq, Tk, D, H, replicas):
+    """Where a batch's Q, K and V pass WIDE_SCRATCH_FLOATS, K3's wide
+    variant runs passes of whole rows (of every replica, or past one row a
+    replica of some replicas at a time) whose scratch stays within the cap,
+    or one batch row's arrays where that is more; the passes cover every
+    row of every replica."""
+    plan = cuda_mha.launch_plan(replicas * B, Tq, Tk, D, H, Tq == Tk, replicas)
+    check_wide_mha_plan(plan, B, Tq, Tk, D, H, Tq == Tk, replicas)
+    per_row = (Tq + 2 * Tk) * D
+    assert plan.work <= max(cuda_mha.WIDE_SCRATCH_FLOATS, per_row)
+    assert plan.pass_rows * plan.pass_reps * plan.passes >= B * replicas
+    if B * replicas * per_row > cuda_mha.WIDE_SCRATCH_FLOATS:
+        assert plan.passes > 1
+
+
+def _parent_wide_took(Tq, Tk, D, H):
+    """Whether the wide design before the tiled one planned the shape: a
+    cluster of the largest size dividing the heads (columns on 16 bytes for
+    D a multiple of 4), a warp's probabilities over the keys in shared
+    memory and the cluster's columns of Q, K and V within WORK_LIMIT."""
+    vec = D % 4 == 0
+    cs = max(c for c in (1, 2, 4, 8) if H % c == 0 and (not vec or (D // c) % 4 == 0))
+    arrays = (Tq + 2 * Tk) * (-(-(D // cs) // 4) * 4 + 4)
+    return 4 * (8 * (-(-Tk // 4) * 4) + 3 * 64) <= SMEM_LIMIT and cs * arrays <= 1 << 30
+
+
+@pytest.mark.parametrize("D", [50, 64, 96, 128, 256, 288, 512, 1024, 2048])
+def test_mha_wide_plans_take_what_the_parent_took(D):
+    """Every shape the design before the tiles planned (keys up to 7,240,
+    a cluster's arrays up to WORK_LIMIT) still plans, past its limits too:
+    K3 raises only for no rows, heads that do not divide D and its own
+    memory limits, which hold more."""
+    heads = [h for h in (1, 2, 5, 8, 9, 64, D) if D % h == 0]
+    for H in heads:
+        for Tq, Tk in ((1, 1), (1, 96), (96, 96), (7, 250), (300, 300), (1, 4096),
+                       (96, 7240), (1, 7241), (1, 20000), (8192, 1)):
+            for B in (1, 32, 129):
+                plan = cuda_mha.launch_plan(B, Tq, Tk, D, H, Tq == Tk)
+                assert plan.smem <= SMEM_LIMIT
+                if _parent_wide_took(Tq, Tk, D, H) and plan.wide:
+                    check_wide_mha_plan(plan, B, Tq, Tk, D, H, Tq == Tk)
+
+
+@pytest.mark.parametrize("B", [16, 32, 64, 128, 200, 8192])
+def test_mha_reference_widths_keep_the_row_split(B):
+    """At D = 64, H = 8, the ATRank blocks (96, 96) and the readout (1, 96),
+    with and without a replica axis, K3 runs its row-split variant, never
+    the wide one."""
+    for Tq, sa in ((96, True), (1, False)):
+        for reps in (1, R, R_MAX):
+            plan = cuda_mha.launch_plan(reps * B, Tq, 96, 64, 8, sa, reps)
+            assert not plan.wide and plan.cs in cuda_mha.CLUSTER_SIZES
+            assert plan.grid == reps * B * plan.cs
 
 
 @pytest.mark.parametrize("B,Tq,Tk,D,H", WIDTHS_MHA)

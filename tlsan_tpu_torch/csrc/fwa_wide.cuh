@@ -15,7 +15,8 @@
 // row-major matrix X [B·S·H, dh] (step (b, t, h) is row (b·S + t)·H + h), so
 // both maps are products of all B·S·H rows at once, tiled kWideBM rows ×
 // kWideBN output features a CTA (160 CTAs at B = 32, S = 10, dh = 1024, 400
-// at S = 25).  A CTA stages kWideBK-deep slices of its rows and of the
+// at S = 25), by tile_product.cuh's product, which K3's wide variant
+// shares.  A CTA stages kWideBK-deep slices of its rows and of the
 // weight columns in shared memory, two buffers deep (the next slice loads
 // into registers while the present one is multiplied), and each thread
 // keeps a 4 × 4 register tile of outputs: two 16-byte shared-memory reads
@@ -61,6 +62,7 @@
 #include <cstdint>
 
 #include "fwa_common.cuh"
+#include "tile_product.cuh"
 
 namespace fwa {
 
@@ -69,17 +71,14 @@ constexpr int kWideBN = 64;         // a product tile's output features
 constexpr int kWideBK = 16;         // the depth the tiled path stages at once
 constexpr int kWideThreads = 128;   // a tile's CTA: 8 × 16 threads of 4 × 4 outputs
 constexpr int kWideRowThreads = 256;  // the per-feature passes' blocks, K1's fused CTA
-constexpr int kWideLdA = kWideBM + 4;
-constexpr int kWideLdB = kWideBN + 4;
-
-// A product tile's geometry: T threads, 16 across its kWideBN features (4
-// each) and T / 16 down its kWideBM rows (kRows each), the operands staged
-// BK deep, two buffers.
+// A product tile's geometry (tile_product.cuh): T threads, kWideBM ×
+// kWideBN outputs, 16 across its features (4 each) and T / 16 down its rows.
 template <int T, int BK>
-struct Tiling {
-  static constexpr int kThreads = T, kBK = BK, kRows = kWideBM * 16 / T;
-  static constexpr int kSmemFloats = 2 * BK * (kWideLdA + kWideLdB);
-};
+using Tiling = tile::Tiling<T, BK, kWideBM, kWideBN, kWideBM * 16 / T, 4>;
+template <class C>
+using Acc = tile::Acc<C>;
+using tile::wide_product;
+using tile::wide_store;
 
 // One launch's view of a call (ops/cuda/fwa.py::fwa_forward / fwa_backward):
 // the tensors of replica 0, the pass's batch rows and the scratch's arrays.
@@ -140,112 +139,6 @@ __device__ inline long long pass_row0(const WideArgs& a) {
 
 // The tiled path's products: 4 × 4 outputs a thread, 16-deep slices.
 using Tiled = Tiling<kWideThreads, kWideBK>;
-// A thread's outputs of a tile of geometry C.
-template <class C>
-using Acc = float[C::kRows][4];
-
-// acc (this thread's outputs of a kWideBM × kWideBN tile of geometry C) +=
-// Σ_k A(m, k) · B(k, n) over k = 0 .. K − 1 in order.  la(m, k) and lb(k, n)
-// give an operand's entry at tile-local m and n (0 outside the product);
-// they are called for k < K only.  A_KFAST (B_KFAST): the operand's k is
-// its contiguous index in device memory, so the threads staging it take
-// consecutive k (else consecutive m or n) and the reads coalesce either
-// way.  Every thread of the block calls it.
-template <class C, bool A_KFAST, bool B_KFAST, class LA, class LB>
-__device__ inline void wide_product(int K, LA la, LB lb, float* smem, Acc<C>& acc) {
-  constexpr int T = C::kThreads, BK = C::kBK, TM = C::kRows;
-  constexpr int NA = BK * kWideBM / T;
-  constexpr int NB = BK * kWideBN / T;
-  float* As = smem;                       // [2][BK][kWideLdA]
-  float* Bs = smem + 2 * BK * kWideLdA;   // [2][BK][kWideLdB]
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float ra[NA], rb[NB];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < NA; ++q) {
-      const int i = tid + q * T;
-      const int k = A_KFAST ? i % BK : i / kWideBM;
-      const int m = A_KFAST ? i / BK : i % kWideBM;
-      ra[q] = k0 + k < K ? la(m, k0 + k) : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < NB; ++q) {
-      const int i = tid + q * T;
-      const int k = B_KFAST ? i % BK : i / kWideBN;
-      const int n = B_KFAST ? i / BK : i % kWideBN;
-      rb[q] = k0 + k < K ? lb(k0 + k, n) : 0.0f;
-    }
-  };
-  auto put = [&](int buf) {
-    float* as = As + buf * BK * kWideLdA;
-    float* bs = Bs + buf * BK * kWideLdB;
-#pragma unroll
-    for (int q = 0; q < NA; ++q) {
-      const int i = tid + q * T;
-      const int k = A_KFAST ? i % BK : i / kWideBM;
-      const int m = A_KFAST ? i / BK : i % kWideBM;
-      as[k * kWideLdA + m] = ra[q];
-    }
-#pragma unroll
-    for (int q = 0; q < NB; ++q) {
-      const int i = tid + q * T;
-      const int k = B_KFAST ? i % BK : i / kWideBN;
-      const int n = B_KFAST ? i / BK : i % kWideBN;
-      bs[k * kWideLdB + n] = rb[q];
-    }
-  };
-  fetch(0);
-  put(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    const bool more = k0 + BK < K;
-    if (more) fetch(k0 + BK);  // in flight while this slice is multiplied
-    const float* as = As + buf * BK * kWideLdA + TM * ty;
-    const float* bs = Bs + buf * BK * kWideLdB + 4 * tx;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float ai[TM];
-      if constexpr (TM == 4) {
-        const float4 av = *reinterpret_cast<const float4*>(as + k * kWideLdA);
-        ai[0] = av.x, ai[1] = av.y, ai[2] = av.z, ai[3] = av.w;
-      } else {
-        const float2 av = *reinterpret_cast<const float2*>(as + k * kWideLdA);
-        ai[0] = av.x, ai[1] = av.y;
-      }
-      const float4 bv = *reinterpret_cast<const float4*>(bs + k * kWideLdB);
-      const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ai[i], bj[j], acc[i][j]);
-      }
-    }
-    if (more) put(buf ^ 1);  // the other buffer was last read before the barrier
-    __syncthreads();
-    buf ^= 1;
-  }
-}
-
-// Calls epi(m, n, value, row(m)) for each of this thread's outputs of the
-// tile at (m0, n0) that lies inside rows × cols: `row` is what the
-// epilogue needs of a row (an offset, a mask), computed once a row.
-template <class C, class Row, class Epi>
-__device__ inline void wide_store(const Acc<C>& acc, int m0, int n0, int rows, int cols, Row row,
-                                  Epi epi) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < C::kRows; ++i) {
-    const int m = m0 + C::kRows * ty + i;
-    if (m >= rows) continue;
-    const auto r = row(m);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + 4 * tx + j;
-      if (n < cols) epi(m, n, acc[i][j], r);
-    }
-  }
-}
 
 // A pass row's offset in a [rows][dh] array.
 struct RowOffset {
@@ -260,10 +153,9 @@ __host__ __device__ inline int wide_tiles_n(int dh) { return (dh + kWideBN - 1) 
 // past dh, or everywhere without a bias).
 template <class C>
 __device__ inline void wide_init(Acc<C>& acc, const float* __restrict__ bias, int n0, int dh) {
-  const int tx = threadIdx.x % 16;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int n = n0 + 4 * tx + j;
+    const int n = n0 + C::col(j);
     const float v = bias != nullptr && n < dh ? bias[n] : 0.0f;
 #pragma unroll
     for (int i = 0; i < C::kRows; ++i) acc[i][j] = v;
@@ -530,12 +422,11 @@ __device__ inline void wide_dw(const WideArgs& a, int w, float* smem) {
   };
   Acc<C> acc;
   {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
     for (int i = 0; i < C::kRows; ++i) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int d = d0 + C::kRows * ty + i, e = e0 + 4 * tx + j;
+        const int d = d0 + C::row(i), e = e0 + C::col(j);
         acc[i][j] = !a.first && d <= dh && e < dh ? dest(d, e) : 0.0f;
       }
     }

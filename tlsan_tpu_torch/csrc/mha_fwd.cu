@@ -98,6 +98,9 @@
 #include <math.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "tile_product.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -764,40 +767,66 @@ __global__ void __launch_bounds__(kThreads, 2) mha_fwd_kernel(const Params p) {
 // The wide variant takes what the variants above refuse: heads of more
 // than 32 features, D past 256 or not a multiple of 4, more than 256 keys,
 // and rows whose full copies of K and V do not fit one CTA's shared memory
-// (at D = 256, (96, 96) self-attention).  Its design is K3b's
-// (csrc/mha_bwd.cu): a cluster of cs CTAs takes a batch row, CTA c owning
-// heads c·H/cs .. (c+1)·H/cs − 1, i.e. Dc = D/cs columns of each
-// projection, so that a CTA holds only its columns of Q, K and V
-// ((Tq + 2·Tk)·(Dc + 4) floats).  The layout lies in shared memory where it
-// fits, else in a slice of device memory that the CTA alone uses
-// (ops/cuda/mha.py::launch_plan decides; the code is the same).  The grid
-// is persistent: cluster i takes the rows i, i + clusters, ...  For each
-// row a CTA
-//   1. projects its columns, Q = relu(q·Wq[:, c] + bq[c]) / √dh and K, V
-//      likewise, a thread a tile of 4 rows × 4 columns (K and V together),
-//      x and W read as float4s from device memory (the L1 and L2 caches
-//      hold them; W is 3 MB at D = 512, above any CTA's shared memory), or
-//      one float at a time where D is not a multiple of 4 (the VEC = false
-//      variant; a CTA's columns are then padded to a multiple of 4);
-//   2. takes each (query row, own head) on one warp: lane l scores the keys
-//      l, l + 32, ... over the head's dh features in order into the warp's
-//      slice of shared memory (Tk floats: any number of keys), takes the
-//      max, then exp and the sum over its own scores in order, both folded
-//      by butterflies, and writes the probabilities (0 where dropped) over
-//      the scores; then lane l sums features l, l + 32, ... of P·V over the
-//      keys in order, so no register array grows with dh or Tk.  The output
-//      overwrites the row's Q in place;
-//   3. LayerNorm couples the heads: per block of kWideLnRows rows each CTA
-//      sums its columns of y = o + q, the cluster exchanges the sums
-//      through distributed shared memory and every CTA adds them in rank
-//      order, then likewise Σ (y − mean)²; each CTA writes its columns.
-// Every sum runs in a fixed order and the cluster size depends on (D, H)
-// alone, so two calls agree bit for bit and a replica's rows are those of a
-// launch on its slice.  Exactness as above: expf, IEEE division and sqrtf,
-// Q scaled by 1/√dh once, the finite key mask, query rows at t >= q_len
-// zeroed before the residual.
+// (at D = 256, (96, 96) self-attention).
+//
+// What bounds it: the projections' operations.  A row does (Tq + 2·Tk)·D²
+// multiply-adds in them against 2·Tq·Tk·D in the attention: at B = 32,
+// (96, 96), D = 512 that is 4.8 GFLOP against 0.6, 81 µs at the 67 TFLOP/s
+// f32 peak outside the tensor cores (TF32 is off by contract).  So the
+// projections are tiled products over every row of the batch, and the
+// attention is spread over enough CTAs to fill the card.
+//
+// Design.  The batch runs in passes of `nb` whole rows (and, where one row
+// alone passes the scratch's cap, of some replicas at a time;
+// ops/cuda/mha.py::_wide_plan bounds them by WIDE_SCRATCH_FLOATS), three
+// launches a pass, the replicas on the grid's y axis, so that no tile mixes
+// the rows of two replicas:
+//   1. mha_fwd_wide_project_kernel: Q = relu(xq·Wq + bq) · (1/√dh) over
+//      [nb·Tq, D] × [D, D], K and V likewise over [nb·Tk, D] (all three from
+//      xq where keys is queries); tile_product.cuh's tiled product staged
+//      by cp.async, each tile in one matrix's columns, 64 × 128 tiles of
+//      8 × 8 outputs a thread where D >= 128 and they give every SM a CTA,
+//      else 32 × 64 tiles of 4 × 4 (the template argument BM, 64 or 32);
+//      the bias, ReLU and the scale in the epilogue.  Q, K and V go to a
+//      per-device scratch ([nb·Tq, D], [nb·Tk, D] twice a replica), read
+//      back from L2.
+//   2. mha_fwd_wide_attend_kernel: a CTA a (batch row, block of qb <= 32
+//      query rows, head).  Its steps, the scores then P·V, each over fc
+//      features and kc keys at a time, stage their tiles by cp.async one
+//      step ahead into the other of two buffers.  The scores are a small
+//      tiled product (a thread 2 queries × 4 keys, 16-byte reads of rows
+//      fc + 4 floats apart: conflict-free), kept in shared memory for all Tk
+//      keys; a warp two query rows then takes the true max, exp and the sum
+//      in a fixed order (lane l the keys l, l + 32, ..., then a butterfly)
+//      and writes the probabilities over the scores (0 where dropped); P·V
+//      is a second small product (a task 4 query rows × 4 features, its
+//      copies splitting the keys, their partial sums added in copy order),
+//      divided by the sum and written over the head's columns of Q in the
+//      scratch, 0 at t >= q_len.  A head's steps are a chain of dependent
+//      phases, so the heads run on CTAs of their own, side by side, rather
+//      than one after the other in one CTA (on the card the latter left
+//      the SMs waiting on each phase's latency).
+//   3. mha_fwd_wide_norm_kernel: LayerNorm(o + q) of every row, a warp a row.
+// Every output's sums run in a fixed order that depends on the shape alone
+// (a score over the head's features in order, the softmax's sum by the
+// butterfly, P·V's copies by fc, kc and Tk, LayerNorm by the butterfly), so
+// two calls agree bit for bit, and so do a replica and its single launch:
+// no tile, block or pass changes a row's arithmetic.  Exactness as above:
+// expf, IEEE division and sqrtf, Q scaled by 1/√dh once, the finite key
+// mask on every key past k_len (never skipped: k_len = 0 gives a uniform
+// softmax), query rows at t >= q_len zeroed before the residual.
 
-constexpr int kWideLnRows = 64;   // rows of a LayerNorm exchange
+using ProjBig = tile::Tiling<128, 16, 64, 128, 8, 8>;
+using ProjSmall = tile::Tiling<128, 16, 32, 64, 4, 4>;
+constexpr int kProjThreads = 128;
+constexpr int kProjCtas = 3;  // CTAs an SM holds by registers: at most 168 a thread
+constexpr int kAttThreads = 256;
+constexpr int kAttCtas = 2;  // CTAs an SM holds by registers: at most 128 a thread
+constexpr int kAttWarps = kAttThreads / kWarp;
+constexpr int kMaxQb = 32;   // query rows an attention CTA
+constexpr int kMaxFc = 64;   // features staged at once (a power of two)
+constexpr int kMaxKc = 128;  // keys staged at once (a multiple of 32)
+constexpr int kMaxGridY = 65535;
 
 struct WideParams {
   const float* queries;
@@ -814,245 +843,405 @@ struct WideParams {
   const float* beta;
   float* out;
   const std::uint8_t* keep_mask;  // dropout's keep flags, or null
-  float* work;  // the arrays' slices in device memory, or null for shared memory
-  int Tq, Tk, D, H, dh, cs, clusters, rows, total, ldc, arrays, tk4;
+  float* work;                    // the scratch: Q, K, V of a pass, a replica after another
+  long long scratch;              // floats of a replica's scratch
+  int Tq, Tk, D, H, dh;
+  int rows;                       // batch rows a replica
+  int rep0, b0, nb;               // the pass: replicas rep0 + y, their rows b0 .. b0 + nb − 1
+  int qb, kc, fc;                 // query rows a CTA, keys and features staged at once
   float inv_scale;
   float keep;
 };
 
-// Four floats from device memory: a float4 (VEC), else one at a time, 0
-// from the n-th on.
-template <bool VEC>
-__device__ __forceinline__ float4 ldg_part(const float* p, int n) {
-  if constexpr (VEC) {
-    return ldg4(p);
-  } else {
-    return make_float4(n > 0 ? __ldg(p) : 0.0f, n > 1 ? __ldg(p + 1) : 0.0f,
-                       n > 2 ? __ldg(p + 2) : 0.0f, n > 3 ? __ldg(p + 3) : 0.0f);
+__host__ __device__ constexpr int cdiv(long long n, int d) {
+  return static_cast<int>((n + d - 1) / d);
+}
+
+// The projections of a pass of nb rows in tiles of bm × bn, each tile in
+// one matrix's columns: the first product (xq rows × Q's columns, or Q's,
+// K's and V's where keys is queries) and the second (xk rows × K's and V's,
+// none for self-attention), a matrix's columns cdiv(D, bn) tiles.
+struct ProjGeometry {
+  int rq, mq, tq;  // the first product's rows, matrices and tiles
+  int rk, tk;      // the second's rows and tiles (two matrices)
+};
+
+__host__ __device__ inline ProjGeometry proj_geometry(int nb, int Tq, int Tk, int D, bool self,
+                                                      int bm, int bn) {
+  ProjGeometry g;
+  g.rq = nb * Tq;
+  g.mq = self ? 3 : 1;
+  g.tq = cdiv(g.rq, bm) * g.mq * cdiv(D, bn);
+  g.rk = self ? 0 : nb * Tk;
+  g.tk = self ? 0 : cdiv(g.rk, bm) * 2 * cdiv(D, bn);
+  return g;
+}
+
+__host__ __device__ inline bool self_attention(const WideParams& p) {
+  return p.queries == p.keys && p.Tq == p.Tk;
+}
+
+template <int BM>
+__global__ void __launch_bounds__(kProjThreads, kProjCtas) mha_fwd_wide_project_kernel(
+    const __grid_constant__ WideParams p) {
+  using C = typename std::conditional<BM == ProjBig::kBM, ProjBig, ProjSmall>::type;
+  __shared__ __align__(16) float smem[C::kAsyncSmemFloats];
+  const int D = p.D, rep = p.rep0 + static_cast<int>(blockIdx.y);
+  const ProjGeometry g = proj_geometry(p.nb, p.Tq, p.Tk, D, self_attention(p), C::kBM, C::kBN);
+  int tile = blockIdx.x;
+  const bool first = tile < g.tq;
+  if (!first) tile -= g.tq;
+  const long long row0 = static_cast<long long>(rep) * p.rows + p.b0;  // the pass's first row
+  const float* __restrict__ x =
+      first ? p.queries + row0 * p.Tq * D : p.keys + row0 * p.Tk * D;
+  const int R = first ? g.rq : g.rk;
+  // the tile: rows m0 .., columns c0 .. of matrix mat (0 Q, 1 K, 2 V)
+  const int tn = cdiv(D, C::kBN), mats = first ? g.mq : 2;
+  const int m0 = tile / (mats * tn) * C::kBM;
+  const int mat = tile / tn % mats + (first ? 0 : 1), c0 = tile % tn * C::kBN;
+  const float* w = (mat == 0 ? p.wq : mat == 1 ? p.wk : p.wv) + static_cast<long long>(rep) * D * D;
+  tile::Acc<C> acc;
+#pragma unroll
+  for (int i = 0; i < C::kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < C::kCols; ++j) acc[i][j] = 0.0f;
+  tile::wide_product_async<C>(D, x + static_cast<long long>(m0) * D, D, R - m0, w + c0, D,
+                              D - c0, smem, acc);
+  // the epilogue: relu(· + b) (· 1/√dh for Q) into the scratch
+  float* dst = p.work + static_cast<long long>(blockIdx.y) * p.scratch +
+               (mat == 0 ? 0 : static_cast<long long>(p.nb) * (p.Tq + (mat - 1) * p.Tk) * D);
+  const float* bias = (mat == 0 ? p.bq : mat == 1 ? p.bk : p.bv) + rep * D;
+  const float scale = mat == 0 ? p.inv_scale : 1.0f;
+#pragma unroll
+  for (int i = 0; i < C::kRows; ++i) {
+    const int m = m0 + C::row(i);
+    if (m >= R) continue;
+    float* row = dst + static_cast<long long>(m) * D;
+#pragma unroll
+    for (int h = 0; h < C::kCols / 4; ++h) {
+      const int c = c0 + C::col(4 * h);
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = c + j < D ? fmaxf(acc[i][4 * h + j] + bias[c + j], 0.0f) * scale : 0.0f;
+      if (D % 4 == 0) {  // the four columns on 16 bytes, all inside or all past D
+        if (c < D) st4(row + c, make_float4(v[0], v[1], v[2], v[3]));
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < D) row[c + j] = v[j];
+      }
+    }
   }
 }
 
-// Rows r0 .. r0+3 (below R) of x (device memory, rows D apart) times NM
-// column slices of the weights (columns c0 + c .. +3, rows D apart; those
-// from Dc on read as 0): relu(x·w + b) · scale into o (rows ldc apart,
-// columns c .. c+3).
-template <int NM, bool VEC>
-__device__ __forceinline__ void wide_project(const float* __restrict__ x, int R, int D,
-                                             int r0, int c0, int c, int Dc, float scale,
-                                             const float* __restrict__ w0,
-                                             const float* __restrict__ b0, float* o0,
-                                             const float* __restrict__ w1,
-                                             const float* __restrict__ b1, float* o1,
-                                             int ldc) {
-  const float* w[2] = {w0, w1};
-  const float* bias[2] = {b0, b1};
-  float* o[2] = {o0, o1};
-  float acc[NM][kRows][4];
+// A thread's share of staging a tile by cp.async: rows 0 .. n − 1 of src
+// (rows D apart), its columns 0 .. nf − 1 (0 past them, up to fc, a power
+// of two of at most kMaxFc), into dst's rows (ld apart): the thread's
+// column of four floats (threadIdx.x % (fc / 4)) of the rows threadIdx.x /
+// (fc / 4) + i · kAttThreads / (fc / 4).  VEC: src's rows and columns lie
+// on 16 bytes.
+template <bool VEC>
+__device__ __forceinline__ void tile_stage(float* dst, const float* src, int n, int nf, int fc,
+                                           int D, int ld) {
+  const int fq = fc / 4, f = threadIdx.x % fq * 4;
+  for (int r = threadIdx.x / fq; r < n; r += kAttThreads / fq) {
+    const float* s = src + static_cast<long long>(r) * D + f;
+    float* d = dst + r * ld + f;
+    if constexpr (VEC) {
+      tile::cp_async(d, f < nf ? s : nullptr, 16, src);
+    } else {
 #pragma unroll
-  for (int m = 0; m < NM; ++m)
+      for (int j = 0; j < 4; ++j) tile::cp_async(d + j, f + j < nf ? s + j : nullptr, 4, src);
+    }
+  }
+}
+
+// One step of a CTA's walk over its head: the scores (kind 0) or P·V
+// (kind 1) over the head's features f0 .. f0 + fc − 1 and the keys k0 ..
+// k0 + kc − 1, the scores before P·V, within a kind the features' chunks in
+// order and, in each, the keys'.
+struct Step {
+  int kind, f0, k0;
+};
+
+__device__ __forceinline__ bool next_step(Step& s, int dh, int Tk, int fc, int kc) {
+  s.k0 += kc;
+  if (s.k0 < Tk) return true;
+  s.k0 = 0;
+  s.f0 += fc;
+  if (s.f0 < dh) return true;
+  s.f0 = 0;
+  return ++s.kind < 2;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// A thread's scores: queries qh + ty + 4·i (i < kScoreQ) against the keys
+// kb + tx + 8·j (j < kScoreK), lane = 8·ty + tx, a warp a block of 8
+// queries (from qh) × 32 keys (from kb): a key's 16-byte read serves 2
+// queries and a query's 4 keys, the 8 keys of a read on 8 rows (fc + 4
+// floats apart: 8 banks), the 4 queries likewise.
+constexpr int kScoreQ = 2, kScoreK = 4, kScoreRows = 8, kScoreKeys = 32;
+// P·V: a task is 4 query rows × 4 features, kMaxQb / 4 groups of rows ×
+// fc / 4 columns of features whatever the block's rows; the CTA's threads
+// split each chunk's keys between the kAttThreads / tasks copies of a task,
+// whose partial sums are added in copy order: the sums' order depends on
+// fc, kc and Tk alone, not on the block, the pass or the replicas.
+constexpr int kPvTasks = kMaxQb / 4 * (kMaxFc / 4);
+
+// The attention of one head for a block of query rows: o over the head's
+// columns of the block's Q in the scratch.
+template <bool DROP, bool VEC>
+__device__ __forceinline__ void attend(const WideParams& p, float* smem) {
+  const int D = p.D, H = p.H, dh = p.dh, Tq = p.Tq, Tk = p.Tk;
+  const int qb = p.qb, kc = p.kc, fc = p.fc;
+  const int blocks = cdiv(Tq, qb), h = blockIdx.x % H, rb = blockIdx.x / H;
+  const int bl = rb / blocks, t0 = rb % blocks * qb, nq = min(qb, Tq - t0);
+  const int rep = p.rep0 + static_cast<int>(blockIdx.y);
+  const long long b = static_cast<long long>(rep) * p.rows + p.b0 + bl;  // among all R·B
+  float* base = p.work + static_cast<long long>(blockIdx.y) * p.scratch;
+  // the block's rows of Q (then o), the row's K and V, at the head's columns
+  float* Qw = base + (static_cast<long long>(bl) * Tq + t0) * D + h * dh;
+  const float* Kw = base + static_cast<long long>(p.nb) * Tq * D +
+                    static_cast<long long>(bl) * Tk * D + h * dh;
+  const float* Vw = Kw + static_cast<long long>(p.nb) * Tk * D;
+  const int q_live = p.q_len[b], k_live = p.k_len[b];
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  // shared memory (ops/cuda/mha.py::_wide_smem): two buffers of the
+  // block's Q columns [qb][fc + 4] and two of a tile of K or V [kc][fc + 4]
+  // (one staged while the other is read), the scores, then the
+  // probabilities [qb][ldp], the rows' sums [qb], P·V's partial sums
+  // [kAttThreads][16]
+  const int ldf = fc + 4, ldp = round4(Tk) + 4;
+  float* Qbuf = smem;
+  float* KVbuf = Qbuf + 2 * qb * ldf;
+  float* S = KVbuf + 2 * kc * ldf;
+  float* sums = S + qb * ldp;
+  float* part = sums + round4(qb);
+  if (tid == 0) {
+    unsigned have;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(have));
+    if (4 * (part + kAttThreads * 16 - smem) > have) __trap();  // the plan and this layout disagree
+  }
+  // the step's tiles, staged one step ahead into the other buffers: at a
+  // scores step Q's columns (at its first keys) and K's tile, at a P·V step
+  // V's tile
+  int qbuf = 0, kvbuf = 0;
+  auto stage = [&](const Step& s) {
+    const int nf = min(fc, dh - s.f0);
+    if (s.kind == 0 && s.k0 == 0) {
+      qbuf ^= 1;
+      tile_stage<VEC>(Qbuf + qbuf * qb * ldf, Qw + s.f0, nq, nf, fc, D, ldf);
+    }
+    kvbuf ^= 1;
+    tile_stage<VEC>(KVbuf + kvbuf * kc * ldf,
+                    (s.kind == 0 ? Kw : Vw) + static_cast<long long>(s.k0) * D + s.f0,
+                    min(kc, Tk - s.k0), nf, fc, D, ldf);
+    tile::cp_async_commit();
+  };
+  // P·V: task `task` (query rows 4·pg .. 4·pg + 3, features pc .. pc + 3)
+  // of `tasks`, its copy `copy` of `copies` taking the chunk's keys from
+  // copy·nk / copies on; thread tid sums outputs tid, tid + kAttThreads, ..
+  // of the tasks' 16 each over the copies, across the chunks in `total`
+  const int fq = fc / 4, tasks = kMaxQb / 4 * fq, copies = kAttThreads / tasks;
+  const int task = tid % tasks, copy = tid / tasks;
+  const int pg = task / fq, pc = (task - pg * fq) * 4;
+  float total[kPvTasks * 16 / kAttThreads];
+  // the scores' warp blocks
+  const int tx = lane % 8, ty = lane / 8;
+  const int qblocks = cdiv(nq, kScoreRows);
+  Step s{0, 0, 0};
+  stage(s);
+  for (;;) {
+    tile::cp_async_wait<0>();  // this step's tiles
+    __syncthreads();           // for every thread; the buffers of the step before are free
+    const float* Qs = Qbuf + qbuf * qb * ldf;
+    const float* KVs = KVbuf + kvbuf * kc * ldf;
+    Step t = s;
+    const bool more = next_step(t, dh, Tk, fc, kc);
+    if (more) stage(t);
+    const int nf = min(fc, dh - s.f0), nk = min(kc, Tk - s.k0);
+    if (s.kind == 0) {
+      // the scores of the block against keys k0 .. k0 + nk − 1 over the
+      // features f0 .. f0 + nf − 1, from the sums of the features before
+      for (int wb = warp; wb < qblocks * cdiv(nk, kScoreKeys); wb += kAttWarps) {
+        const int qh = wb % qblocks * kScoreRows, kb = wb / qblocks * kScoreKeys;
+        float acc[kScoreQ][kScoreK];
+        const float* qr[kScoreQ];
+        const float* kr[kScoreK];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+        for (int i = 0; i < kScoreQ; ++i) {
+          const int q = qh + ty + 4 * i;
+          qr[i] = Qs + min(q, qb - 1) * ldf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
-  const float* xr[kRows];
+          for (int j = 0; j < kScoreK; ++j) {
+            const int k = s.k0 + kb + tx + 8 * j;
+            acc[i][j] = s.f0 > 0 && q < nq && k < Tk ? S[q * ldp + k] : 0.0f;
+          }
+        }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) xr[i] = x + static_cast<long long>(min(r0 + i, R - 1)) * D;
-  const int nc = Dc - c;  // the own columns from c on
-  for (int k = 0; k < D; k += 4) {
-    float4 xv[kRows];
+        for (int j = 0; j < kScoreK; ++j) kr[j] = KVs + (kb + tx + 8 * j) * ldf;
+        for (int f = 0; f < nf; f += 4) {
+          float4 kv[kScoreK];
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) xv[i] = ldg_part<VEC>(xr[i] + k, D - k);
+          for (int j = 0; j < kScoreK; ++j) kv[j] = ld4(kr[j] + f);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if (!VEC && k + kk >= D) break;
-      float4 wv[NM];
+          for (int i = 0; i < kScoreQ; ++i) {
+            const float4 qv = ld4(qr[i] + f);
 #pragma unroll
-      for (int m = 0; m < NM; ++m)
-        wv[m] = ldg_part<VEC>(w[m] + static_cast<long long>(k + kk) * D + c0 + c, nc);
+            for (int j = 0; j < kScoreK; ++j) {
+              acc[i][j] = fmaf(qv.x, kv[j].x, acc[i][j]);
+              acc[i][j] = fmaf(qv.y, kv[j].y, acc[i][j]);
+              acc[i][j] = fmaf(qv.z, kv[j].z, acc[i][j]);
+              acc[i][j] = fmaf(qv.w, kv[j].w, acc[i][j]);
+            }
+          }
+        }
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float xs = kk == 0 ? xv[i].x : kk == 1 ? xv[i].y : kk == 2 ? xv[i].z : xv[i].w;
+        for (int i = 0; i < kScoreQ; ++i) {
 #pragma unroll
-        for (int m = 0; m < NM; ++m) {
-          acc[m][i][0] = fmaf(xs, wv[m].x, acc[m][i][0]);
-          acc[m][i][1] = fmaf(xs, wv[m].y, acc[m][i][1]);
-          acc[m][i][2] = fmaf(xs, wv[m].z, acc[m][i][2]);
-          acc[m][i][3] = fmaf(xs, wv[m].w, acc[m][i][3]);
+          for (int j = 0; j < kScoreK; ++j) {
+            const int q = qh + ty + 4 * i, k = s.k0 + kb + tx + 8 * j;
+            if (q < nq && k < Tk) S[q * ldp + k] = acc[i][j];
+          }
+        }
+      }
+      if (s.f0 + fc >= dh && s.k0 + kc >= Tk) {
+        // the last scores: the softmax of each query row, a warp two rows
+        // at once, the true max first, then exp and the sum, the
+        // probabilities over the scores
+        __syncthreads();
+        for (int r0 = warp; r0 < nq; r0 += 2 * kAttWarps) {
+          const bool two = r0 + kAttWarps < nq;
+          const int r1 = two ? r0 + kAttWarps : r0;  // past the rows r0 again, not written
+          float* sr[2] = {S + r0 * ldp, S + r1 * ldp};
+          float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+          for (int k = lane; k < Tk; k += kWarp) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) m[u] = fmaxf(m[u], k < k_live ? sr[u][k] : kKeyMask);
+          }
+          for (int off = kWarp / 2; off > 0; off >>= 1) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) m[u] = fmaxf(m[u], __shfl_xor_sync(0xffffffffu, m[u], off));
+          }
+          const std::uint8_t* km[2] = {nullptr, nullptr};
+          if constexpr (DROP) {
+            km[0] = p.keep_mask + ((b * H + h) * Tq + t0 + r0) * Tk;
+            km[1] = p.keep_mask + ((b * H + h) * Tq + t0 + r1) * Tk;
+          }
+          // a lane reads and writes its own keys alone
+          for (int k = lane; k < Tk; k += kWarp) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float e = expf((k < k_live ? sr[u][k] : kKeyMask) - m[u]);
+              sum[u] += e;
+              float w = e;
+              if constexpr (DROP) w = __ldg(km[u] + k) ? e : 0.0f;
+              if (u == 0 || two) sr[u][k] = w;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) sum[u] = warp_sum(sum[u]);
+          if (lane == 0) {
+            sums[r0] = sum[0];
+            if (two) sums[r1] = sum[1];
+          }
+        }
+      }
+    } else {
+      // P·V of this chunk's keys: each copy its share, in key order
+      float a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.0f;
+      if (4 * pg < nq) {
+        const float* prow[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) prow[i] = S + min(4 * pg + i, qb - 1) * ldp + s.k0;
+        const int ke = (copy + 1) * nk / copies;
+        for (int k = copy * nk / copies; k < ke; ++k) {
+          const float4 v = ld4(KVs + k * ldf + pc);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pk = prow[i][k];
+            a[i][0] = fmaf(pk, v.x, a[i][0]);
+            a[i][1] = fmaf(pk, v.y, a[i][1]);
+            a[i][2] = fmaf(pk, v.z, a[i][2]);
+            a[i][3] = fmaf(pk, v.w, a[i][3]);
+          }
+        }
+        float* mine = part + (copy * tasks + task) * 16;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st4(mine + 4 * i, make_float4(a[i][0], a[i][1], a[i][2], a[i][3]));
+      }
+      __syncthreads();
+      // the copies' partials added in copy order, then across the chunks
+#pragma unroll
+      for (int u = 0; u < kPvTasks * 16 / kAttThreads; ++u) {
+        const int o = tid + u * kAttThreads;  // output o % 16 of task o / 16
+        if (o >= tasks * 16 || o / 16 / fq * 4 >= nq) break;
+        float v = part[o];
+        for (int c = 1; c < copies; ++c) v += part[c * tasks * 16 + o];
+        total[u] = s.k0 == 0 ? v : total[u] + v;
+        if (s.k0 + kc >= Tk) {  // the features' last keys: o over Q
+          const int ot = o / 16, i = o % 16 / 4, j = o % 4;
+          const int r = ot / fq * 4 + i, f = (ot % fq) * 4 + j;
+          if (r < nq && f < nf) {
+            float out = 0.0f;
+            if (t0 + r < q_live) out = DROP ? total[u] / sums[r] / p.keep : total[u] / sums[r];
+            Qw[static_cast<long long>(r) * D + s.f0 + f] = out;
+          }
         }
       }
     }
-  }
-#pragma unroll
-  for (int m = 0; m < NM; ++m) {
-    const float4 bv = ldg_part<VEC>(bias[m] + c0 + c, nc);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      if (r0 + i < R) {
-        st4(o[m] + (r0 + i) * ldc + c,
-            make_float4(fmaxf(acc[m][i][0] + bv.x, 0.0f) * scale,
-                        fmaxf(acc[m][i][1] + bv.y, 0.0f) * scale,
-                        fmaxf(acc[m][i][2] + bv.z, 0.0f) * scale,
-                        fmaxf(acc[m][i][3] + bv.w, 0.0f) * scale));
-      }
-    }
+    if (!more) break;
+    s = t;
   }
 }
 
-// The cluster's sums of v[t] over the ranks, in rank order (v in shared
-// memory at the same offset in every CTA).
-__device__ __forceinline__ float rank_sum(cg::cluster_group& cluster, float* v, int t,
-                                          int cs) {
-  if (cs == 1) return v[t];
-  float s = 0.0f;
-  for (int r = 0; r < cs; ++r) s += cluster.map_shared_rank(v, r)[t];
-  return s;
-}
-
-__device__ __forceinline__ void wide_cluster_sync(int cs) {
-  if (cs > 1) {
-    cluster_sync();
-  } else {
-    __syncthreads();
-  }
-}
-
-template <bool DROP, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2) mha_fwd_wide_kernel(const __grid_constant__ WideParams p) {
+template <bool DROP>
+__global__ void __launch_bounds__(kAttThreads, kAttCtas) mha_fwd_wide_attend_kernel(
+    const __grid_constant__ WideParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  cg::cluster_group cluster = cg::this_cluster();
-  const int cs = p.cs, D = p.D, H = p.H, dh = p.dh, Tq = p.Tq, Tk = p.Tk, ldc = p.ldc;
-  const int rank = cs > 1 ? static_cast<int>(cluster.block_rank()) : 0;
-  const int cid = blockIdx.x / cs;
-  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
-  const int hc = H / cs, Dc = D / cs, c0 = rank * Dc;
-  // shared memory (ops/cuda/mha.py::_wide_plan): the warps' probabilities
-  // [kWarps][tk4], LayerNorm's exchange (row sums, squares) and means
-  // [kWideLnRows] each; then, unless they lie in device memory, the arrays
-  // Q [Tq][ldc] (the head outputs over it), K and V [Tk][ldc]
-  float* probs = smem;
-  float* exs = probs + kWarps * p.tk4;
-  float* exq = exs + kWideLnRows;
-  float* means = exq + kWideLnRows;
-  float* arrays = p.work != nullptr ? p.work + static_cast<long long>(blockIdx.x) * p.arrays
-                                    : means + kWideLnRows;
-  float* Qs = arrays;
-  float* Ks = Qs + Tq * ldc;
-  float* Vs = Ks + Tk * ldc;
-  float* P = probs + warp * p.tk4;
-
-  for (int b = cid; b < p.total; b += p.clusters) {
-    const int rep = b / p.rows;  // the replica whose weights the row takes
-    const long long wo = static_cast<long long>(rep) * D * D;
-    const int vo = rep * D;
-    const float* xq = p.queries + static_cast<long long>(b) * Tq * D;
-    const float* xk = p.keys + static_cast<long long>(b) * Tk * D;
-    const int q_live = p.q_len[b], k_live = p.k_len[b];
-    __syncthreads();  // the previous row's arrays are used up
-
-    // 1. the projections of the own columns
-    {
-      const int nc4 = (Dc + 3) / 4;
-      const int qj = (Tq + kRows - 1) / kRows * nc4, kj = (Tk + kRows - 1) / kRows * nc4;
-      for (int j = tid; j < qj + kj; j += kThreads) {
-        if (j < qj) {
-          wide_project<1, VEC>(xq, Tq, D, j / nc4 * kRows, c0, j % nc4 * 4, Dc, p.inv_scale,
-                               p.wq + wo, p.bq + vo, Qs, nullptr, nullptr, nullptr, ldc);
-        } else {
-          const int jk = j - qj;
-          wide_project<2, VEC>(xk, Tk, D, jk / nc4 * kRows, c0, jk % nc4 * 4, Dc, 1.0f,
-                               p.wk + wo, p.bk + vo, Ks, p.wv + wo, p.bv + vo, Vs, ldc);
-        }
-      }
-    }
-    __syncthreads();
-
-    // 2. each (query row, own head) on one warp
-    for (int task = warp; task < Tq * hc; task += kWarps) {
-      const int t = task / hc, hl = task - t * hc, h = rank * hc + hl;
-      const float* q = Qs + t * ldc + hl * dh;
-      float m = -INFINITY;
-      for (int k = lane; k < Tk; k += kWarp) {
-        float v = kKeyMask;
-        if (k < k_live) {
-          const float* kr = Ks + k * ldc + hl * dh;
-          float d = 0.0f;
-          for (int f = 0; f < dh; ++f) d = fmaf(q[f], kr[f], d);
-          v = d;
-        }
-        P[k] = v;  // the lane's own scores, read back by the lane alone
-        m = fmaxf(m, v);
-      }
-      for (int off = kWarp / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      float sum = 0.0f;
-      const std::uint8_t* km = nullptr;
-      if constexpr (DROP)
-        km = p.keep_mask + ((static_cast<long long>(b) * H + h) * Tq + t) * Tk;
-      for (int k = lane; k < Tk; k += kWarp) {
-        const float e = expf(P[k] - m);
-        sum += e;
-        float w = e;
-        if constexpr (DROP) w = __ldg(km + k) ? e : 0.0f;
-        P[k] = w;
-      }
-      for (int off = kWarp / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      float* o = Qs + t * ldc + hl * dh;  // this head's q is used up
-      for (int f = lane; f < dh; f += kWarp) {
-        float a = 0.0f;
-        for (int k = 0; k < Tk; ++k) a = fmaf(P[k], Vs[k * ldc + hl * dh + f], a);
-        float v = 0.0f;
-        if (t < q_live) v = DROP ? a / sum / p.keep : a / sum;
-        o[f] = v;
-      }
-      __syncwarp();  // P is free for the warp's next task
-    }
-    __syncthreads();
-
-    // 3. LayerNorm of y = o + q over all D columns, kWideLnRows rows at a
-    // time: the cluster's row sums, then its sums of squares about the
-    // mean.  The two barriers order every exchange: a CTA writes the next
-    // block's row sums only after the second barrier, which no peer passes
-    // before it has read them, and the squares only after the next first.
-    float* ob = p.out + static_cast<long long>(b) * Tq * D;
-    for (int r0 = 0; r0 < Tq; r0 += kWideLnRows) {
-      const int nr = min(kWideLnRows, Tq - r0);
-      for (int r = warp; r < nr; r += kWarps) {
-        const float* orow = Qs + (r0 + r) * ldc;
-        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
-        float sy = 0.0f;
-        for (int c = lane; c < Dc; c += kWarp) sy += orow[c] + __ldg(xrow + c);
-        for (int off = kWarp / 2; off > 0; off >>= 1) sy += __shfl_xor_sync(0xffffffffu, sy, off);
-        if (lane == 0) exs[r] = sy;
-      }
-      wide_cluster_sync(cs);
-      for (int r = warp; r < nr; r += kWarps) {
-        const float mean = rank_sum(cluster, exs, r, cs) / D;
-        const float* orow = Qs + (r0 + r) * ldc;
-        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
-        float sq = 0.0f;
-        for (int c = lane; c < Dc; c += kWarp) {
-          const float y = orow[c] + __ldg(xrow + c) - mean;
-          sq = fmaf(y, y, sq);
-        }
-        for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-        if (lane == 0) exq[r] = sq, means[r] = mean;
-      }
-      wide_cluster_sync(cs);
-      for (int r = warp; r < nr; r += kWarps) {
-        const float mean = means[r];
-        const float denom = sqrtf(rank_sum(cluster, exq, r, cs) / D + kLnEps);
-        const float* orow = Qs + (r0 + r) * ldc;
-        const float* xrow = xq + static_cast<long long>(r0 + r) * D + c0;
-        float* orow_out = ob + static_cast<long long>(r0 + r) * D + c0;
-        for (int c = lane; c < Dc; c += kWarp) {
-          const float y = orow[c] + __ldg(xrow + c) - mean;
-          orow_out[c] = __ldg(p.gamma + vo + c0 + c) * y / denom + __ldg(p.beta + vo + c0 + c);
-        }
-      }
-    }
+  if (p.D % 4 == 0 && p.dh % 4 == 0) {
+    attend<DROP, true>(p, smem);
+  } else {
+    attend<DROP, false>(p, smem);
   }
-  wide_cluster_sync(cs);  // no CTA leaves while a peer reads its sums
+}
+
+// LayerNorm(o + x) of every query row of the pass, a warp a row, the sums in
+// lane order (lane l the columns l, l + 32, ...) and by the butterfly.
+__global__ void __launch_bounds__(kAttThreads) mha_fwd_wide_norm_kernel(
+    const __grid_constant__ WideParams p) {
+  const int D = p.D, lane = threadIdx.x % kWarp;
+  const int r = blockIdx.x * kAttWarps + threadIdx.x / kWarp;  // the pass's row
+  if (r >= p.nb * p.Tq) return;
+  const int rep = p.rep0 + static_cast<int>(blockIdx.y), vo = rep * D;
+  const long long row = (static_cast<long long>(rep) * p.rows + p.b0) * p.Tq + r;
+  const float* o = p.work + static_cast<long long>(blockIdx.y) * p.scratch +
+                   static_cast<long long>(r) * D;
+  const float* x = p.queries + row * D;
+  float* dst = p.out + row * D;
+  const float* gamma = p.gamma + vo;
+  const float* beta = p.beta + vo;
+  float sy = 0.0f;
+  for (int c = lane; c < D; c += kWarp) sy += o[c] + __ldg(x + c);
+  const float mean = warp_sum(sy) / D;
+  float sq = 0.0f;
+  for (int c = lane; c < D; c += kWarp) {
+    const float y = o[c] + __ldg(x + c) - mean;
+    sq = fmaf(y, y, sq);
+  }
+  const float denom = sqrtf(warp_sum(sq) / D + kLnEps);
+  for (int c = lane; c < D; c += kWarp) {
+    const float y = o[c] + __ldg(x + c) - mean;
+    dst[c] = __ldg(gamma + c) * y / denom + __ldg(beta + c);
+  }
 }
 
 template <int DH, bool DROP>
@@ -1088,34 +1277,39 @@ int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-template <bool DROP, bool VEC>
-int launch_wide(const WideParams& p, int smem, cudaStream_t stream) {
+// One pass's three launches: the projections, the attention with `smem`
+// bytes (opted in on this device) and LayerNorm.
+template <bool DROP>
+int launch_wide_pass(const WideParams& p, int nr, bool big, int smem, cudaStream_t stream) {
   static int opted[kMaxDevices];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > opted[device]) {
-    err = cudaFuncSetAttribute(mha_fwd_wide_kernel<DROP, VEC>,
+    err = cudaFuncSetAttribute(mha_fwd_wide_attend_kernel<DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted[device] = smem;
   }
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(p.clusters * p.cs);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = p.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, mha_fwd_wide_kernel<DROP, VEC>, p);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  const bool self = self_attention(p);
+  const ProjGeometry g = proj_geometry(p.nb, p.Tq, p.Tk, p.D, self,
+                                       big ? ProjBig::kBM : ProjSmall::kBM,
+                                       big ? ProjBig::kBN : ProjSmall::kBN);
+  const dim3 proj(g.tq + g.tk, nr);
+  if (big) {
+    mha_fwd_wide_project_kernel<ProjBig::kBM><<<proj, kProjThreads, 0, stream>>>(p);
+  } else {
+    mha_fwd_wide_project_kernel<ProjSmall::kBM><<<proj, kProjThreads, 0, stream>>>(p);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_fwd_wide_attend_kernel<DROP>
+      <<<dim3(p.nb * cdiv(p.Tq, p.qb) * p.H, nr), kAttThreads, smem, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mha_fwd_wide_norm_kernel<<<dim3(cdiv(p.nb * p.Tq, kAttWarps), nr), kAttThreads, 0, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1154,43 +1348,49 @@ int mha_fwd_launch(const float* queries, const float* keys, const int* q_len,
 }
 
 // Launches K3's wide variant on `stream` with the geometry of
-// ops/cuda/mha.py::launch_plan: `clusters` clusters of `cs` CTAs of
-// `threads` threads, cluster i taking the rows i, i + clusters, ... of the
-// `total` batch rows (`rows` a replica, each replica with its own weights);
-// CTA c of a cluster owns heads c·H/cs .. (c+1)·H/cs − 1; `smem` bytes of
-// dynamic shared memory; the arrays, `arrays` floats a CTA (rows of the
-// CTA's columns padded to a multiple of 4, plus 4), in shared memory or,
-// with `work` not null, in `work` (clusters·cs·arrays floats).  D not a
-// multiple of 4 runs the variant that reads x and the weights one float at
-// a time.  `keep_mask` and `keep` as mha_fwd_launch's.  Returns the
-// launch's CUDA error (0 = launched).  The caller has checked shapes,
-// types, devices, contiguity and, for D a multiple of 4, 16-byte
-// alignment.
+// ops/cuda/mha.py::launch_plan: the `replicas` × `rows` batch rows (each
+// replica with its own weights) in passes of `pass_reps` replicas ×
+// `pass_rows` rows, each pass a projection launch (64 × 128 tiles where
+// `big`, else 32 × 64) and an attention launch of a CTA a (row, block of
+// `qb` query rows, head) with `smem` bytes of dynamic shared memory, staging
+// `kc` keys and `fc` features at once, o over Q in `work`, then a
+// LayerNorm launch of a warp a query row; `work` holds a pass's Q, K and V,
+// pass_reps · pass_rows · (Tq + 2·Tk) · D floats.  `keep_mask` and `keep`
+// as mha_fwd_launch's.  Returns the first launch's CUDA error (0 = all
+// launched).  The caller has checked shapes, types, devices, contiguity
+// and, for D a multiple of 4, 16-byte alignment.
 int mha_fwd_wide_launch(const float* queries, const float* keys, const int* q_len,
                         const int* k_len, const float* wq, const float* bq,
                         const float* wk, const float* bk, const float* wv,
                         const float* bv, const float* gamma, const float* beta,
                         float* out, float* work, int Tq, int Tk, int D, int H, int dh,
-                        int cs, int clusters, int rows, int total, int arrays, int threads,
-                        int smem, const std::uint8_t* keep_mask, float keep, void* stream) {
-  const bool vec = D % 4 == 0;
-  if (threads != kThreads || dh < 1 || D != dh * H ||
-      (cs != 1 && cs != 2 && cs != 4 && cs != 8) || H % cs != 0 || (vec && (D / cs) % 4 != 0) ||
-      clusters < 1 || rows < 1 || total < rows || total % rows != 0)
+                        int rows, int replicas, int pass_rows, int pass_reps, int qb, int kc,
+                        int fc, int big, int threads, int smem,
+                        const std::uint8_t* keep_mask, float keep, void* stream) {
+  const int ldf = fc + 4, ldp = round4(Tk) + 4;
+  if (threads != kAttThreads || dh < 1 || D != dh * H || rows < 1 || replicas < 1 ||
+      pass_rows < 1 || pass_rows > rows || pass_reps < 1 || pass_reps > replicas ||
+      pass_reps > kMaxGridY || qb < 1 || qb > kMaxQb || fc < 4 || fc > kMaxFc ||
+      (fc & (fc - 1)) != 0 || kc < 32 || kc > kMaxKc || kc % 32 != 0 || work == nullptr ||
+      4LL * (2 * qb * ldf + 2 * kc * ldf + static_cast<long long>(qb) * ldp + round4(qb) +
+             kAttThreads * 16) > smem)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ldc = round4(D / cs) + kPad, tk4 = round4(Tk);
-  const int fixed = kWarps * tk4 + 3 * kWideLnRows;
-  if (arrays != (Tq + 2 * Tk) * ldc ||
-      4 * (fixed + (work != nullptr ? 0 : arrays)) > smem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const WideParams p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, beta, out,
-                     keep_mask, work, Tq, Tk, D, H, dh, cs, clusters, rows, total, ldc,
-                     arrays, tk4, 1.0f / sqrtf(static_cast<float>(dh)), keep};
+  WideParams p{queries, keys, q_len, k_len, wq, bq, wk, bk, wv, bv, gamma, beta, out, keep_mask,
+               work, static_cast<long long>(pass_rows) * (Tq + 2LL * Tk) * D, Tq, Tk, D, H, dh,
+               rows, 0, 0, 0, qb, kc, fc, 1.0f / sqrtf(static_cast<float>(dh)), keep};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) return keep_mask != nullptr ? launch_wide<true, true>(p, smem, s)
-                                       : launch_wide<false, true>(p, smem, s);
-  return keep_mask != nullptr ? launch_wide<true, false>(p, smem, s)
-                              : launch_wide<false, false>(p, smem, s);
+  for (int r0 = 0; r0 < replicas; r0 += pass_reps) {
+    for (int b0 = 0; b0 < rows; b0 += pass_rows) {
+      p.rep0 = r0;
+      p.b0 = b0;
+      p.nb = min(pass_rows, rows - b0);
+      const int nr = min(pass_reps, replicas - r0);
+      const int err = keep_mask != nullptr ? launch_wide_pass<true>(p, nr, big != 0, smem, s)
+                                           : launch_wide_pass<false>(p, nr, big != 0, smem, s);
+      if (err != 0) return err;
+    }
+  }
+  return 0;
 }
 
 // The clusters of `cs` CTAs with `smem` bytes each that the current device

@@ -19,14 +19,15 @@ whose B clusters the card runs at once, by `ACTIVE_CLUSTERS`.  K3's
 row-split variants take heads of up to `MAX_HEAD_WIDTH` features, D up to
 `MAX_D` and as many query rows as one CTA's shared memory holds (at D =
 64: Tq and Tk up to 256, and past it for Tq); its wide variant takes the
-rest (a cluster a row split by heads, the arrays in shared memory where
-they fit and in device memory past it): any D (one float at a time where
-D is not a multiple of 4), any head width, any number of keys; only what
-memory forces raises ValueError, naming the limit (a warp's
-probabilities over the keys past a CTA's shared memory, a cluster's
-arrays past `WORK_LIMIT` floats), besides no rows and heads that do not
-divide D.  K3b (`backward_plan`) takes every shape K3 takes: its resident
-design (a cluster of cs CTAs a row split by heads, each CTA's weight
+rest (`_wide_plan`: per pass of whole batch rows, the projections as tiled
+products over every row into a per-device scratch, the attention a CTA a
+(row, block of query rows, head), then LayerNorm a warp a row): any D (one
+float at a time where D or the head width is not a multiple of 4), any
+head width, any number of keys; only what memory forces raises
+ValueError, naming the limit (a block's scores over the keys past a CTA's
+shared memory, a batch row's Q, K and V past `WORK_LIMIT` floats), besides
+no rows and heads that do not divide D.  K3b (`backward_plan`) takes every
+shape K3 takes: its resident design (a cluster of cs CTAs a row split by heads, each CTA's weight
 columns in shared memory) where that fits, else its streamed one (the
 weights read where they lie, a row split over a cluster by heads or by
 rows, in shared memory or past it in device memory); as many clusters as
@@ -83,9 +84,17 @@ W_CHUNK = 12_288              # kWChunk: floats of weights staged at once
 MAX_HEAD_WIDTH = 32           # kMaxDh
 MAX_D = 256                   # kMaxLnPerLane · 32: LayerNorm's lanes
 MAX_KEYS = 32 * PER_LANE      # a group of a warp's lanes
-# K3's wide variant: its rows of a LayerNorm exchange (kWideLnRows in
-# csrc/mha_fwd.cu)
-WIDE_LN_ROWS = 64
+# K3's wide variant (csrc/mha_fwd.cu): the projections' tiles (rows,
+# columns; 64 × 128 where D >= 128 and they give every SM a CTA, else
+# 32 × 64), the
+# attention's threads, the most query rows a CTA takes, features and keys
+# staged at once (kMaxQb, kMaxFc, kMaxKc), and the floats of scratch a pass
+# takes (its Q, K and V; one batch row at least)
+WIDE_BIG_TILE, WIDE_SMALL_TILE = (64, 128), (32, 64)
+WIDE_THREADS, WIDE_QB, WIDE_FC, WIDE_KC = 256, 32, 64, 128
+WIDE_SCRATCH_FLOATS = 1 << 24
+SMS = 132            # the H100's SMs: a launch of as many CTAs gives each one
+MAX_GRID_Y = 65_535  # the replicas a launch's y axis holds
 # an SM holds two CTAs by registers (128 a thread, __launch_bounds__(256,
 # 2)) and as many as fit its 233,472 bytes of shared memory, 1,024 of them
 # reserved a CTA
@@ -110,8 +119,9 @@ RESIDENT, HEADS, ROWS = 0, 1, 2
 TILE_K, TILE_N, TILE_ROWS, STEP_K = 8, 64, 128, 16
 STATIC_SMEM = 64  # bytes K3b keeps for its static flag
 # the most floats a cluster's streamed layout may take in device memory
-# (its CTAs' slices), and the most a replica's workspace (and its dpre
-# rows) takes: clusters past it wait for a later wave
+# (its CTAs' slices; for K3's wide variant, a batch row's Q, K and V), and
+# the most a replica's workspace (and its dpre rows) takes: clusters past
+# it wait for a later wave
 WORK_LIMIT, WORK_CAP = 1 << 30, 1 << 27
 
 launches = 0
@@ -131,11 +141,13 @@ class Plan:
     """One launch: `grid` = B·`cs` CTAs of `threads` threads in clusters of
     `cs`, one cluster a batch row; `group` lanes take a (query row, head)
     (for Tq = 1, a head over the CTA's keys); `smem` bytes of dynamic
-    shared memory a CTA.  The wide variant (`wide`): `clusters` clusters
-    (`grid` = clusters·cs), cluster i taking the rows i, i + clusters, ...;
-    CTA c owning heads c·H/cs .. (c+1)·H/cs − 1; a warp a (query row,
-    head); its Q, K and V columns, `arrays` floats a CTA, in shared memory
-    or, with `work` > 0, in `work` floats of device memory."""
+    shared memory a CTA.  The wide variant (`wide`, cs 1): passes of
+    `pass_reps` replicas × `pass_rows` batch rows (`passes` of them), each
+    a projection launch of `proj_grid` CTAs (64 × 128 tiles where `big`,
+    else 32 × 64), an attention launch of `grid` CTAs, a (row, block of
+    `qb` query rows, head) each, staging `kc` keys and `fc` features at
+    once in `smem` bytes, then a LayerNorm launch; a pass's Q, K and V (o
+    over Q) in `work` floats of device memory."""
     dh: int
     cs: int
     grid: int
@@ -143,8 +155,14 @@ class Plan:
     group: int
     smem: int
     wide: bool = False
-    clusters: int = 0
-    arrays: int = 0
+    qb: int = 0
+    kc: int = 0
+    fc: int = 0
+    big: bool = False
+    proj_grid: int = 0
+    pass_rows: int = 0
+    pass_reps: int = 0
+    passes: int = 0
     work: int = 0
 
 
@@ -178,42 +196,88 @@ def ctas_per_sm(smem: int) -> int:
     return min(CTAS_BY_REGISTERS, SM_SMEM // (smem + CTA_RESERVED))
 
 
-def _wide_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int) -> Plan:
-    """K3's wide variant: the largest cluster size that divides the heads
-    (for D a multiple of 4, with columns on 16-byte boundaries; else its
-    single-float variant); a layout of the warps' probabilities (Tk floats
-    each), LayerNorm's exchange and, where they fit, the CTA's columns of Q,
-    K and V (csrc/mha_fwd.cu's mha_fwd_wide_kernel); as many clusters as the
-    card runs at once, at most B, and as many as WORK_CAP floats of device
-    memory hold where the columns lie there.  Raises ValueError where the
-    probabilities pass a CTA's shared memory or a cluster's columns
-    WORK_LIMIT."""
-    vec = D % 4 == 0
-    cs = max(c for c in CLUSTER_SIZES
-             if num_heads % c == 0 and (not vec or (D // c) % 4 == 0))
-    arrays = (Tq + 2 * Tk) * (_r4(D // cs) + PAD)
-    fixed = 4 * (THREADS // 32 * _r4(Tk) + 3 * WIDE_LN_ROWS)
-    if fixed > SMEM_LIMIT:
+def _cdiv(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+def wide_proj_ctas(rows: int, Tq: int, Tk: int, D: int, self_attention: bool,
+                   tile) -> int:
+    """The CTAs of a pass's projections over `rows` batch rows (a replica)
+    in `tile` = (rows, columns) tiles, each in one matrix's columns: Q over
+    rows·Tq and K and V over rows·Tk, or all three over rows·T for
+    self-attention (proj_geometry in csrc/mha_fwd.cu)."""
+    bm, bn = tile
+    if self_attention:
+        return _cdiv(rows * Tq, bm) * 3 * _cdiv(D, bn)
+    return (_cdiv(rows * Tq, bm) + 2 * _cdiv(rows * Tk, bm)) * _cdiv(D, bn)
+
+
+def _wide_smem(qb: int, Tk: int, kc: int, fc: int) -> int:
+    """Bytes of the wide attention's layout: two buffers of the block's Q
+    columns and two of a staged K or V tile (rows fc + 4 floats apart), the
+    scores over every key (rows _r4(Tk) + 4 apart), the rows' sums and
+    P·V's partial sums (16 a thread)."""
+    return 4 * (2 * qb * (fc + 4) + 2 * kc * (fc + 4) + qb * (_r4(Tk) + 4) + _r4(qb)
+                + WIDE_THREADS * 16)
+
+
+def _wide_blocks(Tq: int):
+    """The wide attention's blocks of query rows to try, largest first:
+    WIDE_QB, WIDE_QB / 2, .., 1, none larger than Tq but 1."""
+    return [q for q in (WIDE_QB >> i for i in range(WIDE_QB.bit_length()))
+            if q <= Tq or q == 1]
+
+
+def _wide_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int, replicas: int = 1,
+               self_attention: bool = False) -> Plan:
+    """K3's wide variant for `replicas` replicas of B batch rows
+    (csrc/mha_fwd.cu's mha_fwd_wide_{project,attend,norm}_kernel).  Passes
+    of as many whole rows as WIDE_SCRATCH_FLOATS hold (one at least; where
+    one row of every replica passes it, of as many replicas as it holds).
+    The projections in tiles of one matrix's columns, 64 × 128 where
+    D >= 128 and a pass's launch then has a CTA an SM, else 32 × 64.  The
+    attention, a CTA a (row, block of query rows, head), stages the head's
+    features up to WIDE_FC at a time (a power of two: a thread keeps one
+    column of four) and up to WIDE_KC keys (a multiple of 32), and takes
+    the largest block of query rows (`_wide_blocks`) whose layout fits a
+    CTA's shared memory and whose launch has a CTA an SM, else the
+    smallest that fits.  Raises
+    ValueError where one query row's scores over the Tk keys pass a CTA's
+    shared memory, or a batch row's Q, K and V WORK_LIMIT floats."""
+    dh = D // num_heads
+    per_row = (Tq + 2 * Tk) * D
+    if per_row > WORK_LIMIT:
         raise ValueError(
-            f"K3 keeps a warp's probabilities over the Tk keys in shared memory: "
-            f"{fixed} bytes a CTA at Tk={Tk}, above its {SMEM_LIMIT}")
-    if cs * arrays > WORK_LIMIT:
+            f"K3's Q, K and V take {per_row} floats a batch row at (Tq, Tk, D) = "
+            f"({Tq}, {Tk}, {D}), above the {WORK_LIMIT} it places in device memory")
+    fc = 4
+    while fc < min(dh, WIDE_FC):
+        fc *= 2
+    kc = min(WIDE_KC, _cdiv(Tk, 32) * 32)
+    if _wide_smem(1, Tk, kc, fc) > SMEM_LIMIT:
         raise ValueError(
-            f"K3's columns of Q, K and V take {cs * arrays} floats a cluster at "
-            f"(Tq, Tk, D) = ({Tq}, {Tk}, {D}), above the {WORK_LIMIT} it places in "
-            "device memory")
-    in_smem = fixed + 4 * arrays <= SMEM_LIMIT
-    smem = fixed + 4 * arrays if in_smem else fixed
-    clusters = min(B, ACTIVE_CLUSTERS[cs, ctas_per_sm(smem)])
-    if not in_smem:
-        clusters = min(clusters, max(1, WORK_CAP // (cs * arrays)))
-    return Plan(D // num_heads, cs, clusters * cs, THREADS, 32, smem, True, clusters,
-                arrays, 0 if in_smem else clusters * cs * arrays)
+            f"K3 keeps a block's scores over the Tk keys in shared memory: "
+            f"{_wide_smem(1, Tk, kc, fc)} bytes a CTA at Tk={Tk}, above its {SMEM_LIMIT}")
+    rows = max(1, min(B, WIDE_SCRATCH_FLOATS // (replicas * per_row)))
+    reps = min(replicas, MAX_GRID_Y)
+    if rows == 1:
+        reps = max(1, min(reps, WIDE_SCRATCH_FLOATS // per_row))
+    sa = self_attention and Tq == Tk
+    big = (D >= WIDE_BIG_TILE[1]
+           and reps * wide_proj_ctas(rows, Tq, Tk, D, sa, WIDE_BIG_TILE) >= SMS)
+    fits = [q for q in _wide_blocks(Tq) if _wide_smem(q, Tk, kc, fc) <= SMEM_LIMIT]
+    full = [q for q in fits if reps * rows * _cdiv(Tq, q) * num_heads >= SMS]
+    qb = max(full) if full else min(fits)
+    tile = WIDE_BIG_TILE if big else WIDE_SMALL_TILE
+    return Plan(dh, 1, reps * rows * _cdiv(Tq, qb) * num_heads, WIDE_THREADS, 0,
+                _wide_smem(qb, Tk, kc, fc), True, qb, kc, fc, big,
+                reps * wide_proj_ctas(rows, Tq, Tk, D, sa, tile), rows, reps,
+                _cdiv(B, rows) * _cdiv(replicas, reps), reps * rows * per_row)
 
 
 @functools.lru_cache(maxsize=512)
 def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
-                self_attention: bool = False) -> Plan:
+                self_attention: bool = False, replicas: int = 1) -> Plan:
     """The geometry of K3 for queries [B, Tq, D] and keys [B, Tk, D] in
     `num_heads` heads (`self_attention`: keys is queries, one slice of
     shared memory for both): the largest cluster size whose CTA fits in
@@ -222,7 +286,8 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
     that fits.  Where no row-split variant takes the shape (heads past
     MAX_HEAD_WIDTH features, D past MAX_D or not a multiple of 4, more than
     MAX_KEYS keys, or no cluster's CTA fits), the wide variant
-    (`_wide_plan`).  Raises ValueError for what the kernel refuses: no
+    (`_wide_plan`, for `replicas` replicas of B / replicas rows each).
+    Raises ValueError for what the kernel refuses: no
     rows, heads that do not divide D, and the memory limits of
     `_wide_plan`."""
     if B < 1 or Tq < 1 or Tk < 1 or num_heads < 1 or D % num_heads:
@@ -230,13 +295,18 @@ def launch_plan(B: int, Tq: int, Tk: int, D: int, num_heads: int,
             f"K3 needs B, Tq, Tk >= 1 and D % num_heads == 0; got B={B}, "
             f"Tq={Tq}, Tk={Tk}, D={D}, num_heads={num_heads}")
     dh = D // num_heads
+    if B % replicas:
+        raise ValueError(f"K3 needs B a multiple of the replicas, got B={B}, "
+                         f"replicas={replicas}")
+    wide = functools.partial(_wide_plan, B // replicas, Tq, Tk, D, num_heads, replicas,
+                             self_attention)
     if dh > MAX_HEAD_WIDTH or D > MAX_D or D % 4 or Tk > MAX_KEYS:
-        return _wide_plan(B, Tq, Tk, D, num_heads)
+        return wide()
     smem = {cs: _smem(Tq, Tk, D, num_heads, cs, self_attention)
             for cs in CLUSTER_SIZES}
     fits = [cs for cs in CLUSTER_SIZES if smem[cs] <= SMEM_LIMIT]
     if not fits:
-        return _wide_plan(B, Tq, Tk, D, num_heads)
+        return wide()
     one_wave = [cs for cs in fits
                 if B <= ACTIVE_CLUSTERS[cs, ctas_per_sm(smem[cs])]]
     cs = max(one_wave) if one_wave else fits[0]
@@ -451,7 +521,7 @@ def _library() -> ctypes.CDLL:
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         lib.mha_fwd_launch.restype = ctypes.c_int
         lib.mha_fwd_wide_launch.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 15
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         lib.mha_fwd_wide_launch.restype = ctypes.c_int
         lib.mha_fwd_active_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -535,12 +605,13 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     lead, B, Tq, Tk, D = _check_inputs("mha_forward", queries, keys, q_len, k_len,
                                        weights, num_heads, keep_mask, keep)
     out = queries.new_empty(lead + (B, Tq, D))
-    rows = math.prod(lead) * B  # R·B
+    R = math.prod(lead)
+    rows = R * B
     if rows == 0:
         return out
-    # the kernel shares one slice for queries and keys when they are one
-    # tensor, as here
-    plan = launch_plan(rows, Tq, Tk, D, num_heads, queries.data_ptr() == keys.data_ptr())
+    # the kernel shares one slice (one product) for queries and keys when
+    # they are one tensor, as here
+    plan = launch_plan(rows, Tq, Tk, D, num_heads, queries.data_ptr() == keys.data_ptr(), R)
     lib = _library()
     ptrs = (queries.data_ptr(), keys.data_ptr(), q_len.data_ptr(), k_len.data_ptr(),
             *(t.data_ptr() for t in weights), out.data_ptr())
@@ -548,8 +619,9 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     if plan.wide:
         work = _fwd_work(queries, plan)
         err = launch(queries.get_device(), lambda stream: lib.mha_fwd_wide_launch(
-            *ptrs, work, Tq, Tk, D, num_heads, plan.dh, plan.cs, plan.clusters, B, rows,
-            plan.arrays, plan.threads, plan.smem, mask, keep, stream))
+            *ptrs, work, Tq, Tk, D, num_heads, plan.dh, B, R, plan.pass_rows, plan.pass_reps,
+            plan.qb, plan.kc, plan.fc, int(plan.big), plan.threads, plan.smem, mask, keep,
+            stream))
     else:
         err = launch(queries.get_device(), lambda stream: lib.mha_fwd_launch(
             *ptrs, Tq, Tk, D, num_heads, plan.dh, plan.cs, plan.group, B, plan.grid,
@@ -562,11 +634,9 @@ def mha_forward(queries: torch.Tensor, keys: torch.Tensor, q_len: torch.Tensor,
     return out
 
 
-def _fwd_work(queries: torch.Tensor, plan: Plan):
-    """The address of queries' device's workspace for K3's wide variant,
-    grown to the plan's size, or None for a plan in shared memory."""
-    if not plan.work:
-        return None
+def _fwd_work(queries: torch.Tensor, plan: Plan) -> int:
+    """The address of queries' device's scratch for K3's wide variant (a
+    pass's Q, K and V), grown to the plan's size."""
     index = queries.get_device()
     work = _fwd_scratch.get(index)
     if work is None or work.numel() < plan.work:

@@ -14,7 +14,8 @@ at B=32 for the (96, 96) self-attention and the (1, 96) readout and at
 B=512 and 2048 for (96, 96), the inputs those of ``chip_smoke.py``'s
 kernel phase; ``widths`` K1, K2, K3 and K3b at B=32 at the reference
 widths (D=64, H=8: S=10 and 25, (96, 96) and (1, 96)) and at shapes of the
-width grid (heads of 64 and 128 features; (96, 96) at D=128 in 2 heads, D=256
+width grid (heads of 64 and 128 features; (96, 96) and the (1, 96) readout in
+one head of 64, (96, 96) at D=128 in 2 heads, D=256
 and 512 in 8, the (1, 96) readout at D=512 and (128, 128) at D=512 in one head
 at B=8; K1 and K2 also at B=128, S=25, D=128 in 2 heads) and past the old
 limits (K1 and K2 at D=1024 in one head, S=10 and 25; K3 and K3b
@@ -118,7 +119,8 @@ for B, S, d, h in FWA_SHAPES:
     turn(f"fwa_bwd {shape}", "fwa_bwd",
          lambda: cf.fwa_backward(x, l, h, w1, b1, w2, b2, g))
 for B, Tq, Tk, d, h, sa in ((32, 96, 96, 64, 8, True), (32, 1, 96, 64, 8, False),
-                            (32, 96, 96, 64, 1, True), (32, 96, 96, 128, 2, True),
+                            (32, 96, 96, 64, 1, True), (32, 1, 96, 64, 1, False),
+                            (32, 96, 96, 128, 2, True),
                             (32, 96, 96, 256, 8, True), (32, 96, 96, 512, 8, True),
                             (32, 1, 96, 512, 8, False), (8, 128, 128, 512, 1, True),
                             (8, 96, 96, 1024, 8, True), (32, 96, 96, 50, 5, True),
