@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from tlsan_tpu_torch.core import spans
 from tlsan_tpu_torch.nn.embedding import current_batch_mesh, current_mesh
 from tlsan_tpu_torch.parallel.mesh import all_reduce, once_over_dp, sum_over
 
@@ -35,10 +36,13 @@ def pointwise_logits(u_repr, i_emb, i_b=None):
 def full_catalog_logits(u_repr, all_emb, all_b=None):
     """eval_logits = u @ all_emb.T [+ item_b]  (reference: TLSAN/model.py:140),
     a [B, D] × [D, I] product at the process's f32 matmul precision, which
-    the entry points (`Recommender`, `Trainer`) set to full f32."""
-    logits = u_repr @ all_emb.T
-    if all_b is not None:
-        logits = logits + all_b
+    the entry points (`Recommender`, `Trainer`) set to full f32.  Span
+    ``models.catalog_logits`` inside serving's model call
+    (core/spans.py)."""
+    with spans.inner("models.catalog_logits"):
+        logits = u_repr @ all_emb.T
+        if all_b is not None:
+            logits = logits + all_b
     return logits
 
 

@@ -41,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from tlsan_tpu_torch.core import spans
 from tlsan_tpu_torch.parallel.mesh import Mesh, gather_rows, shard_rows
 from tlsan_tpu_torch.parallel.sharded_embedding import sharded_lookup
 
@@ -126,24 +127,33 @@ class OneHotGather(torch.autograd.Function):
         return (oh.T @ ct2).to(ctx.dtype), None
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def lookup(table: torch.Tensor, ids: torch.Tensor,
+           span: str = "nn.embedding") -> torch.Tensor:
     """Gather rows of an embedding table ([V, D] or [V] bias) at integer
     (int32 or int64) ids; under a vocab-sharded mesh `table` is this rank's
     row shard and the ids are global.  A [V, D] table's backward is the
-    one-hot product under ``gather_bwd('onehot')``."""
+    one-hot product under ``gather_bwd('onehot')``.  On one device the
+    gather is span `span` and its backward ``<span>.bwd`` (core/spans.py:
+    inside the train step's forward, while a profiler records)."""
     mesh = current_mesh()
     if mesh is not None:
         return sharded_lookup(mesh, table, ids)
-    if table.dim() == 2 and gather_bwd_mode() == "onehot":
-        return OneHotGather.apply(table, ids)
-    return table[ids]
+    with spans.inner(span) as on:
+        if table.dim() == 2 and gather_bwd_mode() == "onehot":
+            out = OneHotGather.apply(table, ids)
+        else:
+            out = table[ids]
+    if on:
+        spans.backward_span(out, span + ".bwd")
+    return out
 
 
 def item_cate_table(item_emb: torch.Tensor, cate_emb: torch.Tensor,
                     cate_list: torch.Tensor) -> torch.Tensor:
     """The fused item⊕cate table [V, Di+Dc]: row v is ``concat(item_emb[v],
     cate_emb[cate_list[v]])`` (reference: TLSAN/model.py:84-87, :140)."""
-    return torch.cat([item_emb, lookup(cate_emb, cate_list)], dim=-1)
+    return torch.cat([item_emb, lookup(cate_emb, cate_list, "nn.embedding.cate_list")],
+                     dim=-1)
 
 
 def item_cate_lookup(item_emb: torch.Tensor, cate_emb: torch.Tensor,
@@ -156,7 +166,8 @@ def item_cate_lookup(item_emb: torch.Tensor, cate_emb: torch.Tensor,
     if current_mesh() is not None:
         return torch.cat([lookup(item_emb, ids),
                           lookup(cate_emb, cate_list[ids.long()])], dim=-1)
-    return lookup(item_cate_table(item_emb, cate_emb, cate_list), ids)
+    return lookup(item_cate_table(item_emb, cate_emb, cate_list), ids,
+                  "nn.embedding.item_cate")
 
 
 def item_cate_rows(item_emb: torch.Tensor, cate_emb: torch.Tensor,
@@ -190,4 +201,4 @@ class ItemCate:
         if self.table is None:
             return item_cate_lookup(self.item_emb, self.cate_emb, ids,
                                     self.cate_list)
-        return lookup(self.table, ids)
+        return lookup(self.table, ids, "nn.embedding.item_cate")

@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from tlsan_tpu_torch.core import spans
 from tlsan_tpu_torch.core.config import load_config_json, model_config_from_json
 from tlsan_tpu_torch.models import get_model
 from tlsan_tpu_torch.nn.embedding import mesh_context
@@ -103,24 +104,27 @@ class Recommender:
 
     def _recommend(self, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.model.eval_logits(batch, self.cate_list)
+        with spans.span("serve.logits", inner="models."):
+            logits = self.model.eval_logits(batch, self.cate_list)
         B, V = logits.shape
-        if self.cfg.catalog_items and self.cfg.catalog_items < V:
-            logits[:, self.cfg.catalog_items:] = -torch.inf  # padding rows never rank
-        if self._exclude:
-            for ids_key, len_key in _HISTORY_KEYS:
-                if ids_key in batch and len_key in batch:
-                    ids = batch[ids_key]  # [B, L]
-                    valid = self._history_valid(ids_key, ids, batch[len_key])
-                    rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
-                    # an add, as in the JAX package: duplicate ids still
-                    # give −inf, never NaN
-                    logits.index_put_(
-                        (rows, ids),
-                        torch.where(valid, -torch.inf, 0.0).to(logits.dtype),
-                        accumulate=True)
-        vals, idx = torch.topk(logits, min(self.k, V), dim=1)
-        return idx.to(torch.int32), vals
+        with spans.span("serve.exclusion"):
+            if self.cfg.catalog_items and self.cfg.catalog_items < V:
+                logits[:, self.cfg.catalog_items:] = -torch.inf  # padding rows never rank
+            if self._exclude:
+                for ids_key, len_key in _HISTORY_KEYS:
+                    if ids_key in batch and len_key in batch:
+                        ids = batch[ids_key]  # [B, L]
+                        valid = self._history_valid(ids_key, ids, batch[len_key])
+                        rows = torch.arange(B, device=ids.device)[:, None].expand_as(ids)
+                        # an add, as in the JAX package: duplicate ids still
+                        # give −inf, never NaN
+                        logits.index_put_(
+                            (rows, ids),
+                            torch.where(valid, -torch.inf, 0.0).to(logits.dtype),
+                            accumulate=True)
+        with spans.span("serve.topk"):
+            vals, idx = torch.topk(logits, min(self.k, V), dim=1)
+            return idx.to(torch.int32), vals
 
     def _recommend_meshed(self, batch: Dict[str, torch.Tensor]
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -173,34 +177,40 @@ class Recommender:
     def recommend(self, batch: Dict[str, np.ndarray]
                   ) -> Tuple[np.ndarray, np.ndarray]:
         """Pad the request to a multiple of the batch size, score each
-        batch, unpad."""
-        n = len(next(iter(batch.values())))
-        B = self.batch_size
-        dev = {}
-        for key, v in batch.items():
-            v = np.asarray(v)
-            if n % B:
-                pad = ((0, B - n % B),) + ((0, 0),) * (v.ndim - 1)
-                v = np.pad(v, pad)
-            dev[key] = torch.from_numpy(v).to(self.device)
-        ids_out, vals_out = [], []
-        for start in range(0, len(dev[next(iter(dev))]), B):
-            chunk = {key: v[start:start + B] for key, v in dev.items()}
-            if self.mesh is None:
-                idx, vals = self._recommend(chunk)
-            else:
-                idx, vals = self._recommend_meshed(chunk)
-                if self._exclude:
-                    idx, vals = map(torch.from_numpy, self._exclude_host(
-                        {k: v.cpu().numpy() for k, v in chunk.items()},
-                        idx.cpu().numpy(), vals.cpu().numpy()))
+        batch, unpad.  Spans (core/spans.py): ``serve.request`` around it
+        all, ``serve.h2d`` and ``serve.d2h`` around the request's copies,
+        and on one device ``serve.logits``, ``serve.exclusion`` and
+        ``serve.topk`` a batch."""
+        with spans.span("serve.request", device=self.device):
+            n = len(next(iter(batch.values())))
+            B = self.batch_size
+            dev = {}
+            with spans.span("serve.h2d"):
+                for key, v in batch.items():
+                    v = np.asarray(v)
+                    if n % B:
+                        pad = ((0, B - n % B),) + ((0, 0),) * (v.ndim - 1)
+                        v = np.pad(v, pad)
+                    dev[key] = torch.from_numpy(v).to(self.device)
+            ids_out, vals_out = [], []
+            for start in range(0, len(dev[next(iter(dev))]), B):
+                chunk = {key: v[start:start + B] for key, v in dev.items()}
+                if self.mesh is None:
+                    idx, vals = self._recommend(chunk)
                 else:
-                    idx, vals = idx[:, :self.k], vals[:, :self.k]
-            ids_out.append(idx)
-            vals_out.append(vals)
-        ids = torch.cat(ids_out)[:n].cpu().numpy()
-        vals = torch.cat(vals_out)[:n].cpu().numpy()
-        return ids, vals
+                    idx, vals = self._recommend_meshed(chunk)
+                    if self._exclude:
+                        idx, vals = map(torch.from_numpy, self._exclude_host(
+                            {k: v.cpu().numpy() for k, v in chunk.items()},
+                            idx.cpu().numpy(), vals.cpu().numpy()))
+                    else:
+                        idx, vals = idx[:, :self.k], vals[:, :self.k]
+                ids_out.append(idx)
+                vals_out.append(vals)
+            with spans.span("serve.d2h"):
+                ids = torch.cat(ids_out)[:n].cpu().numpy()
+                vals = torch.cat(vals_out)[:n].cpu().numpy()
+            return ids, vals
 
     # ---------------------------------------------------------- checkpoint
 

@@ -20,7 +20,8 @@ it after a barrier.
 (touched-row updates; auto by catalog size without either),
 ``--compute_dtype bf16``, ``--gather_bwd {auto,take,onehot}`` (the
 embedding gathers' backward for the whole run) and ``--profile`` (a
-`Trainer.profile_trace` before training) run as the JAX CLI's do.  The
+`Trainer.profile_trace` before training; it also prints the port's span
+table over the traced chunks) run as the JAX CLI's do.  The
 flags that configure JAX (``--platform``, ``--compile_cache``) are not
 carried over.
 """
@@ -29,6 +30,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import time
 from typing import NamedTuple, Optional
 
@@ -226,6 +229,18 @@ def _device_arg(value: str) -> str:
     return value
 
 
+def print_spans(path: str) -> None:
+    """The span table `Trainer.profile_trace` wrote: a line a span, in
+    milliseconds over the traced chunks."""
+    with open(path) as f:
+        table = json.load(f)
+    print(f"{'span':<28} {'count':>6} {'host_ms':>10} {'device_ms':>10} "
+          f"{'self_ms':>10}", flush=True)
+    for name, r in sorted(table.items()):
+        print(f"{name:<28} {r['count']:>6} {r['host_ms']:>10.3f} "
+              f"{r['device_ms']:>10.3f} {r['self_device_ms']:>10.3f}", flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -330,7 +345,8 @@ def main(argv=None):
                         "engages only on a TPU in the JAX package)")
     p.add_argument("--profile", action="store_true",
                    help="before training, write a torch.profiler trace of "
-                        "3 chunks (run on copies) under <model_dir>/profile")
+                        "3 chunks (run on copies) and their span table under "
+                        "<model_dir>/profile, and print the table")
     p.add_argument("--from_scratch", action="store_true", default=True)
     p.add_argument("--resume", dest="from_scratch", action="store_false")
     p.add_argument("--no_histograms", dest="tb_histograms",
@@ -456,6 +472,8 @@ def _train(mesh: Optional[Mesh], args, cfg: ModelConfig, tc: TrainConfig):
                 out = trainer.profile_trace()
                 if chief:
                     print(f"profiler trace written to {out}", flush=True)
+                    print_spans(os.path.join(out, "spans.json" if trainer.mesh is None
+                                             else "spans_rank0.json"))
             best = trainer.train()
         finally:
             trainer.close()

@@ -41,20 +41,28 @@ summary's forward run on `bf16_cast` copies of the parameters and the
 batch's float fields; gradients land in f32 on the master parameters,
 and evaluation stays f32.  `profile_trace` writes a `torch.profiler`
 trace of a few chunks run on copies of the model and optimizer state.
+
+While a profiler records, the dense step records spans (core/spans.py):
+``train.step`` around each step, and on one device ``train.forward``
+(with the gathers' spans inside it), ``train.backward`` and
+``train.optimizer``.  The sparse step and a mesh's phases record none.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import os
 import time
+from contextlib import nullcontext
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from tlsan_tpu_torch.core import spans
 from tlsan_tpu_torch.core.config import ModelConfig, TrainConfig
 from tlsan_tpu_torch.data.batcher import Batches, epoch_index
 from tlsan_tpu_torch.models import base
@@ -233,10 +241,15 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         for p in self.params:
             p.grad = None
-        loss = self._forward("loss", batch, self._masks)
-        loss.backward()
-        self.opt_state = self.opt.step(self.params, self.opt_state,
-                                       self.mesh, self._sharded)
+        # the phases' spans on one device; a mesh's step records train.step alone
+        one = self.mesh is None
+        with spans.span("train.forward", inner="nn.embedding") if one else nullcontext():
+            loss = self._forward("loss", batch, self._masks)
+        with spans.span("train.backward") if one else nullcontext():
+            loss.backward()
+        with spans.span("train.optimizer") if one else nullcontext():
+            self.opt_state = self.opt.step(self.params, self.opt_state,
+                                           self.mesh, self._sharded)
         return loss.detach()
 
     def _local(self, idx: torch.Tensor) -> torch.Tensor:
@@ -257,10 +270,12 @@ class Trainer:
                 self.model, gxs, xs, self.cate_list, self.opt_state,
                 self._masks)
             return losses
+        losses = []
         with mesh_context(self.mesh):
-            return torch.stack([
-                self._train_step({k: v[s] for k, v in xs.items()})
-                for s in range(idx.shape[0])])
+            for s in range(idx.shape[0]):
+                with spans.span("train.step", device=self.device):
+                    losses.append(self._train_step({k: v[s] for k, v in xs.items()}))
+        return torch.stack(losses)
 
     def _epoch_index(self, epoch: int) -> np.ndarray:
         """Shuffled [n_chunks, K, B] batch-index tensor (data/batcher.py
@@ -366,9 +381,12 @@ class Trainer:
         """A `torch.profiler` trace (host and, on CUDA, device events) of
         the first `n_chunks` chunks of epoch 0, written as Chrome trace
         JSON under `out_dir` (default ``{model_dir}/profile``; one file a
-        rank under a mesh).  The chunks run on copies of the model and the
-        optimizer state, and the dropout generator's state is put back, so
-        the real run that follows is unchanged.  Returns `out_dir`."""
+        rank under a mesh), and beside it the port's spans over those
+        chunks (`core/spans.py::take`) as JSON (``spans.json``, or
+        ``spans_rank<r>.json``).  The chunks run on copies of the model
+        and the optimizer state, and the dropout generator's state is put
+        back, so the real run that follows is unchanged.  Returns
+        `out_dir`."""
         out_dir = out_dir or os.path.join(self.tc.model_dir, "profile")
         os.makedirs(out_dir, exist_ok=True)
         idx = torch.from_numpy(self._epoch_index(0)[:n_chunks]).to(self.device)
@@ -380,15 +398,17 @@ class Trainer:
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
+        spans.take()  # what an earlier profiler left
         try:
             with torch.profiler.profile(activities=activities) as prof:
                 for chunk in idx:
                     self._train_chunk(chunk)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-            name = ("trace.json" if self.mesh is None
-                    else f"trace_rank{self.mesh.rank}.json")
-            prof.export_chrome_trace(os.path.join(out_dir, name))
+            rank = "" if self.mesh is None else f"_rank{self.mesh.rank}"
+            prof.export_chrome_trace(os.path.join(out_dir, f"trace{rank}.json"))
+            with open(os.path.join(out_dir, f"spans{rank}.json"), "w") as f:
+                json.dump(spans.take(), f, indent=1)
         finally:
             self.model, self.params, self.opt_state = live
             if gen is not None:
